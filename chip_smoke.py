@@ -1,0 +1,728 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of BrePartition (src/repro_torch) on one CUDA card.
+
+Run from the root of a checkout:
+
+    python3 chip_smoke.py                   # one CUDA card, full size
+    python3 chip_smoke.py --cpu-rehearsal   # no card: tiny sizes, plain versions
+
+Phases:
+
+1. The card's name and power limit (nvidia-smi), TF32 off, and the build of
+   the three CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
+2. Each kernel against its plain PyTorch version on the card at ragged
+   shapes, and the whole search on the card against the same search on the
+   CPU for every Bregman family on a small index.
+3. Audio (n=54,387, d=192, exponential) and 4. Deep (n=1,000,000, d=256,
+   exponential), from PAPER_DATASETS at full size: ``build_index`` with
+   m=None (Theorem 4) and PCCP, then ``knn_batch`` on 50 queries with
+   k=10.  Every kernel's launch count is set to 0 just before the search
+   and read just after; each must be above 0.  The ids are held against
+   ``brute_force_knn`` on the card.  Each kernel is then held against its
+   plain version, and timed with CUDA events beside its bound, at the
+   shapes that search gave it.
+5. The last line is ``{"ok": true, "device": {...}}``.
+
+The line before the last holds the kernel table as JSON, the line before
+that the nvidia-smi name and power limit.  The full record goes to
+build/chip_smoke.json (``--out`` to change it).  The script exits with a
+code other than 0, and prints no result, when there is no CUDA card
+(unless --cpu-rehearsal is given; the flag never applies when a card is
+present) or when it does not stand in a checkout of the repository.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PACKAGE = ROOT / "src" / "repro_torch"
+K = 10
+NUM_QUERIES = 50
+BLOCK_ROWS = 4096
+# Published peaks of one H100 SXM at its 700 W limit: HBM3 bandwidth and
+# fp32 outside the tensor cores (NVIDIA's data sheet).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+EPS32 = 2.0 ** -23
+# Calls queued behind one sleep kernel when timing (time_calls); well under
+# the launches CUDA queues before the host blocks.
+TIME_GROUP = 32
+
+
+class SmokeFailure(Exception):
+    """A phase found a wrong or missing result."""
+
+
+def expect(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+class Smoke:
+    def __init__(self, args, torch):
+        self.args = args
+        self.torch = torch
+        self.rehearsal = not torch.cuda.is_available()
+        self.dev = torch.device("cpu" if self.rehearsal else "cuda")
+        self.record: dict = {"rehearsal": self.rehearsal}
+        # Cycles of the sleep kernel that holds the card while the host
+        # queues a timed group (about 10 ms at the H100's clock); doubled
+        # by ``time_calls`` where that is too short.
+        self.sleep_cycles = 20_000_000
+        from repro_torch.kernels import (bregman_dist, bregman_fused,
+                                         bregman_ub, ref)
+        self.ref = ref
+        self.wrappers = {"bregman_ub_matrix": bregman_ub,
+                         "bregman_filter_prune": bregman_fused,
+                         "bregman_refine_batch": bregman_dist}
+
+    # -- helpers -------------------------------------------------------
+    def sync(self) -> None:
+        if not self.rehearsal:
+            self.torch.cuda.synchronize()
+
+    def reset_launches(self) -> None:
+        for mod in self.wrappers.values():
+            mod.launches = 0
+
+    def launches(self) -> dict:
+        return {name: mod.launches for name, mod in self.wrappers.items()}
+
+    def time_calls(self, calls, reps: int) -> float | None:
+        """Device ms of one call in ``calls`` (zero-argument callables),
+        a mean over ``reps`` passes after a warm pass; None on the CPU
+        rehearsal.
+
+        The calls run in groups of at most ``TIME_GROUP``.  Before a group
+        the card is held in a sleep kernel while the host queues the whole
+        group between two CUDA events; the group counts only if the card
+        was still asleep when the host had queued it (the start event not
+        yet reached), else the sleep doubles and the group runs again.  So
+        the events time the calls back to back on the card, without the
+        host's launch cost between them."""
+        if self.rehearsal:
+            return None
+        torch = self.torch
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        seq = [call for _ in range(reps) for call in calls]
+        total = 0.0
+        for s in range(0, len(seq), TIME_GROUP):
+            group = seq[s:s + TIME_GROUP]
+            for _ in range(8):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(self.sleep_cycles)
+                start.record()
+                for call in group:
+                    call()
+                end.record()
+                queued_in_time = not start.query()
+                torch.cuda.synchronize()
+                if queued_in_time:
+                    break
+                self.sleep_cycles *= 2
+            else:
+                raise SmokeFailure(
+                    f"the host could not queue {len(group)} calls within a "
+                    f"sleep of {self.sleep_cycles} cycles")
+            total += start.elapsed_time(end)
+        return total / len(seq)
+
+    def kernel(self, name: str):
+        """The CUDA wrapper on the card; the plain version in a rehearsal,
+        where no kernel can run."""
+        if self.rehearsal:
+            from repro_torch.kernels import ops
+            return {"bregman_ub_matrix": lambda a, sg, qsum, sd, qc:
+                    ops.bregman_ub_matrix(a, sg, qc, sd),
+                    "bregman_filter_prune": lambda a, sg, am, gm, qsum, qc,
+                    sd, qb: ops.bregman_filter_prune_block(a, sg, am, gm, qc,
+                                                           sd, qb),
+                    "bregman_refine_batch": ops.bregman_refine_batch}[name]
+        mod = self.wrappers[name]
+        if name == "bregman_ub_matrix":
+            return lambda a, sg, qsum, sd, qc: mod.bregman_ub_matrix(
+                a, sg, qsum, sd)
+        return getattr(mod, name)
+
+    # -- phase 1 -------------------------------------------------------
+    def phase_card_and_build(self) -> None:
+        torch = self.torch
+        if self.rehearsal:
+            self.record["nvidia_smi"] = "not measured (CPU rehearsal)"
+        else:
+            out = subprocess.run(
+                ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60, check=True)
+            self.record["nvidia_smi"] = out.stdout.strip().splitlines()[0]
+            self.record["device_name"] = torch.cuda.get_device_name(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        say(f"card: {self.record['nvidia_smi']}")
+        say(f"tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+            f" cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+        say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]}")
+        if self.rehearsal:
+            return
+        from repro_torch.kernels import _build
+        _build.library()
+        info = dict(_build.build_info)
+        self.record["build"] = info
+        say(f"build: {info['seconds']:.2f} s (rebuilt={info['rebuilt']}) "
+            f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
+        for line in info["ptxas"]:
+            say(f"  {line}")
+
+    # -- kernel comparisons -------------------------------------------
+    def compare_filter(self, blocks, qs, qb, time_it: bool) -> dict:
+        """Kernels 1 and 3 against their plain versions over ``blocks``
+        (a list of (alpha, sg, amin, gmax) row blocks) for one query
+        batch; with ``time_it``, per-launch times and bounds too."""
+        torch, ref = self.torch, self.ref
+        qc, sd = qs["qconst"], qs["sqrt_delta"]
+        qsum = torch.sum(qc, dim=-1)
+        ub_k, fp_k = (self.kernel("bregman_ub_matrix"),
+                      self.kernel("bregman_filter_prune"))
+        err_ub = err_fp = worst = 0.0
+        over_ub = over_fp = 0.0
+        admits = 0
+        for a, sg, am, gm in blocks:
+            # fp32 sums in another order: M + 2 terms, each off by at most
+            # (M + 2) * eps of the magnitude of the summed terms.
+            scale = (a.abs().sum(-1)[:, None] + qc.abs().sum(-1)[None, :]
+                     + sg @ sd.T)
+            tol = (a.shape[1] + 2) * EPS32 * scale
+            worst = max(worst, float(scale.max()))
+            want = ref.bregman_ub_matrix(a, sg, qc, sd)
+            got = ub_k(a, sg, qsum, sd, qc)
+            self.sync()
+            diff = (got - want).abs()
+            expect(bool((diff <= tol).all()),
+                   f"bregman_ub_matrix disagrees: max |diff| "
+                   f"{float(diff.max())} at shape {tuple(a.shape)}x{qc.shape[0]}")
+            err_ub = max(err_ub, float(diff.max()))
+            over_ub = max(over_ub, err_over_tol(diff, tol))
+            want_ub, want_admit = ref.bregman_filter_prune(a, sg, am, gm, qc,
+                                                           sd, qb)
+            got_ub, got_admit = fp_k(a, sg, am, gm, qsum, qc, sd, qb)
+            self.sync()
+            diff = (got_ub - want_ub).abs()
+            expect(bool((diff <= tol).all()),
+                   f"bregman_filter_prune ub disagrees: max |diff| "
+                   f"{float(diff.max())}")
+            expect(got_admit.dtype == torch.int32
+                   and bool(torch.equal(got_admit, want_admit)),
+                   f"bregman_filter_prune admit mask is not bit-equal "
+                   f"({int((got_admit != want_admit).sum())} of "
+                   f"{got_admit.numel()} differ)")
+            err_fp = max(err_fp, float(diff.max()))
+            over_fp = max(over_fp, err_over_tol(diff, tol))
+            admits += int(want_admit.sum())
+        out = {"ub_err": err_ub, "fp_err": err_fp,
+               "ub_err_over_tol": over_ub, "fp_err_over_tol": over_fp,
+               "term_scale_max": worst,
+               "admitted": admits,
+               "pairs": sum(b[0].shape[0] for b in blocks) * qc.shape[0]}
+        if not time_it:
+            return out
+        nb = len(blocks)
+        bn, m = blocks[0][0].shape
+        q = qc.shape[0]
+        reps = max(2, min(50, 2000 // nb))
+
+        def each(fn):
+            return [lambda blk=blk: fn(*blk) for blk in blocks]
+
+        out["ub"] = self.time_calls(
+            each(lambda a, sg, am, gm: ub_k(a, sg, qsum, sd, qc)), reps)
+        out["ub_plain"] = self.time_calls(
+            each(lambda a, sg, am, gm: ref.bregman_ub_matrix(a, sg, qc, sd)),
+            reps)
+        out["ub_library"] = self.time_calls(
+            each(lambda a, sg, am, gm: torch.addmm(
+                a.sum(-1, keepdim=True) + qsum, sg, sd.T)), reps)
+        out["fp"] = self.time_calls(
+            each(lambda *blk: fp_k(*blk, qsum, qc, sd, qb)), reps)
+        out["fp_plain"] = self.time_calls(
+            each(lambda *blk: ref.bregman_filter_prune(*blk, qc, sd, qb)),
+            reps)
+        # Per launch: each input read once, each output written once.
+        ub_bytes = 4 * (2 * bn * m + q + q * m + bn * q)
+        ub_ops = bn * q * (2 * m + 2) + bn * m
+        fp_bytes = 4 * (4 * bn * m + q + 3 * q * m) + 8 * bn * q
+        fp_ops = ub_ops + 4 * bn * q * m     # add, mul, sub, compare
+        out["ub_bound"] = bound(ub_bytes, ub_ops)
+        out["fp_bound"] = bound(fp_bytes, fp_ops)
+        out["shape"] = [bn, m, q, nb]
+        return out
+
+    def compare_refine(self, rows, grad, c_y, family: str,
+                       time_it: bool) -> dict:
+        """Kernel 7 against its plain version on (q, b, d) rows."""
+        ref = self.ref
+        got = self.kernel("bregman_refine_batch")(rows, grad, c_y, family)
+        want = ref.bregman_refine_batch(rows, grad, c_y, family)
+        self.sync()
+        tol = refine_tolerance(self.torch, rows, grad, c_y, family)
+        diff = (got - want).abs()
+        expect(bool((diff <= tol).all()),
+               f"bregman_refine_batch[{family}] disagrees: max |diff| "
+               f"{float(diff.max())} at {tuple(rows.shape)}")
+        out = {"err": float(diff.max()) if diff.numel() else 0.0,
+               "err_over_tol": err_over_tol(diff, tol),
+               "term_scale_max": float(tol.max()) / (EPS32 * rows.shape[-1])
+               if tol.numel() else 0.0}
+        if time_it:
+            q, b, d = rows.shape
+            reps = 5 if q * b * d > 1e8 else 20
+            out["kernel"] = self.time_calls(
+                [lambda: self.kernel("bregman_refine_batch")(
+                    rows, grad, c_y, family)], reps)
+            out["plain"] = self.time_calls(
+                [lambda: ref.bregman_refine_batch(rows, grad, c_y, family)],
+                reps)
+            # phi, its sum, and the multiply-add of x . grad per element.
+            out["bound"] = bound(4 * (q * b * d + q * d + q + q * b),
+                                 4 * q * b * d)
+            out["shape"] = [q, b, d]
+        return out
+
+    # -- phase 2 -------------------------------------------------------
+    def phase_ragged(self) -> None:
+        torch = self.torch
+        from repro_torch.core.bounds import query_refine_constants
+        from repro_torch.core.bregman import family_names, get_family
+        shapes = [(4133, 37, 50), (4133, 1, 1), (77, 70, 33), (31, 5, 2)]
+        for n, m, q in shapes:
+            a, sg, am, gm, qc, sd, qb = [
+                t.to(self.dev) for t in filter_inputs(torch, n, m, q, seed=n)]
+            r = self.compare_filter([(a, sg, am, gm)],
+                                    {"qconst": qc, "sqrt_delta": sd}, qb,
+                                    time_it=False)
+            expect(0 < r["admitted"] < r["pairs"] or r["pairs"] < 8,
+                   f"ragged filter inputs {n, m, q} gave an unmixed mask")
+            say(f"ragged filter {n}x{m}x{q}: ub err {r['ub_err']:.3g}, "
+                f"admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
+        gen = torch.Generator().manual_seed(0)
+        for q, b, d in [(1, 1, 1), (3, 77, 33), (50, 130, 257)]:
+            for family in family_names():
+                fam = get_family(family)
+                rows = positive_or_not(torch, (q, b, d), fam, gen)
+                ys = positive_or_not(torch, (q, d), fam, gen)
+                c = query_refine_constants(ys, fam)
+                r = self.compare_refine(rows.to(self.dev),
+                                        c["grad"].to(self.dev),
+                                        c["c_y"].to(self.dev), family,
+                                        time_it=False)
+            say(f"ragged refine {q}x{b}x{d}: all families agree "
+                f"(last err {r['err']:.3g})")
+        self.phase_cross_device()
+
+    def phase_cross_device(self) -> None:
+        """The whole search on the card against the same search on the
+        CPU (plain versions), every family, one small index."""
+        torch = self.torch
+        from repro_torch.core import index as tidx
+        from repro_torch.core import search as tsearch
+        from repro_torch.core.bregman import family_names, get_family
+        gen = torch.Generator().manual_seed(1)
+        for family in family_names():
+            fam = get_family(family)
+            data = positive_or_not(torch, (3000, 24), fam, gen).numpy()
+            forest = tidx.build_index(data, family, m=6, device="cpu")
+            moved = tidx.forest_from_numpy(
+                tidx.forest_to_numpy(forest), family_name=family,
+                partition_idx=forest.partition.idx,
+                partition_mask=forest.partition.mask, d=forest.d,
+                num_clusters=forest.num_clusters, device=self.dev)
+            queries = data[:12] * 1.01
+            want = tsearch.knn_batch(forest, queries, K, budget=64,
+                                     block_rows=512, device="cpu")
+            got = tsearch.knn_batch(moved, queries, K, budget=64,
+                                    block_rows=512, device=self.dev)
+            expect(bool(torch.equal(got.ids.cpu(), want.ids)),
+                   f"{family}: ids on the card differ from the CPU's")
+            expect(bool(torch.allclose(got.dists.cpu(), want.dists,
+                                       rtol=1e-4, atol=1e-4)),
+                   f"{family}: distances on the card differ from the CPU's")
+        say("cross-device: knn_batch on the card == on the CPU for all "
+            "families")
+
+    # -- phases 3 and 4 ------------------------------------------------
+    def drive(self, name: str) -> dict:
+        """Build and search one paper dataset at its full n (the
+        rehearsal's n on the CPU); returns its record."""
+        torch = self.torch
+        from repro_torch.core import bounds
+        from repro_torch.core import index as tidx
+        from repro_torch.core import search as tsearch
+        from repro_torch.data.pipeline import (PAPER_DATASETS, make_queries,
+                                               make_vectors)
+        spec = PAPER_DATASETS[name]
+        n = self.args.rehearsal_n if self.rehearsal else spec.n
+        scale = n / spec.n
+        t0 = time.perf_counter()
+        data = make_vectors(spec, scale=scale)
+        queries = make_queries(spec, num=NUM_QUERIES, scale=scale, data=data)
+        rec = {"dataset": name, "n": int(data.shape[0]), "d": spec.d,
+               "family": spec.measure, "data_s": time.perf_counter() - t0}
+        say(f"{name}: n={rec['n']} d={spec.d} family={spec.measure}")
+
+        self.sync()
+        t0 = time.perf_counter()
+        forest = tidx.build_index(data, spec.measure, m=None, pccp=True,
+                                  device=self.dev)
+        self.sync()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["m"] = forest.m
+        rec["num_clusters"] = forest.num_clusters
+        ys = torch.as_tensor(queries, device=self.dev)
+
+        # Size the query batches so the refine's (q, budget, d) gather
+        # fits: a probe at the default budget gives the unions' sizes.
+        probe = tsearch.knn_search_batch(forest, ys, K, None,
+                                         device=self.dev)
+        need = tsearch.fitted_budget(forest, K,
+                                     int(probe.num_candidates.max()))
+        worst = max(need, tsearch.resolve_budget(None, forest.n, K))
+        free = (torch.cuda.mem_get_info()[0] if not self.rehearsal
+                else 8 << 30)
+        q_batch = int(max(1, min(NUM_QUERIES,
+                                 0.4 * free // (worst * spec.d * 4 * 2))))
+        rec["query_batch"] = q_batch
+
+        def search():
+            outs = [tsearch.knn_batch(forest, ys[s:s + q_batch], K,
+                                      return_stats=True, device=self.dev)
+                    for s in range(0, NUM_QUERIES, q_batch)]
+            self.sync()
+            return outs
+
+        self.reset_launches()
+        t0 = time.perf_counter()
+        outs = search()
+        rec["search_first_ms"] = 1e3 * (time.perf_counter() - t0)
+        rec["launches"] = self.launches()
+        if not self.rehearsal:
+            for kname, count in rec["launches"].items():
+                expect(count > 0, f"{name}: kernel {kname} never launched "
+                       "on the main path")
+        steady = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            search()
+            steady.append(1e3 * (time.perf_counter() - t0))
+        rec["search_ms"] = statistics.median(steady)
+        rec["search_ms_runs"] = steady
+        ids = torch.cat([o[0].ids for o in outs])
+        dists = torch.cat([o[0].dists for o in outs])
+        ncand = torch.cat([o[0].num_candidates for o in outs])
+        exact = torch.cat([o[0].exact for o in outs])
+        stats = [o[1] for o in outs]
+        rec["mean_candidates"] = float(ncand.double().mean())
+        rec["max_candidates"] = int(ncand.max())
+        rec["candidate_fraction"] = rec["mean_candidates"] / forest.n
+        rec["escalations"] = [s.escalations for s in stats]
+        rec["budget_final"] = max(s.budget_final for s in stats)
+        rec["escalated_to_scan"] = any(s.escalated_to_scan for s in stats)
+        expect(bool(exact.all()), f"{name}: a result is not exact")
+        expect(tuple(ids.shape) == (NUM_QUERIES, K)
+               and bool(torch.isfinite(dists).all()),
+               f"{name}: results of the wrong shape or not finite")
+
+        rec.update(self.check_brute_force(data, ys, ids, dists,
+                                          spec.measure))
+        say(f"{name}: build {rec['build_s']:.2f} s (M={forest.m}), search "
+            f"first {rec['search_first_ms']:.1f} ms, steady "
+            f"{rec['search_ms']:.1f} ms per {NUM_QUERIES} queries "
+            f"(batches of {q_batch}), mean candidates "
+            f"{rec['mean_candidates']:.1f} of {forest.n}, escalations "
+            f"{rec['escalations']}, budget {rec['budget_final']}, "
+            f"launches {rec['launches']}, ids match brute force "
+            f"({rec['bf_position_mismatches']} near-tie swaps; its scan "
+            f"took {rec['brute_force_ms']:.1f} ms)")
+
+        # Phase breakdown of one batch, each phase ended by a sync.
+        ys0 = ys[:q_batch]
+        qs = tsearch.query_struct(ys0, forest.partition, forest.family)
+        self.sync()
+        marks = [time.perf_counter()]
+        _, idx = tsearch._batch_filter_topk(forest, qs, K, BLOCK_ROWS)
+        qb = bounds.ub_components(tsearch._tuple_rows(forest, idx[:, -1]),
+                                  qs)
+        self.sync()
+        marks.append(time.perf_counter())
+        sel, valid, _, _, blocks_run, _ = \
+            tsearch._stream_prune_compact(forest, qs, qb,
+                                          rec["budget_final"], BLOCK_ROWS)
+        self.sync()
+        marks.append(time.perf_counter())
+        rows = forest.data[sel]
+        self.sync()
+        marks.append(time.perf_counter())
+        tsearch._refine_batch(forest, qs, sel, valid, K)
+        self.sync()
+        marks.append(time.perf_counter())
+        rec["phases_ms"] = {
+            key: 1e3 * (marks[i + 1] - marks[i]) for i, key in enumerate(
+                ("filter", "prune_compact", "gather", "gather_refine_topk"))}
+        nb = -(-forest.n // BLOCK_ROWS)
+        rec["blocks_run"] = blocks_run
+        rec["num_blocks"] = nb
+        say(f"{name}: phases (ms, batch of {q_batch}) "
+            + ", ".join(f"{k}={v:.2f}" for k, v in rec["phases_ms"].items())
+            + f"; prune ran {blocks_run} of {nb} blocks")
+        rec["profile"] = self.profile(search, rec["search_ms"])
+        say(f"{name}: device busy {rec['profile']['busy_share']} of the "
+            f"unprofiled search")
+
+        # The kernels at the shapes this search gave them.
+        blocks = [(forest.alpha[s:s + BLOCK_ROWS],
+                   forest.sqrt_gamma[s:s + BLOCK_ROWS],
+                   forest.alpha_min_pt[s:s + BLOCK_ROWS],
+                   forest.sqrt_gamma_max_pt[s:s + BLOCK_ROWS])
+                  for s in range(0, forest.n, BLOCK_ROWS)]
+        rec["filter_kernels"] = self.compare_filter(blocks, qs, qb,
+                                                    time_it=True)
+        rec["refine_kernel"] = self.compare_refine(
+            rows, qs["grad"], qs["c_y"], forest.family_name, time_it=True)
+        del rows, sel, valid
+        say(f"{name}: kernels agree at the path's shapes: filter "
+            + json.dumps(rec["filter_kernels"]) + " refine "
+            + json.dumps(rec["refine_kernel"]))
+        del forest
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        return rec
+
+    def check_brute_force(self, data, ys, ids, dists, family: str) -> dict:
+        """Ids against ``brute_force_knn`` on the card.  A position may
+        differ only where brute force's neighbouring distances lie within
+        the tolerance (a near tie); returned distances must agree with
+        brute force's within it.  The tolerance is d * eps32 times the
+        magnitude of the summed terms (sum |phi(x)| + |x . grad| + |c_y|),
+        the worst-case error of a d-term fp32 sum."""
+        torch = self.torch
+        from repro_torch.core.bounds import query_refine_constants
+        from repro_torch.core.bregman import get_family
+        from repro_torch.core.search import brute_force_knn
+        fam = get_family(family)
+        x = torch.as_tensor(data, device=self.dev)
+        self.sync()
+        t0 = time.perf_counter()
+        bf_ids, bf_d = brute_force_knn(x, ys, K + 1, family, device=self.dev)
+        self.sync()
+        bf_ms = 1e3 * (time.perf_counter() - t0)
+        c = query_refine_constants(ys.double(), fam)
+        d = x.shape[1]
+        scales = []
+        for j in range(ys.shape[0]):
+            rows = x[torch.cat([bf_ids[j], ids[j].to(bf_ids.dtype)])].double()
+            scales.append((fam.phi(rows).abs().sum(-1)
+                           + (rows * c["grad"][j]).sum(-1).abs()
+                           + c["c_y"][j].abs()).max())
+        tol = d * EPS32 * torch.stack(scales)[:, None].float()
+        expect(bool(((dists - bf_d[:, :K]).abs() <= tol).all()),
+               f"distances differ from brute force beyond tolerance: max "
+               f"{float((dists - bf_d[:, :K]).abs().max())}")
+        gaps = (bf_d[:, 1:] - bf_d[:, :-1]).abs() <= tol     # (q, K)
+        near_tie = gaps.clone()
+        near_tie[:, 1:] |= gaps[:, :-1]
+        mismatch = ids.to(bf_ids.dtype) != bf_ids[:, :K]
+        expect(bool((~mismatch | near_tie).all()),
+               f"ids differ from brute force away from a near tie at "
+               f"{mismatch.nonzero().tolist()[:5]}")
+        return {"brute_force_ms": bf_ms,
+                "bf_position_mismatches": int(mismatch.sum()),
+                "bf_max_abs_diff": float((dists - bf_d[:, :K]).abs().max())}
+
+    def profile(self, fn, wall_ms: float) -> dict:
+        """The device time of one more run of ``fn`` (a search), by
+        kernel, from torch.profiler's CUPTI trace.  The busy share divides
+        it by ``wall_ms``, the search's unprofiled wall time: the profiler
+        slows the host, so the profiled run's own wall time would
+        understate the share."""
+        if self.rehearsal:
+            return {"busy_share": "not measured"}
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            profiled_ms = 1e3 * (time.perf_counter() - t0)
+        rows = sorted(((e.self_device_time_total, e.key, e.count)
+                       for e in device_events(torch, prof)), reverse=True)
+        expect(bool(rows), "the profiler recorded no device time")
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        return {"busy_share": busy_ms / wall_ms, "wall_ms": wall_ms,
+                "device_ms": busy_ms, "profiled_wall_ms": profiled_ms,
+                "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
+                        for us, k, c in rows[:10]]}
+
+    # -- the whole run -------------------------------------------------
+    def run(self) -> dict:
+        t_start = time.perf_counter()
+        self.phase_card_and_build()
+        self.phase_ragged()
+        self.record["audio"] = self.drive("audio")
+        self.record["deep"] = self.drive("deep")
+        self.record["kernels"] = self.kernel_table(self.record["deep"])
+        self.record["seconds"] = time.perf_counter() - t_start
+        return self.record
+
+    def kernel_table(self, rec: dict) -> list:
+        fk, rk = rec["filter_kernels"], rec["refine_kernel"]
+        src = "src/repro_torch/kernels/csrc/"
+
+        def entry(name, source, replaces, err, over, ms, plain, bnd,
+                  library):
+            return {"name": name, "route": "cuda", "source": src + source,
+                    "replaces": replaces,
+                    "launches": rec["launches"][name], "max_abs_err": err,
+                    "max_err_over_tol": over,
+                    "ms": ms, "plain_ms": plain,
+                    "bound_ms": bnd[0], "bound_by": bnd[1],
+                    "library_ms": library}
+
+        return [
+            entry("bregman_ub_matrix", "bregman_ub.cu",
+                  "src/repro/kernels/bregman_ub.py:62", fk["ub_err"],
+                  fk["ub_err_over_tol"],
+                  fk["ub"], fk["ub_plain"], fk["ub_bound"],
+                  fk["ub_library"]),
+            entry("bregman_filter_prune", "bregman_fused.cu",
+                  "src/repro/kernels/bregman_fused.py:144", fk["fp_err"],
+                  fk["fp_err_over_tol"],
+                  fk["fp"], fk["fp_plain"], fk["fp_bound"], None),
+            entry("bregman_refine_batch", "bregman_dist.cu",
+                  "src/repro/kernels/bregman_dist.py:106", rk["err"],
+                  rk["err_over_tol"],
+                  rk["kernel"], rk["plain"], rk["bound"], None),
+        ]
+
+
+def device_events(torch, prof) -> list:
+    """The profiler's averaged device-side events: kernels, copies and
+    sets (not the host operators that launched them, whose device time
+    would count the same kernels twice)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("Command Buffer Full")]
+
+
+def err_over_tol(diff, tol) -> float:
+    """The largest |kernel - plain| as a share of its element's tolerance
+    (<= 1 where the kernel agrees)."""
+    if not diff.numel():
+        return 0.0
+    return float((diff / tol).masked_fill(diff == 0, 0.0).max())
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def refine_tolerance(torch, rows, grad, c_y, family: str):
+    """The refine form ``sum phi(x) - x.grad + c_y`` cancels badly (the
+    exponential family most), so its error scales with the size of the
+    terms, not of the result: d * eps32 times
+    ``sum |phi(x)| + |x . grad| + |c_y|`` per (query, row).  One query at
+    a time, so the temporaries stay (b, d)."""
+    from repro_torch.kernels.ref import PHIS
+    scale = torch.stack([
+        PHIS[family](x).abs().sum(-1) + (x @ g).abs() + cy.abs()
+        for x, g, cy in zip(rows, grad, c_y, strict=True)])
+    return rows.shape[-1] * EPS32 * scale
+
+
+def positive_or_not(torch, shape, fam, gen):
+    """Valid fp32 data for a family: |N(0,1)| + 0.05 where the domain is
+    positive, N(0,1) clipped to [-4, 4] otherwise."""
+    raw = torch.randn(shape, generator=gen)
+    if fam.domain_low == 0.0:
+        return raw.abs() + 0.05
+    return raw.clamp(-4.0, 4.0)
+
+
+def filter_inputs(torch, n, m, q, seed):
+    """Filter and corner tables whose admit mask is mixed, with row 0
+    tying its bound exactly in subspace 0 (so ``<=`` decides it)."""
+    gen = torch.Generator().manual_seed(seed)
+    alpha = torch.randn((n, m), generator=gen)
+    sg = torch.randn((n, m), generator=gen).abs()
+    amin = torch.randn((n, m), generator=gen)
+    gmax = torch.randn((n, m), generator=gen).abs()
+    qc = torch.randn((q, m), generator=gen)
+    sd = torch.randn((q, m), generator=gen).abs()
+    lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = lb[0, 0, :]
+    return alpha, sg, amin, gmax, qc, sd, qb
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--cpu-rehearsal", action="store_true",
+                        help="with no CUDA card: run every phase at a tiny "
+                             "size on the CPU with the plain versions")
+    parser.add_argument("--rehearsal-n", type=int, default=900,
+                        help="points per dataset in a CPU rehearsal")
+    parser.add_argument("--out", default=str(ROOT / "build"
+                                             / "chip_smoke.json"),
+                        help="where to write the full record as JSON")
+    args = parser.parse_args(argv)
+    if not PACKAGE.is_dir():
+        print(f"chip_smoke.py: {PACKAGE} is missing: run it from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available() and not args.cpu_rehearsal:
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    smoke = Smoke(args, torch)
+    try:
+        record = smoke.run()
+    except SmokeFailure as exc:
+        print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
+        return 1
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(record, indent=1, default=str))
+    say(f"record: {out} ({record['seconds']:.1f} s)")
+    if smoke.rehearsal:
+        say(json.dumps({"kernels": record["kernels"]}))
+        say(json.dumps({"ok": True, "rehearsal": "cpu"}))
+        return 0
+    say(record["nvidia_smi"])
+    say(json.dumps({"kernels": record["kernels"]}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

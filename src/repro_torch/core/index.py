@@ -1,0 +1,365 @@
+"""BallForest — the flat Bregman-ball forest (port of ``repro.core.index``).
+
+One flat Bregman-ball table per subspace, all indexing the SAME physical
+point order: points are sorted by the first subspace's cluster id, so
+candidate gathers from different subspaces touch overlapping rows.
+
+Pruning uses the tuple-space cluster lower bound
+
+    LB_cluster(i) = alpha_min[c,i] + qconst[i] - sqrt_gamma_max[c,i]*sqrt_delta[i]
+                  <= min_{x in c} D_f(x_i., y_i.)
+
+so "LB_cluster > qb_i" prunes cluster c in subspace i without evaluating a
+member distance.  This module builds the fp32 tier; the int8 tier is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .bregman import BregmanFamily, get_family
+from .clustering import cluster_stats, kmeans
+from .partition import build_pccp_partition, fit_cost_model
+from .transform import Partition, make_partition, p_transform
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass
+class BallForest:
+    """Search index: fp32 tables on one device.
+
+    The int8 storage tier's decode fields (``data_scale`` ... ``gmax_zp``)
+    stay None until that tier is ported.
+    """
+
+    family_name: str
+    partition: Partition
+    num_clusters: int
+    data: Tensor              # (n, d)  points in shared layout order
+    point_ids: Tensor         # (n,)    int32 original ids (layout -> original)
+    alpha: Tensor             # (n, M)  P-tuple alpha
+    sqrt_gamma: Tensor        # (n, M)  P-tuple sqrt(gamma)
+    assign: Tensor            # (n, M)  int32 bucketed cluster id per subspace
+    alpha_min: Tensor         # (M, C)  per-cluster min alpha
+    sqrt_gamma_max: Tensor    # (M, C)  per-cluster max sqrt(gamma)
+    counts: Tensor            # (M, C)
+    centers: Tensor           # (M, C0, w) k-means centers
+    beta_samples: Tensor      # (S,) sorted empirical beta_xy sample
+    alpha_min_pt: Tensor      # (n, M)  own-cluster corner alpha_min per point
+    sqrt_gamma_max_pt: Tensor  # (n, M) own-cluster corner sqrt_gamma_max per point
+    gamma_edges: Tensor       # (M, nb-1) gamma-bucket quantile edges
+    storage: str = "f32"
+    # Corner envelopes over ENV_BLOCK_ROWS-row groups of the layout: row e
+    # holds the tightest alpha_min / loosest sqrt_gamma_max of its rows.
+    env_alpha_min: Tensor | None = None        # (nE, M)
+    env_sqrt_gamma_max: Tensor | None = None   # (nE, M)
+    data_scale: Tensor | None = None
+    data_zp: Tensor | None = None
+    alpha_scale: Tensor | None = None
+    alpha_zp: Tensor | None = None
+    sg_scale: Tensor | None = None
+    sg_zp: Tensor | None = None
+    amin_scale: Tensor | None = None
+    amin_zp: Tensor | None = None
+    gmax_scale: Tensor | None = None
+    gmax_zp: Tensor | None = None
+
+    @property
+    def family(self) -> BregmanFamily:
+        return get_family(self.family_name)
+
+    @property
+    def n(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def d(self) -> int:
+        return self.data.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.partition.num_subspaces
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+# Row-group size of the corner envelopes.
+ENV_BLOCK_ROWS = 256
+
+# Point-major (n, ...) fields, and the small per-cluster / sample tables.
+POINT_FIELDS = ("data", "point_ids", "alpha", "sqrt_gamma", "assign",
+                "alpha_min_pt", "sqrt_gamma_max_pt")
+ENV_FIELDS = ("env_alpha_min", "env_sqrt_gamma_max")
+REPLICATED_FIELDS = ("alpha_min", "sqrt_gamma_max", "counts", "centers",
+                     "beta_samples", "gamma_edges") + ENV_FIELDS
+
+# Corner sentinel for padded rows: an alpha_min_pt of +PAD_CORNER makes the
+# tuple-space lower bound exceed any finite search bound; the same value in
+# alpha keeps the row out of every filter top-k.
+PAD_CORNER = 1e30
+
+# The search-inert row: never admitted, never in a top-k, id -1, data rows
+# of ones (inside every family's domain).
+INERT_FILL = {"data": 1.0, "point_ids": -1, "alpha": PAD_CORNER,
+              "sqrt_gamma": 0.0, "assign": 0, "alpha_min_pt": PAD_CORNER,
+              "sqrt_gamma_max_pt": 0.0}
+
+
+def corner_envelopes(amin_pt: Tensor, gmax_pt: Tensor) -> tuple[Tensor, Tensor]:
+    """Block envelopes of (n, M) corner tables -> ((nE, M), (nE, M)).
+
+    Row e is the componentwise min/max over layout rows
+    ``[e*ENV_BLOCK_ROWS, (e+1)*ENV_BLOCK_ROWS)``; a short tail group is
+    completed with the inert corner, which moves neither reduction.
+    """
+    n, m = amin_pt.shape
+    ne = max(-(-n // ENV_BLOCK_ROWS), 1)
+    pad = ne * ENV_BLOCK_ROWS - n
+    a = torch.nn.functional.pad(amin_pt, (0, 0, 0, pad), value=PAD_CORNER)
+    g = torch.nn.functional.pad(gmax_pt, (0, 0, 0, pad), value=0.0)
+    return (a.reshape(ne, ENV_BLOCK_ROWS, m).amin(dim=1),
+            g.reshape(ne, ENV_BLOCK_ROWS, m).amax(dim=1))
+
+
+def refresh_envelopes(forest: BallForest) -> BallForest:
+    """Recompute the block-envelope tables from the per-point corners."""
+    ea, eg = corner_envelopes(forest.alpha_min_pt, forest.sqrt_gamma_max_pt)
+    return dataclasses.replace(forest, env_alpha_min=ea, env_sqrt_gamma_max=eg)
+
+
+def pad_points(forest: BallForest, multiple: int) -> BallForest:
+    """Pad the point-major arrays with inert rows so ``n % multiple == 0``;
+    the envelope tables grow by inert rows where the padding needs them."""
+    pad = (-forest.n) % multiple
+    if pad == 0:
+        return forest
+
+    def pad_rows(a, rows, v):
+        return torch.cat([a, torch.full((rows,) + tuple(a.shape[1:]), v,
+                                        dtype=a.dtype, device=a.device)])
+
+    out = dataclasses.replace(forest, **{
+        f: pad_rows(getattr(forest, f), pad, INERT_FILL[f])
+        for f in POINT_FIELDS})
+    # The appended rows are inert, so the existing envelope rows stay valid.
+    grow = max(-(-out.n // ENV_BLOCK_ROWS), 1) - forest.env_alpha_min.shape[0]
+    if grow > 0:
+        out = dataclasses.replace(
+            out,
+            env_alpha_min=pad_rows(forest.env_alpha_min, grow, PAD_CORNER),
+            env_sqrt_gamma_max=pad_rows(forest.env_sqrt_gamma_max, grow, 0.0))
+    return out
+
+
+def default_num_clusters(n: int) -> int:
+    return int(np.clip(n // 32, 8, 8192))
+
+
+def _quantile_linear(x: Tensor, probs: Tensor) -> Tensor:
+    """Linear-interpolation quantiles of a 1-D tensor, in the reference's
+    arithmetic: ``low * (1 - w) + high * w`` at position ``probs * (n-1)``
+    (``torch.quantile`` interpolates as ``low + w * (high - low)``, which
+    rounds differently and would move rows across bucket edges)."""
+    s = torch.sort(x).values
+    pos = probs * (x.shape[0] - 1)
+    low = torch.floor(pos)
+    w = pos - low
+    lo = low.long().clamp(0, x.shape[0] - 1)
+    hi = torch.ceil(pos).long().clamp(0, x.shape[0] - 1)
+    return s[lo] * (1.0 - w) + s[hi] * w
+
+
+def build_tables(
+    data: Tensor,
+    family: BregmanFamily,
+    partition: Partition,
+    assign: Tensor,
+    centers: Tensor,
+    *,
+    num_clusters: int,
+    gamma_buckets: int = 4,
+    beta_sample_size: int = 4096,
+    seed: int = 0,
+) -> BallForest:
+    """The forest's tables from a partition and per-subspace clusterings.
+
+    ``data`` (n, d) fp32 on the target device; ``assign`` (n, M) base
+    cluster ids in ORIGINAL row order; ``centers`` (M, C, w).  Points are
+    laid out by the first subspace's cluster id (stable), each ball is
+    split into ``gamma_buckets`` gamma-quantile buckets whose corners give
+    a tighter lower bound, and the per-point corners and block envelopes
+    are gathered once here so query-time pruning is elementwise.
+    """
+    fam = family
+    dev = data.device
+    n = data.shape[0]
+    m = partition.num_subspaces
+
+    # Shared layout: order points by the reference subspace's cluster id.
+    order = torch.argsort(assign[:, 0], stable=True)
+    data_l = data[order]
+    assign_l = assign[order].long()
+    point_ids = order.to(torch.int32)
+
+    p = p_transform(data_l, partition, fam)
+    alpha, sqrt_gamma = p["alpha"], p["sqrt_gamma"]
+
+    # gamma-bucketed corners: effective segment id = ball * nb + bucket.
+    nb = max(int(gamma_buckets), 1)
+    probs = torch.linspace(0.0, 1.0, nb + 1, device=dev)[1:-1]
+    assign_eff, edges = [], []
+    for i in range(m):
+        sg_i = sqrt_gamma[:, i].contiguous()
+        qs = _quantile_linear(sg_i, probs)
+        bucket = torch.searchsorted(qs, sg_i, side="left")
+        assign_eff.append(assign_l[:, i] * nb + bucket)
+        edges.append(qs)
+    assign_eff = torch.stack(assign_eff, dim=1)          # (n, M)
+    gamma_edges = torch.stack(edges)                     # (M, nb-1)
+    c_eff = num_clusters * nb
+
+    stats_a = [cluster_stats(alpha[:, i], assign_eff[:, i], c_eff)
+               for i in range(m)]
+    amin = torch.stack([s["min"] for s in stats_a])      # (M, C*nb)
+    counts = torch.stack([s["count"] for s in stats_a])
+    gmax = torch.stack([cluster_stats(sqrt_gamma[:, i], assign_eff[:, i],
+                                      c_eff)["max"] for i in range(m)])
+
+    # Per-point view of the bucketed corners.
+    amin_pt = torch.gather(amin, 1, assign_eff.T).T.contiguous()   # (n, M)
+    gmax_pt = torch.gather(gmax, 1, assign_eff.T).T.contiguous()
+
+    # Empirical beta_xy sample (cross term over random (data, query) pairs),
+    # its row pairs drawn with the reference's numpy stream.
+    rng = np.random.default_rng(seed)
+    s = min(beta_sample_size, n * n)
+    xi = torch.from_numpy(rng.integers(0, n, size=s)).to(dev)
+    yi = torch.from_numpy(rng.integers(0, n, size=s)).to(dev)
+    betas = -torch.sum(data[xi] * fam.phi_prime(data[yi]), dim=-1)
+    beta_samples = torch.sort(betas).values
+
+    forest = BallForest(
+        family_name=fam.name,
+        partition=partition,
+        num_clusters=c_eff,
+        data=data_l,
+        point_ids=point_ids,
+        alpha=alpha,
+        sqrt_gamma=sqrt_gamma,
+        assign=assign_eff.to(torch.int32),
+        alpha_min=amin,
+        sqrt_gamma_max=gmax,
+        counts=counts,
+        centers=centers,
+        beta_samples=beta_samples,
+        alpha_min_pt=amin_pt,
+        sqrt_gamma_max_pt=gmax_pt,
+        gamma_edges=gamma_edges,
+    )
+    return refresh_envelopes(forest)
+
+
+def build_index(
+    data,
+    family: str | BregmanFamily,
+    *,
+    m: int | None = None,
+    pccp: bool = True,
+    num_clusters: int | None = None,
+    kmeans_iters: int = 12,
+    beta_sample_size: int = 4096,
+    gamma_buckets: int = 4,
+    quantize: bool = False,
+    calibrate: bool = False,
+    seed: int = 0,
+    device="cuda",
+) -> BallForest:
+    """Offline precomputation (paper Alg. 5): partition -> k-means -> forest.
+
+    ``m=None`` fits the Theorem-4 cost model and uses M*.  ``pccp`` deals
+    the dims by correlation (§5.2).  Per subspace, Bregman k-means starts
+    from ``num_clusters`` distinct rows drawn with a ``torch.Generator``
+    seeded by ``seed``.  The index lives on ``device``.
+    """
+    if quantize:
+        raise NotImplementedError(
+            "build_index(quantize=True): the int8 tier is not ported yet "
+            "(ROADMAP queue 1 item 4)")
+    if calibrate:
+        raise NotImplementedError(
+            "build_index(calibrate=True): recall calibration is not ported "
+            "yet (ROADMAP queue 1 item 5)")
+    dev = resolve_device(device)
+    fam = get_family(family) if isinstance(family, str) else family
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().numpy()
+    data_np = np.ascontiguousarray(data, dtype=np.float32)
+    n, d = data_np.shape
+
+    if m is None:
+        m = fit_cost_model(data_np, fam, seed=seed).m_star()
+    m = int(np.clip(m, 1, d))
+    if pccp and m < d:
+        part = build_pccp_partition(data_np, m, seed=seed)
+    else:
+        part = make_partition(d, m)
+
+    c = int(min(num_clusters or default_num_clusters(n), n))
+    x = torch.from_numpy(data_np).to(dev)
+    sub_views = part.gather(x)                          # (n, M, w)
+    mask = part.subspace_mask(dev)                      # (M, w)
+    gen = torch.Generator().manual_seed(seed)
+    centers_list, assign_list = [], []
+    for i in range(m):
+        cen, asg = kmeans(sub_views[:, i, :].contiguous(), mask[i],
+                          family=fam, num_clusters=c, iters=kmeans_iters,
+                          generator=gen)
+        centers_list.append(cen)
+        assign_list.append(asg)
+    del sub_views
+    return build_tables(
+        x, fam, part, torch.stack(assign_list, dim=1),
+        torch.stack(centers_list), num_clusters=c,
+        gamma_buckets=gamma_buckets, beta_sample_size=beta_sample_size,
+        seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# numpy interchange (a forest built by the reference package, or saved)
+# ---------------------------------------------------------------------------
+
+INTERCHANGE_FIELDS = POINT_FIELDS + REPLICATED_FIELDS
+
+
+def forest_to_numpy(forest: BallForest) -> dict:
+    """The forest's tables as host numpy arrays, keyed by field name."""
+    return {f: getattr(forest, f).detach().cpu().numpy()
+            for f in INTERCHANGE_FIELDS}
+
+
+def forest_from_numpy(arrays: dict, *, family_name: str,
+                      partition_idx, partition_mask, d: int,
+                      num_clusters: int, device="cuda") -> BallForest:
+    """A forest from numpy tables (:data:`INTERCHANGE_FIELDS`) and its
+    partition layout; dtypes are kept, so export(import(x)) is bit-equal."""
+    dev = resolve_device(device)
+    missing = [f for f in INTERCHANGE_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"forest_from_numpy: missing fields {missing}")
+    idx = np.asarray(partition_idx, dtype=np.int32)
+    part = Partition(d=int(d), num_subspaces=idx.shape[0],
+                     width=idx.shape[1], idx=idx,
+                     mask=np.asarray(partition_mask, dtype=np.float32))
+    return BallForest(
+        family_name=get_family(family_name).name, partition=part,
+        num_clusters=int(num_clusters),
+        **{f: torch.from_numpy(np.array(arrays[f], copy=True)).to(dev)
+           for f in INTERCHANGE_FIELDS})

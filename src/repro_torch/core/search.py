@@ -1,0 +1,495 @@
+"""Exact batched kNN on a BallForest (port of ``repro.core.search``).
+
+A (q, d) query block runs five phases:
+
+  1. Q-transform of the block (Alg. 3).
+  2. Filter: a streaming per-column k-selection over the (n, q) Cauchy
+     upper-bound matrix — one ``bregman_ub_matrix`` kernel launch per
+     ``block_rows`` row block, merged into a running (q, k) best set, so
+     the (n, q) matrix never exists.
+  3. Alg.-4 searching bounds ``qb`` from each query's k-th row.
+  4. Prune + compact: the block envelopes gate every (block, query) pair
+     in one vectorized pass; the host reads which blocks any query admits
+     (one device sync per search) and launches the fused
+     ``bregman_filter_prune`` kernel on those blocks only; each block's
+     admitted rows fill the query's ``budget`` candidate slots in index
+     order.
+  5. Refine: one ``bregman_refine_batch`` launch over all queries'
+     candidate rows, then the k smallest exact distances.
+
+Ties resolve to the lower row index everywhere (stable sorts), as in the
+reference.  When a query's Theorem-3 union overflows the budget it is
+flagged ``exact=False``; :func:`knn_batch` retries at the fitted budget and,
+when its doublings run out, falls back to a brute-force scan.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import NamedTuple
+
+import torch
+
+from ..device import resolve_device
+from ..kernels import ops as kernel_ops
+from . import bounds
+from .bregman import get_family, validate_rows
+from .index import ENV_BLOCK_ROWS, BallForest
+from .transform import q_transform
+
+Tensor = torch.Tensor
+
+POS_BIG = 1e30
+
+logger = logging.getLogger(__name__)
+
+# Default row-block size of both streaming passes.
+DEFAULT_BLOCK_ROWS = 4096
+
+MAX_BUDGET_DOUBLINGS = 8
+
+
+def resolve_block_rows(block_rows: int | None, n: int) -> int:
+    """Validate the ``block_rows`` knob against an index of n rows.
+
+    ``None`` means :data:`DEFAULT_BLOCK_ROWS` (the port has no autotuner
+    table yet).  Values beyond ``n`` are legal (one block); non-integers
+    and values below 8 raise.  An empty index raises on every path.
+    """
+    if n < 1:
+        raise ValueError(f"cannot search an empty index (n={n})")
+    if block_rows is None:
+        return DEFAULT_BLOCK_ROWS
+    if isinstance(block_rows, bool) or not isinstance(block_rows, int):
+        raise ValueError(f"block_rows must be an int, got {block_rows!r}")
+    if block_rows < 8:
+        raise ValueError(
+            f"block_rows={block_rows} is below the minimum tile of 8 rows")
+    return block_rows
+
+
+def resolve_env_block_rows(env_block_rows: int | None) -> int:
+    """Validate the envelope-gate granularity knob: ``None`` is the storage
+    granularity :data:`ENV_BLOCK_ROWS`; any positive multiple of it is a
+    coarser (looser, results-invariant) gate."""
+    if env_block_rows is None:
+        return ENV_BLOCK_ROWS
+    if (isinstance(env_block_rows, bool)
+            or not isinstance(env_block_rows, int)):
+        raise ValueError(
+            f"env_block_rows must be an int, got {env_block_rows!r}")
+    if env_block_rows < ENV_BLOCK_ROWS or env_block_rows % ENV_BLOCK_ROWS:
+        raise ValueError(
+            f"env_block_rows={env_block_rows} must be a positive multiple "
+            f"of the storage granularity {ENV_BLOCK_ROWS}")
+    return env_block_rows
+
+
+def resolve_budget(budget, n: int, k: int) -> int:
+    """THE refine-budget resolver: ``None`` picks the cost model's
+    candidate estimate; an explicit budget must be an integer >= k and is
+    clamped to ``n``."""
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"resolve_budget: empty index (n={n})")
+    if k > n:
+        raise ValueError(f"k={k} exceeds index size n={n}")
+    if budget is None:
+        return int(min(n, max(4 * k, 64, n // 16)))
+    if isinstance(budget, bool) or budget != int(budget):
+        raise TypeError(f"budget must be an int or None, got {budget!r}")
+    budget = int(budget)
+    if budget < k:
+        raise ValueError(f"budget={budget} must be >= k={k} (the refine "
+                         "top-k needs at least k slots)")
+    return min(budget, n)
+
+
+def fitted_budget_for_n(n: int, k: int, needed: int) -> int:
+    """Smallest power-of-two budget (>= k, capped at ``n``) covering
+    ``needed`` candidates: the one sizing rule for overflow retries."""
+    need = max(int(needed), k, 1)
+    return int(min(n, 1 << (need - 1).bit_length()))
+
+
+def fitted_budget(index: BallForest, k: int, needed: int) -> int:
+    """:func:`fitted_budget_for_n` against a whole index."""
+    return fitted_budget_for_n(index.n, k, needed)
+
+
+class SearchResult(NamedTuple):
+    ids: Tensor             # (q, k) original point ids
+    dists: Tensor           # (q, k) exact Bregman distances
+    exact: Tensor           # (q,) bool — candidate set fit in the budget
+    num_candidates: Tensor  # (q,) Theorem-3 union size
+
+
+class BatchStats(NamedTuple):
+    """Retry telemetry from :func:`knn_batch`."""
+
+    escalations: int         # budget-growth retries taken (0 = first try fit)
+    budget_final: int        # the budget the returned launch ran with
+    escalated_to_scan: bool  # doublings exhausted -> brute-force scan
+    stopped_early: bool      # a stop_retry callback ended the ladder
+
+
+def validate_queries(measure, q, *, mode: str = "raise"):
+    """Admission gate: reject NaN / out-of-domain query rows up front."""
+    return validate_rows(measure, q, mode=mode, what="query row")
+
+
+def query_struct(y: Tensor, partition, family) -> dict:
+    """Per-subspace triples (Alg. 3) plus the refine constants."""
+    q = q_transform(y, partition, family)
+    q.update(bounds.query_refine_constants(y, family))
+    return q
+
+
+def _tuple_rows(index: BallForest, idx: Tensor) -> dict:
+    """(alpha, sqrt_gamma) P-tuples at the given row indices."""
+    return {"alpha": index.alpha[idx], "sqrt_gamma": index.sqrt_gamma[idx]}
+
+
+def _on_index_device(index: BallForest, device) -> torch.device:
+    dev = resolve_device(device)
+    if index.device.type != dev.type or (
+            dev.index is not None and index.device != dev):
+        raise ValueError(
+            f"the index lives on {index.device}, the search was asked to "
+            f"run on {dev}; move the index or pass device={str(index.device)!r}")
+    return index.device
+
+
+# ---------------------------------------------------------------------------
+# Batched pipeline
+# ---------------------------------------------------------------------------
+
+def _block_layout(n: int, block_rows: int) -> tuple[int, int]:
+    """(block, num_blocks) covering n rows; block <= block_rows."""
+    bn = max(8, min(block_rows, n))
+    return bn, -(-n // bn)
+
+
+def _filter_blocks(index: BallForest, bn: int, nb: int) -> list:
+    """Per-block (alpha, sqrt_gamma) row views.  The last block is short
+    rather than padded: the kernels take any row count, so no padded copy
+    of the tables is made."""
+    return [(index.alpha[b * bn:(b + 1) * bn],
+             index.sqrt_gamma[b * bn:(b + 1) * bn]) for b in range(nb)]
+
+
+def _corner_blocks(index: BallForest, bn: int, nb: int) -> list:
+    """Per-block (alpha_min_pt, sqrt_gamma_max_pt) row views (short last
+    block, as in :func:`_filter_blocks`)."""
+    return [(index.alpha_min_pt[b * bn:(b + 1) * bn],
+             index.sqrt_gamma_max_pt[b * bn:(b + 1) * bn])
+            for b in range(nb)]
+
+
+def _batch_filter_topk(index: BallForest, qs: dict, k: int,
+                       block_rows: int) -> tuple[Tensor, Tensor]:
+    """Streaming per-column k-selection over the (n, q) UB matrix.
+
+    One UB kernel launch per row block; the running (q, k) smallest totals
+    and their rows are merged with each block by a stable sort, carry
+    first, so ties resolve to the lower row index as in a full-column
+    stable top-k.  Returns (values, rows), ascending along k.
+    """
+    n = index.n
+    q = qs["qconst"].shape[0]
+    dev = index.device
+    bn, nb = _block_layout(n, block_rows)
+    best_v = torch.full((q, k), POS_BIG, dtype=torch.float32, device=dev)
+    best_i = torch.zeros((q, k), dtype=torch.long, device=dev)
+    for b, (a, sg) in enumerate(_filter_blocks(index, bn, nb)):
+        vals = kernel_ops.bregman_ub_matrix(a, sg, qs["qconst"],
+                                            qs["sqrt_delta"])   # (bl, q)
+        gidx = torch.arange(b * bn, b * bn + a.shape[0], device=dev)
+        cand_v = torch.cat([best_v, vals.T], dim=1)
+        cand_i = torch.cat([best_i, gidx.expand(q, -1)], dim=1)
+        sv, order = torch.sort(cand_v, dim=1, stable=True)
+        best_v = sv[:, :k]
+        best_i = torch.gather(cand_i, 1, order[:, :k])
+    return best_v, best_i
+
+
+def _fill_block_slots(sel: Tensor, count: Tensor, admit: Tensor, off: int,
+                      budget: int) -> tuple[Tensor, Tensor]:
+    """Route one block's admitted rows into their budget slots, in place.
+
+    Query j's admitted row of within-block rank r (rows in index order)
+    goes to slot ``count[j] + r``; members past the budget are dropped.
+    Unfilled slots hold ``n - 1``, at least every row index, so one
+    scatter-min of the (q, bn) tile writes each member into its own slot
+    and leaves every other slot as it was: O(q * bn) work a block, where
+    the reference routes all ``budget`` slots (it avoids scatters, which
+    XLA serializes on the CPU).  Returns ``(sel, count + admitted)``.
+    """
+    admitted = admit.T.contiguous() > 0                     # (q, bn)
+    rank = torch.cumsum(admitted, dim=1)                    # contiguous scan
+    slot = count[:, None] + rank - 1
+    rows = torch.arange(off, off + admit.shape[0], device=admit.device)
+    src = torch.where(admitted & (slot < budget), rows,
+                      torch.iinfo(sel.dtype).max)
+    sel.scatter_reduce_(1, slot.clamp(0, budget - 1), src, reduce="amin")
+    return sel, count + rank[:, -1]
+
+
+def _env_tables(index: BallForest, eb: int) -> tuple[Tensor, Tensor]:
+    """Envelope tables at gate granularity ``eb`` (a multiple of the
+    stored granularity, min/max-coarsened on the fly; the tail group is
+    completed with inert rows)."""
+    env_a, env_g = index.env_alpha_min, index.env_sqrt_gamma_max
+    if env_a is None:
+        raise ValueError("the index has no envelope tables; build it with "
+                         "build_index or refresh_envelopes")
+    if eb == ENV_BLOCK_ROWS:
+        return env_a, env_g
+    f = eb // ENV_BLOCK_ROWS
+    m = env_a.shape[1]
+    pad = -env_a.shape[0] % f
+    env_a = torch.nn.functional.pad(env_a, (0, 0, 0, pad), value=POS_BIG)
+    env_g = torch.nn.functional.pad(env_g, (0, 0, 0, pad))
+    return (env_a.reshape(-1, f, m).amin(dim=1),
+            env_g.reshape(-1, f, m).amax(dim=1))
+
+
+def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
+                          budget: int, block_rows: int,
+                          env_block_rows: int | None = None,
+                          with_tau: bool = False):
+    """Envelope-gated prune + compact over the filter's row blocks.
+
+    1. **Envelope gate** — the Theorem-3 test runs once over the whole
+       envelope table; a prefix sum turns it into each (block, query)
+       pair's OR over the envelope rows the block spans.  An envelope
+       dominates every row it covers, so a block no query admits is
+       skipped.  The host reads the (nb,) any-admit vector once.
+    2. **Per-point admit** — each admitted block launches the fused
+       filter+prune kernel: the (block, q) UB tile and int32 admit tile.
+    3. **Compaction** — :func:`_fill_block_slots` routes the block's
+       members into the budget slots; slot order = index order.
+
+    Returns ``(sel (q, budget), valid (q, budget), num_candidates (q,),
+    env_admitted (q,), blocks_run, tau (q,))``; ``tau`` is the per-query
+    min UB over admitted rows when ``with_tau`` (else +BIG).  Unfilled
+    slots hold ``n - 1``.
+    """
+    n = index.n
+    dev = index.device
+    q = qb.shape[0]
+    bn, nb = _block_layout(n, block_rows)
+    eb = resolve_env_block_rows(env_block_rows)
+    env_a, env_g = _env_tables(index, eb)
+    qcT, sdT, qbT = qs["qconst"].T, qs["sqrt_delta"].T, qb.T       # (M, q)
+
+    lb_env = (env_a[:, :, None] + qcT[None]
+              - env_g[:, :, None] * sdT[None])                       # (ne, M, q)
+    row_admit = torch.any(lb_env <= qbT[None], dim=1)                # (ne, q)
+    ecs = torch.cat([torch.zeros((1, q), dtype=torch.long, device=dev),
+                     torch.cumsum(row_admit, dim=0)])
+    starts = torch.arange(nb, device=dev) * bn
+    e0s = starts // eb
+    e_his = (torch.clamp(starts + bn, max=n) - 1) // eb
+    env_admit_all = (ecs[e_his + 1] - ecs[e0s]) > 0                  # (nb, q)
+    run_blocks = torch.nonzero(env_admit_all.any(dim=1)).flatten().tolist()
+
+    sel = torch.full((q, budget), n - 1, dtype=torch.long, device=dev)
+    count = torch.zeros((q,), dtype=torch.long, device=dev)
+    tau = torch.full((q,), POS_BIG, dtype=torch.float32, device=dev)
+    filt = _filter_blocks(index, bn, nb)
+    corners = _corner_blocks(index, bn, nb)
+    for b in run_blocks:
+        (a, sg), (am, gm) = filt[b], corners[b]
+        ub, admit = kernel_ops.bregman_filter_prune_block(
+            a, sg, am, gm, qs["qconst"], qs["sqrt_delta"], qb)
+        if with_tau:
+            tau = torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
+                                .amin(dim=0))
+        sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
+    targets = torch.arange(1, budget + 1, device=dev)
+    valid = targets[None, :] <= torch.clamp(count, max=budget)[:, None]
+    return (sel, valid, count, env_admit_all.sum(dim=0), len(run_blocks),
+            tau)
+
+
+def _refine_batch(index: BallForest, qs: dict, sel: Tensor, valid: Tensor,
+                  k: int):
+    """One refine kernel launch over all queries' candidate rows, then the
+    k smallest exact distances (stable: ties to the lower slot)."""
+    rows = index.data[sel]                                  # (q, budget, d)
+    dist = kernel_ops.bregman_refine_batch(
+        rows, qs["grad"], qs["c_y"], index.family_name)     # (q, budget)
+    dist = torch.where(valid, dist, POS_BIG)
+    sv, pos = torch.sort(dist, dim=1, stable=True)
+    ids = index.point_ids[torch.gather(sel, 1, pos[:, :k])]
+    return ids, sv[:, :k]
+
+
+def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
+                           budget: int, block_rows: int,
+                           with_stats: bool = False,
+                           env_block_rows: int | None = None):
+    if k > index.n:
+        raise ValueError(f"k={k} exceeds index size n={index.n}")
+    if budget < k:
+        raise ValueError(f"budget={budget} must be >= k={k} (the refine "
+                         "top-k needs at least k slots)")
+    if ys.ndim != 2:
+        raise ValueError(f"expected (q, d) queries, got {tuple(ys.shape)}")
+    qs = query_struct(ys, index.partition, index.family)
+
+    _, idx = _batch_filter_topk(index, qs, k, block_rows)
+    qb = bounds.ub_components(_tuple_rows(index, idx[:, -1]), qs)   # (q, M)
+
+    (sel, valid, num_candidates, env_admitted, blocks_run,
+     tau) = _stream_prune_compact(index, qs, qb, budget, block_rows,
+                                  env_block_rows=env_block_rows,
+                                  with_tau=with_stats)
+    ids, dists = _refine_batch(index, qs, sel, valid, k)
+    res = SearchResult(ids=ids, dists=dists,
+                       exact=num_candidates <= budget,
+                       num_candidates=num_candidates)
+    return (res, env_admitted, blocks_run, tau) if with_stats else res
+
+
+def _queries(ys, dev: torch.device) -> Tensor:
+    return torch.as_tensor(ys, dtype=torch.float32, device=dev).contiguous()
+
+
+def knn_search_batch(index: BallForest, ys, k: int, budget: int | None,
+                     block_rows: int | None = None, validate: bool = True,
+                     env_block_rows: int | None = None,
+                     device="cuda") -> SearchResult:
+    """Exact kNN for a (q, d) query block at a fixed ``budget``; fields are
+    (q, ...).  Runs on ``device``, where the index must lie."""
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    if validate:
+        validate_queries(index.family, ys)
+    ys = _queries(ys, dev)
+    br = resolve_block_rows(block_rows, index.n)
+    return _knn_search_batch_core(index, ys, k, budget, br,
+                                  env_block_rows=resolve_env_block_rows(
+                                      env_block_rows))
+
+
+def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
+                           block_rows: int | None = None,
+                           device="cuda") -> tuple[SearchResult, dict]:
+    """:func:`knn_search_batch` plus envelope block-skip telemetry.
+
+    ``block_skip_rate`` is the fraction of (block, query) tiles the
+    envelope gate rejected; ``whole_block_skip_rate`` the fraction of
+    blocks whose kernel never ran; ``tau_admit`` the tightest UB among
+    admitted rows per query.
+    """
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    ys = _queries(ys, dev)
+    br = resolve_block_rows(block_rows, index.n)
+    res, env_admitted, blocks_run, tau = _knn_search_batch_core(
+        index, ys, k, budget, br, with_stats=True)
+    bn, nb = _block_layout(index.n, br)
+    admitted = int(env_admitted.sum())
+    stats = {
+        "block_rows": bn,
+        "num_blocks": nb,
+        "num_blocks_run": blocks_run,
+        "env_admitted_tiles": admitted,
+        "block_skip_rate": 1.0 - admitted / (nb * ys.shape[0]),
+        "whole_block_skip_rate": 1.0 - blocks_run / nb,
+        "tau_admit": tau,
+    }
+    return res, stats
+
+
+def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
+              max_doublings: int = MAX_BUDGET_DOUBLINGS,
+              block_rows: int | None = None,
+              stop_retry=None, return_stats: bool = False,
+              validate: bool = True, device="cuda"):
+    """Exact batched kNN with the budget-retry ladder.
+
+    If any query's Theorem-3 union overflows, the block re-runs at the
+    budget fitted to the largest observed union (a power of two), at most
+    ``max_doublings`` times; then it falls back to one brute-force scan,
+    so results are always exact.  ``stop_retry`` (no-arg callable -> bool)
+    is consulted before every additional launch and ends the ladder with
+    the best result so far.  ``return_stats=True`` returns
+    ``(SearchResult, BatchStats)``.
+    """
+    dev = _on_index_device(index, device)
+    ys = _queries(ys, dev)
+    if ys.ndim != 2:
+        raise ValueError(f"knn_batch wants (q, d) queries, got "
+                         f"{tuple(ys.shape)}")
+    if validate:
+        validate_queries(index.family, ys)
+    budget = resolve_budget(budget, index.n, k)
+
+    def done(res, escalations, scan=False, stopped=False):
+        stats = BatchStats(escalations=escalations, budget_final=budget,
+                           escalated_to_scan=scan, stopped_early=stopped)
+        return (res, stats) if return_stats else res
+
+    for attempt in range(max_doublings + 1):
+        res = knn_search_batch(index, ys, k, budget, block_rows,
+                               validate=False, device=dev)
+        if bool(res.exact.all()) or budget >= index.n:
+            return done(res, attempt)
+        if attempt == max_doublings:
+            break
+        if stop_retry is not None and stop_retry():
+            return done(res, attempt, stopped=True)
+        # needed > budget on overflow, so the fitted budget strictly grows.
+        budget = fitted_budget(index, k, int(res.num_candidates.max()))
+    if stop_retry is not None and stop_retry():
+        return done(res, max_doublings, stopped=True)
+    logger.warning(
+        "knn_batch: budget cap exhausted after %d doublings (budget=%d, "
+        "%d/%d queries overflowed); escalating to a full linear scan "
+        "(n=%d)", max_doublings, budget,
+        int((~res.exact).sum()), ys.shape[0], index.n)
+    ids, dists = _brute_force_live(index, ys, k)
+    res = SearchResult(ids=ids, dists=dists,
+                       exact=torch.ones(ys.shape[0], dtype=torch.bool,
+                                        device=dev),
+                       num_candidates=res.num_candidates)
+    return done(res, max_doublings, scan=True)
+
+
+def _scan_topk(rows: Tensor, ys: Tensor, k: int, family,
+               live: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Exact D_f of every row for each query, then the k smallest (stable:
+    ties to the lower row).  One query at a time, so the temporaries are
+    (n, d), not (q, n, d)."""
+    ids, dists = [], []
+    for y in ys:
+        dist = family.distance(rows, y[None, :])
+        if live is not None:
+            dist = torch.where(live, dist, POS_BIG)
+        sv, order = torch.sort(dist, stable=True)
+        ids.append(order[:k])
+        dists.append(sv[:k])
+    return torch.stack(ids), torch.stack(dists)
+
+
+def _brute_force_live(index: BallForest, ys: Tensor, k: int):
+    """Linear scan over the live rows (``point_ids >= 0``) of an index."""
+    idx, dists = _scan_topk(index.data, ys, k, index.family,
+                            live=index.point_ids >= 0)
+    return index.point_ids[idx], dists
+
+
+def brute_force_knn(data, y, k: int, family, device="cuda"):
+    """Linear-scan oracle.  ``y`` (d,) gives ((k,) ids, (k,) dists); a
+    (q, d) batch gives ((q, k), (q, k))."""
+    dev = resolve_device(device)
+    fam = get_family(family) if isinstance(family, str) else family
+    rows = torch.as_tensor(data, dtype=torch.float32, device=dev)
+    ys = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    if ys.ndim == 1:
+        idx, dists = _scan_topk(rows, ys[None], k, fam)
+        return idx[0], dists[0]
+    return _scan_topk(rows, ys, k, fam)

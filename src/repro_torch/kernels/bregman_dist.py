@@ -1,0 +1,55 @@
+"""CUDA refine kernel — exact Bregman distances of gathered candidate rows.
+
+    D_f(x, y) = sum_j phi(x_j)  -  x . phi'(y)  +  c_y
+
+Replaces ``src/repro/kernels/bregman_dist.py::bregman_refine_batch`` and
+its q=1 wrapper ``bregman_refine``.  Bound by bytes on the H100 (each
+candidate row is read once): the kernel (``csrc/bregman_dist.cu``) gives
+one warp to each (query, row) pair, its lanes stride over d in coalesced
+reads, and a warp-shuffle reduction takes the place of the TPU grid's
+sequential d-tile accumulator.  phi is chosen per family at compile time,
+with log arguments guarded at 1e-30.  Plain version:
+``ref.bregman_refine_batch``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# Family ids of the kernel's template switch (csrc/bregman_dist.cu).
+FAMILY_IDS = {"squared_euclidean": 0, "itakura_saito": 1, "exponential": 2,
+              "burg": 3, "shannon": 4}
+
+# Launches of the kernel in this process (read and reset by chip_smoke.py).
+launches = 0
+
+
+def bregman_refine_batch(rows: torch.Tensor, grad: torch.Tensor,
+                         c_y: torch.Tensor, family: str) -> torch.Tensor:
+    """Exact D_f(rows[q, i], y_q) -> (q, b); rows (q, b, d), grad (q, d),
+    c_y (q,), contiguous fp32 on one CUDA device; ``family`` a canonical
+    family name."""
+    global launches
+    if family not in FAMILY_IDS:
+        raise ValueError(f"unknown Bregman family {family!r}")
+    q, b, d = rows.shape
+    _build.expect(rows, "rows", (q, b, d))
+    _build.expect(grad, "grad", (q, d))
+    _build.expect(c_y, "c_y", (q,))
+    dev = _build.same_device(rows, grad, c_y)
+    out = torch.empty((q, b), dtype=torch.float32, device=dev)
+    err = _build.library().brk_refine_batch(
+        rows.data_ptr(), grad.data_ptr(), c_y.data_ptr(), out.data_ptr(),
+        q, b, d, FAMILY_IDS[family], dev.index, _build.stream_of(dev))
+    _build.check(err, "bregman_refine_batch")
+    launches += 1
+    return out
+
+
+def bregman_refine(rows: torch.Tensor, grad: torch.Tensor, c_y: torch.Tensor,
+                   family: str) -> torch.Tensor:
+    """Exact D_f(rows[i], y) -> (b,): the q=1 slice of the batch kernel."""
+    return bregman_refine_batch(rows[None], grad[None].contiguous(),
+                                c_y.reshape(1).contiguous(), family)[0]

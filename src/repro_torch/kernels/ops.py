@@ -1,0 +1,73 @@
+"""Kernel dispatch by the operands' device (port of ``repro.kernels.ops``).
+
+A CUDA tensor launches the hand-written kernel (and raises if it cannot);
+a CPU tensor runs the plain PyTorch version in ``ref``.  Nothing else
+selects the path: no environment switch, no fallback from the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.bregman import get_family
+from . import bregman_dist as _dist
+from . import bregman_fused as _fused
+from . import bregman_ub as _ub
+from . import ref
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta):
+    """(n, q) UB totals for a query batch: (n,M)x2, (q,M)x2 -> (n,q)."""
+    if not _on_cuda(alpha):
+        return ref.bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta)
+    return _ub.bregman_ub_matrix(alpha, sqrt_gamma,
+                                 torch.sum(qconst, dim=-1), sqrt_delta)
+
+
+def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
+                               sqrt_delta, qb):
+    """Fused filter UB + Theorem-3 admit for a row block -> (ub, admit)."""
+    if qconst.ndim != 2 or sqrt_delta.ndim != 2 or qb.ndim != 2:
+        raise ValueError(
+            "bregman_filter_prune_block wants (q, M) query operands, got "
+            f"{tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}/"
+            f"{tuple(qb.shape)}")
+    if alpha.shape != amin.shape:
+        raise ValueError(
+            "filter and corner tables must share (n, M), got "
+            f"{tuple(alpha.shape)} vs {tuple(amin.shape)}")
+    if not _on_cuda(alpha):
+        return ref.bregman_filter_prune(alpha, sqrt_gamma, amin, gmax,
+                                        qconst, sqrt_delta, qb)
+    return _fused.bregman_filter_prune(alpha, sqrt_gamma, amin, gmax,
+                                       torch.sum(qconst, dim=-1), qconst,
+                                       sqrt_delta, qb)
+
+
+def bregman_refine_batch(rows, grad, c_y, family: str):
+    """Per-query exact distances.  (q,b,d),(q,d),(q,) -> (q,b)."""
+    if rows.ndim != 3 or grad.ndim != 2:
+        raise ValueError(
+            "bregman_refine_batch wants (q,b,d)/(q,d), got "
+            f"{tuple(rows.shape)}/{tuple(grad.shape)}; use bregman_refine "
+            "for one query")
+    name = get_family(family).name
+    if not _on_cuda(rows):
+        return ref.bregman_refine_batch(rows, grad, c_y, name)
+    return _dist.bregman_refine_batch(rows, grad, c_y, name)
+
+
+def bregman_refine(rows, grad, c_y, family: str):
+    """Exact distances for one query's rows.  (b,d),(d,),() -> (b,)."""
+    name = get_family(family).name
+    if not _on_cuda(rows):
+        return ref.bregman_refine(rows, grad, c_y, name)
+    return _dist.bregman_refine(rows, grad, c_y, name)

@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the CUDA kernels (the correctness ground truth).
+
+Each function mirrors its kernel's arithmetic.  A wrapper in ``ops`` runs
+these for tensors on the CPU; ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def bregman_ub_matrix(alpha: Tensor, sqrt_gamma: Tensor, qconst: Tensor,
+                      sqrt_delta: Tensor) -> Tensor:
+    """UB totals for a query batch.  (n,M),(n,M),(q,M),(q,M) -> (n,q)."""
+    return (torch.sum(alpha, -1)[:, None] + torch.sum(qconst, -1)[None, :]
+            + sqrt_gamma @ sqrt_delta.T)
+
+
+def bregman_prune_mask(amin: Tensor, gmax: Tensor, qconst: Tensor,
+                       sqrt_delta: Tensor, qb: Tensor) -> Tensor:
+    """Theorem-3 per-point admit mask.  (n,M)x2, (q,M)x3 -> (n,q) int32.
+
+    Admit point x for query y iff SOME subspace's cluster lower bound
+    ``amin + qconst - gmax * sqrt_delta`` (each operation rounded on its
+    own, no fused multiply-add) is within that subspace's bound ``qb``.
+    """
+    lb = (amin[:, :, None] + qconst.T[None, :, :]
+          - gmax[:, :, None] * sqrt_delta.T[None, :, :])     # (n, M, q)
+    return torch.any(lb <= qb.T[None, :, :], dim=1).to(torch.int32)
+
+
+def bregman_filter_prune(alpha: Tensor, sqrt_gamma: Tensor, amin: Tensor,
+                         gmax: Tensor, qconst: Tensor, sqrt_delta: Tensor,
+                         qb: Tensor) -> tuple[Tensor, Tensor]:
+    """Fused filter+prune: (ub (n, q) f32, admit (n, q) int32)."""
+    return (bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta),
+            bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb))
+
+
+def _log_guarded(x: Tensor) -> Tensor:
+    return torch.log(torch.clamp(x, min=1e-30))
+
+
+# The generators the refine kernel evaluates, with log arguments guarded
+# at 1e-30 (equal to the family's phi inside its domain).
+PHIS = {
+    "squared_euclidean": lambda x: 0.5 * x * x,
+    "itakura_saito": lambda x: -_log_guarded(x),
+    "exponential": torch.exp,
+    "burg": lambda x: x - _log_guarded(x),
+    "shannon": lambda x: x * _log_guarded(x),
+}
+
+
+def bregman_refine_batch(rows: Tensor, grad: Tensor, c_y: Tensor,
+                         family: str) -> Tensor:
+    """Exact D_f per query's candidate rows.  (q,b,d),(q,d),(q,) -> (q,b)."""
+    fx = torch.sum(PHIS[family](rows), dim=-1)                    # (q, b)
+    cross = torch.einsum("qbd,qd->qb", rows, grad)
+    return fx - cross + c_y[:, None]
+
+
+def bregman_refine(rows: Tensor, grad: Tensor, c_y: Tensor,
+                   family: str) -> Tensor:
+    """Exact D_f for one query's rows.  (b,d),(d,),() -> (b,)."""
+    return bregman_refine_batch(rows[None], grad[None], c_y.reshape(1),
+                                family)[0]

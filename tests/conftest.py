@@ -17,6 +17,8 @@ def pytest_configure(config):
         "markers",
         "timeout(seconds): per-test time limit (no-op unless pytest-timeout "
         "is installed)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips where there is none")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,105 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points run on the card unless the caller asks for the CPU, and
+chip_smoke.py refuses to run without a card or outside a checkout."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core.index as tidx
+import repro_torch.core.search as tsearch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> list:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for name in _imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    rng = np.random.default_rng(0)
+    data = (np.abs(rng.normal(size=(96, 6))) + 0.1).astype(np.float32)
+    return data, data[:3]
+
+
+def test_entry_points_default_to_the_card(no_card):
+    data, queries = _small()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tidx.build_index(data, "burg", m=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsearch.brute_force_knn(data, queries, 3, "burg")
+    forest = tidx.build_index(data, "burg", m=2, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsearch.knn_batch(forest, queries, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsearch.knn_search_batch(forest, queries, 3, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tidx.forest_from_numpy(
+            tidx.forest_to_numpy(forest), family_name="burg",
+            partition_idx=forest.partition.idx,
+            partition_mask=forest.partition.mask, d=6,
+            num_clusters=forest.num_clusters)
+    assert bool(tsearch.knn_batch(forest, queries, 3, device="cpu")
+                .exact.all())
+
+
+def test_search_runs_on_the_cpu_or_the_card_only():
+    data, queries = _small()
+    forest = tidx.build_index(data, "burg", m=2, device="cpu")
+    with pytest.raises(ValueError, match="must be a cuda or cpu device"):
+        tsearch.knn_batch(forest, queries, 3, device="meta")
+
+
+def _run_smoke(cwd: Path, *args):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+def test_chip_smoke_refuses_without_a_card_or_a_checkout(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    for cwd, args in ((REPO, ()), (tmp_path, ()),
+                      (tmp_path, ("--cpu-rehearsal",))):
+        proc = _run_smoke(cwd, *args)
+        assert proc.returncode != 0, (cwd, args)
+        assert '"ok"' not in proc.stdout, (cwd, args)
+
+
+def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
+    proc = _run_smoke(REPO, "--cpu-rehearsal", "--rehearsal-n", "300",
+                      "--out", str(tmp_path / "record.json"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
+    assert lines[-2].startswith('{"kernels": [')
+    assert "ids match brute force" in proc.stdout
+    assert (tmp_path / "record.json").exists()
