@@ -9,16 +9,21 @@ Run from the root of a checkout:
 Phases:
 
 1. The card's name and power limit (nvidia-smi), TF32 off, and the build of
-   the three CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
+   the six CUDA kernels (three sources, fp32 and int8 entry points) from
+   src/repro_torch/kernels/csrc with nvcc.
 2. Each kernel against its plain PyTorch version on the card at ragged
-   shapes, and the whole search on the card against the same search on the
-   CPU for every Bregman family on a small index.
+   shapes (admit masks bit-equal); the int8 quantizer on the card against
+   the CPU's, bit for bit; and the whole search on the card against the
+   same search on the CPU for every Bregman family on a small index, in
+   both storage tiers.
 3. Audio (n=54,387, d=192, exponential) and 4. Deep (n=1,000,000, d=256,
-   exponential), from PAPER_DATASETS at full size: ``build_index`` with
-   m=None (Theorem 4) and PCCP, then ``knn_batch`` on 50 queries with
-   k=10.  Every kernel's launch count is set to 0 just before the search
-   and read just after; each must be above 0.  The ids are held against
-   ``brute_force_knn`` on the card.  Each kernel is then held against its
+   exponential), from PAPER_DATASETS at full size, each in the fp32 tier
+   and then the int8 tier: ``build_index`` with m=None (Theorem 4), PCCP
+   and ``quantize``, then ``knn_batch`` on 50 queries with k=10.  Every
+   kernel's launch count is set to 0 just before the search and read just
+   after; each kernel of the tier must be above 0 and the other tier's at
+   0.  The ids are held against ``brute_force_knn`` over the index's point
+   set (``rows_view``) on the card.  Each kernel is then held against its
    plain version, and timed with CUDA events beside its bound, at the
    shapes that search gave it.
 5. The last line is ``{"ok": true, "device": {...}}``.
@@ -83,9 +88,15 @@ class Smoke:
         from repro_torch.kernels import (bregman_dist, bregman_fused,
                                          bregman_ub, ref)
         self.ref = ref
-        self.wrappers = {"bregman_ub_matrix": bregman_ub,
-                         "bregman_filter_prune": bregman_fused,
-                         "bregman_refine_batch": bregman_dist}
+        # Each kernel's wrapper module and launch counter.
+        self.counters = {
+            "bregman_ub_matrix": (bregman_ub, "launches"),
+            "bregman_filter_prune": (bregman_fused, "launches"),
+            "bregman_refine_batch": (bregman_dist, "launches"),
+            "bregman_ub_matrix_quant": (bregman_ub, "launches_quant"),
+            "bregman_filter_prune_quant": (bregman_fused, "launches_quant"),
+            "bregman_refine_batch_quant": (bregman_dist, "launches_quant"),
+        }
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -93,11 +104,12 @@ class Smoke:
             self.torch.cuda.synchronize()
 
     def reset_launches(self) -> None:
-        for mod in self.wrappers.values():
-            mod.launches = 0
+        for mod, attr in self.counters.values():
+            setattr(mod, attr, 0)
 
     def launches(self) -> dict:
-        return {name: mod.launches for name, mod in self.wrappers.items()}
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.counters.items()}
 
     def time_calls(self, calls, reps: int) -> float | None:
         """Device ms of one call in ``calls`` (zero-argument callables),
@@ -143,19 +155,26 @@ class Smoke:
 
     def kernel(self, name: str):
         """The CUDA wrapper on the card; the plain version in a rehearsal,
-        where no kernel can run."""
+        where no kernel can run.  Each is called with its wrapper's
+        arguments, the UB kernels with ``qconst`` appended (the plain
+        versions take it in place of ``qsum``)."""
         if self.rehearsal:
             from repro_torch.kernels import ops
-            return {"bregman_ub_matrix": lambda a, sg, qsum, sd, qc:
-                    ops.bregman_ub_matrix(a, sg, qc, sd),
-                    "bregman_filter_prune": lambda a, sg, am, gm, qsum, qc,
-                    sd, qb: ops.bregman_filter_prune_block(a, sg, am, gm, qc,
-                                                           sd, qb),
-                    "bregman_refine_batch": ops.bregman_refine_batch}[name]
-        mod = self.wrappers[name]
-        if name == "bregman_ub_matrix":
-            return lambda a, sg, qsum, sd, qc: mod.bregman_ub_matrix(
-                a, sg, qsum, sd)
+            return {"bregman_ub_matrix": lambda *a:
+                    ops.bregman_ub_matrix(*a[:2], a[-1], a[3]),
+                    "bregman_ub_matrix_quant": lambda *a:
+                    ops.bregman_ub_matrix_quant(*a[:6], a[-1], a[7]),
+                    "bregman_filter_prune": lambda *a:
+                    ops.bregman_filter_prune_block(*a[:4], *a[5:]),
+                    "bregman_filter_prune_quant": lambda *a:
+                    ops.bregman_filter_prune_block_quant(*a[:12], a[13],
+                                                         a[14], a[16]),
+                    "bregman_refine_batch": ops.bregman_refine_batch,
+                    "bregman_refine_batch_quant":
+                    ops.bregman_refine_batch_quant}[name]
+        mod = self.counters[name][0]
+        if name.startswith("bregman_ub_matrix"):
+            return lambda *a: getattr(mod, name)(*a[:-1])
         return getattr(mod, name)
 
     # -- phase 1 -------------------------------------------------------
@@ -190,44 +209,57 @@ class Smoke:
 
     # -- kernel comparisons -------------------------------------------
     def compare_filter(self, blocks, qs, qb, time_it: bool) -> dict:
-        """Kernels 1 and 3 against their plain versions over ``blocks``
-        (a list of (alpha, sg, amin, gmax) row blocks) for one query
-        batch; with ``time_it``, per-launch times and bounds too."""
+        """The UB kernel and the fused filter+prune kernel of a tier
+        against their plain versions over ``blocks`` (row blocks of
+        ``(alpha, sg, amin, gmax)``, or in the int8 tier the codes each
+        followed by its scale and zero-point) for one query batch; with
+        ``time_it``, per-launch times and bounds too."""
         torch, ref = self.torch, self.ref
+        quant = len(blocks[0]) == 12
+        nf = 6 if quant else 2
+        sfx = "_quant" if quant else ""
+        ub_ref = getattr(ref, "bregman_ub_matrix" + sfx)
+        fp_ref = getattr(ref, "bregman_filter_prune" + sfx)
         qc, sd = qs["qconst"], qs["sqrt_delta"]
         qsum = torch.sum(qc, dim=-1)
-        ub_k, fp_k = (self.kernel("bregman_ub_matrix"),
-                      self.kernel("bregman_filter_prune"))
+        # The query operands of each wrapper after its point tables.
+        if quant:
+            sdsum = torch.sum(sd, dim=-1)
+            ub_q, fp_q = (qsum, sd, sdsum, qc), (qsum, qc, sd, sdsum, qb)
+        else:
+            ub_q, fp_q = (qsum, sd, qc), (qsum, qc, sd, qb)
+        ub_k, fp_k = (self.kernel("bregman_ub_matrix" + sfx),
+                      self.kernel("bregman_filter_prune" + sfx))
         err_ub = err_fp = worst = 0.0
         over_ub = over_fp = 0.0
         admits = 0
-        for a, sg, am, gm in blocks:
+        for blk in blocks:
+            filt = blk[:nf]
             # fp32 sums in another order: M + 2 terms, each off by at most
             # (M + 2) * eps of the magnitude of the summed terms.
-            scale = (a.abs().sum(-1)[:, None] + qc.abs().sum(-1)[None, :]
-                     + sg @ sd.T)
-            tol = (a.shape[1] + 2) * EPS32 * scale
+            scale = ub_term_scale(torch, filt, qc, sd)
+            tol = (blk[0].shape[1] + 2) * EPS32 * scale
             worst = max(worst, float(scale.max()))
-            want = ref.bregman_ub_matrix(a, sg, qc, sd)
-            got = ub_k(a, sg, qsum, sd, qc)
+            want = ub_ref(*filt, qc, sd)
+            got = ub_k(*filt, *ub_q)
             self.sync()
             diff = (got - want).abs()
             expect(bool((diff <= tol).all()),
-                   f"bregman_ub_matrix disagrees: max |diff| "
-                   f"{float(diff.max())} at shape {tuple(a.shape)}x{qc.shape[0]}")
+                   f"bregman_ub_matrix{sfx} disagrees: max |diff| "
+                   f"{float(diff.max())} at shape {tuple(blk[0].shape)}x"
+                   f"{qc.shape[0]}")
             err_ub = max(err_ub, float(diff.max()))
             over_ub = max(over_ub, err_over_tol(diff, tol))
-            want_ub, want_admit = ref.bregman_filter_prune(a, sg, am, gm, qc,
-                                                           sd, qb)
-            got_ub, got_admit = fp_k(a, sg, am, gm, qsum, qc, sd, qb)
+            want_ub, want_admit = fp_ref(*blk, qc, sd, qb)
+            got_ub, got_admit = fp_k(*blk, *fp_q)
             self.sync()
             diff = (got_ub - want_ub).abs()
             expect(bool((diff <= tol).all()),
-                   f"bregman_filter_prune ub disagrees: max |diff| "
+                   f"bregman_filter_prune{sfx} ub disagrees: max |diff| "
                    f"{float(diff.max())}")
             expect(got_admit.dtype == torch.int32
                    and bool(torch.equal(got_admit, want_admit)),
-                   f"bregman_filter_prune admit mask is not bit-equal "
+                   f"bregman_filter_prune{sfx} admit mask is not bit-equal "
                    f"({int((got_admit != want_admit).sum())} of "
                    f"{got_admit.numel()} differ)")
             err_fp = max(err_fp, float(diff.max()))
@@ -248,57 +280,94 @@ class Smoke:
         def each(fn):
             return [lambda blk=blk: fn(*blk) for blk in blocks]
 
+        if quant:
+            from repro_torch.core.quantize import dequantize_stats
+
+            def library(*blk):
+                return torch.addmm(dequantize_stats(*blk[:3]).sum(
+                    -1, keepdim=True) + qsum, dequantize_stats(*blk[3:6]),
+                    sd.T)
+        else:
+            def library(*blk):
+                return torch.addmm(blk[0].sum(-1, keepdim=True) + qsum,
+                                   blk[1], sd.T)
         out["ub"] = self.time_calls(
-            each(lambda a, sg, am, gm: ub_k(a, sg, qsum, sd, qc)), reps)
+            each(lambda *blk: ub_k(*blk[:nf], *ub_q)), reps)
         out["ub_plain"] = self.time_calls(
-            each(lambda a, sg, am, gm: ref.bregman_ub_matrix(a, sg, qc, sd)),
-            reps)
-        out["ub_library"] = self.time_calls(
-            each(lambda a, sg, am, gm: torch.addmm(
-                a.sum(-1, keepdim=True) + qsum, sg, sd.T)), reps)
+            each(lambda *blk: ub_ref(*blk[:nf], qc, sd)), reps)
+        out["ub_library"] = self.time_calls(each(library), reps)
         out["fp"] = self.time_calls(
-            each(lambda *blk: fp_k(*blk, qsum, qc, sd, qb)), reps)
+            each(lambda *blk: fp_k(*blk, *fp_q)), reps)
         out["fp_plain"] = self.time_calls(
-            each(lambda *blk: ref.bregman_filter_prune(*blk, qc, sd, qb)),
-            reps)
-        # Per launch: each input read once, each output written once.
-        ub_bytes = 4 * (2 * bn * m + q + q * m + bn * q)
+            each(lambda *blk: fp_ref(*blk, qc, sd, qb)), reps)
+        # Per launch: each input read once, each output written once.  A
+        # table element is 1 byte of code in the int8 tier, each row adds
+        # its fp32 decode pair (scale, zp) per table.
+        elem = 1 if quant else 4
+        per_row = 8 if quant else 0
+        ub_bytes = (2 * (elem * bn * m + per_row * bn) + 4 * (q + q * m)
+                    + 4 * bn * q)
         ub_ops = bn * q * (2 * m + 2) + bn * m
-        fp_bytes = 4 * (4 * bn * m + q + 3 * q * m) + 8 * bn * q
+        fp_bytes = (4 * (elem * bn * m + per_row * bn)
+                    + 4 * (q + 3 * q * m) + 8 * bn * q)
         fp_ops = ub_ops + 4 * bn * q * m     # add, mul, sub, compare
+        if quant:
+            # The per-output decode of the factored sums; the corners'
+            # multiply and add per element.
+            ub_ops += 6 * bn * q
+            fp_ops += 6 * bn * q + 4 * bn * m
         out["ub_bound"] = bound(ub_bytes, ub_ops)
         out["fp_bound"] = bound(fp_bytes, fp_ops)
         out["shape"] = [bn, m, q, nb]
         return out
 
-    def compare_refine(self, rows, grad, c_y, family: str,
+    def compare_refine(self, operands: tuple, grad, c_y, family: str,
                        time_it: bool) -> dict:
-        """Kernel 7 against its plain version on (q, b, d) rows."""
-        ref = self.ref
-        got = self.kernel("bregman_refine_batch")(rows, grad, c_y, family)
-        want = ref.bregman_refine_batch(rows, grad, c_y, family)
+        """The refine kernel of a tier against its plain version on
+        ``operands``: ``(rows,)`` fp32 (q, b, d), or in the int8 tier
+        ``(codes, scale, zp)``."""
+        torch, ref = self.torch, self.ref
+        quant = len(operands) == 3
+        name = "bregman_refine_batch" + ("_quant" if quant else "")
+        plain = getattr(ref, name)
+        got = self.kernel(name)(*operands, grad, c_y, family)
+        want = plain(*operands, grad, c_y, family)
         self.sync()
-        tol = refine_tolerance(self.torch, rows, grad, c_y, family)
+        q, b, d = operands[0].shape
+        if quant:
+            from repro_torch.core.quantize import dequantize_rows
+            rows = (dequantize_rows(c, s, z, family)
+                    for c, s, z in zip(*operands, strict=True))
+        else:
+            rows = operands[0]
+        tol = refine_tolerance(torch, rows, grad, c_y, family, d)
         diff = (got - want).abs()
         expect(bool((diff <= tol).all()),
-               f"bregman_refine_batch[{family}] disagrees: max |diff| "
-               f"{float(diff.max())} at {tuple(rows.shape)}")
+               f"{name}[{family}] disagrees: max |diff| "
+               f"{float(diff.max())} at {(q, b, d)}")
         out = {"err": float(diff.max()) if diff.numel() else 0.0,
                "err_over_tol": err_over_tol(diff, tol),
-               "term_scale_max": float(tol.max()) / (EPS32 * rows.shape[-1])
+               "term_scale_max": float(tol.max()) / (EPS32 * d)
                if tol.numel() else 0.0}
         if time_it:
-            q, b, d = rows.shape
             reps = 5 if q * b * d > 1e8 else 20
             out["kernel"] = self.time_calls(
-                [lambda: self.kernel("bregman_refine_batch")(
-                    rows, grad, c_y, family)], reps)
-            out["plain"] = self.time_calls(
-                [lambda: ref.bregman_refine_batch(rows, grad, c_y, family)],
+                [lambda: self.kernel(name)(*operands, grad, c_y, family)],
                 reps)
-            # phi, its sum, and the multiply-add of x . grad per element.
-            out["bound"] = bound(4 * (q * b * d + q * d + q + q * b),
-                                 4 * q * b * d)
+            out["plain"] = self.time_calls(
+                [lambda: plain(*operands, grad, c_y, family)], reps)
+            # phi, its sum, and the multiply-add of x . grad per element;
+            # in the int8 tier the decode's multiply and add (and the
+            # domain clamp) too.  Rows are 1-byte codes plus a (scale, zp)
+            # pair there.
+            if quant:
+                positive = family in ("itakura_saito", "burg", "shannon")
+                nbytes = q * b * d + 4 * (2 * q * b + q * d + q + q * b)
+                ops = (6 + positive) * q * b * d
+            else:
+                nbytes = 4 * (q * b * d + q * d + q + q * b)
+                ops = 4 * q * b * d
+            out["bound"] = bound(nbytes, ops)
             out["shape"] = [q, b, d]
         return out
 
@@ -318,6 +387,21 @@ class Smoke:
                    f"ragged filter inputs {n, m, q} gave an unmixed mask")
             say(f"ragged filter {n}x{m}x{q}: ub err {r['ub_err']:.3g}, "
                 f"admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
+        # The int8 filter: codes reaching -128 and 127, a constant row
+        # (scale 0) and an exact tie at qb in row 0.
+        for n, m, q in [(4133, 37, 50), (4133, 1, 1), (31, 70, 33),
+                        (31, 37, 1)]:
+            *tables, qc, sd, qb = [
+                t.to(self.dev)
+                for t in filter_inputs_quant(torch, n, m, q, seed=n + m)]
+            r = self.compare_filter([tuple(tables)],
+                                    {"qconst": qc, "sqrt_delta": sd}, qb,
+                                    time_it=False)
+            expect(0 < r["admitted"] < r["pairs"] or r["pairs"] < 64,
+                   f"ragged int8 filter inputs {n, m, q} gave an unmixed mask")
+            say(f"ragged int8 filter {n}x{m}x{q}: max_err_over_tol ub "
+                f"{r['ub_err_over_tol']:.3g} fused {r['fp_err_over_tol']:.3g}"
+                f", admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
         gen = torch.Generator().manual_seed(0)
         for q, b, d in [(1, 1, 1), (3, 77, 33), (50, 130, 257)]:
             for family in family_names():
@@ -325,76 +409,141 @@ class Smoke:
                 rows = positive_or_not(torch, (q, b, d), fam, gen)
                 ys = positive_or_not(torch, (q, d), fam, gen)
                 c = query_refine_constants(ys, fam)
-                r = self.compare_refine(rows.to(self.dev),
+                r = self.compare_refine((rows.to(self.dev),),
                                         c["grad"].to(self.dev),
                                         c["c_y"].to(self.dev), family,
                                         time_it=False)
             say(f"ragged refine {q}x{b}x{d}: all families agree "
                 f"(last err {r['err']:.3g})")
+        for q, b, d in [(1, 1, 1), (33, 31, 33), (50, 130, 257)]:
+            over = 0.0
+            for family in family_names():
+                fam = get_family(family)
+                codes, scale, zp = quant_table(torch, q * b, d, gen)
+                if fam.domain_low == 0.0:
+                    zp = zp.abs() * 2.0          # some decoded values clamp
+                c = query_refine_constants(
+                    positive_or_not(torch, (q, d), fam, gen), fam)
+                r = self.compare_refine(
+                    (codes.reshape(q, b, d).to(self.dev),
+                     scale.reshape(q, b).to(self.dev),
+                     zp.reshape(q, b).to(self.dev)),
+                    c["grad"].to(self.dev), c["c_y"].to(self.dev), family,
+                    time_it=False)
+                over = max(over, r["err_over_tol"])
+            say(f"ragged int8 refine {q}x{b}x{d}: all families agree "
+                f"(max_err_over_tol {over:.3g})")
+        self.phase_quantizer()
         self.phase_cross_device()
+
+    def phase_quantizer(self) -> None:
+        """``quantize_rows``, ``dequantize_rows`` and ``encode_stat_tables``
+        on the card give the CPU's codes, scales and zero-points bit for
+        bit, for every family, constant rows included."""
+        torch = self.torch
+        from repro_torch.core import quantize as qz
+        from repro_torch.core.bregman import family_names, get_family
+        gen = torch.Generator().manual_seed(2)
+        for family in family_names():
+            x = positive_or_not(torch, (2000, 96), get_family(family),
+                                gen) * 3.0
+            x[7] = x[7, 0]
+            stats = [torch.randn((2000, 37), generator=gen)
+                     * 10.0 ** torch.randint(-3, 4, (2000, 1), generator=gen)
+                     for _ in range(4)]
+            stats[0][3] = 1.5
+            cpu = qz.quantize_rows(x)
+            card = qz.quantize_rows(x.to(self.dev))
+            got = dict(zip(("codes", "scale", "zp"), card, strict=True))
+            want = dict(zip(("codes", "scale", "zp"), cpu, strict=True))
+            got["rows"] = qz.dequantize_rows(*card, family)
+            want["rows"] = qz.dequantize_rows(*cpu, family)
+            got.update(qz.encode_stat_tables(*(t.to(self.dev)
+                                               for t in stats)))
+            want.update(qz.encode_stat_tables(*stats))
+            for key, w in want.items():
+                expect(bool(torch.equal(got[key].cpu(), w)),
+                       f"quantizer[{family}] {key} on the card differs from "
+                       "the CPU's")
+        say("quantizer: codes, scales, zero-points and decoded rows on the "
+            "card == on the CPU, bit for bit, for all families")
 
     def phase_cross_device(self) -> None:
         """The whole search on the card against the same search on the
-        CPU (plain versions), every family, one small index."""
+        CPU (plain versions), every family, one small index per tier."""
         torch = self.torch
         from repro_torch.core import index as tidx
         from repro_torch.core import search as tsearch
         from repro_torch.core.bregman import family_names, get_family
-        gen = torch.Generator().manual_seed(1)
-        for family in family_names():
-            fam = get_family(family)
-            data = positive_or_not(torch, (3000, 24), fam, gen).numpy()
-            forest = tidx.build_index(data, family, m=6, device="cpu")
-            moved = tidx.forest_from_numpy(
-                tidx.forest_to_numpy(forest), family_name=family,
-                partition_idx=forest.partition.idx,
-                partition_mask=forest.partition.mask, d=forest.d,
-                num_clusters=forest.num_clusters, device=self.dev)
-            queries = data[:12] * 1.01
-            want = tsearch.knn_batch(forest, queries, K, budget=64,
-                                     block_rows=512, device="cpu")
-            got = tsearch.knn_batch(moved, queries, K, budget=64,
-                                    block_rows=512, device=self.dev)
-            expect(bool(torch.equal(got.ids.cpu(), want.ids)),
-                   f"{family}: ids on the card differ from the CPU's")
-            expect(bool(torch.allclose(got.dists.cpu(), want.dists,
-                                       rtol=1e-4, atol=1e-4)),
-                   f"{family}: distances on the card differ from the CPU's")
-        say("cross-device: knn_batch on the card == on the CPU for all "
-            "families")
+        for quantize in (False, True):
+            gen = torch.Generator().manual_seed(1)
+            for family in family_names():
+                fam = get_family(family)
+                data = positive_or_not(torch, (3000, 24), fam, gen).numpy()
+                forest = tidx.build_index(data, family, m=6,
+                                          quantize=quantize, device="cpu")
+                moved = tidx.forest_from_numpy(
+                    tidx.forest_to_numpy(forest), family_name=family,
+                    partition_idx=forest.partition.idx,
+                    partition_mask=forest.partition.mask, d=forest.d,
+                    num_clusters=forest.num_clusters,
+                    storage=forest.storage, device=self.dev)
+                queries = data[:12] * 1.01
+                want = tsearch.knn_batch(forest, queries, K, budget=64,
+                                         block_rows=512, device="cpu")
+                got = tsearch.knn_batch(moved, queries, K, budget=64,
+                                        block_rows=512, device=self.dev)
+                tier = forest.storage
+                expect(bool(torch.equal(got.ids.cpu(), want.ids)),
+                       f"{family} {tier}: ids on the card differ from the "
+                       "CPU's")
+                expect(bool(torch.allclose(got.dists.cpu(), want.dists,
+                                           rtol=1e-4, atol=1e-4)),
+                       f"{family} {tier}: distances on the card differ from "
+                       "the CPU's")
+            say(f"cross-device {'int8' if quantize else 'fp32'}: knn_batch "
+                "on the card == on the CPU for all families")
 
     # -- phases 3 and 4 ------------------------------------------------
-    def drive(self, name: str) -> dict:
+    def drive(self, name: str, quantize: bool) -> dict:
         """Build and search one paper dataset at its full n (the
-        rehearsal's n on the CPU); returns its record."""
+        rehearsal's n on the CPU) in one storage tier; returns its
+        record."""
         torch = self.torch
-        from repro_torch.core import bounds
         from repro_torch.core import index as tidx
         from repro_torch.core import search as tsearch
         from repro_torch.data.pipeline import (PAPER_DATASETS, make_queries,
                                                make_vectors)
         spec = PAPER_DATASETS[name]
+        tier = "int8" if quantize else "fp32"
+        label = f"{name} {tier}"
         n = self.args.rehearsal_n if self.rehearsal else spec.n
         scale = n / spec.n
         t0 = time.perf_counter()
         data = make_vectors(spec, scale=scale)
         queries = make_queries(spec, num=NUM_QUERIES, scale=scale, data=data)
-        rec = {"dataset": name, "n": int(data.shape[0]), "d": spec.d,
-               "family": spec.measure, "data_s": time.perf_counter() - t0}
-        say(f"{name}: n={rec['n']} d={spec.d} family={spec.measure}")
+        rec = {"dataset": name, "tier": tier, "n": int(data.shape[0]),
+               "d": spec.d, "family": spec.measure,
+               "data_s": time.perf_counter() - t0}
+        say(f"{label}: n={rec['n']} d={spec.d} family={spec.measure}")
 
         self.sync()
+        self.reset_peak()
         t0 = time.perf_counter()
         forest = tidx.build_index(data, spec.measure, m=None, pccp=True,
-                                  device=self.dev)
+                                  quantize=quantize, device=self.dev)
         self.sync()
         rec["build_s"] = time.perf_counter() - t0
+        rec["build_peak_bytes"] = self.peak()
         rec["m"] = forest.m
         rec["num_clusters"] = forest.num_clusters
+        rec["table_bytes"] = table_bytes(forest)
         ys = torch.as_tensor(queries, device=self.dev)
 
         # Size the query batches so the refine's (q, budget, d) gather
-        # fits: a probe at the default budget gives the unions' sizes.
+        # fits: a probe at the default budget gives the unions' sizes.  The
+        # int8 tier is sized as fp32 is: checking its refine kernel at the
+        # path's shape forms the plain version's fp32 decoded rows.
         probe = tsearch.knn_search_batch(forest, ys, K, None,
                                          device=self.dev)
         need = tsearch.fitted_budget(forest, K,
@@ -405,6 +554,7 @@ class Smoke:
         q_batch = int(max(1, min(NUM_QUERIES,
                                  0.4 * free // (worst * spec.d * 4 * 2))))
         rec["query_batch"] = q_batch
+        del probe
 
         def search():
             outs = [tsearch.knn_batch(forest, ys[s:s + q_batch], K,
@@ -414,14 +564,20 @@ class Smoke:
             return outs
 
         self.reset_launches()
+        self.reset_peak()
         t0 = time.perf_counter()
         outs = search()
         rec["search_first_ms"] = 1e3 * (time.perf_counter() - t0)
         rec["launches"] = self.launches()
+        rec["search_peak_bytes"] = self.peak()
         if not self.rehearsal:
             for kname, count in rec["launches"].items():
-                expect(count > 0, f"{name}: kernel {kname} never launched "
-                       "on the main path")
+                if kname.endswith("_quant") == quantize:
+                    expect(count > 0, f"{label}: kernel {kname} never "
+                           "launched on the main path")
+                else:
+                    expect(count == 0, f"{label}: the other tier's kernel "
+                           f"{kname} launched {count} times")
         steady = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -440,22 +596,28 @@ class Smoke:
         rec["escalations"] = [s.escalations for s in stats]
         rec["budget_final"] = max(s.budget_final for s in stats)
         rec["escalated_to_scan"] = any(s.escalated_to_scan for s in stats)
-        expect(bool(exact.all()), f"{name}: a result is not exact")
+        expect(bool(exact.all()), f"{label}: a result is not exact")
         expect(tuple(ids.shape) == (NUM_QUERIES, K)
                and bool(torch.isfinite(dists).all()),
-               f"{name}: results of the wrong shape or not finite")
+               f"{label}: results of the wrong shape or not finite")
 
-        rec.update(self.check_brute_force(data, ys, ids, dists,
+        # Brute force over the index's own point set, in the data's order
+        # (the decoded rows in the int8 tier; the data in fp32).
+        points = forest.rows_view()[torch.argsort(forest.point_ids.long())]
+        rec.update(self.check_brute_force(points, ys, ids, dists,
                                           spec.measure))
-        say(f"{name}: build {rec['build_s']:.2f} s (M={forest.m}), search "
+        del points
+        say(f"{label}: build {rec['build_s']:.2f} s (M={forest.m}), search "
             f"first {rec['search_first_ms']:.1f} ms, steady "
             f"{rec['search_ms']:.1f} ms per {NUM_QUERIES} queries "
             f"(batches of {q_batch}), mean candidates "
             f"{rec['mean_candidates']:.1f} of {forest.n}, escalations "
             f"{rec['escalations']}, budget {rec['budget_final']}, "
-            f"launches {rec['launches']}, ids match brute force "
-            f"({rec['bf_position_mismatches']} near-tie swaps; its scan "
-            f"took {rec['brute_force_ms']:.1f} ms)")
+            f"launches {rec['launches']}, ids match brute force over "
+            f"rows_view ({rec['bf_position_mismatches']} near-tie swaps; "
+            f"its scan took {rec['brute_force_ms']:.1f} ms)")
+        say(f"{label}: table bytes {rec['table_bytes']}, peak bytes: build "
+            f"{rec['build_peak_bytes']}, search {rec['search_peak_bytes']}")
 
         # Phase breakdown of one batch, each phase ended by a sync.
         ys0 = ys[:q_batch]
@@ -463,8 +625,7 @@ class Smoke:
         self.sync()
         marks = [time.perf_counter()]
         _, idx = tsearch._batch_filter_topk(forest, qs, K, BLOCK_ROWS)
-        qb = bounds.ub_components(tsearch._tuple_rows(forest, idx[:, -1]),
-                                  qs)
+        qb = tsearch.searching_bounds(forest, qs, idx)
         self.sync()
         marks.append(time.perf_counter())
         sel, valid, _, _, blocks_run, _ = \
@@ -472,7 +633,11 @@ class Smoke:
                                           rec["budget_final"], BLOCK_ROWS)
         self.sync()
         marks.append(time.perf_counter())
-        rows = forest.data[sel]
+        if quantize:
+            operands = (forest.data[sel], forest.data_scale[sel],
+                        forest.data_zp[sel])
+        else:
+            operands = (forest.data[sel],)
         self.sync()
         marks.append(time.perf_counter())
         tsearch._refine_batch(forest, qs, sel, valid, K)
@@ -481,34 +646,43 @@ class Smoke:
         rec["phases_ms"] = {
             key: 1e3 * (marks[i + 1] - marks[i]) for i, key in enumerate(
                 ("filter", "prune_compact", "gather", "gather_refine_topk"))}
-        nb = -(-forest.n // BLOCK_ROWS)
+        bn, nb = tsearch._block_layout(forest.n, BLOCK_ROWS)
         rec["blocks_run"] = blocks_run
         rec["num_blocks"] = nb
-        say(f"{name}: phases (ms, batch of {q_batch}) "
+        say(f"{label}: phases (ms, batch of {q_batch}) "
             + ", ".join(f"{k}={v:.2f}" for k, v in rec["phases_ms"].items())
             + f"; prune ran {blocks_run} of {nb} blocks")
         rec["profile"] = self.profile(search, rec["search_ms"])
-        say(f"{name}: device busy {rec['profile']['busy_share']} of the "
+        say(f"{label}: device busy {rec['profile']['busy_share']} of the "
             f"unprofiled search")
 
         # The kernels at the shapes this search gave them.
-        blocks = [(forest.alpha[s:s + BLOCK_ROWS],
-                   forest.sqrt_gamma[s:s + BLOCK_ROWS],
-                   forest.alpha_min_pt[s:s + BLOCK_ROWS],
-                   forest.sqrt_gamma_max_pt[s:s + BLOCK_ROWS])
-                  for s in range(0, forest.n, BLOCK_ROWS)]
+        blocks = [f + c for f, c in zip(
+            tsearch._filter_blocks(forest, bn, nb),
+            tsearch._corner_blocks(forest, bn, nb), strict=True)]
         rec["filter_kernels"] = self.compare_filter(blocks, qs, qb,
                                                     time_it=True)
         rec["refine_kernel"] = self.compare_refine(
-            rows, qs["grad"], qs["c_y"], forest.family_name, time_it=True)
-        del rows, sel, valid
-        say(f"{name}: kernels agree at the path's shapes: filter "
+            operands, qs["grad"], qs["c_y"], forest.family_name,
+            time_it=True)
+        del operands, sel, valid, blocks
+        say(f"{label}: kernels agree at the path's shapes: filter "
             + json.dumps(rec["filter_kernels"]) + " refine "
             + json.dumps(rec["refine_kernel"]))
         del forest
         if not self.rehearsal:
             torch.cuda.empty_cache()
         return rec
+
+    def reset_peak(self) -> None:
+        if not self.rehearsal:
+            self.torch.cuda.reset_peak_memory_stats()
+
+    def peak(self):
+        """Peak device bytes since :meth:`reset_peak` (None on the CPU)."""
+        if self.rehearsal:
+            return None
+        return self.torch.cuda.max_memory_allocated()
 
     def check_brute_force(self, data, ys, ids, dists, family: str) -> dict:
         """Ids against ``brute_force_knn`` on the card.  A position may
@@ -580,40 +754,46 @@ class Smoke:
         t_start = time.perf_counter()
         self.phase_card_and_build()
         self.phase_ragged()
-        self.record["audio"] = self.drive("audio")
-        self.record["deep"] = self.drive("deep")
-        self.record["kernels"] = self.kernel_table(self.record["deep"])
+        for name in ("audio", "deep"):
+            self.record[name] = self.drive(name, quantize=False)
+            self.record[name + "_int8"] = self.drive(name, quantize=True)
+        self.record["kernels"] = (self.kernel_table(self.record["deep"])
+                                  + self.kernel_table(self.record["deep_int8"]))
         self.record["seconds"] = time.perf_counter() - t_start
         return self.record
 
     def kernel_table(self, rec: dict) -> list:
+        """The kernel JSON rows of one tier's Deep record."""
         fk, rk = rec["filter_kernels"], rec["refine_kernel"]
         src = "src/repro_torch/kernels/csrc/"
+        sfx = "_quant" if rec["tier"] == "int8" else ""
+        lines = {"bregman_ub_matrix": ("bregman_ub.py:62", "bregman_ub.py:141"),
+                 "bregman_filter_prune": ("bregman_fused.py:144",
+                                          "bregman_fused.py:235"),
+                 "bregman_refine_batch": ("bregman_dist.py:106",
+                                          "bregman_dist.py:184")}
 
-        def entry(name, source, replaces, err, over, ms, plain, bnd,
-                  library):
-            return {"name": name, "route": "cuda", "source": src + source,
-                    "replaces": replaces,
-                    "launches": rec["launches"][name], "max_abs_err": err,
-                    "max_err_over_tol": over,
+        def entry(name, source, err, over, ms, plain, bnd, library):
+            return {"name": name + sfx, "route": "cuda",
+                    "source": src + source,
+                    "replaces": "src/repro/kernels/"
+                                + lines[name][1 if sfx else 0],
+                    "launches": rec["launches"][name + sfx],
+                    "max_abs_err": err, "max_err_over_tol": over,
                     "ms": ms, "plain_ms": plain,
                     "bound_ms": bnd[0], "bound_by": bnd[1],
                     "library_ms": library}
 
         return [
-            entry("bregman_ub_matrix", "bregman_ub.cu",
-                  "src/repro/kernels/bregman_ub.py:62", fk["ub_err"],
-                  fk["ub_err_over_tol"],
-                  fk["ub"], fk["ub_plain"], fk["ub_bound"],
-                  fk["ub_library"]),
-            entry("bregman_filter_prune", "bregman_fused.cu",
-                  "src/repro/kernels/bregman_fused.py:144", fk["fp_err"],
-                  fk["fp_err_over_tol"],
-                  fk["fp"], fk["fp_plain"], fk["fp_bound"], None),
-            entry("bregman_refine_batch", "bregman_dist.cu",
-                  "src/repro/kernels/bregman_dist.py:106", rk["err"],
-                  rk["err_over_tol"],
-                  rk["kernel"], rk["plain"], rk["bound"], None),
+            entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
+                  fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
+                  fk["ub_bound"], fk["ub_library"]),
+            entry("bregman_filter_prune", "bregman_fused.cu", fk["fp_err"],
+                  fk["fp_err_over_tol"], fk["fp"], fk["fp_plain"],
+                  fk["fp_bound"], None),
+            entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
+                  rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
+                  None),
         ]
 
 
@@ -625,6 +805,21 @@ def device_events(torch, prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
             and not e.key.startswith("Command Buffer Full")]
+
+
+def table_bytes(forest) -> dict:
+    """Bytes on the device of the forest's (n, d) point table and of its
+    four (n, M) stat tables, each with its per-row decode in the int8
+    tier."""
+    def size(*names):
+        return sum(getattr(forest, f).numel() * getattr(forest, f)
+                   .element_size() for f in names
+                   if getattr(forest, f) is not None)
+    return {"points": size("data", "data_scale", "data_zp"),
+            "stats": size("alpha", "sqrt_gamma", "alpha_min_pt",
+                          "sqrt_gamma_max_pt", "alpha_scale", "alpha_zp",
+                          "sg_scale", "sg_zp", "amin_scale", "amin_zp",
+                          "gmax_scale", "gmax_zp")}
 
 
 def err_over_tol(diff, tol) -> float:
@@ -643,17 +838,36 @@ def bound(nbytes: float, ops: float) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def refine_tolerance(torch, rows, grad, c_y, family: str):
+def refine_tolerance(torch, rows, grad, c_y, family: str, d: int):
     """The refine form ``sum phi(x) - x.grad + c_y`` cancels badly (the
     exponential family most), so its error scales with the size of the
     terms, not of the result: d * eps32 times
-    ``sum |phi(x)| + |x . grad| + |c_y|`` per (query, row).  One query at
-    a time, so the temporaries stay (b, d)."""
+    ``sum |phi(x)| + |x . grad| + |c_y|`` per (query, row).  ``rows``
+    yields each query's (b, d) fp32 rows (the decoded rows in the int8
+    tier), one query at a time, so the temporaries stay (b, d)."""
     from repro_torch.kernels.ref import PHIS
     scale = torch.stack([
         PHIS[family](x).abs().sum(-1) + (x @ g).abs() + cy.abs()
         for x, g, cy in zip(rows, grad, c_y, strict=True)])
-    return rows.shape[-1] * EPS32 * scale
+    return d * EPS32 * scale
+
+
+def ub_term_scale(torch, filt, qc, sd):
+    """The magnitudes of the UB's summed terms, (n, q): fp32 ``(alpha,
+    sg)`` gives sum |alpha| + sum |qconst| + sg . sd; int8 ``(codes, scale,
+    zp)`` pairs give |a_s * sum(codes)| + |M * a_z| + |qsum| + |g_s| *
+    (|codes| . sd) + |g_z * sum(sd)|, the dot's terms by magnitude, since
+    signed codes may cancel."""
+    if len(filt) == 2:
+        a, sg = filt
+        return (a.abs().sum(-1)[:, None] + qc.abs().sum(-1)[None, :]
+                + sg @ sd.T)
+    a_q, a_s, a_z, g_q, g_s, g_z = filt
+    m = a_q.shape[1]
+    return (((a_s * a_q.float().sum(-1)).abs() + (m * a_z).abs())[:, None]
+            + qc.sum(-1).abs()[None, :]
+            + g_s.abs()[:, None] * (g_q.float().abs() @ sd.T)
+            + (g_z[:, None] * sd.sum(-1)[None, :]).abs())
 
 
 def positive_or_not(torch, shape, fam, gen):
@@ -663,6 +877,40 @@ def positive_or_not(torch, shape, fam, gen):
     if fam.domain_low == 0.0:
         return raw.abs() + 0.05
     return raw.clamp(-4.0, 4.0)
+
+
+def quant_table(torch, n, m, gen, nonneg=False):
+    """Int8 codes (n, m) reaching -128 and 127 with a per-row (scale, zp);
+    row 1 is a constant row (scale 0, codes 0).  ``nonneg`` keeps the
+    decoded values at or above 0 (a sqrt_gamma table)."""
+    codes = torch.randint(-128, 128, (n, m), generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+    codes[0, 0], codes[-1, -1] = -128, 127
+    scale = torch.rand(n, generator=gen) * 0.1 + 1e-3
+    zp = torch.randn(n, generator=gen)
+    if n > 1:
+        codes[1], scale[1] = 0, 0.0
+    if nonneg:
+        zp = zp.abs() + 128.0 * scale
+    return codes, scale, zp
+
+
+def filter_inputs_quant(torch, n, m, q, seed):
+    """The int8 kernels' operands: four code tables with their decode, then
+    qc, sd, qb; the admit mask is mixed, and row 0's decoded lower bound
+    ties its bound exactly in subspace 0."""
+    from repro_torch.core.quantize import dequantize_stats
+    gen = torch.Generator().manual_seed(seed)
+    tables = [t for i in range(4)
+              for t in quant_table(torch, n, m, gen, nonneg=i in (1, 3))]
+    qc = torch.randn((q, m), generator=gen)
+    sd = torch.randn((q, m), generator=gen).abs()
+    amin = dequantize_stats(*tables[6:9])
+    gmax = dequantize_stats(*tables[9:12])
+    lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = lb[0, 0, :]
+    return (*tables, qc, sd, qb)
 
 
 def filter_inputs(torch, n, m, q, seed):

@@ -10,8 +10,8 @@ Pruning uses the tuple-space cluster lower bound
                   <= min_{x in c} D_f(x_i., y_i.)
 
 so "LB_cluster > qb_i" prunes cluster c in subspace i without evaluating a
-member distance.  This module builds the fp32 tier; the int8 tier is not
-ported yet.
+member distance.  Two storage tiers share the one dataclass: ``"f32"`` and
+``"int8"`` (codes plus per-row decode fields, core/quantize.py).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import quantize as qz
 from .bregman import BregmanFamily, get_family
 from .clustering import cluster_stats, kmeans
 from .partition import build_pccp_partition, fit_cost_model
@@ -32,10 +33,13 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass
 class BallForest:
-    """Search index: fp32 tables on one device.
+    """Search index: its tables on one device.
 
-    The int8 storage tier's decode fields (``data_scale`` ... ``gmax_zp``)
-    stay None until that tier is ported.
+    In the ``"int8"`` tier ``data``, ``alpha``, ``sqrt_gamma``,
+    ``alpha_min_pt`` and ``sqrt_gamma_max_pt`` hold int8 codes and the
+    ``*_scale`` / ``*_zp`` fields their per-row affine decode; the point
+    set is the decoded rows (:meth:`rows_view`).  The envelopes are fp32
+    in both tiers, reduced over the decoded corners in int8.
     """
 
     family_name: str
@@ -90,6 +94,15 @@ class BallForest:
     def device(self) -> torch.device:
         return self.data.device
 
+    def rows_view(self) -> Tensor:
+        """(n, d) fp32 point rows — the point set this index searches.  In
+        the int8 tier this decodes the whole table: for oracles and the
+        brute-force escape, never the per-query path."""
+        if self.storage == "f32":
+            return self.data
+        return qz.dequantize_rows(self.data, self.data_scale, self.data_zp,
+                                  self.family_name)
+
 
 # Row-group size of the corner envelopes.
 ENV_BLOCK_ROWS = 256
@@ -98,6 +111,9 @@ ENV_BLOCK_ROWS = 256
 POINT_FIELDS = ("data", "point_ids", "alpha", "sqrt_gamma", "assign",
                 "alpha_min_pt", "sqrt_gamma_max_pt")
 ENV_FIELDS = ("env_alpha_min", "env_sqrt_gamma_max")
+QUANT_FIELDS = ("data_scale", "data_zp", "alpha_scale", "alpha_zp",
+                "sg_scale", "sg_zp", "amin_scale", "amin_zp",
+                "gmax_scale", "gmax_zp")
 REPLICATED_FIELDS = ("alpha_min", "sqrt_gamma_max", "counts", "centers",
                      "beta_samples", "gamma_edges") + ENV_FIELDS
 
@@ -111,6 +127,30 @@ PAD_CORNER = 1e30
 INERT_FILL = {"data": 1.0, "point_ids": -1, "alpha": PAD_CORNER,
               "sqrt_gamma": 0.0, "assign": 0, "alpha_min_pt": PAD_CORNER,
               "sqrt_gamma_max_pt": 0.0}
+
+# The int8 inert row: all codes zero, the sentinels in the decode fields
+# (zero scales add no bound slack; data_zp 1.0 decodes to the ones-row).
+INERT_FILL_INT8 = {
+    "data": 0, "point_ids": -1, "alpha": 0, "sqrt_gamma": 0, "assign": 0,
+    "alpha_min_pt": 0, "sqrt_gamma_max_pt": 0,
+    "data_scale": 0.0, "data_zp": 1.0,
+    "alpha_scale": 0.0, "alpha_zp": PAD_CORNER,
+    "sg_scale": 0.0, "sg_zp": 0.0,
+    "amin_scale": 0.0, "amin_zp": PAD_CORNER,
+    "gmax_scale": 0.0, "gmax_zp": 0.0,
+}
+
+
+def point_fields(index_or_storage) -> tuple:
+    """The point-major field names of an index or storage tier."""
+    storage = getattr(index_or_storage, "storage", index_or_storage)
+    return POINT_FIELDS + QUANT_FIELDS if storage == "int8" else POINT_FIELDS
+
+
+def inert_fill(index_or_storage) -> dict:
+    """Per-field inert fill values of an index or storage tier."""
+    storage = getattr(index_or_storage, "storage", index_or_storage)
+    return INERT_FILL_INT8 if storage == "int8" else INERT_FILL
 
 
 def corner_envelopes(amin_pt: Tensor, gmax_pt: Tensor) -> tuple[Tensor, Tensor]:
@@ -130,8 +170,10 @@ def corner_envelopes(amin_pt: Tensor, gmax_pt: Tensor) -> tuple[Tensor, Tensor]:
 
 
 def refresh_envelopes(forest: BallForest) -> BallForest:
-    """Recompute the block-envelope tables from the per-point corners."""
-    ea, eg = corner_envelopes(forest.alpha_min_pt, forest.sqrt_gamma_max_pt)
+    """Recompute the block-envelope tables from the per-point corners; in
+    the int8 tier over the DECODED corners, so an envelope dominates what
+    the per-point test decodes for each of its rows."""
+    ea, eg = corner_envelopes(*qz.decoded_corner_tables(forest))
     return dataclasses.replace(forest, env_alpha_min=ea, env_sqrt_gamma_max=eg)
 
 
@@ -141,14 +183,15 @@ def pad_points(forest: BallForest, multiple: int) -> BallForest:
     pad = (-forest.n) % multiple
     if pad == 0:
         return forest
+    fill = inert_fill(forest)
 
     def pad_rows(a, rows, v):
         return torch.cat([a, torch.full((rows,) + tuple(a.shape[1:]), v,
                                         dtype=a.dtype, device=a.device)])
 
     out = dataclasses.replace(forest, **{
-        f: pad_rows(getattr(forest, f), pad, INERT_FILL[f])
-        for f in POINT_FIELDS})
+        f: pad_rows(getattr(forest, f), pad, fill[f])
+        for f in point_fields(forest)})
     # The appended rows are inert, so the existing envelope rows stay valid.
     grow = max(-(-out.n // ENV_BLOCK_ROWS), 1) - forest.env_alpha_min.shape[0]
     if grow > 0:
@@ -157,6 +200,25 @@ def pad_points(forest: BallForest, multiple: int) -> BallForest:
             env_alpha_min=pad_rows(forest.env_alpha_min, grow, PAD_CORNER),
             env_sqrt_gamma_max=pad_rows(forest.env_sqrt_gamma_max, grow, 0.0))
     return out
+
+
+def quantize_point_tables(forest: BallForest, data_codes: Tensor,
+                          data_scale: Tensor, data_zp: Tensor) -> BallForest:
+    """Swap a built fp32 forest's point-major tables for the int8 tier.
+
+    The codes must decode exactly to ``forest.data`` (the forest was built
+    over the decoded rows).  Filter stats round to nearest, corners
+    directionally; the envelopes are refit over the decoded corners.
+    """
+    if forest.storage != "f32":
+        raise ValueError("quantize_point_tables wants an f32 forest")
+    out = dataclasses.replace(
+        forest, storage="int8",
+        data=data_codes, data_scale=data_scale, data_zp=data_zp,
+        **qz.encode_stat_tables(forest.alpha, forest.sqrt_gamma,
+                                forest.alpha_min_pt,
+                                forest.sqrt_gamma_max_pt))
+    return refresh_envelopes(out)
 
 
 def default_num_clusters(n: int) -> int:
@@ -288,11 +350,13 @@ def build_index(
     the dims by correlation (§5.2).  Per subspace, Bregman k-means starts
     from ``num_clusters`` distinct rows drawn with a ``torch.Generator``
     seeded by ``seed``.  The index lives on ``device``.
+
+    ``quantize=True`` builds the int8 tier in the reference's order: the
+    data are snapped to per-row int8 first (on ``device``), the index is
+    built over the decoded rows, the stat tables are re-encoded, and the
+    envelopes are reduced over the decoded corners last.  Search over it
+    is exact over :meth:`BallForest.rows_view`.
     """
-    if quantize:
-        raise NotImplementedError(
-            "build_index(quantize=True): the int8 tier is not ported yet "
-            "(ROADMAP queue 1 item 4)")
     if calibrate:
         raise NotImplementedError(
             "build_index(calibrate=True): recall calibration is not ported "
@@ -303,6 +367,11 @@ def build_index(
         data = data.detach().cpu().numpy()
     data_np = np.ascontiguousarray(data, dtype=np.float32)
     n, d = data_np.shape
+    x = torch.from_numpy(data_np).to(dev)
+    if quantize:
+        codes, scale, zp = qz.quantize_rows(x)
+        x = qz.dequantize_rows(codes, scale, zp, fam)
+        data_np = x.cpu().numpy()
 
     if m is None:
         m = fit_cost_model(data_np, fam, seed=seed).m_star()
@@ -313,7 +382,6 @@ def build_index(
         part = make_partition(d, m)
 
     c = int(min(num_clusters or default_num_clusters(n), n))
-    x = torch.from_numpy(data_np).to(dev)
     sub_views = part.gather(x)                          # (n, M, w)
     mask = part.subspace_mask(dev)                      # (M, w)
     gen = torch.Generator().manual_seed(seed)
@@ -325,41 +393,58 @@ def build_index(
         centers_list.append(cen)
         assign_list.append(asg)
     del sub_views
-    return build_tables(
+    forest = build_tables(
         x, fam, part, torch.stack(assign_list, dim=1),
         torch.stack(centers_list), num_clusters=c,
         gamma_buckets=gamma_buckets, beta_sample_size=beta_sample_size,
         seed=seed)
+    if quantize:
+        order = forest.point_ids.long()
+        forest = quantize_point_tables(forest, codes[order], scale[order],
+                                       zp[order])
+    return forest
 
 
 # ---------------------------------------------------------------------------
 # numpy interchange (a forest built by the reference package, or saved)
 # ---------------------------------------------------------------------------
 
-INTERCHANGE_FIELDS = POINT_FIELDS + REPLICATED_FIELDS
+def interchange_fields(storage: str) -> tuple:
+    """The fields :func:`forest_to_numpy` carries for a storage tier."""
+    return point_fields(storage) + REPLICATED_FIELDS
 
 
 def forest_to_numpy(forest: BallForest) -> dict:
-    """The forest's tables as host numpy arrays, keyed by field name."""
+    """The forest's tables as host numpy arrays, keyed by field name (the
+    decode fields too in the int8 tier; ``forest.storage`` names it)."""
     return {f: getattr(forest, f).detach().cpu().numpy()
-            for f in INTERCHANGE_FIELDS}
+            for f in interchange_fields(forest.storage)}
 
 
 def forest_from_numpy(arrays: dict, *, family_name: str,
                       partition_idx, partition_mask, d: int,
-                      num_clusters: int, device="cuda") -> BallForest:
-    """A forest from numpy tables (:data:`INTERCHANGE_FIELDS`) and its
-    partition layout; dtypes are kept, so export(import(x)) is bit-equal."""
+                      num_clusters: int, storage: str = "f32",
+                      device="cuda") -> BallForest:
+    """A forest from numpy tables (:func:`interchange_fields` of
+    ``storage``) and its partition layout; dtypes are kept, so
+    export(import(x)) is bit-equal."""
     dev = resolve_device(device)
-    missing = [f for f in INTERCHANGE_FIELDS if f not in arrays]
+    if storage not in ("f32", "int8"):
+        raise ValueError(f"storage must be 'f32' or 'int8', got {storage!r}")
+    fields = interchange_fields(storage)
+    missing = [f for f in fields if f not in arrays]
     if missing:
         raise KeyError(f"forest_from_numpy: missing fields {missing}")
+    want = np.int8 if storage == "int8" else np.float32
+    if np.asarray(arrays["data"]).dtype != want:
+        raise ValueError(f"a {storage} forest stores data as {want.__name__}, "
+                         f"got {np.asarray(arrays['data']).dtype}")
     idx = np.asarray(partition_idx, dtype=np.int32)
     part = Partition(d=int(d), num_subspaces=idx.shape[0],
                      width=idx.shape[1], idx=idx,
                      mask=np.asarray(partition_mask, dtype=np.float32))
     return BallForest(
         family_name=get_family(family_name).name, partition=part,
-        num_clusters=int(num_clusters),
+        num_clusters=int(num_clusters), storage=storage,
         **{f: torch.from_numpy(np.array(arrays[f], copy=True)).to(dev)
-           for f in INTERCHANGE_FIELDS})
+           for f in fields})

@@ -17,6 +17,11 @@ A (q, d) query block runs five phases:
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
+In the int8 tier the same phases stream codes plus per-row decode scalars
+through the int8 kernels, ``qb`` is inflated by the filter stats' rounding
+slack, and the refine decodes only the candidate rows; results are exact
+over the decoded points (``BallForest.rows_view``).
+
 Ties resolve to the lower row index everywhere (stable sorts), as in the
 reference.  When a query's Theorem-3 union overflows the budget it is
 flagged ``exact=False``; :func:`knn_batch` retries at the fitted budget and,
@@ -33,6 +38,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
 from . import bounds
+from . import quantize as qz
 from .bregman import get_family, validate_rows
 from .index import ENV_BLOCK_ROWS, BallForest
 from .transform import q_transform
@@ -146,8 +152,24 @@ def query_struct(y: Tensor, partition, family) -> dict:
 
 
 def _tuple_rows(index: BallForest, idx: Tensor) -> dict:
-    """(alpha, sqrt_gamma) P-tuples at the given row indices."""
-    return {"alpha": index.alpha[idx], "sqrt_gamma": index.sqrt_gamma[idx]}
+    """(alpha, sqrt_gamma) P-tuples at the given row indices, decoded in
+    the int8 tier (only the gathered rows reach fp32)."""
+    a, g = index.alpha[idx], index.sqrt_gamma[idx]
+    if index.storage == "int8":
+        a = qz.dequantize_stats(a, index.alpha_scale[idx],
+                                index.alpha_zp[idx])
+        g = qz.dequantize_stats(g, index.sg_scale[idx], index.sg_zp[idx])
+    return {"alpha": a, "sqrt_gamma": g}
+
+
+def _qb_slack(index: BallForest, idx: Tensor, sqrt_delta: Tensor) -> Tensor:
+    """Quantization slack of the Alg.-4 bounds in the int8 tier: from the
+    per-query maxima of the filter-stat scales over the filter's (q, k)
+    top-k rows ``idx``, so the k-th smallest true distance stays under the
+    inflated bound (docs/quantization.md).  Returns (q, M)."""
+    a_s = torch.amax(index.alpha_scale[idx], dim=-1)
+    g_s = torch.amax(index.sg_scale[idx], dim=-1)
+    return qz.ub_slack(a_s, g_s, sqrt_delta)
 
 
 def _on_index_device(index: BallForest, device) -> torch.device:
@@ -170,20 +192,43 @@ def _block_layout(n: int, block_rows: int) -> tuple[int, int]:
     return bn, -(-n // bn)
 
 
+def searching_bounds(index: BallForest, qs: dict, idx: Tensor) -> Tensor:
+    """Alg.-4 searching bounds ``qb`` (q, M) from the filter's (q, k)
+    top-k rows ``idx``: the k-th row's UB components, inflated in the int8
+    tier by the filter stats' rounding slack."""
+    qb = bounds.ub_components(_tuple_rows(index, idx[:, -1]), qs)
+    if index.storage == "int8":
+        qb = qb + _qb_slack(index, idx, qs["sqrt_delta"])
+    return qb
+
+
+def _row_blocks(fields: tuple, bn: int, nb: int) -> list:
+    """Per-block row views of point-major tensors.  The last block is
+    short rather than padded: the kernels take any row count, so no padded
+    copy of the tables is made."""
+    return [tuple(t[b * bn:(b + 1) * bn] for t in fields) for b in range(nb)]
+
+
 def _filter_blocks(index: BallForest, bn: int, nb: int) -> list:
-    """Per-block (alpha, sqrt_gamma) row views.  The last block is short
-    rather than padded: the kernels take any row count, so no padded copy
-    of the tables is made."""
-    return [(index.alpha[b * bn:(b + 1) * bn],
-             index.sqrt_gamma[b * bn:(b + 1) * bn]) for b in range(nb)]
+    """Per-block filter operands: (alpha, sqrt_gamma), or in the int8 tier
+    (alpha, a_s, a_z, sqrt_gamma, g_s, g_z) codes plus their decode."""
+    if index.storage == "int8":
+        fields = (index.alpha, index.alpha_scale, index.alpha_zp,
+                  index.sqrt_gamma, index.sg_scale, index.sg_zp)
+    else:
+        fields = (index.alpha, index.sqrt_gamma)
+    return _row_blocks(fields, bn, nb)
 
 
 def _corner_blocks(index: BallForest, bn: int, nb: int) -> list:
-    """Per-block (alpha_min_pt, sqrt_gamma_max_pt) row views (short last
-    block, as in :func:`_filter_blocks`)."""
-    return [(index.alpha_min_pt[b * bn:(b + 1) * bn],
-             index.sqrt_gamma_max_pt[b * bn:(b + 1) * bn])
-            for b in range(nb)]
+    """Per-block corner operands: (alpha_min_pt, sqrt_gamma_max_pt), or in
+    the int8 tier their codes, each followed by its scale and zero-point."""
+    if index.storage == "int8":
+        fields = (index.alpha_min_pt, index.amin_scale, index.amin_zp,
+                  index.sqrt_gamma_max_pt, index.gmax_scale, index.gmax_zp)
+    else:
+        fields = (index.alpha_min_pt, index.sqrt_gamma_max_pt)
+    return _row_blocks(fields, bn, nb)
 
 
 def _batch_filter_topk(index: BallForest, qs: dict, k: int,
@@ -193,18 +238,20 @@ def _batch_filter_topk(index: BallForest, qs: dict, k: int,
     One UB kernel launch per row block; the running (q, k) smallest totals
     and their rows are merged with each block by a stable sort, carry
     first, so ties resolve to the lower row index as in a full-column
-    stable top-k.  Returns (values, rows), ascending along k.
+    stable top-k.  The int8 tier streams code blocks through the int8
+    kernel.  Returns (values, rows), ascending along k.
     """
     n = index.n
     q = qs["qconst"].shape[0]
     dev = index.device
     bn, nb = _block_layout(n, block_rows)
+    ub_fn = (kernel_ops.bregman_ub_matrix_quant if index.storage == "int8"
+             else kernel_ops.bregman_ub_matrix)
     best_v = torch.full((q, k), POS_BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((q, k), dtype=torch.long, device=dev)
-    for b, (a, sg) in enumerate(_filter_blocks(index, bn, nb)):
-        vals = kernel_ops.bregman_ub_matrix(a, sg, qs["qconst"],
-                                            qs["sqrt_delta"])   # (bl, q)
-        gidx = torch.arange(b * bn, b * bn + a.shape[0], device=dev)
+    for b, blk in enumerate(_filter_blocks(index, bn, nb)):
+        vals = ub_fn(*blk, qs["qconst"], qs["sqrt_delta"])        # (bl, q)
+        gidx = torch.arange(b * bn, b * bn + blk[0].shape[0], device=dev)
         cand_v = torch.cat([best_v, vals.T], dim=1)
         cand_i = torch.cat([best_i, gidx.expand(q, -1)], dim=1)
         sv, order = torch.sort(cand_v, dim=1, stable=True)
@@ -266,7 +313,9 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
        dominates every row it covers, so a block no query admits is
        skipped.  The host reads the (nb,) any-admit vector once.
     2. **Per-point admit** — each admitted block launches the fused
-       filter+prune kernel: the (block, q) UB tile and int32 admit tile.
+       filter+prune kernel (its int8 sibling in the int8 tier, whose
+       envelopes were reduced over the decoded corners): the (block, q) UB
+       tile and int32 admit tile.
     3. **Compaction** — :func:`_fill_block_slots` routes the block's
        members into the budget slots; slot order = index order.
 
@@ -297,12 +346,14 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
     sel = torch.full((q, budget), n - 1, dtype=torch.long, device=dev)
     count = torch.zeros((q,), dtype=torch.long, device=dev)
     tau = torch.full((q,), POS_BIG, dtype=torch.float32, device=dev)
+    fp_fn = (kernel_ops.bregman_filter_prune_block_quant
+             if index.storage == "int8"
+             else kernel_ops.bregman_filter_prune_block)
     filt = _filter_blocks(index, bn, nb)
     corners = _corner_blocks(index, bn, nb)
     for b in run_blocks:
-        (a, sg), (am, gm) = filt[b], corners[b]
-        ub, admit = kernel_ops.bregman_filter_prune_block(
-            a, sg, am, gm, qs["qconst"], qs["sqrt_delta"], qb)
+        ub, admit = fp_fn(*filt[b], *corners[b], qs["qconst"],
+                          qs["sqrt_delta"], qb)
         if with_tau:
             tau = torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
                                 .amin(dim=0))
@@ -316,10 +367,16 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
 def _refine_batch(index: BallForest, qs: dict, sel: Tensor, valid: Tensor,
                   k: int):
     """One refine kernel launch over all queries' candidate rows, then the
-    k smallest exact distances (stable: ties to the lower slot)."""
-    rows = index.data[sel]                                  # (q, budget, d)
-    dist = kernel_ops.bregman_refine_batch(
-        rows, qs["grad"], qs["c_y"], index.family_name)     # (q, budget)
+    k smallest exact distances (stable: ties to the lower slot).  The int8
+    tier gathers the candidates' codes and decode scalars, never decoded
+    rows, and the kernel decodes them."""
+    if index.storage == "int8":
+        dist = kernel_ops.bregman_refine_batch_quant(
+            index.data[sel], index.data_scale[sel], index.data_zp[sel],
+            qs["grad"], qs["c_y"], index.family_name)       # (q, budget)
+    else:
+        dist = kernel_ops.bregman_refine_batch(
+            index.data[sel], qs["grad"], qs["c_y"], index.family_name)
     dist = torch.where(valid, dist, POS_BIG)
     sv, pos = torch.sort(dist, dim=1, stable=True)
     ids = index.point_ids[torch.gather(sel, 1, pos[:, :k])]
@@ -340,7 +397,7 @@ def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
     qs = query_struct(ys, index.partition, index.family)
 
     _, idx = _batch_filter_topk(index, qs, k, block_rows)
-    qb = bounds.ub_components(_tuple_rows(index, idx[:, -1]), qs)   # (q, M)
+    qb = searching_bounds(index, qs, idx)                           # (q, M)
 
     (sel, valid, num_candidates, env_admitted, blocks_run,
      tau) = _stream_prune_compact(index, qs, qb, budget, block_rows,
@@ -476,8 +533,9 @@ def _scan_topk(rows: Tensor, ys: Tensor, k: int, family,
 
 
 def _brute_force_live(index: BallForest, ys: Tensor, k: int):
-    """Linear scan over the live rows (``point_ids >= 0``) of an index."""
-    idx, dists = _scan_topk(index.data, ys, k, index.family,
+    """Linear scan over the live rows (``point_ids >= 0``) of an index; the
+    int8 tier's decoded rows (``rows_view``), so it is exact there too."""
+    idx, dists = _scan_topk(index.rows_view(), ys, k, index.family,
                             live=index.point_ids >= 0)
     return index.point_ids[idx], dists
 

@@ -1,15 +1,17 @@
-"""CUDA refine kernel — exact Bregman distances of gathered candidate rows.
+"""CUDA refine kernels — exact Bregman distances of gathered candidate rows.
 
     D_f(x, y) = sum_j phi(x_j)  -  x . phi'(y)  +  c_y
 
-Replaces ``src/repro/kernels/bregman_dist.py::bregman_refine_batch`` and
-its q=1 wrapper ``bregman_refine``.  Bound by bytes on the H100 (each
-candidate row is read once): the kernel (``csrc/bregman_dist.cu``) gives
-one warp to each (query, row) pair, its lanes stride over d in coalesced
-reads, and a warp-shuffle reduction takes the place of the TPU grid's
-sequential d-tile accumulator.  phi is chosen per family at compile time,
-with log arguments guarded at 1e-30.  Plain version:
-``ref.bregman_refine_batch``.
+:func:`bregman_refine_batch` replaces ``src/repro/kernels/bregman_dist.py::
+bregman_refine_batch`` and its q=1 wrapper ``bregman_refine``;
+:func:`bregman_refine_batch_quant` replaces ``bregman_refine_batch_quant``,
+which decodes x from int8 codes exactly as ``dequantize_rows`` does.  Bound
+by bytes on the H100 (each candidate row is read once): the kernels
+(``csrc/bregman_dist.cu``) give one warp to each (query, row) pair, its
+lanes stride over d in coalesced reads, and a warp-shuffle reduction takes
+the place of the TPU grid's sequential d-tile accumulator.  phi is chosen
+per family at compile time, with log arguments guarded at 1e-30.  Plain
+versions: ``ref.bregman_refine_batch`` and ``ref.bregman_refine_batch_quant``.
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from . import _build
 FAMILY_IDS = {"squared_euclidean": 0, "itakura_saito": 1, "exponential": 2,
               "burg": 3, "shannon": 4}
 
-# Launches of the kernel in this process (read and reset by chip_smoke.py).
+# Launches of each kernel in this process (read and reset by chip_smoke.py).
 launches = 0
+launches_quant = 0
 
 
 def bregman_refine_batch(rows: torch.Tensor, grad: torch.Tensor,
@@ -53,3 +56,30 @@ def bregman_refine(rows: torch.Tensor, grad: torch.Tensor, c_y: torch.Tensor,
     """Exact D_f(rows[i], y) -> (b,): the q=1 slice of the batch kernel."""
     return bregman_refine_batch(rows[None], grad[None].contiguous(),
                                 c_y.reshape(1).contiguous(), family)[0]
+
+
+def bregman_refine_batch_quant(codes: torch.Tensor, scale: torch.Tensor,
+                               zp: torch.Tensor, grad: torch.Tensor,
+                               c_y: torch.Tensor,
+                               family: str) -> torch.Tensor:
+    """Exact D_f of the decoded rows -> (q, b); codes (q, b, d) int8, scale
+    and zp (q, b), grad (q, d), c_y (q,) fp32, contiguous on one CUDA
+    device; ``family`` a canonical family name."""
+    global launches_quant
+    if family not in FAMILY_IDS:
+        raise ValueError(f"unknown Bregman family {family!r}")
+    q, b, d = codes.shape
+    _build.expect(codes, "codes", (q, b, d), torch.int8)
+    _build.expect(scale, "scale", (q, b))
+    _build.expect(zp, "zp", (q, b))
+    _build.expect(grad, "grad", (q, d))
+    _build.expect(c_y, "c_y", (q,))
+    dev = _build.same_device(codes, scale, zp, grad, c_y)
+    out = torch.empty((q, b), dtype=torch.float32, device=dev)
+    err = _build.library().brk_refine_batch_quant(
+        codes.data_ptr(), scale.data_ptr(), zp.data_ptr(), grad.data_ptr(),
+        c_y.data_ptr(), out.data_ptr(), q, b, d, FAMILY_IDS[family],
+        dev.index, _build.stream_of(dev))
+    _build.check(err, "bregman_refine_batch_quant")
+    launches_quant += 1
+    return out

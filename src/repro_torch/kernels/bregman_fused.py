@@ -4,11 +4,14 @@
     admit[n, q] = any_i ( amin[n, i] + qconst[q, i]
                           - gmax[n, i] * sd[q, i] <= qb[q, i] )
 
-Replaces ``src/repro/kernels/bregman_fused.py::bregman_filter_prune``.
-Bound by bytes on the H100: the kernel (``csrc/bregman_fused.cu``) stages
-the query tile once for both outputs, reads each table element once, and
-writes the admit compare with round-to-nearest intrinsics so the mask is
-bit-equal to ``ref.bregman_filter_prune``.
+:func:`bregman_filter_prune` replaces ``src/repro/kernels/bregman_fused.py::
+bregman_filter_prune`` and :func:`bregman_filter_prune_quant` its int8
+sibling ``bregman_filter_prune_quant``, whose corners decode per element as
+``code * scale + zp``.  Bound by bytes on the H100: the kernels
+(``csrc/bregman_fused.cu``) stage the query tile once for both outputs,
+read each table element once, and write the decode and the admit compare
+with round-to-nearest intrinsics so the mask is bit-equal to
+``ref.bregman_filter_prune`` / ``ref.bregman_filter_prune_quant``.
 """
 
 from __future__ import annotations
@@ -17,8 +20,9 @@ import torch
 
 from . import _build
 
-# Launches of the kernel in this process (read and reset by chip_smoke.py).
+# Launches of each kernel in this process (read and reset by chip_smoke.py).
 launches = 0
+launches_quant = 0
 
 
 def bregman_filter_prune(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
@@ -49,4 +53,51 @@ def bregman_filter_prune(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
         admit.data_ptr(), n, m, q, dev.index, _build.stream_of(dev))
     _build.check(err, "bregman_filter_prune")
     launches += 1
+    return ub, admit
+
+
+def bregman_filter_prune_quant(
+        alpha_q: torch.Tensor, alpha_scale: torch.Tensor,
+        alpha_zp: torch.Tensor, sg_q: torch.Tensor, sg_scale: torch.Tensor,
+        sg_zp: torch.Tensor, amin_q: torch.Tensor, amin_scale: torch.Tensor,
+        amin_zp: torch.Tensor, gmax_q: torch.Tensor,
+        gmax_scale: torch.Tensor, gmax_zp: torch.Tensor, qsum: torch.Tensor,
+        qconst: torch.Tensor, sqrt_delta: torch.Tensor, sdsum: torch.Tensor,
+        qb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ub (n, q) f32, admit (n, q) int32) from int8 filter and corner
+    codes (n, M) with their per-row decode (n,) fp32; qsum and sdsum (q,)
+    (the row sums of qconst and sqrt_delta), query tables (q, M), all
+    contiguous on one CUDA device."""
+    global launches_quant
+    n, m = alpha_q.shape
+    q = qsum.shape[0]
+    codes = (("alpha_q", alpha_q), ("sg_q", sg_q), ("amin_q", amin_q),
+             ("gmax_q", gmax_q))
+    decode = (("alpha_scale", alpha_scale), ("alpha_zp", alpha_zp),
+              ("sg_scale", sg_scale), ("sg_zp", sg_zp),
+              ("amin_scale", amin_scale), ("amin_zp", amin_zp),
+              ("gmax_scale", gmax_scale), ("gmax_zp", gmax_zp))
+    for name, t in codes:
+        _build.expect(t, name, (n, m), torch.int8)
+    for name, t in decode:
+        _build.expect(t, name, (n,))
+    _build.expect(qsum, "qsum", (q,))
+    _build.expect(sdsum, "sdsum", (q,))
+    for name, t in (("qconst", qconst), ("sqrt_delta", sqrt_delta),
+                    ("qb", qb)):
+        _build.expect(t, name, (q, m))
+    dev = _build.same_device(*(t for _, t in codes + decode), qsum, qconst,
+                             sqrt_delta, sdsum, qb)
+    ub = torch.empty((n, q), dtype=torch.float32, device=dev)
+    admit = torch.empty((n, q), dtype=torch.int32, device=dev)
+    err = _build.library().brk_filter_prune_quant(
+        alpha_q.data_ptr(), alpha_scale.data_ptr(), alpha_zp.data_ptr(),
+        sg_q.data_ptr(), sg_scale.data_ptr(), sg_zp.data_ptr(),
+        amin_q.data_ptr(), amin_scale.data_ptr(), amin_zp.data_ptr(),
+        gmax_q.data_ptr(), gmax_scale.data_ptr(), gmax_zp.data_ptr(),
+        qsum.data_ptr(), qconst.data_ptr(), sqrt_delta.data_ptr(),
+        sdsum.data_ptr(), qb.data_ptr(), ub.data_ptr(), admit.data_ptr(),
+        n, m, q, dev.index, _build.stream_of(dev))
+    _build.check(err, "bregman_filter_prune_quant")
+    launches_quant += 1
     return ub, admit

@@ -1,5 +1,5 @@
-// Shared tile body of the filter kernel (bregman_ub.cu) and the fused
-// filter+prune kernel (bregman_fused.cu).
+// Shared tile body of the filter kernels (bregman_ub.cu) and the fused
+// filter+prune kernels (bregman_fused.cu), fp32 and int8 tables alike.
 //
 // One block owns a TN x TQ tile of the (n, q) output; each of its 256
 // threads owns RPT = 4 outputs of one query column, so a warp writes 32
@@ -8,9 +8,18 @@
 // query tile's columns of the query tables in shared memory, then every
 // thread folds the chunk into its running sums.  M is looped at its real
 // width; nothing is padded to a lane multiple.
+//
+// The table type T is float (the fp32 tier) or int8_t (codes of the int8
+// tier, each row with its own affine decode ``code * scale + zp``).  For
+// int8 the row loader differs and nothing else: the filter stats stay
+// codes and their per-row affine is applied once per output, factored out
+// of both sums (the row sum of codes is an exact integer); the corner
+// codes are decoded as they are staged, op by op, so the admit compare
+// sees the values ``dequantize_stats`` gives.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace brekernels {
@@ -22,44 +31,79 @@ constexpr int THREADS = 256;
 constexpr int ROW_STRIDE = THREADS / TQ;   // 8 row groups
 constexpr int RPT = TN / ROW_STRIDE;       // 4 outputs per thread
 
-// ub[r, j]    = (sum_i alpha[r, i] + qsum[j]) + sum_i sg[r, i] * sd[j, i]
-// admit[r, j] = any_i (amin[r, i] + qc[j, i]) - gmax[r, i] * sd[j, i] <= qb[j, i]
-// (PRUNE only).  Point tables are (n, m) row-major, query tables (q, m).
-template <bool PRUNE>
+// The per-row decode columns of an int8 block, in this order.
+enum Decode { kAlphaScale = 0, kAlphaZp, kSgScale, kSgZp,
+              kAminScale, kAminZp, kGmaxScale, kGmaxZp, kDecodeCols };
+
+// Operands of one launch.  Point tables are (n, m) row-major, query tables
+// (q, m); ``decode`` (int8 only) holds the (n,) decode columns: the first
+// four always, the corners' four only where the kernel prunes.
+//   ub[r, j]    = rowsum(alpha_hat)[r] + qsum[j] + sg_hat[r, :] . sd[j, :]
+//   admit[r, j] = any_i (amin_hat[r, i] + qc[j, i]) - gmax_hat[r, i] * sd[j, i]
+//                       <= qb[j, i]                        (PRUNE only)
+template <typename T>
+struct FilterArgs {
+  const T* alpha;
+  const T* sg;
+  const T* amin;
+  const T* gmax;
+  const float* decode[kDecodeCols];
+  const float* qsum;
+  const float* qc;
+  const float* sd;
+  const float* sdsum;      // int8 only: sum_i sd[j, i]
+  const float* qb;
+  float* ub;
+  int32_t* admit;
+  int64_t n;
+  int m;
+  int q;
+};
+
+template <typename T, bool PRUNE>
 __global__ void __launch_bounds__(THREADS)
-filter_tile_kernel(const float* __restrict__ alpha,
-                   const float* __restrict__ sg,
-                   const float* __restrict__ amin,
-                   const float* __restrict__ gmax,
-                   const float* __restrict__ qsum,
-                   const float* __restrict__ qc,
-                   const float* __restrict__ sd,
-                   const float* __restrict__ qb,
-                   float* __restrict__ ub,
-                   int32_t* __restrict__ admit,
-                   int64_t n, int m, int q) {
+filter_tile_kernel(const FilterArgs<T> p) {
+  constexpr bool QUANT = std::is_same<T, int8_t>::value;
+  // Row sums: exact integers for codes (|code| <= 128, M < 2^24 / 128).
+  using RowSum = typename std::conditional<QUANT, int, float>::type;
   constexpr int PR = PRUNE ? TN : 1;
   constexpr int PQ = PRUNE ? MC : 1;
-  __shared__ float s_alpha[TN][MC + 1];
+  constexpr int DR = QUANT ? TN : 1;
+  __shared__ T s_alpha[TN][MC + 1];
   __shared__ float s_sg[TN][MC + 1];
   __shared__ float s_amin[PR][MC + 1];
   __shared__ float s_gmax[PR][MC + 1];
   __shared__ float s_sd[MC][TQ + 1];
   __shared__ float s_qc[PQ][TQ + 1];
   __shared__ float s_qb[PQ][TQ + 1];
+  __shared__ float s_dec[kDecodeCols][DR];
 
   const int tid = threadIdx.x;
   const int tq = tid % TQ;
   const int tr = tid / TQ;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * TN;
   const int q0 = blockIdx.y * TQ;
+  const int64_t n = p.n;
+  const int m = p.m;
+  const int q = p.q;
 
-  float rowsum[RPT];
+  if constexpr (QUANT) {
+    // The filter stats' columns, and the corners' where the kernel prunes.
+    constexpr int cols = PRUNE ? kDecodeCols : kAminScale;
+    for (int e = tid; e < cols * TN; e += THREADS) {
+      const int col = e / TN;
+      const int r = e % TN;
+      s_dec[col][r] = row0 + r < n ? p.decode[col][row0 + r] : 0.f;
+    }
+    __syncthreads();
+  }
+
+  RowSum rowsum[RPT];
   float cauchy[RPT];
   bool hit[RPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    rowsum[i] = 0.f;
+    rowsum[i] = 0;
     cauchy[i] = 0.f;
     hit[i] = false;
   }
@@ -72,11 +116,27 @@ filter_tile_kernel(const float* __restrict__ alpha,
       const int64_t row = row0 + r;
       const bool ok = row < n && c < mc;
       const int64_t off = row * m + m0 + c;
-      s_alpha[r][c] = ok ? alpha[off] : 0.f;
-      s_sg[r][c] = ok ? sg[off] : 0.f;
+      s_alpha[r][c] = ok ? p.alpha[off] : T(0);
+      s_sg[r][c] = ok ? static_cast<float>(p.sg[off]) : 0.f;
       if constexpr (PRUNE) {
-        s_amin[r][c] = ok ? amin[off] : 0.f;
-        s_gmax[r][c] = ok ? gmax[off] : 0.f;
+        float am = 0.f;
+        float gm = 0.f;
+        if (ok) {
+          if constexpr (QUANT) {
+            // code * scale + zp, each operation rounded on its own.
+            am = __fadd_rn(__fmul_rn(static_cast<float>(p.amin[off]),
+                                     s_dec[kAminScale][r]),
+                           s_dec[kAminZp][r]);
+            gm = __fadd_rn(__fmul_rn(static_cast<float>(p.gmax[off]),
+                                     s_dec[kGmaxScale][r]),
+                           s_dec[kGmaxZp][r]);
+          } else {
+            am = p.amin[off];
+            gm = p.gmax[off];
+          }
+        }
+        s_amin[r][c] = am;
+        s_gmax[r][c] = gm;
       }
     }
     for (int e = tid; e < TQ * MC; e += THREADS) {
@@ -84,10 +144,10 @@ filter_tile_kernel(const float* __restrict__ alpha,
       const int c = e % MC;
       const bool ok = q0 + j < q && c < mc;
       const int64_t off = static_cast<int64_t>(q0 + j) * m + m0 + c;
-      s_sd[c][j] = ok ? sd[off] : 0.f;
+      s_sd[c][j] = ok ? p.sd[off] : 0.f;
       if constexpr (PRUNE) {
-        s_qc[c][j] = ok ? qc[off] : 0.f;
-        s_qb[c][j] = ok ? qb[off] : 0.f;
+        s_qc[c][j] = ok ? p.qc[off] : 0.f;
+        s_qb[c][j] = ok ? p.qb[off] : 0.f;
       }
     }
     __syncthreads();
@@ -119,34 +179,44 @@ filter_tile_kernel(const float* __restrict__ alpha,
 
   const int j = q0 + tq;
   if (j >= q) return;
-  const float qs = qsum[j];
+  const float qs = p.qsum[j];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    const int64_t row = row0 + tr + i * ROW_STRIDE;
+    const int r = tr + i * ROW_STRIDE;
+    const int64_t row = row0 + r;
     if (row < n) {
-      ub[row * q + j] = (rowsum[i] + qs) + cauchy[i];
-      if constexpr (PRUNE) admit[row * q + j] = hit[i] ? 1 : 0;
+      float total;
+      if constexpr (QUANT) {
+        // The per-row affine, factored out of both sums.
+        const float arow = s_dec[kAlphaScale][r] * static_cast<float>(rowsum[i])
+                           + static_cast<float>(m) * s_dec[kAlphaZp][r];
+        const float dot = s_dec[kSgScale][r] * cauchy[i]
+                          + s_dec[kSgZp][r] * p.sdsum[j];
+        total = (arow + qs) + dot;
+      } else {
+        total = (rowsum[i] + qs) + cauchy[i];
+      }
+      p.ub[row * q + j] = total;
+      if constexpr (PRUNE) p.admit[row * q + j] = hit[i] ? 1 : 0;
     }
   }
 }
 
-template <bool PRUNE>
-inline int launch_filter_tile(const float* alpha, const float* sg,
-                              const float* amin, const float* gmax,
-                              const float* qsum, const float* qc,
-                              const float* sd, const float* qb, float* ub,
-                              int32_t* admit, int64_t n, int64_t m, int64_t q,
+template <typename T, bool PRUNE>
+inline int launch_filter_tile(const FilterArgs<T>& args, int64_t m, int64_t q,
                               int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n <= 0 || q <= 0) return 0;
-  if (m <= 0 || m > INT32_MAX || q > INT32_MAX)
+  if (args.n <= 0 || q <= 0) return 0;
+  if (m <= 0 || m > INT32_MAX || q > INT32_MAX ||
+      (std::is_same<T, int8_t>::value && m >= (1 << 24) / 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((n + TN - 1) / TN),
+  FilterArgs<T> p = args;
+  p.m = static_cast<int>(m);
+  p.q = static_cast<int>(q);
+  const dim3 grid(static_cast<unsigned>((p.n + TN - 1) / TN),
                   static_cast<unsigned>((q + TQ - 1) / TQ));
-  filter_tile_kernel<PRUNE><<<grid, THREADS, 0, stream>>>(
-      alpha, sg, amin, gmax, qsum, qc, sd, qb, ub, admit, n,
-      static_cast<int>(m), static_cast<int>(q));
+  filter_tile_kernel<T, PRUNE><<<grid, THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,23 @@ def bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta):
                                  torch.sum(qconst, dim=-1), sqrt_delta)
 
 
+def bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale,
+                            sg_zp, qconst, sqrt_delta):
+    """(n, q) UB totals from the int8 filter tables (per-row affine)."""
+    if qconst.ndim != 2 or sqrt_delta.ndim != 2:
+        raise ValueError(
+            "bregman_ub_matrix_quant wants (q, M) query batches, got "
+            f"{tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}")
+    if not _on_cuda(alpha_q):
+        return ref.bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp,
+                                           sg_q, sg_scale, sg_zp, qconst,
+                                           sqrt_delta)
+    return _ub.bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
+                                       sg_scale, sg_zp,
+                                       torch.sum(qconst, dim=-1), sqrt_delta,
+                                       torch.sum(sqrt_delta, dim=-1))
+
+
 def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
                                sqrt_delta, qb):
     """Fused filter UB + Theorem-3 admit for a row block -> (ub, admit)."""
@@ -50,6 +67,33 @@ def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
     return _fused.bregman_filter_prune(alpha, sqrt_gamma, amin, gmax,
                                        torch.sum(qconst, dim=-1), qconst,
                                        sqrt_delta, qb)
+
+
+def bregman_filter_prune_block_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
+                                     sg_scale, sg_zp, amin_q, amin_scale,
+                                     amin_zp, gmax_q, gmax_scale, gmax_zp,
+                                     qconst, sqrt_delta, qb):
+    """Fused (ub, admit) from int8 filter and corner codes (per-row
+    affine; corners directed-rounded)."""
+    if qconst.ndim != 2 or sqrt_delta.ndim != 2 or qb.ndim != 2:
+        raise ValueError(
+            "bregman_filter_prune_block_quant wants (q, M) query operands, "
+            f"got {tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}/"
+            f"{tuple(qb.shape)}")
+    if alpha_q.shape != amin_q.shape:
+        raise ValueError(
+            "filter and corner tables must share (n, M), got "
+            f"{tuple(alpha_q.shape)} vs {tuple(amin_q.shape)}")
+    if not _on_cuda(alpha_q):
+        return ref.bregman_filter_prune_quant(
+            alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
+            amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp, qconst,
+            sqrt_delta, qb)
+    return _fused.bregman_filter_prune_quant(
+        alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
+        amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp,
+        torch.sum(qconst, dim=-1), qconst, sqrt_delta,
+        torch.sum(sqrt_delta, dim=-1), qb)
 
 
 def bregman_refine_batch(rows, grad, c_y, family: str):
@@ -71,3 +115,18 @@ def bregman_refine(rows, grad, c_y, family: str):
     if not _on_cuda(rows):
         return ref.bregman_refine(rows, grad, c_y, name)
     return _dist.bregman_refine(rows, grad, c_y, name)
+
+
+def bregman_refine_batch_quant(codes, scale, zp, grad, c_y, family: str):
+    """Fused dequantize + exact distances.  (q,b,d) int8, (q,b) x2 -> (q,b)."""
+    if codes.ndim != 3 or scale.ndim != 2 or grad.ndim != 2:
+        raise ValueError(
+            "bregman_refine_batch_quant wants (q,b,d) codes with (q,b) "
+            f"decode rows, got {tuple(codes.shape)}/{tuple(scale.shape)}/"
+            f"{tuple(grad.shape)}")
+    name = get_family(family).name
+    if not _on_cuda(codes):
+        return ref.bregman_refine_batch_quant(codes, scale, zp, grad, c_y,
+                                              name)
+    return _dist.bregman_refine_batch_quant(codes, scale, zp, grad, c_y,
+                                            name)

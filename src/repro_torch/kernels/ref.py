@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import quantize as qz
+
 Tensor = torch.Tensor
 
 
@@ -17,6 +19,27 @@ def bregman_ub_matrix(alpha: Tensor, sqrt_gamma: Tensor, qconst: Tensor,
     """UB totals for a query batch.  (n,M),(n,M),(q,M),(q,M) -> (n,q)."""
     return (torch.sum(alpha, -1)[:, None] + torch.sum(qconst, -1)[None, :]
             + sqrt_gamma @ sqrt_delta.T)
+
+
+def bregman_ub_matrix_quant(alpha_q: Tensor, alpha_scale: Tensor,
+                            alpha_zp: Tensor, sg_q: Tensor, sg_scale: Tensor,
+                            sg_zp: Tensor, qconst: Tensor,
+                            sqrt_delta: Tensor) -> Tensor:
+    """UB totals from the int8 filter tables.  Codes (n, M) int8, per-row
+    decode (n,), queries (q, M) -> (n, q).  The per-row affine factors out
+    of both reductions:
+
+        rowsum(alpha_hat) = alpha_scale * rowsum(alpha_q) + M * alpha_zp
+        sg_hat . sd       = sg_scale * (sg_q . sd) + sg_zp * sum(sd)
+    """
+    m = alpha_q.shape[1]
+    arow = (alpha_scale * torch.sum(alpha_q.to(torch.float32), -1)
+            + float(m) * alpha_zp)
+    qsum = torch.sum(qconst, -1)                                  # (q,)
+    sdsum = torch.sum(sqrt_delta, -1)                             # (q,)
+    cauchy = (sg_scale[:, None] * (sg_q.to(torch.float32) @ sqrt_delta.T)
+              + sg_zp[:, None] * sdsum[None, :])
+    return arow[:, None] + qsum[None, :] + cauchy
 
 
 def bregman_prune_mask(amin: Tensor, gmax: Tensor, qconst: Tensor,
@@ -37,6 +60,24 @@ def bregman_filter_prune(alpha: Tensor, sqrt_gamma: Tensor, amin: Tensor,
                          qb: Tensor) -> tuple[Tensor, Tensor]:
     """Fused filter+prune: (ub (n, q) f32, admit (n, q) int32)."""
     return (bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta),
+            bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb))
+
+
+def bregman_filter_prune_quant(alpha_q: Tensor, alpha_scale: Tensor,
+                               alpha_zp: Tensor, sg_q: Tensor,
+                               sg_scale: Tensor, sg_zp: Tensor,
+                               amin_q: Tensor, amin_scale: Tensor,
+                               amin_zp: Tensor, gmax_q: Tensor,
+                               gmax_scale: Tensor, gmax_zp: Tensor,
+                               qconst: Tensor, sqrt_delta: Tensor,
+                               qb: Tensor) -> tuple[Tensor, Tensor]:
+    """Fused (ub, admit) over the int8 filter and corner codes.  The
+    corners decode through ``dequantize_stats``, op by op, as every other
+    reader of the int8 corner tables (the envelopes too) decodes them."""
+    amin = qz.dequantize_stats(amin_q, amin_scale, amin_zp)
+    gmax = qz.dequantize_stats(gmax_q, gmax_scale, gmax_zp)
+    return (bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
+                                    sg_scale, sg_zp, qconst, sqrt_delta),
             bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb))
 
 
@@ -61,6 +102,17 @@ def bregman_refine_batch(rows: Tensor, grad: Tensor, c_y: Tensor,
     fx = torch.sum(PHIS[family](rows), dim=-1)                    # (q, b)
     cross = torch.einsum("qbd,qd->qb", rows, grad)
     return fx - cross + c_y[:, None]
+
+
+def bregman_refine_batch_quant(codes: Tensor, scale: Tensor, zp: Tensor,
+                               grad: Tensor, c_y: Tensor,
+                               family: str) -> Tensor:
+    """Dequantize + exact D_f over int8 candidate rows.  (q,b,d) int8 codes,
+    (q,b) per-row scale and zero-point -> (q,b).  The rows decode through
+    ``dequantize_rows``, so the distances are exact over the stored
+    points."""
+    rows = qz.dequantize_rows(codes, scale, zp, family)
+    return bregman_refine_batch(rows, grad, c_y, family)
 
 
 def bregman_refine(rows: Tensor, grad: Tensor, c_y: Tensor,

@@ -187,12 +187,18 @@ def test_build_tables_match_jax(family):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("family", FAMILIES)
-def test_interchange_round_trip_is_bit_equal(family):
-    jf, _, _ = jax_forest(family)
+def test_interchange_round_trip_is_bit_equal(family, quantize):
+    jf, _, _ = jax_forest(family, quantize)
     arrays = to_numpy(jf)
-    back = tidx.forest_to_numpy(to_port(jf))
+    port = to_port(jf)
+    assert port.storage == jf.storage
+    back = tidx.forest_to_numpy(port)
     assert set(back) == set(arrays)
+    if quantize:
+        assert set(tidx.QUANT_FIELDS) <= set(back)
+        assert back["data"].dtype == np.int8
     for f, a in arrays.items():
         assert back[f].dtype == a.dtype, f
         np.testing.assert_array_equal(back[f], a, err_msg=f)
@@ -202,11 +208,17 @@ def test_interchange_rejects_missing_fields():
     jf, _, _ = jax_forest("burg")
     arrays = to_numpy(jf)
     del arrays["env_alpha_min"]
+    layout = dict(family_name="burg", partition_idx=jf.partition.idx,
+                  partition_mask=jf.partition.mask, d=D,
+                  num_clusters=jf.num_clusters, device="cpu")
     with pytest.raises(KeyError, match="env_alpha_min"):
-        tidx.forest_from_numpy(arrays, family_name="burg",
-                               partition_idx=jf.partition.idx,
-                               partition_mask=jf.partition.mask, d=D,
-                               num_clusters=jf.num_clusters, device="cpu")
+        tidx.forest_from_numpy(arrays, **layout)
+    # An int8 forest needs its decode fields, and int8 codes as its data.
+    with pytest.raises(KeyError, match="data_scale"):
+        tidx.forest_from_numpy(to_numpy(jf), storage="int8", **layout)
+    with pytest.raises(ValueError, match="stores data as float32"):
+        tidx.forest_from_numpy(to_numpy(jax_forest("burg", True)[0]),
+                               **layout)
 
 
 @pytest.mark.parametrize("multiple", [64, 512])
@@ -241,11 +253,13 @@ def test_validate_rows_matches_jax():
 
 
 def test_build_index_options_not_ported_raise():
+    """calibrate=True still raises; quantize=True builds the int8 tier."""
     data = sample("burg", (64, 4), seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tidx.build_index(data, "burg", quantize=True, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         tidx.build_index(data, "burg", calibrate=True, device="cpu")
+    forest = tidx.build_index(data, "burg", m=2, quantize=True, device="cpu")
+    assert forest.storage == "int8" and forest.data.dtype == torch.int8
+    assert all(getattr(forest, f).shape == (64,) for f in tidx.QUANT_FIELDS)
 
 
 @pytest.mark.parametrize("name", ["audio", "normal", "uniform"])

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import repro_torch.core.index as tidx
+import repro_torch.core.quantize as tqz
 import repro_torch.core.search as tsearch
 from repro_torch.core.bounds import query_refine_constants
 from repro_torch.core.bregman import family_names, get_family
@@ -86,6 +87,105 @@ def test_refine_kernel_matches_its_plain_version(cuda, family, q, b, d):
     assert torch.allclose(one, got[0], rtol=0, atol=0)
 
 
+def _quant_table(n, m, gen, nonneg=False):
+    """Int8 codes reaching -128 and 127 with a per-row (scale, zp); row 1
+    is a constant row (scale 0)."""
+    codes = torch.randint(-128, 128, (n, m), generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+    codes[0, 0], codes[-1, -1] = -128, 127
+    scale = torch.rand(n, generator=gen) * 0.1 + 1e-3
+    zp = torch.randn(n, generator=gen)
+    if n > 1:
+        codes[1], scale[1] = 0, 0.0
+    if nonneg:
+        zp = zp.abs() + 128.0 * scale
+    return codes, scale, zp
+
+
+@pytest.mark.parametrize("n,m,q", [(4133, 37, 50), (31, 1, 1), (31, 70, 33)])
+def test_quant_filter_kernels_match_their_plain_versions(cuda, n, m, q):
+    gen = torch.Generator().manual_seed(n + m)
+    tables = [t for i in range(4)
+              for t in _quant_table(n, m, gen, nonneg=i in (1, 3))]
+    qc, sd = torch.randn((q, m), generator=gen), \
+        torch.randn((q, m), generator=gen).abs()
+    amin = tqz.dequantize_stats(*tables[6:9])
+    gmax = tqz.dequantize_stats(*tables[9:12])
+    lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = lb[0, 0, :]                  # an exact tie in row 0
+    tables = [t.to(cuda) for t in tables]
+    qc, sd, qb = qc.to(cuda), sd.to(cuda), qb.to(cuda)
+    qsum, sdsum = qc.sum(-1), sd.sum(-1)
+    before = (bregman_ub.launches_quant, bregman_fused.launches_quant)
+    ub = bregman_ub.bregman_ub_matrix_quant(*tables[:6], qsum, sd, sdsum)
+    fub, admit = bregman_fused.bregman_filter_prune_quant(*tables, qsum, qc,
+                                                          sd, sdsum, qb)
+    torch.cuda.synchronize()
+    assert (bregman_ub.launches_quant, bregman_fused.launches_quant) == (
+        before[0] + 1, before[1] + 1)
+    want_ub, want_admit = ref.bregman_filter_prune_quant(*tables, qc, sd, qb)
+    a_q, a_s, a_z, g_q, g_s, g_z = tables[:6]
+    # M + 2 fp32 terms in another order, scaled by their magnitudes.
+    mags = ((a_s * a_q.float().sum(-1)).abs() + (m * a_z).abs())[:, None] \
+        + qc.sum(-1).abs()[None] + g_s.abs()[:, None] * (g_q.float().abs()
+                                                         @ sd.T) \
+        + (g_z[:, None] * sd.sum(-1)[None]).abs()
+    tol = (m + 2) * EPS32 * mags
+    assert bool(((ub - want_ub).abs() <= tol).all())
+    assert bool(((fub - want_ub).abs() <= tol).all())
+    assert torch.equal(admit, want_admit)
+    assert bool(admit[0].all())
+    if n * q >= 64:
+        assert 0 < int(admit.sum()) < n * q
+
+
+@pytest.mark.parametrize("family", family_names())
+@pytest.mark.parametrize("q,b,d", [(1, 1, 1), (33, 31, 33), (50, 130, 257)])
+def test_quant_refine_kernel_matches_its_plain_version(cuda, family, q, b,
+                                                       d):
+    gen = torch.Generator().manual_seed(b + d)
+    codes, scale, zp = _quant_table(q * b, d, gen)
+    if get_family(family).domain_low == 0.0:
+        zp = zp.abs() * 2.0                 # some decoded values clamp
+    codes = codes.reshape(q, b, d).to(cuda)
+    scale, zp = scale.reshape(q, b).to(cuda), zp.reshape(q, b).to(cuda)
+    c = query_refine_constants(_valid((q, d), family, gen).to(cuda),
+                               get_family(family))
+    got = bregman_dist.bregman_refine_batch_quant(codes, scale, zp,
+                                                  c["grad"], c["c_y"],
+                                                  family)
+    want = ref.bregman_refine_batch_quant(codes, scale, zp, c["grad"],
+                                          c["c_y"], family)
+    x = tqz.dequantize_rows(codes, scale, zp, family).double()
+    mags = (ref.PHIS[family](x).abs().sum(-1)
+            + torch.einsum("qbd,qd->qb", x, c["grad"].double()).abs()
+            + c["c_y"].double().abs()[:, None])
+    assert bool(((got - want).abs() <= d * EPS32 * mags).all())
+
+
+@pytest.mark.parametrize("family", family_names())
+def test_quantizer_on_the_card_is_bit_equal_to_the_cpu(cuda, family):
+    gen = torch.Generator().manual_seed(5)
+    x = _valid((500, 40), family, gen) * 3.0
+    x[7] = x[7, 0]                          # a constant row
+    for got, want in zip(tqz.quantize_rows(x.to(cuda)), tqz.quantize_rows(x),
+                         strict=True):
+        assert torch.equal(got.cpu(), want)
+    codes, scale, zp = tqz.quantize_rows(x)
+    assert torch.equal(
+        tqz.dequantize_rows(codes.to(cuda), scale.to(cuda), zp.to(cuda),
+                            family).cpu(),
+        tqz.dequantize_rows(codes, scale, zp, family))
+    stats = [torch.randn((300, 37), generator=gen) * 10.0 for _ in range(4)]
+    stats[0][3] = 1.5
+    got = tqz.encode_stat_tables(*(t.to(cuda) for t in stats))
+    want = tqz.encode_stat_tables(*stats)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
 def test_wrappers_refuse_mixed_devices_and_layouts(cuda):
     a = torch.ones((8, 3), device=cuda)
     with pytest.raises(ValueError, match="must be contiguous"):
@@ -97,29 +197,55 @@ def test_wrappers_refuse_mixed_devices_and_layouts(cuda):
                                      torch.ones((2, 3), device=cuda))
 
 
+def _counts(quantize: bool) -> tuple:
+    attr = "launches_quant" if quantize else "launches"
+    return tuple(getattr(mod, attr)
+                 for mod in (bregman_ub, bregman_fused, bregman_dist))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("family", family_names())
-def test_search_on_the_card_matches_the_cpu(cuda, family):
+def test_search_on_the_card_matches_the_cpu(cuda, family, quantize):
     gen = torch.Generator().manual_seed(3)
     data = _valid((3000, 24), family, gen).numpy()
-    forest = tidx.build_index(data, family, m=6, device="cpu")
+    forest = tidx.build_index(data, family, m=6, quantize=quantize,
+                              device="cpu")
     moved = tidx.forest_from_numpy(
         tidx.forest_to_numpy(forest), family_name=family,
         partition_idx=forest.partition.idx,
         partition_mask=forest.partition.mask, d=forest.d,
-        num_clusters=forest.num_clusters, device=cuda)
+        num_clusters=forest.num_clusters, storage=forest.storage,
+        device=cuda)
     queries = np.ascontiguousarray(data[:12] * 1.01)
-    counts = (bregman_ub.launches, bregman_fused.launches,
-              bregman_dist.launches)
+    counts = _counts(quantize)
     got = tsearch.knn_batch(moved, queries, 10, budget=64, block_rows=512,
                             device=cuda)
     assert all(after > was for after, was in zip(
-        (bregman_ub.launches, bregman_fused.launches,
-         bregman_dist.launches), counts, strict=True))
+        _counts(quantize), counts, strict=True))
     want = tsearch.knn_batch(forest, queries, 10, budget=64,
                              block_rows=512, device="cpu")
     assert torch.equal(got.ids.cpu(), want.ids)
     assert torch.allclose(got.dists.cpu(), want.dists, rtol=1e-4,
                           atol=1e-4)
-    bf_ids, _ = tsearch.brute_force_knn(data, queries, 10, family,
+    rows = moved.rows_view()
+    bf_ids, _ = tsearch.brute_force_knn(rows, queries, 10, family,
                                         device=cuda)
-    assert torch.equal(got.ids, bf_ids.to(got.ids.dtype))
+    assert torch.equal(got.ids, moved.point_ids[bf_ids])
+
+
+def test_int8_build_on_the_card_matches_the_cpu(cuda):
+    """build_index(quantize=True) quantizes on the card: its codes are the
+    CPU build's, and its search returns brute-force ids over rows_view."""
+    gen = torch.Generator().manual_seed(4)
+    data = _valid((3000, 24), "burg", gen).numpy()
+    on_card = tidx.build_index(data, "burg", m=6, quantize=True, device=cuda)
+    assert on_card.data.is_cuda and on_card.data.dtype == torch.int8
+    codes, scale, zp = tqz.quantize_rows(torch.from_numpy(data))
+    order = on_card.point_ids.long().cpu()
+    assert torch.equal(on_card.data.cpu(), codes[order])
+    assert torch.equal(on_card.data_scale.cpu(), scale[order])
+    queries = np.ascontiguousarray(data[:12] * 1.01)
+    got = tsearch.knn_batch(on_card, queries, 10, device=cuda)
+    bf_ids, _ = tsearch.brute_force_knn(on_card.rows_view(), queries, 10,
+                                        "burg", device=cuda)
+    assert torch.equal(got.ids, on_card.point_ids[bf_ids])

@@ -55,6 +55,8 @@ def test_entry_points_default_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tidx.build_index(data, "burg", m=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        tidx.build_index(data, "burg", m=2, quantize=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tsearch.brute_force_knn(data, queries, 3, "burg")
     forest = tidx.build_index(data, "burg", m=2, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -67,7 +69,19 @@ def test_entry_points_default_to_the_card(no_card):
             partition_idx=forest.partition.idx,
             partition_mask=forest.partition.mask, d=6,
             num_clusters=forest.num_clusters)
+    quantized = tidx.build_index(data, "burg", m=2, quantize=True,
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsearch.knn_batch(quantized, queries, 3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tidx.forest_from_numpy(
+            tidx.forest_to_numpy(quantized), family_name="burg",
+            partition_idx=quantized.partition.idx,
+            partition_mask=quantized.partition.mask, d=6,
+            num_clusters=quantized.num_clusters, storage="int8")
     assert bool(tsearch.knn_batch(forest, queries, 3, device="cpu")
+                .exact.all())
+    assert bool(tsearch.knn_batch(quantized, queries, 3, device="cpu")
                 .exact.all())
 
 

@@ -193,6 +193,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     """ctypes passes an undeclared pointer as a 32-bit int; every argtype
     list must match its C declaration exactly."""
     assert _c_declarations() == dict(_build.SIGNATURES)
+    assert {"brk_ub_matrix_quant", "brk_filter_prune_quant",
+            "brk_refine_batch_quant"} <= set(_build.SIGNATURES)
     for src in _build.SOURCES + _build.HEADERS:
         text = (_build.CSRC / src).read_text()
         assert "__logf" not in text and "__expf" not in text, src

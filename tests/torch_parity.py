@@ -62,17 +62,58 @@ def filter_inputs(n: int, m: int, q: int, seed: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def jax_forest(family: str):
-    """(reference forest, data, queries) for one family, built once."""
+def jax_forest(family: str, quantize: bool = False):
+    """(reference forest, data, queries) for one family, built once; with
+    ``quantize`` the reference's int8 forest over the same data."""
     data = sample(family, (N, D), seed=0)
     queries = sample(family, (Q, D), seed=1)
     return jax_build_index(data, family, m=M, num_clusters=NUM_CLUSTERS,
-                           seed=0), data, queries
+                           seed=0, quantize=quantize), data, queries
+
+
+def quant_inputs(n: int, m: int, seed: int) -> tuple:
+    """Int8 codes (n, m) with their per-row (scale, zp): the codes reach
+    -128 and 127, and row 1 is a constant row (scale 0, codes 0)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-128, 128, size=(n, m)).astype(np.int8)
+    codes[0, 0] = -128
+    codes[-1, -1] = 127
+    scale = rng.uniform(1e-3, 0.1, n).astype(np.float32)
+    zp = rng.normal(size=n).astype(np.float32)
+    if n > 1:
+        codes[1] = 0
+        scale[1] = 0.0
+    return codes, scale, zp
+
+
+def filter_inputs_quant(n: int, m: int, q: int, seed: int) -> tuple:
+    """The operands of the int8 filter + prune kernels — four code tables
+    (:func:`quant_inputs`; the corners' decode positive for sqrt_gamma) and
+    the (q, M) query tables — as a tuple in the kernels' argument order.
+    As in :func:`filter_inputs`, ``qb`` admits about half the rows, and
+    column 0 ties row 0's decoded lower bound exactly."""
+    f32 = np.float32
+    tables = []
+    for i in range(4):
+        codes, scale, zp = quant_inputs(n, m, seed + i)
+        if i in (1, 3):                      # sqrt_gamma: decode >= 0
+            zp = np.abs(zp) + f32(128) * scale
+        tables += [codes, scale, zp]
+    rng = np.random.default_rng(seed + 4)
+    qc = rng.normal(size=(q, m)).astype(f32)
+    sd = np.abs(rng.normal(size=(q, m))).astype(f32)
+    # The corners decoded and the bound formed op by op, each rounded.
+    amin = tables[6].astype(f32) * tables[7][:, None] + tables[8][:, None]
+    gmax = tables[9].astype(f32) * tables[10][:, None] + tables[11][:, None]
+    lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
+    qb = np.quantile(lb, 1.0 - 0.5 ** (1.0 / m), axis=0).T.astype(f32)
+    qb[:, 0] = lb[0, 0, :]
+    return (*tables, qc, sd, qb)
 
 
 def to_numpy(jforest) -> dict:
     return {f: np.asarray(getattr(jforest, f))
-            for f in tidx.INTERCHANGE_FIELDS}
+            for f in tidx.interchange_fields(jforest.storage)}
 
 
 def to_port(jforest, device="cpu"):
@@ -81,4 +122,5 @@ def to_port(jforest, device="cpu"):
         to_numpy(jforest), family_name=jforest.family_name,
         partition_idx=jforest.partition.idx,
         partition_mask=jforest.partition.mask, d=jforest.partition.d,
-        num_clusters=jforest.num_clusters, device=device)
+        num_clusters=jforest.num_clusters, storage=jforest.storage,
+        device=device)
