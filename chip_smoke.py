@@ -9,13 +9,14 @@ Run from the root of a checkout:
 Phases:
 
 1. The card's name and power limit (nvidia-smi), TF32 off, and the build of
-   the six CUDA kernels (three sources, fp32 and int8 entry points) from
+   the eight CUDA kernels (four sources, fp32 and int8 entry points) from
    src/repro_torch/kernels/csrc with nvcc.
 2. Each kernel against its plain PyTorch version on the card at ragged
-   shapes (admit masks bit-equal); the int8 quantizer on the card against
-   the CPU's, bit for bit; and the whole search on the card against the
-   same search on the CPU for every Bregman family on a small index, in
-   both storage tiers.
+   shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
+   bit-equal to the fused kernels' admit); the int8 quantizer on the card
+   against the CPU's, bit for bit; and the whole search on the card
+   against the same search on the CPU for every Bregman family on a small
+   index, in both storage tiers.
 3. Audio (n=54,387, d=192, exponential) and 4. Deep (n=1,000,000, d=256,
    exponential), from PAPER_DATASETS at full size, each in the fp32 tier
    and then the int8 tier: ``build_index`` with m=None (Theorem 4), PCCP
@@ -25,8 +26,17 @@ Phases:
    0.  The ids are held against ``brute_force_knn`` over the index's point
    set (``rows_view``) on the card.  Each kernel is then held against its
    plain version, and timed with CUDA events beside its bound, at the
-   shapes that search gave it.
-5. The last line is ``{"ok": true, "device": {...}}``.
+   shapes that search gave it.  The unfused comparator (``fused=False``,
+   kernel #5 or #6 in place of #3 or #4) must give the fused search's
+   results bit for bit.  On Deep, the index is then wrapped in a
+   ``TieredPointStore`` holding 40% of its cold bytes on the card:
+   ``knn_batch`` through it (counts reset just before, read just after)
+   must return the resident ids, and a fixed-budget search must equal the
+   resident one bit for bit.
+5. A blob corpus where the envelope gate rejects blocks (the settings of
+   benchmarks/bench_tiered.py at n = 2^20): a cold and a warm pass
+   through the store, bit-equal to resident search.
+6. The last line is ``{"ok": true, "device": {...}}``.
 
 The line before the last holds the kernel table as JSON, the line before
 that the nvidia-smi name and power limit.  The full record goes to
@@ -86,7 +96,7 @@ class Smoke:
         # by ``time_calls`` where that is too short.
         self.sleep_cycles = 20_000_000
         from repro_torch.kernels import (bregman_dist, bregman_fused,
-                                         bregman_ub, ref)
+                                         bregman_prune, bregman_ub, ref)
         self.ref = ref
         # Each kernel's wrapper module and launch counter.
         self.counters = {
@@ -96,6 +106,8 @@ class Smoke:
             "bregman_ub_matrix_quant": (bregman_ub, "launches_quant"),
             "bregman_filter_prune_quant": (bregman_fused, "launches_quant"),
             "bregman_refine_batch_quant": (bregman_dist, "launches_quant"),
+            "bregman_prune_mask": (bregman_prune, "launches"),
+            "bregman_prune_mask_quant": (bregman_prune, "launches_quant"),
         }
 
     # -- helpers -------------------------------------------------------
@@ -171,7 +183,10 @@ class Smoke:
                                                          a[14], a[16]),
                     "bregman_refine_batch": ops.bregman_refine_batch,
                     "bregman_refine_batch_quant":
-                    ops.bregman_refine_batch_quant}[name]
+                    ops.bregman_refine_batch_quant,
+                    "bregman_prune_mask": ops.bregman_prune_block,
+                    "bregman_prune_mask_quant":
+                    ops.bregman_prune_block_quant}[name]
         mod = self.counters[name][0]
         if name.startswith("bregman_ub_matrix"):
             return lambda *a: getattr(mod, name)(*a[:-1])
@@ -321,6 +336,71 @@ class Smoke:
         out["shape"] = [bn, m, q, nb]
         return out
 
+    def compare_prune(self, corners: list, qs: dict, qb,
+                      time_it: bool) -> dict:
+        """Kernel #5 (fp32 corners) or #6 (int8 corner codes, each followed
+        by its scale and zero-point) over ``corners``, a list of per-block
+        operand tuples, for one query batch: the mask must be bit-equal to
+        the plain version's and to the admit output of the fused kernel #3
+        or #4 on the same corners (its filter tables zeros: the admit does
+        not read them).  With ``time_it``, per-launch times and bound."""
+        torch, ref = self.torch, self.ref
+        quant = len(corners[0]) == 6
+        sfx = "_quant" if quant else ""
+        name = "bregman_prune_mask" + sfx
+        plain = getattr(ref, name)
+        kern = self.kernel(name)
+        fused = self.kernel("bregman_filter_prune" + sfx)
+        qc, sd = qs["qconst"], qs["sqrt_delta"]
+        q = qc.shape[0]
+        qsum = torch.sum(qc, dim=-1)
+        admits = rows = 0
+        for blk in corners:
+            n, m = blk[0].shape
+            got = kern(*blk, qc, sd, qb)
+            want = plain(*blk, qc, sd, qb)
+            if quant:
+                zc = torch.zeros((n, m), dtype=torch.int8, device=self.dev)
+                zr = torch.zeros(n, device=self.dev)
+                _, fused_admit = fused(zc, zr, zr, zc, zr, zr, *blk, qsum, qc,
+                                       sd, torch.sum(sd, dim=-1), qb)
+            else:
+                z = torch.zeros((n, m), device=self.dev)
+                _, fused_admit = fused(z, z, *blk, qsum, qc, sd, qb)
+            self.sync()
+            expect(got.dtype == torch.int32 and bool(torch.equal(got, want)),
+                   f"{name} mask is not bit-equal to its plain version "
+                   f"({int((got != want).sum())} of {got.numel()} differ at "
+                   f"{(n, m, q)})")
+            expect(bool(torch.equal(got, fused_admit)),
+                   f"{name} mask differs from the fused kernel's admit at "
+                   f"{(n, m, q)}")
+            admits += int(want.sum())
+            rows += n
+        out = {"admitted": admits, "pairs": rows * q}
+        if not time_it:
+            return out
+        nb = len(corners)
+        m = corners[0][0].shape[1]
+        reps = max(2, min(50, 2000 // nb))
+        out["ms"] = self.time_calls(
+            [lambda blk=blk: kern(*blk, qc, sd, qb) for blk in corners], reps)
+        out["plain_ms"] = self.time_calls(
+            [lambda blk=blk: plain(*blk, qc, sd, qb) for blk in corners],
+            reps)
+        # Per launch (rows averaged over the blocks): the two corner tables
+        # read once (1-byte codes plus two fp32 decode scalars a row each in
+        # int8), the three (q, M) query tables, the int32 mask written; the
+        # add, multiply, subtract and compare per (row, query, subspace),
+        # and the decode's multiply and add per corner element in int8.
+        bn = rows / nb
+        elem, per_row = (1, 16) if quant else (4, 0)
+        nbytes = 2 * elem * bn * m + per_row * bn + 12 * q * m + 4 * bn * q
+        ops = 4 * bn * q * m + (4 * bn * m if quant else 0)
+        out["bound"] = bound(nbytes, ops)
+        out["shape"] = [bn, m, q, nb]
+        return out
+
     def compare_refine(self, operands: tuple, grad, c_y, family: str,
                        time_it: bool) -> dict:
         """The refine kernel of a tier against its plain version on
@@ -402,6 +482,26 @@ class Smoke:
             say(f"ragged int8 filter {n}x{m}x{q}: max_err_over_tol ub "
                 f"{r['ub_err_over_tol']:.3g} fused {r['fp_err_over_tol']:.3g}"
                 f", admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
+        # The prune-only kernels: Deep's block shape and a ragged one, each
+        # with a mixed mask and the tie in row 0.
+        for n, m, q in [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)]:
+            _, _, am, gm, qc, sd, qb = [
+                t.to(self.dev) for t in filter_inputs(torch, n, m, q, seed=n)]
+            *tables, qc8, sd8, qb8 = [
+                t.to(self.dev)
+                for t in filter_inputs_quant(torch, n, m, q, seed=n + 1)]
+            r = self.compare_prune([(am, gm)], {"qconst": qc,
+                                                "sqrt_delta": sd}, qb,
+                                   time_it=False)
+            r8 = self.compare_prune([tuple(tables[6:])],
+                                    {"qconst": qc8, "sqrt_delta": sd8}, qb8,
+                                    time_it=False)
+            for rr in (r, r8):
+                expect(0 < rr["admitted"] < rr["pairs"] or rr["pairs"] < 8,
+                       f"ragged prune inputs {n, m, q} gave an unmixed mask")
+            say(f"ragged prune {n}x{m}x{q}: #5 and #6 bit-equal to their "
+                f"plain versions and to the fused admit ({r['admitted']} and "
+                f"{r8['admitted']} of {r['pairs']} admitted)")
         gen = torch.Generator().manual_seed(0)
         for q, b, d in [(1, 1, 1), (3, 77, 33), (50, 130, 257)]:
             for family in family_names():
@@ -570,14 +670,7 @@ class Smoke:
         rec["search_first_ms"] = 1e3 * (time.perf_counter() - t0)
         rec["launches"] = self.launches()
         rec["search_peak_bytes"] = self.peak()
-        if not self.rehearsal:
-            for kname, count in rec["launches"].items():
-                if kname.endswith("_quant") == quantize:
-                    expect(count > 0, f"{label}: kernel {kname} never "
-                           "launched on the main path")
-                else:
-                    expect(count == 0, f"{label}: the other tier's kernel "
-                           f"{kname} launched {count} times")
+        self.expect_launches(label, rec["launches"], RESIDENT_PATH, quantize)
         steady = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -666,12 +759,308 @@ class Smoke:
             operands, qs["grad"], qs["c_y"], forest.family_name,
             time_it=True)
         del operands, sel, valid, blocks
+        rec["prune_kernels"] = self.compare_prune(
+            tsearch._corner_blocks(forest, bn, nb), qs, qb, time_it=True)
         say(f"{label}: kernels agree at the path's shapes: filter "
             + json.dumps(rec["filter_kernels"]) + " refine "
-            + json.dumps(rec["refine_kernel"]))
+            + json.dumps(rec["refine_kernel"]) + " prune "
+            + json.dumps(rec["prune_kernels"]))
+        rec["unfused"] = self.drive_unfused(label, forest, ys[:q_batch],
+                                            rec["budget_final"], quantize)
+        if name == "deep":
+            rec["tiered"] = self.drive_tiered(label, forest, ys, q_batch,
+                                              ids, quantize)
         del forest
         if not self.rehearsal:
             torch.cuda.empty_cache()
+        return rec
+
+    def expect_launches(self, label: str, launches: dict, path: tuple,
+                        quantize: bool) -> None:
+        """Each kernel of ``path`` (in the tier's variant) launched on the
+        path just driven, and no other kernel."""
+        if self.rehearsal:
+            return
+        want = {k + ("_quant" if quantize else "") for k in path}
+        for kname, count in launches.items():
+            if kname in want:
+                expect(count > 0, f"{label}: kernel {kname} never launched "
+                       "on the path")
+            else:
+                expect(count == 0, f"{label}: kernel {kname} launched "
+                       f"{count} times off the path")
+
+    def drive_unfused(self, label: str, forest, ys, budget: int,
+                      quantize: bool) -> dict:
+        """The unfused comparator (``fused=False``: windowed gate, kernel #5
+        or #6, no UB tile) at the fused search's budget: ids, dists,
+        exact and num_candidates bit-equal.  One timed search of each."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+
+        def fused():
+            return tsearch.knn_search_batch(forest, ys, K, budget,
+                                            BLOCK_ROWS, validate=False,
+                                            device=self.dev)
+
+        def unfused():
+            return tsearch._knn_search_batch_unfused(
+                forest, ys, K, budget, BLOCK_ROWS, device=self.dev)
+
+        want = fused()
+        self.reset_launches()
+        got = unfused()
+        self.sync()
+        out = {"budget": budget, "queries": int(ys.shape[0]),
+               "launches": self.launches()}
+        self.expect_launches(label + " fused=False", out["launches"],
+                             UNFUSED_PATH, quantize)
+        for f in got._fields:
+            expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                   f"{label}: fused=False {f} differ from the fused search's")
+        for key, fn in (("fused_ms", fused), ("unfused_ms", unfused)):
+            self.sync()
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            out[key] = 1e3 * (time.perf_counter() - t0)
+        say(f"{label}: fused=False == fused bit for bit at budget {budget} "
+            f"(q = {out['queries']}); one search {out['unfused_ms']:.2f} ms "
+            f"against fused {out['fused_ms']:.2f} ms")
+        return out
+
+    def drive_tiered(self, label: str, forest, ys, q_batch: int, ids,
+                     quantize: bool) -> dict:
+        """Deep through a TieredPointStore that holds 40% of the cold bytes
+        on the card (bench_tiered.py's share), default prefetch depth:
+        ``knn_batch`` returns the resident ids; a fixed-budget search is
+        bit-equal to the resident one; a cold and a warm pass are timed."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.core.tiered import TieredPointStore
+        cold = cold_bytes(forest)
+        out = {"cold_bytes": cold, "resident_bytes": int(0.4 * cold)}
+        self.sync()
+        t0 = time.perf_counter()
+        store = TieredPointStore.from_index(
+            forest, resident_bytes=out["resident_bytes"],
+            block_rows=BLOCK_ROWS)
+        self.sync()
+        out["wrap_s"] = time.perf_counter() - t0
+        expect(not store.is_resident, f"{label}: the store did not tier")
+        out["prefetch_depth"] = store.prefetch_depth
+        out["num_blocks"] = store.num_blocks
+
+        def search():
+            outs = [tsearch.knn_batch(store, ys[s:s + q_batch], K,
+                                      device=self.dev)
+                    for s in range(0, NUM_QUERIES, q_batch)]
+            self.sync()
+            return outs
+
+        for key in ("cold", "warm"):
+            store.reset_stats()
+            self.reset_launches()
+            self.reset_peak()
+            t0 = time.perf_counter()
+            outs = search()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = self.launches()
+            self.expect_launches(f"{label} tiered {key}", launches,
+                                 TIERED_PATH, quantize)
+            got = torch.cat([o.ids for o in outs])
+            expect(bool(torch.equal(got, ids)),
+                   f"{label}: tiered knn_batch ({key} pass) ids differ from "
+                   "the resident knn_batch's")
+            stats = dict(store.stats)
+            out[key] = {"ms": ms, "launches": launches, "stats": stats,
+                        "cache_info": store.cache_info(),
+                        "peak_bytes": self.peak(),
+                        "fetch_gb_per_s": stats["host_bytes_fetched"]
+                        / (ms * 1e6)}
+            say(f"{label} tiered {key} pass: {ms:.1f} ms per {NUM_QUERIES} "
+                f"queries, fetched {stats['host_bytes_fetched']} B "
+                f"({out[key]['fetch_gb_per_s']:.2f} GB/s over the pass), "
+                f"blocks admitted {stats['blocks_admitted']} of "
+                f"{stats['blocks_total']}, launches {launches}")
+        out["launches"] = out["cold"]["launches"]
+        budget = tsearch.resolve_budget(None, forest.n, K)
+        ys0 = ys[:q_batch]
+        want = tsearch.knn_search_batch(forest, ys0, K, budget,
+                                        device=self.dev)
+        self.sync()
+        t0 = time.perf_counter()
+        got = tsearch.knn_search_batch(store, ys0, K, budget,
+                                       device=self.dev)
+        self.sync()
+        out["fixed_budget"] = {"budget": budget, "queries": int(ys0.shape[0]),
+                               "ms": 1e3 * (time.perf_counter() - t0)}
+        for f in got._fields:
+            expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                   f"{label}: tiered {f} at budget {budget} differ from the "
+                   "resident search's")
+        out["store_device_bytes"] = (forest_device_bytes(store._hot)
+                                     + store.cache_info()["bytes_cached"]
+                                     + store.cache_info()["pool_bytes"])
+        out["resident_device_bytes"] = forest_device_bytes(forest)
+        out["copies"] = self.copy_overlap(
+            lambda: tsearch.knn_search_batch(store, ys0, K, budget,
+                                             device=self.dev),
+            f"tiered_trace_{'int8' if quantize else 'fp32'}.json")
+        fast = TieredPointStore.from_index(forest, resident_bytes=2 * cold,
+                                           block_rows=BLOCK_ROWS)
+        got = fast.search(ys0, K, budget, device=self.dev)
+        expect(fast.is_resident and bool(torch.equal(got.ids, want.ids)),
+               f"{label}: a store with twice the cold bytes did not take the "
+               "resident fast path")
+        store.close()
+        say(f"{label} tiered: bit-equal to resident at budget {budget}; the "
+            f"store holds {out['store_device_bytes']} B on its device against "
+            f"{out['resident_device_bytes']} B resident; copies "
+            + json.dumps(out["copies"]) + "; resident fast path at 2x cold")
+        return out
+
+    def copy_overlap(self, fn, trace_name: str) -> dict:
+        """One more run of ``fn`` under torch.profiler: from its chrome
+        trace (kept as build/``trace_name``), the store's host-to-device
+        copies (pinned or pageable), the prune kernels' device time, how
+        much of the copies' time overlaps the prune kernels and any
+        kernel, and the device's busy time (the union of its kernels,
+        copies and sets) within the profiled run's wall time."""
+        if self.rehearsal:
+            return {"overlap": "not measured"}
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            self.sync()
+        path = ROOT / "build" / trace_name
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+        def spans(pred):
+            return [(e["ts"], e["ts"] + e["dur"]) for e in events if pred(e)]
+
+        copies = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                       and "HtoD" in e.get("name", ""))
+        prunes = spans(lambda e: e.get("cat") == "kernel"
+                       and "filter_tile_kernel" in e.get("name", "")
+                       and "true, false>" in e.get("name", ""))
+        kernels = spans(lambda e: e.get("cat") == "kernel")
+        device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy",
+                                                  "gpu_memset"))
+        wall = (max(b for _, b in spans(lambda e: True))
+                - min(a for a, _ in spans(lambda e: True)))
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+        return {"htod_copies": len(copies),
+                "pinned_copies": sum("Pinned" in n for n in names),
+                "pageable_copies": sum("Pageable" in n for n in names),
+                "htod_ms": sum(b - a for a, b in copies) / 1e3,
+                "prune_launches": len(prunes),
+                "prune_ms": sum(b - a for a, b in prunes) / 1e3,
+                "overlap_prune_ms": overlap(copies, prunes) / 1e3,
+                "overlap_any_kernel_ms": overlap(copies, kernels) / 1e3,
+                "device_busy_ms": overlap([(min(a for a, _ in device),
+                                            max(b for _, b in device))],
+                                          device) / 1e3,
+                "profiled_wall_ms": wall / 1e3,
+                "trace": str(path)}
+
+    def drive_blobs(self) -> dict:
+        """The blob corpus of benchmarks/bench_tiered.py at n = 2^20: 16
+        contiguous Gaussian blobs 100 apart, squared Euclidean, d = 32,
+        m = 4, 64 clusters, 512-row blocks, 32 queries from blob 0 offset
+        by 0.01, k = 10, a store holding 40% of the cold bytes.  A cold and
+        a warm pass through the store, each bit-equal to resident search
+        at the default budget; the resident knn_batch against brute
+        force."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import index as tidx
+        from repro_torch.core import search as tsearch
+        from repro_torch.core.tiered import TieredPointStore
+        n = 4096 if self.rehearsal else 1 << 20
+        d, m, q, blobs, block_rows = 32, 4, 32, 16, 512
+        family = "squared_euclidean"
+        rec = {"n": n, "d": d, "m": m, "q": q, "blobs": blobs,
+               "block_rows": block_rows, "family": family,
+               "num_clusters": 64}
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        per = n // blobs
+        data = np.concatenate([rng.normal(size=(per, d)) + 100.0 * j
+                               for j in range(blobs)]).astype(np.float32)
+        ys_np = (data[rng.integers(0, per, size=q)] + 0.01).astype(
+            np.float32)
+        rec["data_s"] = time.perf_counter() - t0
+        self.sync()
+        t0 = time.perf_counter()
+        forest = tidx.build_index(data, family, m=m, num_clusters=64,
+                                  seed=0, device=self.dev)
+        self.sync()
+        rec["build_s"] = time.perf_counter() - t0
+        ys = torch.as_tensor(ys_np, device=self.dev)
+        exact = tsearch.knn_batch(forest, ys, K, block_rows=block_rows,
+                                  device=self.dev)
+        points = forest.rows_view()[torch.argsort(forest.point_ids.long())]
+        rec.update(self.check_brute_force(points, ys, exact.ids, exact.dists,
+                                          family))
+        del points
+        budget = tsearch.resolve_budget(None, n, K)
+        rec["budget"] = budget
+        self.sync()
+        t0 = time.perf_counter()
+        want = tsearch.knn_search_batch(forest, ys, K, budget, block_rows,
+                                        device=self.dev)
+        self.sync()
+        rec["resident_ms"] = 1e3 * (time.perf_counter() - t0)
+        cold = cold_bytes(forest)
+        store = TieredPointStore.from_index(forest,
+                                            resident_bytes=int(0.4 * cold),
+                                            block_rows=block_rows)
+        rec["cold_bytes"] = cold
+        rec["resident_bytes"] = store.resident_bytes
+        expect(not store.is_resident, "blob corpus: the store did not tier")
+        for key in ("cold", "warm"):
+            store.reset_stats()
+            self.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            got = store.search(ys, K, budget, device=self.dev)
+            self.sync()
+            ms = 1e3 * (time.perf_counter() - t0)
+            for f in got._fields:
+                expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                       f"blob corpus {key} pass: tiered {f} differ from the "
+                       "resident search's")
+            stats = dict(store.stats)
+            rec[key] = {"ms": ms, "launches": self.launches(),
+                        "stats": stats, "cache_info": store.cache_info()}
+            self.expect_launches(f"blob corpus {key} pass",
+                                 rec[key]["launches"], TIERED_PATH, False)
+            say(f"blob corpus {key} pass (n={n}): {ms:.2f} ms for {q} "
+                f"queries (resident {rec['resident_ms']:.2f} ms), blocks "
+                f"admitted {stats['blocks_admitted']} of "
+                f"{stats['blocks_total']}, fetched "
+                f"{stats['host_bytes_fetched']} B of {cold} cold, launches "
+                f"{rec[key]['launches']}")
+        # The warm path's pooled corners (its last admitted set), or the
+        # cached blocks pooled, when the admitted set did not fit the cache.
+        if store._pool_cache is None:
+            store._pooled(tuple(sorted(store._cache)))
+        corners = store._pool_cache[1]
+        qs = tsearch.query_struct(ys, forest.partition, forest.family)
+        qb = tsearch._filter_bounds(forest, qs, K, block_rows)
+        rec["pooled_prune"] = self.compare_prune([corners], qs, qb,
+                                                 time_it=True)
+        rec["pooled_from_warm_pass"] = rec["warm"]["cache_info"][
+            "pool_bytes"] > 0
+        say("blob corpus: pooled prune kernel at the warm path's shape "
+            + json.dumps(rec["pooled_prune"]))
+        store.close()
         return rec
 
     def reset_peak(self) -> None:
@@ -757,6 +1146,7 @@ class Smoke:
         for name in ("audio", "deep"):
             self.record[name] = self.drive(name, quantize=False)
             self.record[name + "_int8"] = self.drive(name, quantize=True)
+        self.record["blobs"] = self.drive_blobs()
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
                                   + self.kernel_table(self.record["deep_int8"]))
         self.record["seconds"] = time.perf_counter() - t_start
@@ -764,21 +1154,26 @@ class Smoke:
 
     def kernel_table(self, rec: dict) -> list:
         """The kernel JSON rows of one tier's Deep record."""
-        fk, rk = rec["filter_kernels"], rec["refine_kernel"]
+        fk, rk, pk = (rec["filter_kernels"], rec["refine_kernel"],
+                      rec["prune_kernels"])
         src = "src/repro_torch/kernels/csrc/"
         sfx = "_quant" if rec["tier"] == "int8" else ""
         lines = {"bregman_ub_matrix": ("bregman_ub.py:62", "bregman_ub.py:141"),
                  "bregman_filter_prune": ("bregman_fused.py:144",
                                           "bregman_fused.py:235"),
                  "bregman_refine_batch": ("bregman_dist.py:106",
-                                          "bregman_dist.py:184")}
+                                          "bregman_dist.py:184"),
+                 "bregman_prune_mask": ("bregman_prune.py:110",
+                                        "bregman_prune.py:174")}
 
-        def entry(name, source, err, over, ms, plain, bnd, library):
+        def entry(name, source, err, over, ms, plain, bnd, library,
+                  launches=None):
+            launches = launches or rec["launches"]
             return {"name": name + sfx, "route": "cuda",
                     "source": src + source,
                     "replaces": "src/repro/kernels/"
                                 + lines[name][1 if sfx else 0],
-                    "launches": rec["launches"][name + sfx],
+                    "launches": launches[name + sfx],
                     "max_abs_err": err, "max_err_over_tol": over,
                     "ms": ms, "plain_ms": plain,
                     "bound_ms": bnd[0], "bound_by": bnd[1],
@@ -794,6 +1189,11 @@ class Smoke:
             entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
                   rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
                   None),
+            # The masks are bit-equal (compare_prune), so the error is 0;
+            # launches are those of the tiered Deep path.
+            entry("bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0,
+                  pk["ms"], pk["plain_ms"], pk["bound"], None,
+                  launches=rec["tiered"]["launches"]),
         ]
 
 
@@ -805,6 +1205,45 @@ def device_events(torch, prof) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0
             and not e.key.startswith("Command Buffer Full")]
+
+
+# The kernels each path launches (the tier's variant of each).
+RESIDENT_PATH = ("bregman_ub_matrix", "bregman_filter_prune",
+                 "bregman_refine_batch")
+UNFUSED_PATH = ("bregman_ub_matrix", "bregman_prune_mask",
+                "bregman_refine_batch")
+TIERED_PATH = UNFUSED_PATH
+
+
+def cold_bytes(forest) -> int:
+    """Bytes of the forest's cold tier (the tables a TieredPointStore
+    keeps in host memory)."""
+    from repro_torch.core.index import cold_point_fields
+    return sum(getattr(forest, f).numel() * getattr(forest, f).element_size()
+               for f in cold_point_fields(forest))
+
+
+def forest_device_bytes(forest) -> int:
+    """Bytes of every tensor of a forest that holds memory (the meta
+    tensors standing in for a store's cold tables hold none)."""
+    return sum(v.numel() * v.element_size() for v in vars(forest).values()
+               if hasattr(v, "numel") and v.device.type != "meta")
+
+
+def overlap(spans: list, others: list) -> float:
+    """The total length of ``spans`` (intervals) covered by the union of
+    ``others``."""
+    merged = []
+    for a, b in sorted(others):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = 0.0
+    for a, b in spans:
+        for c, e in merged:
+            total += max(0.0, min(b, e) - max(a, c))
+    return total
 
 
 def table_bytes(forest) -> dict:

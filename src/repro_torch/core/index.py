@@ -92,7 +92,9 @@ class BallForest:
 
     @property
     def device(self) -> torch.device:
-        return self.data.device
+        # point_ids is a hot table: a tiered store's hot forest keeps it on
+        # the device while its cold tables are shape-only meta tensors.
+        return self.point_ids.device
 
     def rows_view(self) -> Tensor:
         """(n, d) fp32 point rows — the point set this index searches.  In
@@ -116,6 +118,26 @@ QUANT_FIELDS = ("data_scale", "data_zp", "alpha_scale", "alpha_zp",
                 "gmax_scale", "gmax_zp")
 REPLICATED_FIELDS = ("alpha_min", "sqrt_gamma_max", "counts", "centers",
                      "beta_samples", "gamma_edges") + ENV_FIELDS
+
+# Residency tiers (core/tiered.py).  The COLD point-major fields are the
+# ones only the post-filter stages read: the (n, d) rows the refine kernel
+# reads and the (n, M) per-point corners the Theorem-3 prune reads, the
+# tables the envelope gate can veto a block of before any fetch.  The rest
+# is HOT: the filter streams alpha / sqrt_gamma for every row, point_ids
+# resolves the final top-k, and the replicated and envelope tables are
+# small.
+COLD_POINT_FIELDS = ("data", "alpha_min_pt", "sqrt_gamma_max_pt")
+COLD_QUANT_FIELDS = ("data_scale", "data_zp", "amin_scale", "amin_zp",
+                     "gmax_scale", "gmax_zp")
+
+
+def cold_point_fields(index_or_storage) -> tuple:
+    """Field names of the host-RAM cold tier of an index or storage tier."""
+    storage = getattr(index_or_storage, "storage", index_or_storage)
+    if storage == "int8":
+        return COLD_POINT_FIELDS + COLD_QUANT_FIELDS
+    return COLD_POINT_FIELDS
+
 
 # Corner sentinel for padded rows: an alpha_min_pt of +PAD_CORNER makes the
 # tuple-space lower bound exceed any finite search bound; the same value in

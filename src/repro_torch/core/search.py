@@ -11,9 +11,10 @@ A (q, d) query block runs five phases:
   4. Prune + compact: the block envelopes gate every (block, query) pair
      in one vectorized pass; the host reads which blocks any query admits
      (one device sync per search) and launches the fused
-     ``bregman_filter_prune`` kernel on those blocks only; each block's
-     admitted rows fill the query's ``budget`` candidate slots in index
-     order.
+     ``bregman_filter_prune`` kernel on those blocks only (``fused=False``:
+     a per-block windowed gate and the prune-only ``bregman_prune_mask``
+     kernel, the comparator); each block's admitted rows fill the query's
+     ``budget`` candidate slots in index order.
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
@@ -21,6 +22,11 @@ In the int8 tier the same phases stream codes plus per-row decode scalars
 through the int8 kernels, ``qb`` is inflated by the filter stats' rounding
 slack, and the refine decodes only the candidate rows; results are exact
 over the decoded points (``BallForest.rows_view``).
+
+The §8 approximate search (:func:`knn_search_batch_approx`) shrinks each
+query's bounds by the empirical CDF of the cross term before the prune.  A
+:class:`~repro_torch.core.tiered.TieredPointStore` passed to an entry point
+runs the same phases with its cold tables fetched block by block.
 
 Ties resolve to the lower row index everywhere (stable sorts), as in the
 reference.  When a query's Theorem-3 union overflows the budget it is
@@ -33,6 +39,7 @@ from __future__ import annotations
 import logging
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -109,6 +116,21 @@ def resolve_budget(budget, n: int, k: int) -> int:
         raise ValueError(f"budget={budget} must be >= k={k} (the refine "
                          "top-k needs at least k slots)")
     return min(budget, n)
+
+
+def validate_p_guarantee(p) -> None:
+    """Range-gate the §8 shrink probability ``p_guarantee``: a real number
+    (or a one-element tensor) within [0, 1]; ``None`` passes."""
+    if p is None:
+        return
+    if isinstance(p, torch.Tensor) and p.numel() == 1:
+        p = p.item()
+    if isinstance(p, bool) or not isinstance(
+            p, (int, float, np.floating, np.integer)):
+        raise TypeError(f"p_guarantee must be a real number, got {p!r}")
+    v = float(p)
+    if not 0.0 <= v <= 1.0:    # False for NaN too
+        raise ValueError(f"p_guarantee must be within [0, 1], got {v}")
 
 
 def fitted_budget_for_n(n: int, k: int, needed: int) -> int:
@@ -202,6 +224,57 @@ def searching_bounds(index: BallForest, qs: dict, idx: Tensor) -> Tensor:
     return qb
 
 
+def _cdf_shrink(samples: Tensor, mu: Tensor, kappa: Tensor,
+                p: Tensor) -> Tensor:
+    """§8 Prop.-1 shrink factor c (q,) from the empirical CDF Psi of the
+    cross term beta_xy: ``c = Psi^-1(p*Psi(mu) + (1-p)*Psi(-kappa)) / mu``,
+    clipped to [0, 1].  ``p`` is an fp32 scalar tensor, so ``1 - p`` rounds
+    in fp32 as the reference's does."""
+    s = samples.shape[0]
+
+    def cdf(t):
+        return torch.searchsorted(samples, t, right=True).to(
+            torch.float32) / s
+
+    def inv_cdf(u):
+        pos = torch.clamp(u * (s - 1), 0.0, s - 1.0)
+        lo = torch.floor(pos).long()
+        hi = torch.clamp(lo + 1, max=s - 1)
+        w = pos - lo.to(torch.float32)
+        return samples[lo] * (1 - w) + samples[hi] * w
+
+    target = p * cdf(mu) + (1.0 - p) * cdf(-kappa)
+    return torch.clamp(inv_cdf(target) / torch.clamp(mu, min=1e-12),
+                       0.0, 1.0)
+
+
+def _approx_bounds(index: BallForest, qs: dict, idx: Tensor, qb: Tensor,
+                   p_guarantee: float) -> Tensor:
+    """The §8 shrink of the searching bounds: each subspace's Cauchy term
+    ``sqrt_gamma(kth) * sqrt_delta`` is scaled by :func:`_cdf_shrink`'s c,
+    the rest (``kappa_i``, the int8 slack included) is kept."""
+    sqrt_term = _tuple_rows(index, idx[:, -1])["sqrt_gamma"] \
+        * qs["sqrt_delta"]                                          # (q, M)
+    kappa_i = qb - sqrt_term
+    p = torch.tensor(float(p_guarantee), dtype=torch.float32,
+                     device=qb.device)
+    c = _cdf_shrink(index.beta_samples, torch.sum(sqrt_term, -1),
+                    torch.sum(kappa_i, -1), p)
+    return kappa_i + c[:, None] * sqrt_term
+
+
+def _filter_bounds(index: BallForest, qs: dict, k: int, block_rows: int,
+                   p_guarantee: float | None = None) -> Tensor:
+    """Phases 2-3 over the hot tables only: the streaming filter's top-k,
+    then the searching bounds ``qb`` (q, M), shrunk when ``p_guarantee``
+    is given."""
+    _, idx = _batch_filter_topk(index, qs, k, block_rows)
+    qb = searching_bounds(index, qs, idx)
+    if p_guarantee is not None:
+        qb = _approx_bounds(index, qs, idx, qb, p_guarantee)
+    return qb
+
+
 def _row_blocks(fields: tuple, bn: int, nb: int) -> list:
     """Per-block row views of point-major tensors.  The last block is
     short rather than padded: the kernels take any row count, so no padded
@@ -220,15 +293,29 @@ def _filter_blocks(index: BallForest, bn: int, nb: int) -> list:
     return _row_blocks(fields, bn, nb)
 
 
+# The prune kernels' corner operands and the refine's row operands, by
+# storage tier, in argument order.
+CORNER_FIELDS = {"f32": ("alpha_min_pt", "sqrt_gamma_max_pt"),
+                 "int8": ("alpha_min_pt", "amin_scale", "amin_zp",
+                          "sqrt_gamma_max_pt", "gmax_scale", "gmax_zp")}
+REFINE_FIELDS = {"f32": ("data",), "int8": ("data", "data_scale", "data_zp")}
+
+
 def _corner_blocks(index: BallForest, bn: int, nb: int) -> list:
     """Per-block corner operands: (alpha_min_pt, sqrt_gamma_max_pt), or in
     the int8 tier their codes, each followed by its scale and zero-point."""
-    if index.storage == "int8":
-        fields = (index.alpha_min_pt, index.amin_scale, index.amin_zp,
-                  index.sqrt_gamma_max_pt, index.gmax_scale, index.gmax_zp)
-    else:
-        fields = (index.alpha_min_pt, index.sqrt_gamma_max_pt)
+    fields = tuple(getattr(index, f) for f in CORNER_FIELDS[index.storage])
     return _row_blocks(fields, bn, nb)
+
+
+def _prune_block(storage: str, corners: tuple, qs: dict,
+                 qb: Tensor) -> Tensor:
+    """The (rows, q) int32 Theorem-3 admit tile of one block's corner
+    operands (:data:`CORNER_FIELDS` order) through the prune-only kernel
+    of the tier."""
+    fn = (kernel_ops.bregman_prune_block_quant if storage == "int8"
+          else kernel_ops.bregman_prune_block)
+    return fn(*corners, qs["qconst"], qs["sqrt_delta"], qb)
 
 
 def _batch_filter_topk(index: BallForest, qs: dict, k: int,
@@ -301,46 +388,92 @@ def _env_tables(index: BallForest, eb: int) -> tuple[Tensor, Tensor]:
             env_g.reshape(-1, f, m).amax(dim=1))
 
 
+def _block_env_span(n: int, bn: int, nb: int, eb: int,
+                    dev) -> tuple[Tensor, Tensor]:
+    """(first, last) envelope row of each block's rows, (nb,) each; the
+    last block's span ends at row n - 1."""
+    starts = torch.arange(nb, device=dev) * bn
+    return starts // eb, (torch.clamp(starts + bn, max=n) - 1) // eb
+
+
+def _envelope_gate(index: BallForest, qs: dict, qb: Tensor, bn: int,
+                   nb: int, eb: int) -> Tensor:
+    """The hoisted envelope gate: (nb, q) bool, True where some envelope
+    row that block b spans admits query j.
+
+    The Theorem-3 test runs once over the whole envelope table; a prefix
+    sum turns it into each (block, query) pair's OR over the block's
+    envelope rows.  An envelope dominates every row it covers, so a block
+    no query admits holds no candidate.  It reads the hot envelope tables
+    only: the resident prune and the tiered store's Stage A both call it,
+    so they admit the same blocks.
+    """
+    n = index.n
+    dev = index.device
+    q = qb.shape[0]
+    env_a, env_g = _env_tables(index, eb)
+    qcT, sdT, qbT = qs["qconst"].T, qs["sqrt_delta"].T, qb.T       # (M, q)
+    lb_env = (env_a[:, :, None] + qcT[None]
+              - env_g[:, :, None] * sdT[None])                       # (ne, M, q)
+    row_admit = torch.any(lb_env <= qbT[None], dim=1)                # (ne, q)
+    ecs = torch.cat([torch.zeros((1, q), dtype=torch.long, device=dev),
+                     torch.cumsum(row_admit, dim=0)])
+    e0s, e_his = _block_env_span(n, bn, nb, eb, dev)
+    return (ecs[e_his + 1] - ecs[e0s]) > 0                           # (nb, q)
+
+
+def _envelope_gate_windowed(index: BallForest, qs: dict, qb: Tensor,
+                            bn: int, nb: int, eb: int) -> Tensor:
+    """The reference's per-block windowed gate, vectorized over blocks:
+    each block gathers the ``win`` envelope rows from its first one, masks
+    the rows past its span inert, and ORs the Theorem-3 test over them.
+    The same admit bits as :func:`_envelope_gate` (same rows, same test):
+    the unfused comparator's gate."""
+    dev = index.device
+    env_a, env_g = _env_tables(index, eb)
+    win = -(-bn // eb) + 1
+    e0s, e_his = _block_env_span(index.n, bn, nb, eb, dev)
+    rows = e0s[:, None] + torch.arange(win, device=dev)[None, :]    # (nb, win)
+    in_span = rows <= e_his[:, None]
+    rows = torch.clamp(rows, max=env_a.shape[0] - 1)
+    wa = torch.where(in_span[:, :, None], env_a[rows], POS_BIG)     # (nb, win, M)
+    wg = torch.where(in_span[:, :, None], env_g[rows], 0.0)
+    qcT, sdT, qbT = qs["qconst"].T, qs["sqrt_delta"].T, qb.T        # (M, q)
+    lb = (wa[..., None] + qcT[None, None]
+          - wg[..., None] * sdT[None, None])                       # (nb, win, M, q)
+    return torch.any(lb <= qbT[None, None], dim=2).any(dim=1)       # (nb, q)
+
+
 def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
                           budget: int, block_rows: int,
                           env_block_rows: int | None = None,
-                          with_tau: bool = False):
+                          with_tau: bool = False, fused: bool = True):
     """Envelope-gated prune + compact over the filter's row blocks.
 
-    1. **Envelope gate** — the Theorem-3 test runs once over the whole
-       envelope table; a prefix sum turns it into each (block, query)
-       pair's OR over the envelope rows the block spans.  An envelope
-       dominates every row it covers, so a block no query admits is
-       skipped.  The host reads the (nb,) any-admit vector once.
+    1. **Envelope gate** — :func:`_envelope_gate` (``fused=False``: the
+       windowed gate, the same bits).  The host reads the (nb,)
+       any-admit vector once.
     2. **Per-point admit** — each admitted block launches the fused
        filter+prune kernel (its int8 sibling in the int8 tier, whose
        envelopes were reduced over the decoded corners): the (block, q) UB
-       tile and int32 admit tile.
+       tile and int32 admit tile.  ``fused=False`` launches the prune-only
+       kernel instead (:func:`_prune_block`), the same admit tile without
+       the UB.
     3. **Compaction** — :func:`_fill_block_slots` routes the block's
        members into the budget slots; slot order = index order.
 
     Returns ``(sel (q, budget), valid (q, budget), num_candidates (q,),
     env_admitted (q,), blocks_run, tau (q,))``; ``tau`` is the per-query
-    min UB over admitted rows when ``with_tau`` (else +BIG).  Unfilled
-    slots hold ``n - 1``.
+    min UB over admitted rows when ``with_tau`` on the fused path (else
+    +BIG).  Unfilled slots hold ``n - 1``.
     """
     n = index.n
     dev = index.device
     q = qb.shape[0]
     bn, nb = _block_layout(n, block_rows)
     eb = resolve_env_block_rows(env_block_rows)
-    env_a, env_g = _env_tables(index, eb)
-    qcT, sdT, qbT = qs["qconst"].T, qs["sqrt_delta"].T, qb.T       # (M, q)
-
-    lb_env = (env_a[:, :, None] + qcT[None]
-              - env_g[:, :, None] * sdT[None])                       # (ne, M, q)
-    row_admit = torch.any(lb_env <= qbT[None], dim=1)                # (ne, q)
-    ecs = torch.cat([torch.zeros((1, q), dtype=torch.long, device=dev),
-                     torch.cumsum(row_admit, dim=0)])
-    starts = torch.arange(nb, device=dev) * bn
-    e0s = starts // eb
-    e_his = (torch.clamp(starts + bn, max=n) - 1) // eb
-    env_admit_all = (ecs[e_his + 1] - ecs[e0s]) > 0                  # (nb, q)
+    gate = _envelope_gate if fused else _envelope_gate_windowed
+    env_admit_all = gate(index, qs, qb, bn, nb, eb)                   # (nb, q)
     run_blocks = torch.nonzero(env_admit_all.any(dim=1)).flatten().tolist()
 
     sel = torch.full((q, budget), n - 1, dtype=torch.long, device=dev)
@@ -352,41 +485,63 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
     filt = _filter_blocks(index, bn, nb)
     corners = _corner_blocks(index, bn, nb)
     for b in run_blocks:
-        ub, admit = fp_fn(*filt[b], *corners[b], qs["qconst"],
-                          qs["sqrt_delta"], qb)
-        if with_tau:
-            tau = torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
-                                .amin(dim=0))
+        if fused:
+            ub, admit = fp_fn(*filt[b], *corners[b], qs["qconst"],
+                              qs["sqrt_delta"], qb)
+            if with_tau:
+                tau = torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
+                                    .amin(dim=0))
+        else:
+            admit = _prune_block(index.storage, corners[b], qs, qb)
         sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
-    targets = torch.arange(1, budget + 1, device=dev)
-    valid = targets[None, :] <= torch.clamp(count, max=budget)[:, None]
-    return (sel, valid, count, env_admit_all.sum(dim=0), len(run_blocks),
-            tau)
+    return (sel, _slot_validity(count, budget), count,
+            env_admit_all.sum(dim=0), len(run_blocks), tau)
+
+
+def _slot_validity(count: Tensor, budget: int) -> Tensor:
+    """(q, budget) bool: slot s holds a candidate iff s < min(count,
+    budget)."""
+    targets = torch.arange(1, budget + 1, device=count.device)
+    return targets[None, :] <= torch.clamp(count, max=budget)[:, None]
+
+
+def _refine_topk(tables: tuple, rows: Tensor, sel: Tensor, valid: Tensor,
+                 qs: dict, point_ids: Tensor, k: int, family_name: str):
+    """One refine kernel launch over all queries' candidates, then the k
+    smallest exact distances (stable: ties to the lower slot).
+
+    ``tables`` are the refine operands (:data:`REFINE_FIELDS` order: rows,
+    or in the int8 tier codes with their scale and zero-point), ``rows``
+    (q, budget) the candidates' rows in them, ``sel`` their global rows
+    (the ids come from it).  The int8 tier gathers codes and decode
+    scalars, never decoded rows, and the kernel decodes them."""
+    gathered = [t[rows] for t in tables]
+    if len(gathered) == 3:
+        dist = kernel_ops.bregman_refine_batch_quant(
+            *gathered, qs["grad"], qs["c_y"], family_name)  # (q, budget)
+    else:
+        dist = kernel_ops.bregman_refine_batch(
+            *gathered, qs["grad"], qs["c_y"], family_name)
+    dist = torch.where(valid, dist, POS_BIG)
+    sv, pos = torch.sort(dist, dim=1, stable=True)
+    ids = point_ids[torch.gather(sel, 1, pos[:, :k])]
+    return ids, sv[:, :k]
 
 
 def _refine_batch(index: BallForest, qs: dict, sel: Tensor, valid: Tensor,
                   k: int):
-    """One refine kernel launch over all queries' candidate rows, then the
-    k smallest exact distances (stable: ties to the lower slot).  The int8
-    tier gathers the candidates' codes and decode scalars, never decoded
-    rows, and the kernel decodes them."""
-    if index.storage == "int8":
-        dist = kernel_ops.bregman_refine_batch_quant(
-            index.data[sel], index.data_scale[sel], index.data_zp[sel],
-            qs["grad"], qs["c_y"], index.family_name)       # (q, budget)
-    else:
-        dist = kernel_ops.bregman_refine_batch(
-            index.data[sel], qs["grad"], qs["c_y"], index.family_name)
-    dist = torch.where(valid, dist, POS_BIG)
-    sv, pos = torch.sort(dist, dim=1, stable=True)
-    ids = index.point_ids[torch.gather(sel, 1, pos[:, :k])]
-    return ids, sv[:, :k]
+    """:func:`_refine_topk` over the index's own tables."""
+    tables = tuple(getattr(index, f) for f in REFINE_FIELDS[index.storage])
+    return _refine_topk(tables, sel, sel, valid, qs, index.point_ids, k,
+                        index.family_name)
 
 
 def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
                            budget: int, block_rows: int,
                            with_stats: bool = False,
-                           env_block_rows: int | None = None):
+                           env_block_rows: int | None = None,
+                           fused: bool = True,
+                           p_guarantee: float | None = None):
     if k > index.n:
         raise ValueError(f"k={k} exceeds index size n={index.n}")
     if budget < k:
@@ -395,14 +550,12 @@ def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
     if ys.ndim != 2:
         raise ValueError(f"expected (q, d) queries, got {tuple(ys.shape)}")
     qs = query_struct(ys, index.partition, index.family)
-
-    _, idx = _batch_filter_topk(index, qs, k, block_rows)
-    qb = searching_bounds(index, qs, idx)                           # (q, M)
+    qb = _filter_bounds(index, qs, k, block_rows, p_guarantee)       # (q, M)
 
     (sel, valid, num_candidates, env_admitted, blocks_run,
      tau) = _stream_prune_compact(index, qs, qb, budget, block_rows,
                                   env_block_rows=env_block_rows,
-                                  with_tau=with_stats)
+                                  with_tau=with_stats, fused=fused)
     ids, dists = _refine_batch(index, qs, sel, valid, k)
     res = SearchResult(ids=ids, dists=dists,
                        exact=num_candidates <= budget,
@@ -419,7 +572,12 @@ def knn_search_batch(index: BallForest, ys, k: int, budget: int | None,
                      env_block_rows: int | None = None,
                      device="cuda") -> SearchResult:
     """Exact kNN for a (q, d) query block at a fixed ``budget``; fields are
-    (q, ...).  Runs on ``device``, where the index must lie."""
+    (q, ...).  Runs on ``device``, where the index must lie.  A tiered
+    store runs its own search, bit-equal by contract."""
+    if getattr(index, "is_tiered_store", False):
+        return index.search(ys, k, budget, block_rows=block_rows,
+                            env_block_rows=env_block_rows,
+                            validate=validate, device=device)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     if validate:
@@ -431,6 +589,44 @@ def knn_search_batch(index: BallForest, ys, k: int, budget: int | None,
                                       env_block_rows))
 
 
+def _knn_search_batch_unfused(index: BallForest, ys, k: int, budget: int,
+                              block_rows: int,
+                              env_block_rows: int | None = None,
+                              device="cuda") -> SearchResult:
+    """The unfused pipeline (windowed gate, prune-only kernel, no UB tile)
+    at resolved knobs: the fused path's comparator, bit-equal to it."""
+    dev = _on_index_device(index, device)
+    return _knn_search_batch_core(index, _queries(ys, dev), k, budget,
+                                  block_rows, env_block_rows=env_block_rows,
+                                  fused=False)
+
+
+def knn_search_batch_approx(index: BallForest, ys, k: int,
+                            budget: int | None, p_guarantee,
+                            block_rows: int | None = None,
+                            validate: bool = True,
+                            device="cuda") -> SearchResult:
+    """§8 approximate kNN for a (q, d) block: each query's bounds shrink
+    by the cross term's empirical CDF so that a true neighbour is kept
+    with probability ``p_guarantee`` (Prop. 1); ``p_guarantee = 1`` keeps
+    the exact bounds' candidates.  A tiered store runs its own search."""
+    if p_guarantee is None:
+        raise ValueError("knn_search_batch_approx needs p_guarantee")
+    if getattr(index, "is_tiered_store", False):
+        return index.search(ys, k, budget, p_guarantee=p_guarantee,
+                            block_rows=block_rows, validate=validate,
+                            device=device)
+    validate_p_guarantee(p_guarantee)
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    if validate:
+        validate_queries(index.family, ys)
+    ys = _queries(ys, dev)
+    br = resolve_block_rows(block_rows, index.n)
+    return _knn_search_batch_core(index, ys, k, budget, br,
+                                  p_guarantee=float(p_guarantee))
+
+
 def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
                            block_rows: int | None = None,
                            device="cuda") -> tuple[SearchResult, dict]:
@@ -439,8 +635,14 @@ def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
     ``block_skip_rate`` is the fraction of (block, query) tiles the
     envelope gate rejected; ``whole_block_skip_rate`` the fraction of
     blocks whose kernel never ran; ``tau_admit`` the tightest UB among
-    admitted rows per query.
+    admitted rows per query.  A tiered store is refused: it reports its
+    own ``stats`` and ``cache_info()``.
     """
+    if getattr(index, "is_tiered_store", False):
+        raise TypeError(
+            "knn_search_batch_stats runs the all-resident pipeline; a "
+            "TieredPointStore reports its own telemetry via store.stats / "
+            "store.cache_info(), or pass store.as_resident_forest()")
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     ys = _queries(ys, dev)
@@ -470,8 +672,9 @@ def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
 
     If any query's Theorem-3 union overflows, the block re-runs at the
     budget fitted to the largest observed union (a power of two), at most
-    ``max_doublings`` times; then it falls back to one brute-force scan,
-    so results are always exact.  ``stop_retry`` (no-arg callable -> bool)
+    ``max_doublings`` times; then it falls back to one brute-force scan
+    (over ``as_resident_forest()`` for a tiered store), so results are
+    always exact.  ``stop_retry`` (no-arg callable -> bool)
     is consulted before every additional launch and ends the ladder with
     the best result so far.  ``return_stats=True`` returns
     ``(SearchResult, BatchStats)``.
@@ -508,7 +711,9 @@ def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
         "%d/%d queries overflowed); escalating to a full linear scan "
         "(n=%d)", max_doublings, budget,
         int((~res.exact).sum()), ys.shape[0], index.n)
-    ids, dists = _brute_force_live(index, ys, k)
+    scan_index = (index.as_resident_forest()
+                  if getattr(index, "is_tiered_store", False) else index)
+    ids, dists = _brute_force_live(scan_index, ys, k)
     res = SearchResult(ids=ids, dists=dists,
                        exact=torch.ones(ys.shape[0], dtype=torch.bool,
                                         device=dev),

@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libbrekernels.so"
-SOURCES = ("bregman_ub.cu", "bregman_fused.cu", "bregman_dist.cu")
+SOURCES = ("bregman_ub.cu", "bregman_fused.cu", "bregman_prune.cu",
+           "bregman_dist.cu")
 HEADERS = ("filter_tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,6 +43,8 @@ SIGNATURES = {
     "brk_ub_matrix_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
     "brk_filter_prune_quant": (_P,) * 19 + (_I64, _I64, _I64, _I, _P),
     "brk_refine_batch_quant": (_P,) * 6 + (_I64, _I64, _I64, _I, _I, _P),
+    "brk_prune_mask": (_P,) * 6 + (_I64, _I64, _I64, _I, _P),
+    "brk_prune_mask_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
 }
 
 _lib = None

@@ -1,5 +1,6 @@
-// Shared tile body of the filter kernels (bregman_ub.cu) and the fused
-// filter+prune kernels (bregman_fused.cu), fp32 and int8 tables alike.
+// Shared tile body of the filter kernels (bregman_ub.cu), the fused
+// filter+prune kernels (bregman_fused.cu) and the prune-only kernels
+// (bregman_prune.cu), fp32 and int8 tables alike.
 //
 // One block owns a TN x TQ tile of the (n, q) output; each of its 256
 // threads owns RPT = 4 outputs of one query column, so a warp writes 32
@@ -16,6 +17,12 @@
 // of both sums (the row sum of codes is an exact integer); the corner
 // codes are decoded as they are staged, op by op, so the admit compare
 // sees the values ``dequantize_stats`` gives.
+//
+// Two switches pick the outputs: UB computes and writes the (n, q) totals,
+// PRUNE the int32 admit mask.  Without UB the filter tables and their
+// decode are neither staged nor read, so the prune-only kernels read just
+// the corners and share the admit compare, and the corners' decode, with
+// the fused kernels by construction.
 #pragma once
 
 #include <cstdint>
@@ -39,6 +46,7 @@ enum Decode { kAlphaScale = 0, kAlphaZp, kSgScale, kSgZp,
 // (q, m); ``decode`` (int8 only) holds the (n,) decode columns: the first
 // four always, the corners' four only where the kernel prunes.
 //   ub[r, j]    = rowsum(alpha_hat)[r] + qsum[j] + sg_hat[r, :] . sd[j, :]
+//                                                          (UB only)
 //   admit[r, j] = any_i (amin_hat[r, i] + qc[j, i]) - gmax_hat[r, i] * sd[j, i]
 //                       <= qb[j, i]                        (PRUNE only)
 template <typename T>
@@ -60,17 +68,19 @@ struct FilterArgs {
   int q;
 };
 
-template <typename T, bool PRUNE>
+template <typename T, bool PRUNE, bool UB>
 __global__ void __launch_bounds__(THREADS)
 filter_tile_kernel(const FilterArgs<T> p) {
+  static_assert(UB || PRUNE, "a tile writes the totals, the mask or both");
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
   // Row sums: exact integers for codes (|code| <= 128, M < 2^24 / 128).
   using RowSum = typename std::conditional<QUANT, int, float>::type;
   constexpr int PR = PRUNE ? TN : 1;
   constexpr int PQ = PRUNE ? MC : 1;
   constexpr int DR = QUANT ? TN : 1;
-  __shared__ T s_alpha[TN][MC + 1];
-  __shared__ float s_sg[TN][MC + 1];
+  constexpr int UR = UB ? TN : 1;
+  __shared__ T s_alpha[UR][MC + 1];
+  __shared__ float s_sg[UR][MC + 1];
   __shared__ float s_amin[PR][MC + 1];
   __shared__ float s_gmax[PR][MC + 1];
   __shared__ float s_sd[MC][TQ + 1];
@@ -88,10 +98,12 @@ filter_tile_kernel(const FilterArgs<T> p) {
   const int q = p.q;
 
   if constexpr (QUANT) {
-    // The filter stats' columns, and the corners' where the kernel prunes.
-    constexpr int cols = PRUNE ? kDecodeCols : kAminScale;
-    for (int e = tid; e < cols * TN; e += THREADS) {
-      const int col = e / TN;
+    // The filter stats' columns where the kernel sums, and the corners'
+    // where it prunes.
+    constexpr int first = UB ? 0 : kAminScale;
+    constexpr int last = PRUNE ? kDecodeCols : kAminScale;
+    for (int e = tid; e < (last - first) * TN; e += THREADS) {
+      const int col = first + e / TN;
       const int r = e % TN;
       s_dec[col][r] = row0 + r < n ? p.decode[col][row0 + r] : 0.f;
     }
@@ -116,8 +128,10 @@ filter_tile_kernel(const FilterArgs<T> p) {
       const int64_t row = row0 + r;
       const bool ok = row < n && c < mc;
       const int64_t off = row * m + m0 + c;
-      s_alpha[r][c] = ok ? p.alpha[off] : T(0);
-      s_sg[r][c] = ok ? static_cast<float>(p.sg[off]) : 0.f;
+      if constexpr (UB) {
+        s_alpha[r][c] = ok ? p.alpha[off] : T(0);
+        s_sg[r][c] = ok ? static_cast<float>(p.sg[off]) : 0.f;
+      }
       if constexpr (PRUNE) {
         float am = 0.f;
         float gm = 0.f;
@@ -162,8 +176,10 @@ filter_tile_kernel(const FilterArgs<T> p) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) {
         const int r = tr + i * ROW_STRIDE;
-        rowsum[i] += s_alpha[r][c];
-        cauchy[i] = fmaf(s_sg[r][c], sdv, cauchy[i]);
+        if constexpr (UB) {
+          rowsum[i] += s_alpha[r][c];
+          cauchy[i] = fmaf(s_sg[r][c], sdv, cauchy[i]);
+        }
         if constexpr (PRUNE) {
           // Each operation rounded on its own, as the plain version does:
           // the intrinsics keep nvcc from contracting into a fused
@@ -179,12 +195,14 @@ filter_tile_kernel(const FilterArgs<T> p) {
 
   const int j = q0 + tq;
   if (j >= q) return;
-  const float qs = p.qsum[j];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = tr + i * ROW_STRIDE;
     const int64_t row = row0 + r;
-    if (row < n) {
+    if (row >= n) continue;
+    if constexpr (PRUNE) p.admit[row * q + j] = hit[i] ? 1 : 0;
+    if constexpr (UB) {
+      const float qs = p.qsum[j];
       float total;
       if constexpr (QUANT) {
         // The per-row affine, factored out of both sums.
@@ -197,12 +215,11 @@ filter_tile_kernel(const FilterArgs<T> p) {
         total = (rowsum[i] + qs) + cauchy[i];
       }
       p.ub[row * q + j] = total;
-      if constexpr (PRUNE) p.admit[row * q + j] = hit[i] ? 1 : 0;
     }
   }
 }
 
-template <typename T, bool PRUNE>
+template <typename T, bool PRUNE, bool UB = true>
 inline int launch_filter_tile(const FilterArgs<T>& args, int64_t m, int64_t q,
                               int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -216,7 +233,7 @@ inline int launch_filter_tile(const FilterArgs<T>& args, int64_t m, int64_t q,
   p.q = static_cast<int>(q);
   const dim3 grid(static_cast<unsigned>((p.n + TN - 1) / TN),
                   static_cast<unsigned>((q + TQ - 1) / TQ));
-  filter_tile_kernel<T, PRUNE><<<grid, THREADS, 0, stream>>>(p);
+  filter_tile_kernel<T, PRUNE, UB><<<grid, THREADS, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,6 +12,7 @@ import torch
 from ..core.bregman import get_family
 from . import bregman_dist as _dist
 from . import bregman_fused as _fused
+from . import bregman_prune as _prune
 from . import bregman_ub as _ub
 from . import ref
 
@@ -49,14 +50,41 @@ def bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale,
                                        torch.sum(sqrt_delta, dim=-1))
 
 
+def _query_operands(name: str, qconst, sqrt_delta, qb) -> None:
+    if qconst.ndim != 2 or sqrt_delta.ndim != 2 or qb.ndim != 2:
+        raise ValueError(
+            f"{name} wants (q, M) query operands, got "
+            f"{tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}/"
+            f"{tuple(qb.shape)}")
+
+
+def bregman_prune_block(amin, gmax, qconst, sqrt_delta, qb):
+    """Theorem-3 admit mask for a row block.  (n,M)x2, (q,M)x3 -> (n,q)
+    int32: the per-point stage of the tiered store and of the unfused
+    prune (``fused=False``)."""
+    _query_operands("bregman_prune_block", qconst, sqrt_delta, qb)
+    if not _on_cuda(amin):
+        return ref.bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb)
+    return _prune.bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb)
+
+
+def bregman_prune_block_quant(amin_q, amin_scale, amin_zp, gmax_q,
+                              gmax_scale, gmax_zp, qconst, sqrt_delta, qb):
+    """Admit mask from int8 corner codes (per-row affine, directed-rounded)."""
+    _query_operands("bregman_prune_block_quant", qconst, sqrt_delta, qb)
+    if not _on_cuda(amin_q):
+        return ref.bregman_prune_mask_quant(amin_q, amin_scale, amin_zp,
+                                            gmax_q, gmax_scale, gmax_zp,
+                                            qconst, sqrt_delta, qb)
+    return _prune.bregman_prune_mask_quant(amin_q, amin_scale, amin_zp,
+                                           gmax_q, gmax_scale, gmax_zp,
+                                           qconst, sqrt_delta, qb)
+
+
 def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
                                sqrt_delta, qb):
     """Fused filter UB + Theorem-3 admit for a row block -> (ub, admit)."""
-    if qconst.ndim != 2 or sqrt_delta.ndim != 2 or qb.ndim != 2:
-        raise ValueError(
-            "bregman_filter_prune_block wants (q, M) query operands, got "
-            f"{tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}/"
-            f"{tuple(qb.shape)}")
+    _query_operands("bregman_filter_prune_block", qconst, sqrt_delta, qb)
     if alpha.shape != amin.shape:
         raise ValueError(
             "filter and corner tables must share (n, M), got "
@@ -75,11 +103,8 @@ def bregman_filter_prune_block_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
                                      qconst, sqrt_delta, qb):
     """Fused (ub, admit) from int8 filter and corner codes (per-row
     affine; corners directed-rounded)."""
-    if qconst.ndim != 2 or sqrt_delta.ndim != 2 or qb.ndim != 2:
-        raise ValueError(
-            "bregman_filter_prune_block_quant wants (q, M) query operands, "
-            f"got {tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}/"
-            f"{tuple(qb.shape)}")
+    _query_operands("bregman_filter_prune_block_quant", qconst, sqrt_delta,
+                    qb)
     if alpha_q.shape != amin_q.shape:
         raise ValueError(
             "filter and corner tables must share (n, M), got "

@@ -55,6 +55,21 @@ def bregman_prune_mask(amin: Tensor, gmax: Tensor, qconst: Tensor,
     return torch.any(lb <= qb.T[None, :, :], dim=1).to(torch.int32)
 
 
+def bregman_prune_mask_quant(amin_q: Tensor, amin_scale: Tensor,
+                             amin_zp: Tensor, gmax_q: Tensor,
+                             gmax_scale: Tensor, gmax_zp: Tensor,
+                             qconst: Tensor, sqrt_delta: Tensor,
+                             qb: Tensor) -> Tensor:
+    """Admit mask from int8 corner codes (n, M) and their per-row decode
+    (n,).  The corners decode through ``dequantize_stats``, op by op, as
+    every other reader of the int8 corner tables (the envelopes too)
+    decodes them; they were rounded to the conservative side at encode, so
+    no slack term enters."""
+    amin = qz.dequantize_stats(amin_q, amin_scale, amin_zp)
+    gmax = qz.dequantize_stats(gmax_q, gmax_scale, gmax_zp)
+    return bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb)
+
+
 def bregman_filter_prune(alpha: Tensor, sqrt_gamma: Tensor, amin: Tensor,
                          gmax: Tensor, qconst: Tensor, sqrt_delta: Tensor,
                          qb: Tensor) -> tuple[Tensor, Tensor]:
@@ -71,14 +86,13 @@ def bregman_filter_prune_quant(alpha_q: Tensor, alpha_scale: Tensor,
                                gmax_scale: Tensor, gmax_zp: Tensor,
                                qconst: Tensor, sqrt_delta: Tensor,
                                qb: Tensor) -> tuple[Tensor, Tensor]:
-    """Fused (ub, admit) over the int8 filter and corner codes.  The
-    corners decode through ``dequantize_stats``, op by op, as every other
-    reader of the int8 corner tables (the envelopes too) decodes them."""
-    amin = qz.dequantize_stats(amin_q, amin_scale, amin_zp)
-    gmax = qz.dequantize_stats(gmax_q, gmax_scale, gmax_zp)
+    """Fused (ub, admit) over the int8 filter and corner codes: the int8
+    UB totals and :func:`bregman_prune_mask_quant`."""
     return (bregman_ub_matrix_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
                                     sg_scale, sg_zp, qconst, sqrt_delta),
-            bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb))
+            bregman_prune_mask_quant(amin_q, amin_scale, amin_zp, gmax_q,
+                                     gmax_scale, gmax_zp, qconst, sqrt_delta,
+                                     qb))
 
 
 def _log_guarded(x: Tensor) -> Tensor:

@@ -14,7 +14,10 @@ import repro_torch.core.quantize as tqz
 import repro_torch.core.search as tsearch
 from repro_torch.core.bounds import query_refine_constants
 from repro_torch.core.bregman import family_names, get_family
-from repro_torch.kernels import bregman_dist, bregman_fused, bregman_ub, ref
+from repro_torch.core.index import cold_point_fields
+from repro_torch.core.tiered import TieredPointStore
+from repro_torch.kernels import bregman_dist, bregman_fused, bregman_prune, \
+    bregman_ub, ref
 
 pytestmark = pytest.mark.gpu
 EPS32 = 2.0 ** -23
@@ -249,3 +252,122 @@ def test_int8_build_on_the_card_matches_the_cpu(cuda):
     bf_ids, _ = tsearch.brute_force_knn(on_card.rows_view(), queries, 10,
                                         "burg", device=cuda)
     assert torch.equal(got.ids, on_card.point_ids[bf_ids])
+
+
+def _prune_operands(n, m, q, gen, quantize):
+    """Corner operands (fp32, or int8 codes with their decode) and the
+    (q, M) query tables, with a mixed mask and an exact tie in row 0; the
+    filter tables of the fused kernels come first."""
+    if quantize:
+        tables = [t for i in range(4)
+                  for t in _quant_table(n, m, gen, nonneg=i in (1, 3))]
+        amin = tqz.dequantize_stats(*tables[6:9])
+        gmax = tqz.dequantize_stats(*tables[9:12])
+    else:
+        alpha, sg, amin, gmax = (torch.randn((n, m), generator=gen)
+                                 for _ in range(4))
+        sg, gmax = sg.abs(), gmax.abs()
+        tables = [alpha, sg, amin, gmax]
+    qc, sd = torch.randn((q, m), generator=gen), \
+        torch.randn((q, m), generator=gen).abs()
+    lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = lb[0, 0, :]
+    return tables, qc, sd, qb
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("n,m,q", [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)])
+def test_prune_kernels_match_their_plain_versions_and_the_fused_admit(
+        cuda, n, m, q, quantize):
+    gen = torch.Generator().manual_seed(n + m + q)
+    tables, qc, sd, qb = _prune_operands(n, m, q, gen, quantize)
+    tables = [t.to(cuda) for t in tables]
+    qc, sd, qb = qc.to(cuda), sd.to(cuda), qb.to(cuda)
+    qsum = qc.sum(-1)
+    attr = "launches_quant" if quantize else "launches"
+    before = getattr(bregman_prune, attr)
+    if quantize:
+        corners = tables[6:]
+        admit = bregman_prune.bregman_prune_mask_quant(*corners, qc, sd, qb)
+        want = ref.bregman_prune_mask_quant(*corners, qc, sd, qb)
+        _, fused = bregman_fused.bregman_filter_prune_quant(
+            *tables, qsum, qc, sd, sd.sum(-1), qb)
+    else:
+        corners = tables[2:]
+        admit = bregman_prune.bregman_prune_mask(*corners, qc, sd, qb)
+        want = ref.bregman_prune_mask(*corners, qc, sd, qb)
+        _, fused = bregman_fused.bregman_filter_prune(*tables, qsum, qc, sd,
+                                                      qb)
+    torch.cuda.synchronize()
+    assert getattr(bregman_prune, attr) == before + 1
+    assert admit.dtype == torch.int32 and admit.shape == (n, q)
+    assert torch.equal(admit, want)
+    assert torch.equal(admit, fused)
+    assert bool(admit[0].all())
+    if n * q >= 64:
+        assert 0 < int(admit.sum()) < n * q
+
+
+def _cold_bytes(forest) -> int:
+    return sum(getattr(forest, f).numel() * getattr(forest, f).element_size()
+               for f in cold_point_fields(forest))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("family", ["squared_euclidean", "burg"])
+def test_tiered_store_on_the_card_matches_resident_search(cuda, family,
+                                                          quantize):
+    gen = torch.Generator().manual_seed(5)
+    data = _valid((3000, 24), family, gen).numpy()
+    forest = tidx.build_index(data, family, m=6, quantize=quantize,
+                              device=cuda)
+    queries = np.ascontiguousarray(data[:12] * 1.01)
+    store = TieredPointStore.from_index(
+        forest, resident_bytes=int(0.4 * _cold_bytes(forest)),
+        block_rows=512)
+    assert not store.is_resident
+    for f in cold_point_fields(forest):
+        assert store._blocks[f].is_pinned(), f
+    attr = "launches_quant" if quantize else "launches"
+    before = getattr(bregman_prune, attr)
+    for p in (None, 0.8, None):
+        if p is None:
+            want = tsearch.knn_search_batch(forest, queries, 10, 256,
+                                            block_rows=512, device=cuda)
+        else:
+            want = tsearch.knn_search_batch_approx(
+                forest, queries, 10, 256, p, block_rows=512, device=cuda)
+        got = store.search(queries, 10, 256, p_guarantee=p, device=cuda)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (p, f)
+    assert getattr(bregman_prune, attr) > before
+    assert store.stats["host_bytes_fetched"] > 0
+    got = tsearch.knn_batch(store, queries, 10, device=cuda)
+    want = tsearch.knn_batch(forest, queries, 10, device=cuda)
+    assert torch.equal(got.ids, want.ids)
+    store.close()
+
+
+def test_store_on_the_card_keeps_no_cold_field_outside_its_cache(cuda):
+    gen = torch.Generator().manual_seed(6)
+    data = _valid((20000, 64), "squared_euclidean", gen).numpy()
+    forest = tidx.build_index(data, "squared_euclidean", m=8, device=cuda)
+    queries = np.ascontiguousarray(data[:8] * 1.01)
+    cold = _cold_bytes(forest)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    store = TieredPointStore.from_index(forest, resident_bytes=cold // 4,
+                                        block_rows=1024)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base < 1 << 20
+    for f in cold_point_fields(forest):
+        assert getattr(store._hot, f).device.type == "meta", f
+    res = store.search(queries, 10, 512, device=cuda)
+    torch.cuda.synchronize()
+    info = store.cache_info()
+    held = torch.cuda.memory_allocated() - base
+    assert held <= info["bytes_cached"] + info["pool_bytes"] + (1 << 20)
+    assert info["bytes_cached"] <= cold // 4 + cold // 10
+    del res
+    store.close()

@@ -15,6 +15,7 @@ import torch
 
 import repro_torch.core.index as tidx
 import repro_torch.core.search as tsearch
+from repro_torch.core.tiered import TieredPointStore
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -83,6 +84,31 @@ def test_entry_points_default_to_the_card(no_card):
                 .exact.all())
     assert bool(tsearch.knn_batch(quantized, queries, 3, device="cpu")
                 .exact.all())
+
+
+def test_the_third_slice_is_covered_and_defaults_to_the_card(no_card):
+    """The tiered store, the prune kernels and the approximate search are
+    in the import scan, and their entry points run on the card unless the
+    caller asks for the CPU."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/core/tiered.py",
+            "src/repro_torch/kernels/bregman_prune.py"} <= names
+    data, queries = _small()
+    for quantize in (False, True):
+        forest = tidx.build_index(data, "burg", m=2, quantize=quantize,
+                                  device="cpu")
+        store = TieredPointStore.from_index(forest, resident_bytes=64,
+                                            block_rows=32)
+        assert not store.is_resident
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsearch.knn_search_batch_approx(forest, queries, 3, None, 0.9)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            store.search(queries, 3)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsearch.knn_batch(store, queries, 3)
+        assert bool(tsearch.knn_batch(store, queries, 3, device="cpu")
+                    .exact.all())
+        store.close()
 
 
 def test_search_runs_on_the_cpu_or_the_card_only():
