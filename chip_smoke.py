@@ -9,8 +9,8 @@ Run from the root of a checkout:
 Phases:
 
 1. The card's name and power limit (nvidia-smi), TF32 off, and the build of
-   the eight CUDA kernels (four sources, fp32 and int8 entry points) from
-   src/repro_torch/kernels/csrc with nvcc.
+   the ten CUDA kernels (six sources; fp32 and int8 entry points of the
+   search kernels) from src/repro_torch/kernels/csrc with nvcc.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
    bit-equal to the fused kernels' admit); the int8 quantizer on the card
@@ -36,7 +36,29 @@ Phases:
 5. A blob corpus where the envelope gate rejects blocks (the settings of
    benchmarks/bench_tiered.py at n = 2^20): a cold and a warm pass
    through the store, bit-equal to resident search.
-6. The last line is ``{"ok": true, "device": {...}}``.
+6. Kernel #10 (flash attention) against its plain version on the seven
+   cases of tests/test_kernels.py::test_flash_attention in fp32 and bf16,
+   then at the model's shapes (prefill at S = 2048, the kNN-LM corpus
+   batch) in fp32 and bf16, also against the plain version on fp32
+   upcasts to about the output's rounding, beside a planted fault's
+   reading (a dropped kv tile); bf16 timed beside SDPA and its bound.
+7. kNN-LM on starcoder2-3b at full width (30 layers, random weights from a
+   seeded generator on the card): ``build_datastore`` over a seeded
+   64 x 1024-token corpus (65,472 keys of 3072 fp32, squared Euclidean,
+   M*), then the ``Engine`` with ``KNNLMHook`` serves 16 prompts of 512
+   tokens in 8 slots, 32 greedy tokens each.  #10 must launch once a layer
+   for every forward batch and prefill, the hook's search through #1, #3
+   and #7; the hook's ids on the last tick must equal brute force, the
+   engine's tokens an offline greedy loop, and the fp32 first-token logits
+   through #10 those through the plain attention (a dropped kv tile's
+   reading beside the limit).
+8. Kernel #9 (the PCCP correlation's Gram) on the datastore's keys: the
+   PCCP partition from its correlations; the Gram against its plain
+   version (beside a planted fault's reading: 128 missing rows), the
+   correlations against the plain version and numpy float64,
+   ``pccp_order`` equal to numpy's at the build's M and at M = 32; the
+   Gram timed beside ``torch.mm``.
+9. The last line is ``{"ok": true, "device": {...}}``.
 
 The line before the last holds the kernel table as JSON, the line before
 that the nvidia-smi name and power limit.  The full record goes to
@@ -65,10 +87,34 @@ BLOCK_ROWS = 4096
 # fp32 outside the tensor cores (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Dense bf16 on the tensor cores (NVIDIA's data sheet).
+BF16_OPS_PER_S = 989e12
 EPS32 = 2.0 ** -23
 # Calls queued behind one sleep kernel when timing (time_calls); well under
 # the launches CUDA queues before the host blocks.
 TIME_GROUP = 32
+# The kNN-LM phase: starcoder2-3b at full width over a seeded corpus of
+# CORPUS_SEQS x CORPUS_LEN tokens (65,472 keys of 3072 fp32), serving
+# NUM_REQUESTS prompts of PROMPT_LEN tokens in SLOTS slots.
+SEED = 0
+CORPUS_SEQS, CORPUS_LEN = 64, 1024
+NUM_REQUESTS, SLOTS, PROMPT_LEN, MAX_SEQ, NEW_TOKENS = 16, 8, 512, 1024, 32
+KNN_K = 8
+LOGITS_BATCH = 2
+PROFILE_TOKENS = 8
+# A subspace count at which pccp_order reads the correlations (phase 8).
+PCCP_PROBE_M = 32
+# tests/test_kernels.py::test_flash_attention's cases:
+# (b, h, kh, sq, skv, d, causal, window).
+FLASH_CASES = [
+    (2, 4, 4, 64, 64, 32, True, None),
+    (1, 8, 2, 64, 64, 32, True, None),
+    (2, 4, 1, 32, 32, 16, True, None),
+    (1, 4, 4, 64, 64, 32, False, None),
+    (1, 4, 2, 64, 64, 32, True, 16),
+    (2, 4, 2, 1, 96, 32, True, None),
+    (1, 2, 2, 48, 48, 32, True, None),
+]
 
 
 class SmokeFailure(Exception):
@@ -96,7 +142,8 @@ class Smoke:
         # by ``time_calls`` where that is too short.
         self.sleep_cycles = 20_000_000
         from repro_torch.kernels import (bregman_dist, bregman_fused,
-                                         bregman_prune, bregman_ub, ref)
+                                         bregman_prune, bregman_ub,
+                                         flash_attention, pccp_corr, ref)
         self.ref = ref
         # Each kernel's wrapper module and launch counter.
         self.counters = {
@@ -108,7 +155,10 @@ class Smoke:
             "bregman_refine_batch_quant": (bregman_dist, "launches_quant"),
             "bregman_prune_mask": (bregman_prune, "launches"),
             "bregman_prune_mask_quant": (bregman_prune, "launches_quant"),
+            "flash_attention": (flash_attention, "launches"),
+            "pccp_correlation": (pccp_corr, "launches"),
         }
+        self._store = None     # the kNN-LM datastore, for phase 8
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -1073,7 +1123,8 @@ class Smoke:
             return None
         return self.torch.cuda.max_memory_allocated()
 
-    def check_brute_force(self, data, ys, ids, dists, family: str) -> dict:
+    def check_brute_force(self, data, ys, ids, dists, family: str,
+                          k: int = K) -> dict:
         """Ids against ``brute_force_knn`` on the card.  A position may
         differ only where brute force's neighbouring distances lie within
         the tolerance (a near tie); returned distances must agree with
@@ -1088,7 +1139,7 @@ class Smoke:
         x = torch.as_tensor(data, device=self.dev)
         self.sync()
         t0 = time.perf_counter()
-        bf_ids, bf_d = brute_force_knn(x, ys, K + 1, family, device=self.dev)
+        bf_ids, bf_d = brute_force_knn(x, ys, k + 1, family, device=self.dev)
         self.sync()
         bf_ms = 1e3 * (time.perf_counter() - t0)
         c = query_refine_constants(ys.double(), fam)
@@ -1100,19 +1151,19 @@ class Smoke:
                            + (rows * c["grad"][j]).sum(-1).abs()
                            + c["c_y"][j].abs()).max())
         tol = d * EPS32 * torch.stack(scales)[:, None].float()
-        expect(bool(((dists - bf_d[:, :K]).abs() <= tol).all()),
+        expect(bool(((dists - bf_d[:, :k]).abs() <= tol).all()),
                f"distances differ from brute force beyond tolerance: max "
-               f"{float((dists - bf_d[:, :K]).abs().max())}")
-        gaps = (bf_d[:, 1:] - bf_d[:, :-1]).abs() <= tol     # (q, K)
+               f"{float((dists - bf_d[:, :k]).abs().max())}")
+        gaps = (bf_d[:, 1:] - bf_d[:, :-1]).abs() <= tol     # (q, k)
         near_tie = gaps.clone()
         near_tie[:, 1:] |= gaps[:, :-1]
-        mismatch = ids.to(bf_ids.dtype) != bf_ids[:, :K]
+        mismatch = ids.to(bf_ids.dtype) != bf_ids[:, :k]
         expect(bool((~mismatch | near_tie).all()),
                f"ids differ from brute force away from a near tie at "
                f"{mismatch.nonzero().tolist()[:5]}")
         return {"brute_force_ms": bf_ms,
                 "bf_position_mismatches": int(mismatch.sum()),
-                "bf_max_abs_diff": float((dists - bf_d[:, :K]).abs().max())}
+                "bf_max_abs_diff": float((dists - bf_d[:, :k]).abs().max())}
 
     def profile(self, fn, wall_ms: float) -> dict:
         """The device time of one more run of ``fn`` (a search), by
@@ -1138,6 +1189,602 @@ class Smoke:
                 "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                         for us, k, c in rows[:10]]}
 
+    # -- phase 6: kernel #10 ------------------------------------------
+    def compare_flash(self, b, h, kh, sq, skv, d, causal, window, dtype,
+                      seed: int, model_shape: bool = False,
+                      time_it: bool = False) -> dict:
+        """Kernel #10 against its plain version on (B, H, S, D) views of
+        contiguous (B, S, H, D) tensors, the model's layout; fp32 within
+        2e-5, bf16 within 2e-2 (abs + rel: tests/test_kernels.py's
+        tolerances; the plain version rounds bf16 logits and probabilities,
+        the kernel does not).
+
+        With ``model_shape`` also against the plain version on fp32 upcasts
+        of the same inputs, where the kernel's fp32 arithmetic leaves only
+        its output's rounding: bf16 within 2^-8 |want| + 1e-5 (half a bf16
+        ulp), fp32 within 2e-5 (abs + rel); and a planted fault read
+        against that limit: the same attention with the kernel's 32-key kv
+        tile in the middle of the sequence dropped (``middle_tile``).  With
+        ``time_it``: kernel, plain version and SDPA (``library_ms``)
+        device ms, and the bound.  The CPU rehearsal's kernel is the plain
+        version on fp32 upcasts, cast back: the kernel's arithmetic."""
+        torch, ref = self.torch, self.ref
+        from repro_torch.kernels import flash_attention as tflash
+        gen = torch.Generator().manual_seed(seed)
+
+        def bshd(heads, s):
+            x = torch.randn((b, s, heads, d), generator=gen).to(dtype)
+            return x.to(self.dev).transpose(1, 2)
+
+        def upcast_ref(q, k, v, **kw):
+            return ref.flash_attention(q.float(), k.float(), v.float(),
+                                       **kw).to(q.dtype)
+
+        q, k, v = bshd(h, sq), bshd(kh, skv), bshd(kh, skv)
+        kernel = upcast_ref if self.rehearsal else tflash.flash_attention
+
+        def run_kernel():
+            return kernel(q, k, v, causal=causal, window=window)
+
+        def run_plain():
+            return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+        got, want = run_kernel(), run_plain()
+        self.sync()
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        diff = (got.float() - want.float()).abs()
+        limit = tol + tol * want.float().abs()
+        shape = [b, h, kh, sq, skv, d, causal, window, str(dtype)[6:]]
+        expect(bool((diff <= limit).all()),
+               f"flash_attention disagrees with its plain version at {shape}:"
+               f" max |diff| {float(diff.max())}")
+        out = {"shape": shape, "max_abs_err": float(diff.max()),
+               "max_err_over_tol": float((diff / limit).max())}
+        del want, diff, limit
+        if model_shape:
+            want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
+            diff = (got.float() - want).abs()
+            limit = (2.0 ** -8 * want.abs() + 1e-5
+                     if dtype == torch.bfloat16 else 2e-5 + 2e-5 * want.abs())
+            expect(bool((diff <= limit).all()),
+                   f"flash_attention disagrees with the fp32 plain version "
+                   f"at {shape}: max |diff| {float(diff.max())}")
+            fault = attention_dropping(torch, q, k, v, causal,
+                                       middle_tile(skv))
+            fault_over = float(((fault - want).abs() / limit).max())
+            expect(fault_over > 1,
+                   f"a dropped kv tile passes the tolerance at {shape} "
+                   f"({fault_over} of it)")
+            out.update(plain_max_abs_err=out["max_abs_err"],
+                       plain_max_err_over_tol=out["max_err_over_tol"],
+                       max_abs_err=float(diff.max()),
+                       max_err_over_tol=float((diff / limit).max()),
+                       planted_fault_over_tol=fault_over)
+            del want, diff, limit, fault
+        del got
+        if not time_it:
+            return out
+        reps = 3
+        out["ms"] = self.time_calls([run_kernel], reps)
+        out["plain_ms"] = self.time_calls([run_plain], reps)
+        fn = torch.nn.functional.scaled_dot_product_attention
+        out["library_ms"] = self.time_calls(
+            [lambda: fn(q, k, v, is_causal=causal, enable_gqa=kh != h)],
+            reps) if window is None and sq == skv else None
+        flops = 4.0 * b * h * sq * skv * d * (0.5 if causal else 1.0)
+        elem = 2 if dtype == torch.bfloat16 else 4
+        nbytes = elem * (2 * b * h * sq * d + 2 * b * kh * skv * d)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        out["bound"] = bound(nbytes, flops, peak)
+        out["tflops"] = (flops / (out["ms"] * 1e-3) / 1e12
+                         if out["ms"] else None)
+        return out
+
+    def phase_flash(self) -> dict:
+        """#10 on the seven cases of tests/test_kernels.py::
+        test_flash_attention in fp32 and bf16, then at the model's shapes in
+        bf16: prefill at S = 2048 (B = 2) and the corpus forward batch of
+        the kNN-LM phase (B = 8, S = 1024), timed."""
+        torch = self.torch
+        from repro_torch.serve.knnlm import FORWARD_BATCH
+        rec = {"cases": []}
+        for i, case in enumerate(FLASH_CASES):
+            for dtype in (torch.float32, torch.bfloat16):
+                rec["cases"].append(self.compare_flash(*case, dtype,
+                                                       seed=i))
+        say(f"flash_attention: the {len(FLASH_CASES)} kernel test cases in "
+            "fp32 and bf16 agree with the plain version (max |diff| "
+            f"{max(c['max_abs_err'] for c in rec['cases']):.3g}, at most "
+            f"{max(c['max_err_over_tol'] for c in rec['cases']):.3g} of the "
+            "tolerance)")
+        if self.rehearsal:
+            shapes = {"prefill_2048": (1, 4, 2, 64, 64, 16),
+                      "corpus_batch": (2, 4, 2, 32, 32, 16)}
+        else:
+            shapes = {"prefill_2048": (2, 24, 2, 2048, 2048, 128),
+                      "corpus_batch": (FORWARD_BATCH, 24, 2, CORPUS_LEN,
+                                       CORPUS_LEN, 128)}
+        for name, (b, h, kh, sq, skv, d) in shapes.items():
+            r32 = self.compare_flash(b, h, kh, sq, skv, d, True, None,
+                                     torch.float32, seed=len(name),
+                                     model_shape=True)
+            r = self.compare_flash(b, h, kh, sq, skv, d, True, None,
+                                   torch.bfloat16, seed=len(name),
+                                   model_shape=True, time_it=True)
+            rec[name], rec[name + "_fp32"] = r, r32
+            say(f"flash_attention {name} {r['shape']}: kernel {r['ms']} ms "
+                f"({r['tflops']} TFLOP/s), plain {r['plain_ms']} ms, SDPA "
+                f"{r['library_ms']} ms, bound {r['bound']}; against the fp32 "
+                f"plain version max |diff| {r['max_abs_err']:.3g} bf16 "
+                f"({r['max_err_over_tol']:.3g} of the tolerance; a dropped "
+                f"kv tile {r['planted_fault_over_tol']:.3g} of it), "
+                f"{r32['max_abs_err']:.3g} fp32 "
+                f"({r32['max_err_over_tol']:.3g}; dropped tile "
+                f"{r32['planted_fault_over_tol']:.3g}); against the bf16 "
+                f"plain version {r['plain_max_abs_err']:.3g}")
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        return rec
+
+    # -- phase 7: kNN-LM on starcoder2-3b ------------------------------
+    def phase_knnlm(self) -> dict:
+        """Full-width starcoder2-3b (30 layers, random weights from a
+        seeded generator on the card) serving 16 requests with the kNN-LM
+        hook over a datastore built from a seeded 64 x 1024 corpus (the
+        reduced config and a small corpus in a CPU rehearsal)."""
+        torch = self.torch
+        import dataclasses
+
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.kernels import flash_attention as tflash
+        from repro_torch.models.registry import build_model
+        from repro_torch.serve.engine import Engine, EngineConfig, Request
+        from repro_torch.serve.knnlm import (FORWARD_BATCH, KNNLMHook,
+                                             build_datastore)
+        if self.rehearsal:
+            cfg = configs.get_reduced("starcoder2-3b")
+            num_seqs, seq_len, prompt_len, max_seq, new = 8, 32, 16, 40, 4
+        else:
+            cfg = configs.get_config("starcoder2-3b")
+            num_seqs, seq_len, prompt_len, max_seq, new = (
+                CORPUS_SEQS, CORPUS_LEN, PROMPT_LEN, MAX_SEQ, NEW_TOKENS)
+        rec = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+               "corpus": [num_seqs, seq_len], "requests": NUM_REQUESTS,
+               "prompt_len": prompt_len, "slots": SLOTS, "max_seq": max_seq,
+               "max_new_tokens": new, "k": KNN_K}
+        rng = np.random.default_rng(SEED)
+        self.sync()
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=self.dev)
+        params = bundle.init(SEED)
+        self.sync()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = bundle.count_params
+        say(f"kNN-LM: {cfg.name} {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {bundle.count_params} parameters (fp32, cast to "
+            f"{str(cfg.compute_dtype)[6:]} at each use) in "
+            f"{rec['init_s']:.2f} s")
+
+        # Datastore: teacher-forced forward in batches, then build_index.
+        corpus = rng.integers(1, cfg.vocab_size, (num_seqs, seq_len))
+        self.reset_launches()
+        self.reset_peak()
+        t0 = time.perf_counter()
+        store = build_datastore(bundle, params, corpus,
+                                family="squared_euclidean", m=None,
+                                seed=SEED)
+        self.sync()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["build_peak_bytes"] = self.peak()
+        rec["build_launches"] = self.launches()
+        batches = -(-num_seqs // FORWARD_BATCH)
+        rec["forward_batches"] = batches
+        index = store.index
+        rec.update(keys=index.n, m=index.m, num_clusters=index.num_clusters,
+                   key_bytes=index.data.numel() * 4)
+        self.expect_launches("datastore build", rec["build_launches"],
+                             ("flash_attention",), False)
+        if not self.rehearsal:
+            expect(rec["build_launches"]["flash_attention"]
+                   == cfg.num_layers * batches,
+                   f"datastore build: {rec['build_launches']} #10 launches, "
+                   f"not {cfg.num_layers} layers x {batches} batches")
+        toks = torch.as_tensor(corpus[:FORWARD_BATCH], device=self.dev)
+        pos = torch.arange(seq_len, device=self.dev)[None].expand(
+            toks.shape[0], seq_len)
+
+        def forward():
+            return bundle.forward_train(params, {"tokens": toks,
+                                                 "positions": pos})
+
+        rec["forward_ms_per_batch"] = self.host_ms(forward, reps=2)
+        say(f"kNN-LM datastore: {index.n} keys x {cfg.d_model} fp32 "
+            f"({rec['key_bytes']} B), M* = {index.m}, "
+            f"{index.num_clusters} clusters; build {rec['build_s']:.2f} s "
+            f"({batches} forward batches of {FORWARD_BATCH} x {seq_len}, "
+            f"{rec['forward_ms_per_batch']:.1f} ms each), peak "
+            f"{rec['build_peak_bytes']} B")
+
+        # Serving: 16 requests through the engine with the hook.
+        prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+                   for _ in range(NUM_REQUESTS)]
+        hook = KNNLMHook(store=store, k=KNN_K)
+        calls = []
+
+        def timed_hook(logits, hidden):
+            self.sync()
+            t = time.perf_counter()
+            out = hook(logits, hidden)
+            self.sync()
+            res = hook.last_result
+            calls.append({"ms": 1e3 * (time.perf_counter() - t),
+                          "rows": int(hidden.shape[0]),
+                          "candidates": res.num_candidates.tolist(),
+                          "hidden": hidden.clone()})
+            return out
+
+        ecfg = EngineConfig(slots=SLOTS, max_seq=max_seq,
+                            prefill_len=prompt_len)
+        eng = Engine(bundle, params, ecfg, logits_hook=timed_hook)
+        for uid, prompt in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+        self.reset_launches()
+        self.reset_peak()
+        prefill_ms, decode_ms, hook_ms = [], [], []
+        t_serve = time.perf_counter()
+        while True:
+            self.sync()
+            t0 = time.perf_counter()
+            before = len(calls)
+            eng._admit()
+            self.sync()
+            t1 = time.perf_counter()
+            if len(calls) > before:
+                prefill_ms.append(1e3 * (t1 - t0))
+            before = len(calls)
+            stepped = eng.step()
+            self.sync()
+            t2 = time.perf_counter()
+            if not stepped and not eng.queue:
+                break
+            if stepped:
+                tick_hook = sum(c["ms"] for c in calls[before:])
+                hook_ms.append(tick_hook)
+                decode_ms.append(1e3 * (t2 - t1) - tick_hook)
+        serve_s = time.perf_counter() - t_serve
+        rec["serve_launches"] = self.launches()
+        rec["serve_peak_bytes"] = self.peak()
+        outputs = {r.uid: r.output for r in eng.finished}
+        generated = sum(len(o) for o in outputs.values())
+        rec.update(
+            serve_s=serve_s, generated_tokens=generated,
+            tokens_per_s=generated / serve_s, ticks=eng.ticks,
+            prefills=len(prefill_ms), prefill_ms=prefill_ms,
+            decode_ms_per_tick=statistics.median(decode_ms),
+            hook_ms_per_tick=statistics.median(hook_ms),
+            hook_calls=len(calls),
+            mean_candidates=float(np.mean([c for call in calls
+                                           for c in call["candidates"]])),
+            hook_escalations=hook.escalations,
+            hook_scan_fallbacks=hook.scan_fallbacks,
+            hook_budget=hook.budget_final)
+        expect(len(outputs) == NUM_REQUESTS
+               and all(len(o) == new for o in outputs.values()),
+               "kNN-LM: not every request got its tokens")
+        expect(all(0 <= t < cfg.vocab_size for o in outputs.values()
+                   for t in o), "kNN-LM: a token outside the vocab")
+        self.expect_launches("kNN-LM serving", rec["serve_launches"],
+                             ("flash_attention",) + RESIDENT_PATH, False)
+        if not self.rehearsal:
+            expect(rec["serve_launches"]["flash_attention"]
+                   == cfg.num_layers * len(prefill_ms),
+                   f"kNN-LM serving: {rec['serve_launches']} #10 launches, "
+                   f"not {cfg.num_layers} layers x {len(prefill_ms)} "
+                   "prefills")
+        say(f"kNN-LM serving: {NUM_REQUESTS} requests x {new} tokens, "
+            f"{SLOTS} slots, prompts {prompt_len}: {serve_s:.2f} s, "
+            f"{rec['tokens_per_s']:.1f} tokens/s; prefill ms {prefill_ms}; "
+            f"decode {rec['decode_ms_per_tick']:.2f} ms and hook "
+            f"{rec['hook_ms_per_tick']:.2f} ms per tick (medians of "
+            f"{len(decode_ms)}); mean candidates per query "
+            f"{rec['mean_candidates']:.1f} of {index.n}; hook escalations "
+            f"{hook.escalations}, budget {hook.budget_final}; launches "
+            f"{rec['serve_launches']}; peak {rec['serve_peak_bytes']} B")
+
+        # The hook's ids on the last tick against brute force.
+        last = calls[-1]
+        keys = index.data[torch.argsort(index.point_ids.long())]
+        rec["brute_force"] = self.check_brute_force(
+            keys, last["hidden"].float(), hook.last_result.ids,
+            hook.last_result.dists, "squared_euclidean", k=KNN_K)
+        del keys
+        say(f"kNN-LM: the hook's ids on the last tick match brute force "
+            f"over the datastore ({rec['brute_force']})")
+        for call in calls:
+            call.pop("hidden")
+
+        # The engine's tokens against an offline greedy loop on the card:
+        # the same waves of SLOTS requests, so every matmul has the same
+        # shape and bf16 rounds as it did in the engine.
+        check_hook = KNNLMHook(store=store, k=KNN_K)
+        offline = {}
+        for w0 in range(0, NUM_REQUESTS, SLOTS):
+            uids = list(range(w0, min(w0 + SLOTS, NUM_REQUESTS)))
+            offline.update(self.offline_greedy(
+                bundle, params, [prompts[u] for u in uids], uids, new,
+                max_seq, check_hook))
+        expect(offline == outputs,
+               "kNN-LM: the engine's tokens differ from the offline greedy "
+               "loop")
+        say(f"kNN-LM: the engine's {generated} tokens equal the offline "
+            "greedy prefill + decode loop")
+
+        # First-token logits through #10 against the plain attention.
+        rec["logits_check"] = self.logits_through_plain(
+            cfg, params, prompts[:LOGITS_BATCH])
+        say("kNN-LM: first-token logits through #10 against the plain "
+            "attention " + json.dumps(rec["logits_check"]))
+
+        # Device-busy share over a shorter serving run.
+        def short_run():
+            e = Engine(bundle, params, ecfg, logits_hook=hook)
+            for uid in range(SLOTS):
+                e.submit(Request(uid=uid, prompt=prompts[uid],
+                                 max_new_tokens=PROFILE_TOKENS))
+            e.run()
+            self.sync()
+
+        wall = self.host_ms(short_run, reps=1)
+        rec["profile"] = self.profile(short_run, wall)
+        rec["profile"]["what"] = (f"{SLOTS} requests x {PROFILE_TOKENS} "
+                                  "tokens, one admission")
+        say(f"kNN-LM: device busy {rec['profile']['busy_share']} of a "
+            f"{SLOTS}-request, {PROFILE_TOKENS}-token serving run")
+        rec["hook_calls_ms"] = [c["ms"] for c in calls]
+        self._store = store
+        del eng, bundle, params
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        return rec
+
+    def offline_greedy(self, bundle, params, prompts, uids, new, max_seq,
+                       hook) -> dict:
+        """Prefill one batch of equal-length prompts into fresh caches, then
+        greedy decode with the hook, outside the engine."""
+        torch = self.torch
+        import numpy as np
+        b, s = len(prompts), len(prompts[0])
+        toks = torch.as_tensor(np.stack(prompts), device=self.dev)
+        pos = torch.arange(s, device=self.dev)[None].expand(b, s)
+        caches = bundle.init_cache(b, max_seq)
+        lengths = torch.zeros((b,), dtype=torch.int32, device=self.dev)
+        hidden, caches = bundle.prefill(params, {"tokens": toks,
+                                                 "positions": pos},
+                                        caches, lengths)
+        last = hidden[:, -1]
+        tok = torch.argmax(hook(bundle.logits(params, last), last), -1)
+        out = [tok]
+        lengths = lengths + s
+        for _ in range(new - 1):
+            logits, last, caches = bundle.decode_step(
+                params, tok[:, None], lengths[:, None], caches, lengths)
+            tok = torch.argmax(hook(logits, last), -1)
+            out.append(tok)
+            lengths = lengths + 1
+        seqs = torch.stack(out, 1).cpu().tolist()
+        return dict(zip(uids, seqs, strict=True))
+
+    def logits_through_plain(self, cfg, params, prompts) -> dict:
+        """Prefill a small batch with #10 and with the plain attention
+        (``ops.flash_attention`` swapped for ``ref.flash_attention``), in
+        the fp32 compute dtype (held: max |diff| <= 1e-5 of max |logits|,
+        about 80 fp32 epsilons, the drift of sums in another order through
+        30 layers; and a planted fault read against that limit: the plain
+        attention with one 32-key kv tile in the middle dropped in every
+        layer) and in bf16 (reported: the plain version rounds bf16
+        logits and probabilities, the kernel does not)."""
+        torch, ref = self.torch, self.ref
+        import dataclasses
+
+        import numpy as np
+        from repro_torch.kernels import ops
+        from repro_torch.models.registry import build_model
+        out = {}
+        toks = torch.as_tensor(np.stack(prompts), device=self.dev)
+        b, s = toks.shape
+        pos = torch.arange(s, device=self.dev)[None].expand(b, s)
+
+        def dropping(q, k, v, *, causal=True, window=None, scale=None):
+            assert window is None and scale is None
+            return attention_dropping(torch, q, k, v, causal,
+                                      middle_tile(s)).to(q.dtype)
+
+        for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt),
+                                 device=self.dev)
+            logits = []
+            swaps = ((None, ref.flash_attention, dropping) if name == "fp32"
+                     else (None, ref.flash_attention))
+            for swap in swaps:
+                kernel = ops.flash_attention
+                if swap is not None:
+                    ops.flash_attention = swap
+                try:
+                    hidden, _ = bundle.prefill(
+                        params, {"tokens": toks, "positions": pos},
+                        bundle.init_cache(b, s),
+                        torch.zeros((b,), dtype=torch.int32,
+                                    device=self.dev))
+                finally:
+                    ops.flash_attention = kernel
+                logits.append(bundle.logits(params, hidden[:, -1]))
+            diff = float((logits[0] - logits[1]).abs().max())
+            scale = float(logits[1].abs().max())
+            out[name] = {"max_abs_diff": diff, "max_abs_logit": scale,
+                         "argmax_equal": bool(torch.equal(
+                             logits[0].argmax(-1), logits[1].argmax(-1)))}
+            if name == "fp32":
+                limit = 1e-5 * scale
+                fault = float((logits[2] - logits[1]).abs().max())
+                out[name].update(diff_over_tol=diff / limit,
+                                 planted_fault_over_tol=fault / limit)
+                expect(diff <= limit,
+                       f"fp32 first-token logits through #10 differ from the "
+                       f"plain attention's by {diff} (max |logit| {scale})")
+                expect(fault > limit,
+                       f"a dropped kv tile in every layer moves the fp32 "
+                       f"logits by only {fault} (max |logit| {scale})")
+        return out
+
+    def host_ms(self, fn, reps: int) -> float:
+        """Median host ms of ``fn`` ended by a sync, after a warm run."""
+        fn()
+        self.sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    # -- phase 8: kernel #9 --------------------------------------------
+    def phase_pccp(self) -> dict:
+        """#9 on the datastore's keys: the path that runs it (the PCCP
+        partition of the keys from the kernel's correlations,
+        ``build_pccp_partition(..., corr=ops.pccp_correlation(keys))`` at
+        the build's M), the kernel against its plain version and against
+        numpy float64 ``correlation_matrix``, and whether ``pccp_order``
+        over the kernel's matrix equals it over numpy's."""
+        torch, ref = self.torch, self.ref
+        import numpy as np
+        from repro_torch.core.partition import (build_pccp_partition,
+                                                correlation_matrix,
+                                                pccp_order)
+        from repro_torch.kernels import ops
+        from repro_torch.kernels import pccp_corr as tpccp
+        store = self._store
+        keys = store.index.data[torch.argsort(store.index.point_ids.long())]
+        n, d = keys.shape
+        m = store.index.m
+        keys_np = keys.cpu().numpy()
+        self.reset_launches()
+        self.sync()
+        t0 = time.perf_counter()
+        corr = ops.pccp_correlation(keys)
+        part = build_pccp_partition(keys_np, m, seed=SEED,
+                                    corr=corr.cpu().numpy())
+        rec = {"n": n, "d": d, "m": m,
+               "partition_s": time.perf_counter() - t0,
+               "launches": self.launches()}
+        self.expect_launches("PCCP partition", rec["launches"],
+                             ("pccp_correlation",), False)
+        t0 = time.perf_counter()
+        corr_np = correlation_matrix(keys_np)
+        rec["numpy_float64_s"] = time.perf_counter() - t0
+        # The kernel (the Gram) against its plain version, the product
+        # ref.pccp_correlation writes as xc.T @ xc.  Rounding in a sum of n
+        # products grows about as sqrt(n) * eps32 times the sum of the
+        # products' magnitudes, but not as independent steps: on the
+        # diagonal, where every product is positive, the kernel's sum
+        # drifts about ten random-walk deviations from cuBLAS's.  The limit
+        # is 8 * sqrt(n) * eps32 times that sum (the worst case, 2 * n *
+        # eps32, is 64 times looser here).
+        xc = (keys - keys.mean(0, keepdim=True)).contiguous()
+        gram_fn = ((lambda t: t.T @ t) if self.rehearsal
+                   else tpccp.pccp_gram)
+        gram = gram_fn(xc)
+        plain_gram = xc.T @ xc
+        a = xc.abs()
+        gram_tol = 8 * n ** 0.5 * EPS32 * (a.T @ a)
+        del a
+        gdiff = (gram - plain_gram).abs()
+        expect(bool((gdiff <= gram_tol).all()),
+               f"pccp_gram disagrees with its plain version: max |diff| "
+               f"{float(gdiff.max())}")
+        expect(self.rehearsal or bool(torch.equal(gram, gram.T)),
+               "pccp_gram's mirrored triangle is not symmetric")
+        # A planted fault: a Gram that missed one 128-row step of n in the
+        # middle differs from the right one by that step's own Gram.
+        r0 = n // 2 // 128 * 128
+        step = xc[r0:r0 + 128]
+        fault_over_tol = float(((step.T @ step).abs() / gram_tol).max())
+        expect(fault_over_tol > 1,
+               f"a Gram missing 128 rows passes the tolerance "
+               f"({fault_over_tol} of it)")
+        rec.update(max_abs_err=float(gdiff.max()),
+                   max_err_over_tol=float((gdiff / gram_tol).max()),
+                   planted_fault_over_tol=fault_over_tol)
+        del gram, plain_gram, gdiff, step
+        # The whole function: the same ops around the Gram on both sides.
+        plain = ref.pccp_correlation(keys)
+        std = torch.sqrt(torch.mean(xc * xc, 0))
+        std = torch.where(std < 1e-12, 1.0, std)
+        tol = gram_tol / (n * std[:, None] * std[None, :])
+        del gram_tol
+        diff = (corr - plain).abs()
+        expect(bool((diff <= tol).all()),
+               f"pccp_correlation disagrees with its plain version: max "
+               f"|diff| {float(diff.max())}")
+        c64 = torch.as_tensor(corr_np, device=self.dev)
+        rec.update(
+            corr_max_abs_err=float(diff.max()),
+            corr_max_err_over_tol=float((diff / tol).max()),
+            kernel_vs_numpy_f64=float((corr.double() - c64).abs().max()),
+            plain_vs_numpy_f64=float((plain.double() - c64).abs().max()))
+        # At the build's M, and at PCCP_PROBE_M subspaces, where groups of
+        # PCCP_PROBE_M dims grow by the correlations (at M = 1 every group
+        # is one dim and the order does not read them).
+        corr_k = corr.cpu().numpy()
+        rec["pccp_order"] = {}
+        for probe in sorted({m, PCCP_PROBE_M}):
+            order_k = pccp_order(corr_k, probe, SEED)
+            order_np = pccp_order(corr_np, probe, SEED)
+            rec["pccp_order"][probe] = {
+                "equal": bool(np.array_equal(order_k, order_np)),
+                "positions_equal": float(np.mean(order_k == order_np))}
+            expect(rec["pccp_order"][probe]["equal"],
+                   f"pccp_order at M = {probe} over the kernel's "
+                   f"correlations differs from numpy float64's")
+        rec["pccp_order_equal"] = rec["pccp_order"][m]["equal"]
+        del corr_k
+        rec["partition_equal_to_build"] = bool(np.array_equal(
+            part.idx, store.index.partition.idx))
+        del corr, plain, diff, c64, tol
+        # ms is the kernel alone; plain_ms the plain version's product (the
+        # plain version of a Gram is a matmul, so it is the library's call
+        # as written there); the whole functions are timed beside them.
+        rec["ms"] = self.time_calls([lambda: gram_fn(xc)], 3)
+        rec["plain_ms"] = self.time_calls([lambda: xc.T @ xc], 3)
+        rec["library_ms"] = self.time_calls([lambda: torch.mm(xc.T, xc)], 3)
+        rec["wrapper_ms"] = self.time_calls(
+            [lambda: ops.pccp_correlation(keys)], 3)
+        rec["plain_wrapper_ms"] = self.time_calls(
+            [lambda: ref.pccp_correlation(keys)], 3)
+        # The upper triangle with its diagonal: n * d * (d + 1) FLOPs.
+        rec["bound"] = bound(4.0 * (n * d + d * d), float(n) * d * (d + 1))
+        rec["tflops"] = (n * d * (d + 1) / (rec["ms"] * 1e-3) / 1e12
+                         if rec["ms"] else None)
+        say(f"pccp_correlation on the datastore's keys ({n} x {d}): Gram "
+            f"kernel {rec['ms']} ms ({rec['tflops']} TFLOP/s), plain "
+            f"{rec['plain_ms']} ms, torch.mm {rec['library_ms']} ms, bound "
+            f"{rec['bound']}; whole function {rec['wrapper_ms']} ms, plain "
+            f"{rec['plain_wrapper_ms']} ms; Gram max |diff| "
+            f"{rec['max_abs_err']:.3g} ({rec['max_err_over_tol']:.3g} of "
+            f"the tolerance; 128 missing rows would be "
+            f"{fault_over_tol:.3g} of it); correlations max |diff| "
+            f"{rec['corr_max_abs_err']:.3g} (plain), "
+            f"{rec['kernel_vs_numpy_f64']:.3g} (numpy float64; plain "
+            f"{rec['plain_vs_numpy_f64']:.3g}); pccp_order against numpy's "
+            f"(by M): {rec['pccp_order']}; partition s "
+            f"{rec['partition_s']:.2f}, numpy float64 correlations "
+            f"{rec['numpy_float64_s']:.2f} s")
+        del xc, keys
+        self._store = None
+        return rec
+
     # -- the whole run -------------------------------------------------
     def run(self) -> dict:
         t_start = time.perf_counter()
@@ -1147,8 +1794,12 @@ class Smoke:
             self.record[name] = self.drive(name, quantize=False)
             self.record[name + "_int8"] = self.drive(name, quantize=True)
         self.record["blobs"] = self.drive_blobs()
+        self.record["flash"] = self.phase_flash()
+        self.record["knnlm"] = self.phase_knnlm()
+        self.record["pccp"] = self.phase_pccp()
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
-                                  + self.kernel_table(self.record["deep_int8"]))
+                                  + self.kernel_table(self.record["deep_int8"])
+                                  + self.lm_kernel_table())
         self.record["seconds"] = time.perf_counter() - t_start
         return self.record
 
@@ -1195,6 +1846,62 @@ class Smoke:
                   pk["ms"], pk["plain_ms"], pk["bound"], None,
                   launches=rec["tiered"]["launches"]),
         ]
+
+
+    def lm_kernel_table(self) -> list:
+        """The kernel JSON rows of #10 (at the kNN-LM corpus batch's shape,
+        its launches those of the build and the serving run) and #9 (on the
+        datastore's keys, its launches the PCCP partition's)."""
+        src = "src/repro_torch/kernels/csrc/"
+        fl, kn, pc = (self.record["flash"]["corpus_batch"],
+                      self.record["knnlm"], self.record["pccp"])
+        flash_launches = (kn["build_launches"]["flash_attention"]
+                          + kn["serve_launches"]["flash_attention"])
+        return [
+            {"name": "flash_attention", "route": "cuda",
+             "source": src + "flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:102",
+             "launches": flash_launches,
+             "max_abs_err": fl["max_abs_err"],
+             "max_err_over_tol": fl["max_err_over_tol"],
+             "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+             "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],
+             "library_ms": fl["library_ms"]},
+            {"name": "pccp_correlation", "route": "cuda",
+             "source": src + "pccp_corr.cu",
+             "replaces": "src/repro/kernels/pccp_corr.py:52",
+             "launches": pc["launches"]["pccp_correlation"],
+             "max_abs_err": pc["max_abs_err"],
+             "max_err_over_tol": pc["max_err_over_tol"],
+             "ms": pc["ms"], "plain_ms": pc["plain_ms"],
+             "bound_ms": pc["bound"][0], "bound_by": pc["bound"][1],
+             "library_ms": pc["library_ms"]},
+        ]
+
+
+def middle_tile(skv: int) -> range:
+    """The kv positions of #10's 32-key tile at the middle of ``skv`` keys
+    (half the keys from the middle on when there are fewer than 64)."""
+    width = min(32, skv // 2)
+    start = skv // 2 // width * width
+    return range(start, start + width)
+
+
+def attention_dropping(torch, q, k, v, causal: bool, drop: range):
+    """fp32 GQA attention, queries end-aligned, with the keys at positions
+    ``drop`` masked out: what a kernel that skipped that kv tile would
+    give.  q (B, H, Sq, D); k/v (B, KH, Skv, D)."""
+    sq, d = q.shape[2], q.shape[3]
+    skv, rep = k.shape[2], q.shape[1] // k.shape[1]
+    k = k.float().repeat_interleave(rep, 1)
+    v = v.float().repeat_interleave(rep, 1)
+    s = (q.float() @ k.transpose(-1, -2)) * d ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    keep = ((kpos < drop.start) | (kpos >= drop.stop)) & (
+        kpos <= qpos if causal else True)
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, -1) @ v
 
 
 def device_events(torch, prof) -> list:
@@ -1269,10 +1976,13 @@ def err_over_tol(diff, tol) -> float:
     return float((diff / tol).masked_fill(diff == 0, 0.0).max())
 
 
-def bound(nbytes: float, ops: float) -> tuple:
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    its operations at ``ops_per_s`` (fp32 outside the tensor cores unless
+    given)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 

@@ -14,6 +14,8 @@ from . import bregman_dist as _dist
 from . import bregman_fused as _fused
 from . import bregman_prune as _prune
 from . import bregman_ub as _ub
+from . import flash_attention as _flash
+from . import pccp_corr as _corr
 from . import ref
 
 
@@ -155,3 +157,37 @@ def bregman_refine_batch_quant(codes, scale, zp, grad, c_y, family: str):
                                               name)
     return _dist.bregman_refine_batch_quant(codes, scale, zp, grad, c_y,
                                             name)
+
+
+def pccp_correlation(x):
+    """(d, d) |Pearson| correlations of the columns of x (n, d) fp32, the
+    diagonal zeroed.  On the card the Gram ``xc^T xc`` is the CUDA kernel;
+    centring, std, scaling, abs and the diagonal are torch operations, as
+    the reference keeps them outside its ``pallas_call``."""
+    if x.ndim != 2:
+        raise ValueError(f"pccp_correlation wants (n, d), got "
+                         f"{tuple(x.shape)}")
+    if not _on_cuda(x):
+        return ref.pccp_correlation(x)
+    n, d = x.shape
+    xc = x - torch.mean(x, dim=0, keepdim=True)
+    std = torch.sqrt(torch.mean(xc * xc, dim=0))
+    std = torch.where(std < 1e-12, 1.0, std)
+    gram = _corr.pccp_gram(xc.contiguous())
+    corr = torch.abs(gram / (n * std[:, None] * std[None, :]))
+    return corr * (1.0 - torch.eye(d, dtype=corr.dtype, device=x.device))
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """GQA attention, q (B, H, Sq, D), k/v (B, KH, Skv, D), queries
+    end-aligned to the keys; output (B, H, Sq, D) in q's dtype (and, on the
+    card, q's layout)."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(
+            f"flash_attention wants (B, heads, S, D) tensors, got "
+            f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    if not _on_cuda(q):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale)

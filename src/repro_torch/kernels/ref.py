@@ -134,3 +134,46 @@ def bregman_refine(rows: Tensor, grad: Tensor, c_y: Tensor,
     """Exact D_f for one query's rows.  (b,d),(d,),() -> (b,)."""
     return bregman_refine_batch(rows[None], grad[None], c_y.reshape(1),
                                 family)[0]
+
+
+def pccp_correlation(x: Tensor) -> Tensor:
+    """|Pearson| correlation matrix with zeroed diagonal.  (n,d) -> (d,d)."""
+    xc = x - torch.mean(x, dim=0, keepdim=True)
+    std = torch.sqrt(torch.mean(xc * xc, dim=0))
+    std = torch.where(std < 1e-12, 1.0, std)
+    corr = (xc.T @ xc) / (x.shape[0] * std[:, None] * std[None, :])
+    corr = torch.abs(corr)
+    return corr * (1.0 - torch.eye(x.shape[1], dtype=x.dtype,
+                                   device=x.device))
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None,
+                    scale: float | None = None) -> Tensor:
+    """Naive GQA attention (the reference's ``ref.attention``).
+
+    q: (B, H, Sq, D); k/v: (B, KH, Skv, D) with H % KH == 0; queries are
+    end-aligned to the keys.  The logits and the product with v are in q's
+    dtype, the softmax in fp32 (its probabilities cast back to q's dtype),
+    so in bf16 this rounds where the kernel keeps fp32.
+    """
+    b, h, sq, d = q.shape
+    kh = k.shape[1]
+    rep = h // kh
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    if scale is None:
+        scale = 1.0 / torch.sqrt(torch.tensor(float(d))).to(q.dtype)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    skv = k.shape[2]
+    qi = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    ki = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qi >= ki
+    if window is not None:
+        mask &= (qi - ki) < window
+    logits = torch.where(mask[None, None], logits, -1e30)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -17,7 +17,7 @@ from repro_torch.core.bregman import family_names, get_family
 from repro_torch.core.index import cold_point_fields
 from repro_torch.core.tiered import TieredPointStore
 from repro_torch.kernels import bregman_dist, bregman_fused, bregman_prune, \
-    bregman_ub, ref
+    bregman_ub, flash_attention, ops, pccp_corr, ref
 
 pytestmark = pytest.mark.gpu
 EPS32 = 2.0 ** -23
@@ -371,3 +371,172 @@ def test_store_on_the_card_keeps_no_cold_field_outside_its_cache(cuda):
     assert info["bytes_cached"] <= cold // 4 + cold // 10
     del res
     store.close()
+
+
+# ---------------------------------------------------------------------------
+# Kernels #10 (flash attention) and #9 (PCCP Gram) and the kNN-LM path
+# ---------------------------------------------------------------------------
+
+# tests/test_kernels.py::test_flash_attention's seven cases, then the
+# model's shapes: starcoder2-3b's GQA 12:1 at head_dim 128, a ragged Sq,
+# and the reduced config's head_dim 16 with a window.
+FLASH_CASES = [
+    (2, 4, 4, 64, 64, 32, True, None),
+    (1, 8, 2, 64, 64, 32, True, None),
+    (2, 4, 1, 32, 32, 16, True, None),
+    (1, 4, 4, 64, 64, 32, False, None),
+    (1, 4, 2, 64, 64, 32, True, 16),
+    (2, 4, 2, 1, 96, 32, True, None),
+    (1, 2, 2, 48, 48, 32, True, None),
+    (2, 24, 2, 200, 200, 128, True, None),
+    (1, 24, 2, 77, 300, 128, True, 100),
+    (3, 4, 2, 130, 130, 16, True, 5),
+    (1, 8, 8, 70, 70, 64, False, 33),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _bshd(b, heads, s, d, dtype, gen, cuda):
+    """A (B, heads, S, D) view of a contiguous (B, S, heads, D) tensor on
+    the card: the layout the model hands the kernel."""
+    x = torch.randn((b, s, heads, d), generator=gen).to(dtype)
+    return x.to(cuda).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,window", FLASH_CASES)
+def test_flash_attention_matches_its_plain_version(cuda, b, h, kh, sq, skv,
+                                                   d, causal, window, dtype):
+    gen = torch.Generator().manual_seed(sq * 1000 + skv)
+    q = _bshd(b, h, sq, d, dtype, gen, cuda)
+    k = _bshd(b, kh, skv, d, dtype, gen, cuda)
+    v = _bshd(b, kh, skv, d, dtype, gen, cuda)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.stride() == q.stride()
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    # contiguous (B, H, S, D) operands give the same bits
+    again = flash_attention.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window)
+    assert torch.equal(again, got.contiguous())
+
+
+def test_flash_attention_refuses_what_it_cannot_run(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention(torch.zeros((1, 2, 8, 24),
+                                                    device=cuda),
+                                        torch.zeros((1, 2, 8, 24),
+                                                    device=cuda),
+                                        torch.zeros((1, 2, 8, 24),
+                                                    device=cuda))
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        flash_attention.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="last dim"):
+        flash_attention.flash_attention(q.transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="no key"):
+        flash_attention.flash_attention(q, q[:, :, :4], q[:, :, :4])
+
+
+def _gram_tolerance(xc: torch.Tensor) -> torch.Tensor:
+    """Rounding in a sum of n products grows about as sqrt(n) * eps32
+    times the sum of the products' magnitudes, though not as independent
+    steps (a sum of positive products drifts further): two fp32 sums in
+    different orders stay within 8 * sqrt(n) * eps32 of it (a sum's worst
+    case is n * eps32)."""
+    a = xc.abs().double()
+    return (8 * xc.shape[0] ** 0.5 * EPS32 * (a.T @ a)).float()
+
+
+@pytest.mark.parametrize("n,d", [(100, 8), (257, 40), (64, 129),
+                                 (5000, 300)])
+def test_pccp_gram_matches_its_plain_version(cuda, n, d):
+    gen = torch.Generator().manual_seed(n + d)
+    x = (torch.randn((n, d), generator=gen)
+         @ torch.randn((d, d), generator=gen) * 0.3 + 2.0).to(cuda)
+    xc = (x - x.mean(0, keepdim=True)).contiguous()
+    before = pccp_corr.launches
+    gram = pccp_corr.pccp_gram(xc)
+    torch.cuda.synchronize()
+    assert pccp_corr.launches == before + 1
+    assert torch.equal(gram, gram.T)      # mirrored upper triangle
+    want = xc.T @ xc
+    assert bool(((gram - want).abs() <= _gram_tolerance(xc)).all())
+    corr = ops.pccp_correlation(x)
+    plain = ref.pccp_correlation(x)
+    std = torch.sqrt(torch.mean(xc * xc, 0))
+    tol = _gram_tolerance(xc) / (n * std[:, None] * std[None, :])
+    assert bool(((corr - plain).abs() <= tol).all())
+    assert bool((corr.diagonal() == 0).all())
+    assert pccp_corr.launches == before + 2
+
+
+def test_a_cuda_tensor_never_runs_the_plain_version(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "flash_attention", refuse)
+    monkeypatch.setattr(ref, "pccp_correlation", refuse)
+    q = torch.randn((1, 4, 16, 32), device=cuda)
+    assert ops.flash_attention(q, q[:, :2], q[:, :2]).is_cuda
+    assert ops.pccp_correlation(torch.randn((64, 8), device=cuda)).is_cuda
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.flash_attention(q.cpu(), q[:, :2].cpu(), q[:, :2].cpu())
+
+
+def test_knnlm_path_on_the_card_launches_its_kernels(cuda, monkeypatch):
+    """Reduced starcoder2-3b on the card: every prefill and forward batch
+    launches #10 once a layer; the hook's search launches #1, #3 and #7;
+    its ids equal brute force over the datastore's keys."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import knnlm
+    from repro_torch.serve.engine import Engine, EngineConfig, Request
+    from repro_torch.serve.knnlm import KNNLMHook, build_datastore
+
+    cfg = dataclasses.replace(configs.get_reduced("starcoder2-3b"),
+                              compute_dtype=torch.float32)
+    bundle = build_model(cfg, device=cuda)
+    params = bundle.init(0)
+    corpus = np.random.default_rng(0).integers(1, 512, (6, 40))
+    monkeypatch.setattr(knnlm, "FORWARD_BATCH", 4)    # two micro-batches
+    before = flash_attention.launches
+    store = build_datastore(bundle, params, corpus, m=4)
+    assert flash_attention.launches - before == 2 * cfg.num_layers
+    assert store.index.n == 6 * 39 and store.index.device.type == "cuda"
+    hook = KNNLMHook(store=store, k=4)
+    seen = {}
+
+    def capture(logits, hidden):
+        seen["hidden"] = hidden.clone()
+        return hook(logits, hidden)
+
+    eng = Engine(bundle, params, EngineConfig(slots=2, max_seq=48,
+                                              prefill_len=12),
+                 logits_hook=capture)
+    for uid in range(3):
+        eng.submit(Request(uid=uid, prompt=np.random.default_rng(uid)
+                           .integers(1, 512, 12), max_new_tokens=3))
+    counts = (flash_attention.launches, bregman_ub.launches,
+              bregman_fused.launches, bregman_dist.launches)
+    done = eng.run(max_ticks=20)
+    torch.cuda.synchronize()
+    assert len(done) == 3 and all(len(r.output) == 3 for r in done)
+    after = (flash_attention.launches, bregman_ub.launches,
+             bregman_fused.launches, bregman_dist.launches)
+    assert after[0] - counts[0] == 2 * cfg.num_layers   # two admissions
+    assert all(a > c for a, c in zip(after[1:], counts[1:], strict=True))
+    res = hook.last_result
+    assert bool(res.exact.all())
+    keys = store.index.data[torch.argsort(store.index.point_ids.long())]
+    bf_ids, _ = tsearch.brute_force_knn(keys, seen["hidden"].float(), 4,
+                                        "squared_euclidean", device=cuda)
+    assert torch.equal(res.ids.long(), bf_ids.long())

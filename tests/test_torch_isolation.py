@@ -3,6 +3,7 @@ entry points run on the card unless the caller asks for the CPU, and
 chip_smoke.py refuses to run without a card or outside a checkout."""
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -111,6 +112,50 @@ def test_the_third_slice_is_covered_and_defaults_to_the_card(no_card):
         store.close()
 
 
+def test_the_fourth_slice_is_covered_and_defaults_to_the_card(no_card):
+    """The LM modules, the serving modules and kernels #9 and #10 are in
+    the import scan, and their entry points run on the card unless the
+    caller asks for the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.registry import build_model
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/registry.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/starcoder2_3b.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/serve/knnlm.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/kernels/pccp_corr.py"} <= names
+    cfg = configs.get_reduced("starcoder2-3b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KVCache.zeros(1, 8, 2, 16)
+    assert KVCache.zeros(1, 8, 2, 16, device="cpu").k.device.type == "cpu"
+    params = ttf.init_params(cfg, device="cpu")
+    tree = {"embed": params["embed"].numpy(),
+            "final_norm": {k: v.numpy()
+                           for k, v in params["final_norm"].items()},
+            "layers": [{g: {k: v.numpy() for k, v in sub.items()}
+                        for g, sub in lp.items()}
+                       for lp in params["layers"]]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttf.params_from_numpy(cfg, tree)
+    again = ttf.params_from_numpy(cfg, tree, device="cpu")
+    assert torch.equal(again["layers"][1]["ffn"]["w_out"],
+                       params["layers"][1]["ffn"]["w_out"])
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
 def test_search_runs_on_the_cpu_or_the_card_only():
     data, queries = _small()
     forest = tidx.build_index(data, "burg", m=2, device="cpu")
@@ -142,4 +187,13 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert lines[-2].startswith('{"kernels": [')
     assert "ids match brute force" in proc.stdout
+    for line in ("flash_attention: the 7 kernel test cases",
+                 "kNN-LM: the hook's ids on the last tick match brute force",
+                 "kNN-LM: the engine's",
+                 "first-token logits through #10",
+                 "pccp_correlation on the datastore's keys"):
+        assert line in proc.stdout, line
+    names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
+    assert {"flash_attention", "pccp_correlation"} <= set(names)
+    assert len(names) == 10
     assert (tmp_path / "record.json").exists()

@@ -170,7 +170,7 @@ def test_dispatch_checks_operand_shapes():
 
 
 _CTYPES = {"void*": ctypes.c_void_p, "int64_t": ctypes.c_int64,
-           "int": ctypes.c_int}
+           "int": ctypes.c_int, "float": ctypes.c_float}
 
 
 def _c_declarations() -> dict:
@@ -194,7 +194,8 @@ def test_ctypes_signatures_match_the_c_entry_points():
     list must match its C declaration exactly."""
     assert _c_declarations() == dict(_build.SIGNATURES)
     assert {"brk_ub_matrix_quant", "brk_filter_prune_quant",
-            "brk_refine_batch_quant"} <= set(_build.SIGNATURES)
+            "brk_refine_batch_quant", "brk_flash_attention",
+            "brk_pccp_gram"} <= set(_build.SIGNATURES)
     for src in _build.SOURCES + _build.HEADERS:
         text = (_build.CSRC / src).read_text()
         assert "__logf" not in text and "__expf" not in text, src
