@@ -9,8 +9,10 @@ Run from the root of a checkout:
 Phases:
 
 1. The card's name and power limit (nvidia-smi), TF32 off, and the build of
-   the ten CUDA kernels (six sources; fp32 and int8 entry points of the
-   search kernels) from src/repro_torch/kernels/csrc with nvcc.
+   the ten CUDA kernels (seven sources; fp32 and int8 entry points of the
+   search kernels, fp32 and bf16 kernels of #10) from
+   src/repro_torch/kernels/csrc with nvcc; the HGMMA (wgmma) instructions
+   of each function in the built library, where cuobjdump is present.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
    bit-equal to the fused kernels' admit); the int8 quantizer on the card
@@ -36,22 +38,26 @@ Phases:
 5. A blob corpus where the envelope gate rejects blocks (the settings of
    benchmarks/bench_tiered.py at n = 2^20): a cold and a warm pass
    through the store, bit-equal to resident search.
-6. Kernel #10 (flash attention) against its plain version on the seven
-   cases of tests/test_kernels.py::test_flash_attention in fp32 and bf16,
-   then at the model's shapes (prefill at S = 2048, the kNN-LM corpus
-   batch) in fp32 and bf16, also against the plain version on fp32
-   upcasts to about the output's rounding, beside a planted fault's
-   reading (a dropped kv tile); bf16 timed beside SDPA and its bound.
+6. Kernel #10 (flash attention: fp32 on the fp32 cores, bf16 on the
+   tensor cores) against its plain version on the seven cases of
+   tests/test_kernels.py::test_flash_attention in fp32 and bf16, then at
+   the model's shapes (prefill at S = 2048, the kNN-LM corpus batch, the
+   serving prefill of 8 x 512) in fp32 and bf16, also against the plain
+   version on fp32 upcasts to about the output's rounding, beside a
+   planted fault's reading (a dropped kv tile of the kernel under test:
+   32 keys in fp32, 64 in bf16); bf16 timed beside
+   SDPA and its bound.
 7. kNN-LM on starcoder2-3b at full width (30 layers, random weights from a
    seeded generator on the card): ``build_datastore`` over a seeded
    64 x 1024-token corpus (65,472 keys of 3072 fp32, squared Euclidean,
    M*), then the ``Engine`` with ``KNNLMHook`` serves 16 prompts of 512
    tokens in 8 slots, 32 greedy tokens each.  #10 must launch once a layer
-   for every forward batch and prefill, the hook's search through #1, #3
-   and #7; the hook's ids on the last tick must equal brute force, the
-   engine's tokens an offline greedy loop, and the fp32 first-token logits
-   through #10 those through the plain attention (a dropped kv tile's
-   reading beside the limit).
+   for every forward batch and prefill, each launch its bf16 tensor-core
+   kernel, the hook's search through #1, #3 and #7; the hook's ids on
+   the last tick must equal brute force, the engine's tokens an offline
+   greedy loop, and the fp32 first-token logits through #10 those
+   through the plain attention (a dropped kv tile's reading beside the
+   limit).
 8. Kernel #9 (the PCCP correlation's Gram) on the datastore's keys: the
    PCCP partition from its correlations; the Gram against its plain
    version (beside a planted fault's reading: 128 missing rows), the
@@ -104,6 +110,10 @@ LOGITS_BATCH = 2
 PROFILE_TOKENS = 8
 # A subspace count at which pccp_order reads the correlations (phase 8).
 PCCP_PROBE_M = 32
+# Keys in a kv tile of #10's two kernels: fp32 on the fp32 cores
+# (csrc/flash_attention.cu), bf16 on the tensor cores
+# (csrc/flash_attention_wgmma.cu).
+FLASH_KV_TILE = {"float32": 32, "bfloat16": 64}
 # tests/test_kernels.py::test_flash_attention's cases:
 # (b, h, kh, sq, skv, d, causal, window).
 FLASH_CASES = [
@@ -158,6 +168,10 @@ class Smoke:
             "flash_attention": (flash_attention, "launches"),
             "pccp_correlation": (pccp_corr, "launches"),
         }
+        # #10's two kernels, each with its own count beside the total.
+        self.flash_kernels = {"fp32_simt": (flash_attention, "launches_simt"),
+                              "bf16_wgmma": (flash_attention,
+                                             "launches_wgmma")}
         self._store = None     # the kNN-LM datastore, for phase 8
 
     # -- helpers -------------------------------------------------------
@@ -166,8 +180,14 @@ class Smoke:
             self.torch.cuda.synchronize()
 
     def reset_launches(self) -> None:
-        for mod, attr in self.counters.values():
+        for mod, attr in (*self.counters.values(),
+                          *self.flash_kernels.values()):
             setattr(mod, attr, 0)
+
+    def flash_launches(self) -> dict:
+        """#10's launches since the last reset, by kernel."""
+        return {name: getattr(mod, attr)
+                for name, (mod, attr) in self.flash_kernels.items()}
 
     def launches(self) -> dict:
         return {name: getattr(mod, attr)
@@ -271,6 +291,17 @@ class Smoke:
             f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
         for line in info["ptxas"]:
             say(f"  {line}")
+        self.record["hgmma"] = hgmma_counts(_build.BUILD_DIR
+                                            / _build.LIB_NAME)
+        if self.record["hgmma"] is None:
+            say("cuobjdump is missing: the HGMMA instructions of the built "
+                "library are not counted")
+        else:
+            say(f"HGMMA instructions in the built library, by function: "
+                f"{self.record['hgmma']}")
+            expect(any("flash_tc_kernel" in f
+                       for f in self.record["hgmma"]),
+                   "the bf16 flash kernel holds no HGMMA instruction")
 
     # -- kernel comparisons -------------------------------------------
     def compare_filter(self, blocks, qs, qb, time_it: bool) -> dict:
@@ -1203,8 +1234,9 @@ class Smoke:
         of the same inputs, where the kernel's fp32 arithmetic leaves only
         its output's rounding: bf16 within 2^-8 |want| + 1e-5 (half a bf16
         ulp), fp32 within 2e-5 (abs + rel); and a planted fault read
-        against that limit: the same attention with the kernel's 32-key kv
-        tile in the middle of the sequence dropped (``middle_tile``).  With
+        against that limit: the same attention with the kv tile of the
+        kernel under test (``FLASH_KV_TILE``) in the middle of the sequence
+        dropped (``middle_tile``).  With
         ``time_it``: kernel, plain version and SDPA (``library_ms``)
         device ms, and the bound.  The CPU rehearsal's kernel is the plain
         version on fp32 upcasts, cast back: the kernel's arithmetic."""
@@ -1250,8 +1282,9 @@ class Smoke:
             expect(bool((diff <= limit).all()),
                    f"flash_attention disagrees with the fp32 plain version "
                    f"at {shape}: max |diff| {float(diff.max())}")
+            width = FLASH_KV_TILE[str(dtype)[6:]]
             fault = attention_dropping(torch, q, k, v, causal,
-                                       middle_tile(skv))
+                                       middle_tile(skv, width))
             fault_over = float(((fault - want).abs() / limit).max())
             expect(fault_over > 1,
                    f"a dropped kv tile passes the tolerance at {shape} "
@@ -1284,8 +1317,9 @@ class Smoke:
     def phase_flash(self) -> dict:
         """#10 on the seven cases of tests/test_kernels.py::
         test_flash_attention in fp32 and bf16, then at the model's shapes in
-        bf16: prefill at S = 2048 (B = 2) and the corpus forward batch of
-        the kNN-LM phase (B = 8, S = 1024), timed."""
+        bf16: prefill at S = 2048 (B = 2), the corpus forward batch of
+        the kNN-LM phase (B = 8, S = 1024) and its serving prefill (SLOTS
+        prompts of PROMPT_LEN), timed."""
         torch = self.torch
         from repro_torch.serve.knnlm import FORWARD_BATCH
         rec = {"cases": []}
@@ -1300,11 +1334,14 @@ class Smoke:
             "tolerance)")
         if self.rehearsal:
             shapes = {"prefill_2048": (1, 4, 2, 64, 64, 16),
-                      "corpus_batch": (2, 4, 2, 32, 32, 16)}
+                      "corpus_batch": (2, 4, 2, 32, 32, 16),
+                      "prefill_512": (2, 4, 2, 16, 16, 16)}
         else:
             shapes = {"prefill_2048": (2, 24, 2, 2048, 2048, 128),
                       "corpus_batch": (FORWARD_BATCH, 24, 2, CORPUS_LEN,
-                                       CORPUS_LEN, 128)}
+                                       CORPUS_LEN, 128),
+                      "prefill_512": (SLOTS, 24, 2, PROMPT_LEN, PROMPT_LEN,
+                                      128)}
         for name, (b, h, kh, sq, skv, d) in shapes.items():
             r32 = self.compare_flash(b, h, kh, sq, skv, d, True, None,
                                      torch.float32, seed=len(name),
@@ -1379,6 +1416,7 @@ class Smoke:
         rec["build_s"] = time.perf_counter() - t0
         rec["build_peak_bytes"] = self.peak()
         rec["build_launches"] = self.launches()
+        rec["build_flash_kernels"] = self.flash_launches()
         batches = -(-num_seqs // FORWARD_BATCH)
         rec["forward_batches"] = batches
         index = store.index
@@ -1391,6 +1429,10 @@ class Smoke:
                    == cfg.num_layers * batches,
                    f"datastore build: {rec['build_launches']} #10 launches, "
                    f"not {cfg.num_layers} layers x {batches} batches")
+            expect(rec["build_flash_kernels"]["bf16_wgmma"]
+                   == rec["build_launches"]["flash_attention"],
+                   f"datastore build: #10 ran {rec['build_flash_kernels']}, "
+                   "not only the bf16 tensor-core kernel")
         toks = torch.as_tensor(corpus[:FORWARD_BATCH], device=self.dev)
         pos = torch.arange(seq_len, device=self.dev)[None].expand(
             toks.shape[0], seq_len)
@@ -1455,6 +1497,7 @@ class Smoke:
                 decode_ms.append(1e3 * (t2 - t1) - tick_hook)
         serve_s = time.perf_counter() - t_serve
         rec["serve_launches"] = self.launches()
+        rec["serve_flash_kernels"] = self.flash_launches()
         rec["serve_peak_bytes"] = self.peak()
         outputs = {r.uid: r.output for r in eng.finished}
         generated = sum(len(o) for o in outputs.values())
@@ -1483,6 +1526,10 @@ class Smoke:
                    f"kNN-LM serving: {rec['serve_launches']} #10 launches, "
                    f"not {cfg.num_layers} layers x {len(prefill_ms)} "
                    "prefills")
+            expect(rec["serve_flash_kernels"]["bf16_wgmma"]
+                   == rec["serve_launches"]["flash_attention"],
+                   f"kNN-LM serving: #10 ran {rec['serve_flash_kernels']}, "
+                   "not only the bf16 tensor-core kernel")
         say(f"kNN-LM serving: {NUM_REQUESTS} requests x {new} tokens, "
             f"{SLOTS} slots, prompts {prompt_len}: {serve_s:.2f} s, "
             f"{rec['tokens_per_s']:.1f} tokens/s; prefill ms {prefill_ms}; "
@@ -1491,7 +1538,9 @@ class Smoke:
             f"{len(decode_ms)}); mean candidates per query "
             f"{rec['mean_candidates']:.1f} of {index.n}; hook escalations "
             f"{hook.escalations}, budget {hook.budget_final}; launches "
-            f"{rec['serve_launches']}; peak {rec['serve_peak_bytes']} B")
+            f"{rec['serve_launches']} (#10 by kernel: build "
+            f"{rec['build_flash_kernels']}, serving "
+            f"{rec['serve_flash_kernels']}); peak {rec['serve_peak_bytes']} B")
 
         # The hook's ids on the last tick against brute force.
         last = calls[-1]
@@ -1582,9 +1631,9 @@ class Smoke:
         the fp32 compute dtype (held: max |diff| <= 1e-5 of max |logits|,
         about 80 fp32 epsilons, the drift of sums in another order through
         30 layers; and a planted fault read against that limit: the plain
-        attention with one 32-key kv tile in the middle dropped in every
-        layer) and in bf16 (reported: the plain version rounds bf16
-        logits and probabilities, the kernel does not)."""
+        attention with one 32-key kv tile of the fp32 kernel in the middle
+        dropped in every layer) and in bf16 (reported: the plain version
+        rounds bf16 logits and probabilities, the kernel does not)."""
         torch, ref = self.torch, self.ref
         import dataclasses
 
@@ -1596,10 +1645,12 @@ class Smoke:
         b, s = toks.shape
         pos = torch.arange(s, device=self.dev)[None].expand(b, s)
 
+        drop = middle_tile(s, FLASH_KV_TILE["float32"])
+
         def dropping(q, k, v, *, causal=True, window=None, scale=None):
             assert window is None and scale is None
             return attention_dropping(torch, q, k, v, causal,
-                                      middle_tile(s)).to(q.dtype)
+                                      drop).to(q.dtype)
 
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt),
@@ -1849,19 +1900,29 @@ class Smoke:
 
 
     def lm_kernel_table(self) -> list:
-        """The kernel JSON rows of #10 (at the kNN-LM corpus batch's shape,
-        its launches those of the build and the serving run) and #9 (on the
-        datastore's keys, its launches the PCCP partition's)."""
+        """The kernel JSON rows of #10 (its bf16 tensor-core kernel at the
+        kNN-LM corpus batch's shape, its launches those of the build and
+        the serving run, also by kernel, with the HGMMA count of the built
+        library) and #9 (on the datastore's keys, its launches the PCCP
+        partition's)."""
         src = "src/repro_torch/kernels/csrc/"
         fl, kn, pc = (self.record["flash"]["corpus_batch"],
                       self.record["knnlm"], self.record["pccp"])
         flash_launches = (kn["build_launches"]["flash_attention"]
                           + kn["serve_launches"]["flash_attention"])
+        by_kernel = {name: kn["build_flash_kernels"][name]
+                     + kn["serve_flash_kernels"][name]
+                     for name in kn["build_flash_kernels"]}
+        hgmma = self.record.get("hgmma")
         return [
             {"name": "flash_attention", "route": "cuda",
-             "source": src + "flash_attention.cu",
+             "source": src + "flash_attention_wgmma.cu",
              "replaces": "src/repro/kernels/flash_attention.py:102",
              "launches": flash_launches,
+             "launches_by_kernel": by_kernel,
+             "hgmma_sass": (None if hgmma is None else
+                            sum(c for f, c in hgmma.items()
+                                if "flash_tc_kernel" in f)),
              "max_abs_err": fl["max_abs_err"],
              "max_err_over_tol": fl["max_err_over_tol"],
              "ms": fl["ms"], "plain_ms": fl["plain_ms"],
@@ -1879,10 +1940,11 @@ class Smoke:
         ]
 
 
-def middle_tile(skv: int) -> range:
-    """The kv positions of #10's 32-key tile at the middle of ``skv`` keys
-    (half the keys from the middle on when there are fewer than 64)."""
-    width = min(32, skv // 2)
+def middle_tile(skv: int, tile: int) -> range:
+    """The kv positions of #10's ``tile``-key kv tile (``FLASH_KV_TILE`` of
+    the kernel under test) at the middle of ``skv`` keys (half the keys
+    from the middle on when there are fewer than twice ``tile``)."""
+    width = min(tile, skv // 2)
     start = skv // 2 // width * width
     return range(start, start + width)
 
@@ -1902,6 +1964,25 @@ def attention_dropping(torch, q, k, v, causal: bool, drop: range):
         kpos <= qpos if causal else True)
     s = s.masked_fill(~keep, float("-inf"))
     return torch.softmax(s, -1) @ v
+
+
+def hgmma_counts(lib) -> dict | None:
+    """HGMMA (wgmma) instructions in the SASS of each function of the built
+    library that holds any, from ``cuobjdump -sass``; None where cuobjdump
+    is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+        elif fn and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def device_events(torch, prof) -> list:

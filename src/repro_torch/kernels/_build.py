@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "libbrekernels.so"
 SOURCES = ("bregman_ub.cu", "bregman_fused.cu", "bregman_prune.cu",
-           "bregman_dist.cu", "flash_attention.cu", "pccp_corr.cu")
+           "bregman_dist.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
+           "pccp_corr.cu")
 HEADERS = ("filter_tile.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -46,8 +47,10 @@ SIGNATURES = {
     "brk_refine_batch_quant": (_P,) * 6 + (_I64, _I64, _I64, _I, _I, _P),
     "brk_prune_mask": (_P,) * 6 + (_I64, _I64, _I64, _I, _P),
     "brk_prune_mask_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
-    "brk_flash_attention": (_P,) * 5 + (_I,) * 8 + (_F, _I, _I, _P),
-    "brk_pccp_gram": (_P, _P, _I64, _I64, _I, _P),
+    "brk_flash_attention": (_P,) * 5 + (_I,) * 8 + (_F, _I, _P),
+    "brk_flash_attention_bf16": (_P,) * 5 + (_I,) * 8 + (_F, _I, _P),
+    "brk_pccp_slots": (_I,),
+    "brk_pccp_gram": (_P, _P, _P, _P, _I, _I64, _I64, _I, _I64, _I, _P),
 }
 
 _lib = None

@@ -1,19 +1,21 @@
-// Causal GQA flash attention with online softmax, fp32 or bf16 in, fp32 math.
+// Causal GQA flash attention with online softmax in fp32, on the fp32 cores.
 //
 //   out[b, h, i] = softmax_j( mask(i, j) ? q[b, h, i] . k[b, h/rep, j] * scale
 //                                         : -1e30 ) . v[b, h/rep, :]
 //
 // brk_flash_attention replaces the TPU kernel src/repro/kernels/
-// flash_attention.py::flash_attention (a grid over (batch, head, q tile,
-// kv tile) whose last axis runs in order and carries m, l and acc in VMEM
-// scratch).  Here one block owns (b, h, a 64-row q tile) and loops over the
-// kv tiles itself: m and l per row live in shared memory, acc in registers.
-// The mask is the TPU kernel's: q_pos = i + Skv - Sq (end-aligned, so a
-// short query block is the tail of the sequence), k_pos < Skv, q_pos >=
-// k_pos when causal, q_pos - k_pos < window when a window is given.  The
-// update is the TPU kernel's too: m_new = max(m, rowmax(s)), p = exp(s -
-// m_new), alpha = exp(m - m_new), l = alpha * l + sum(p), acc = alpha * acc
-// + p . v, out = acc / max(l, 1e-30), written in q's type.  A row that
+// flash_attention.py::flash_attention for fp32 q, k, v; bf16 runs on the
+// tensor cores (flash_attention_wgmma.cu), which would need TF32, three
+// decimal digits, for fp32 operands.  The TPU kernel is a grid over
+// (batch, head, q tile, kv tile) whose last axis runs in order and carries
+// m, l and acc in VMEM scratch.  Here one block owns (b, h, a 64-row q
+// tile) and loops over the kv tiles itself: m and l per row live in shared
+// memory, acc in registers.  The mask is the TPU kernel's: q_pos = i + Skv
+// - Sq (end-aligned, so a short query block is the tail of the sequence),
+// k_pos < Skv, q_pos >= k_pos when causal, q_pos - k_pos < window when a
+// window is given.  The update is the TPU kernel's too: m_new = max(m,
+// rowmax(s)), p = exp(s - m_new), alpha = exp(m - m_new), l = alpha * l +
+// sum(p), acc = alpha * acc + p . v, out = acc / max(l, 1e-30).  A row that
 // meets only masked keys in a tile before its first valid key gains p = 1
 // for them, as on the TPU; alpha = exp(-1e30 - m) = 0 wipes that out at the
 // first valid key, and every row has one (q_pos >= 0 sees itself).
@@ -25,16 +27,14 @@
 // model's (B, S, H, D) layout is read in place (the innermost dim must be
 // contiguous).
 //
-// Bound on the H100: operations.  At the model's corpus batch (B = 8, H =
-// 24, S = 1024, D = 128, causal) one launch does 2 * 2 * B*H*S*S*D / 2 =
-// 52 GFLOP against 0.1 GB of q, k, v and out.  This simple design runs
-// them on the fp32 cores (67 TFLOP/s), not the bf16 tensor cores (989):
-// each thread holds a 4 x 2 tile of s and a 4 x (D/16) tile of acc and
-// reads q, k, v from shared memory (fp32, rows padded by one word against
-// bank conflicts), so shared-memory bandwidth, not the FMA rate, sets its
-// pace.  mma.sync / wgmma and TMA are later work (ROADMAP queue 2).
+// Bound on the H100: operations, 2 * 2 * B*H*Sq*Skv*D (halved when causal)
+// at the fp32 cores' 67 TFLOP/s.  Each thread holds a 4 x 2 tile of s and a
+// 4 x (D/16) tile of acc and reads q, k, v from shared memory (rows padded
+// by one word against bank conflicts), so shared-memory bandwidth, not the
+// FMA rate, sets its pace.  The model runs it only where it computes in
+// fp32: the first-token logits check of chip_smoke.py and the CPU-parity
+// configurations.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,19 +44,6 @@ constexpr int BKV = 32;         // keys a tile (one per lane in the softmax)
 constexpr int THREADS = 256;    // 16 x 16: rows ty + 16 i, cols tx + 16 j
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Args {
   const void* q;
@@ -91,7 +78,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const Args a) {
   constexpr int DP = D + 1;          // padded row stride of q, k, v tiles
@@ -117,15 +104,15 @@ flash_kernel(const Args a) {
   const int hk = h / (a.h / a.kh);
   const int off = a.skv - a.sq;      // end alignment of the queries
 
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  T* op = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  float* op = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, c = e - r * D;
     const int qi = q0 + r;
-    qs[r * DP + c] = qi < a.sq ? to_f32(qp[qi * a.q_ss + c]) : 0.f;
+    qs[r * DP + c] = qi < a.sq ? qp[qi * a.q_ss + c] : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
@@ -150,8 +137,8 @@ flash_kernel(const Args a) {
       const int r = e / D, c = e - r * D;
       const int kj = k0 + r;
       const bool ok = kj < a.skv;
-      ks[r * DP + c] = ok ? to_f32(kp[kj * a.k_ss + c]) : 0.f;
-      vs[r * DP + c] = ok ? to_f32(vp[kj * a.v_ss + c]) : 0.f;
+      ks[r * DP + c] = ok ? kp[kj * a.k_ss + c] : 0.f;
+      vs[r * DP + c] = ok ? vp[kj * a.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -232,42 +219,32 @@ flash_kernel(const Args a) {
     const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < CJ; ++j)
-      op[qi * a.o_ss + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+      op[qi * a.o_ss + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const Args& a, int b, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.sq + BQ - 1) / BQ, a.h, b);
-  flash_kernel<T, D><<<grid, THREADS, bytes, stream>>>(a);
+  flash_kernel<D><<<grid, THREADS, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const Args& a, int b, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, b, stream);
-    case 32: return launch<T, 32>(a, b, stream);
-    case 64: return launch<T, 64>(a, b, stream);
-    case 128: return launch<T, 128>(a, b, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16 (q, k, v and out share it).  strides: the
-// (batch, head, seq) element strides of q, k, v and out, 12 int64 values.
+// fp32 q, k, v and out.  strides: the (batch, head, seq) element strides of
+// q, k, v and out, 12 int64 values.
 extern "C" int brk_flash_attention(const void* q, const void* k,
                                    const void* v, void* out,
                                    const int64_t* strides, int b, int h,
                                    int kh, int sq, int skv, int d, int causal,
-                                   int window, float scale, int dtype,
-                                   int device, void* stream) {
+                                   int window, float scale, int device,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b <= 0 || sq <= 0) return 0;
@@ -290,7 +267,11 @@ extern "C" int brk_flash_attention(const void* q, const void* k,
   a.window = window;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(a, b, d, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(a, b, d, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return launch<16>(a, b, s);
+    case 32: return launch<32>(a, b, s);
+    case 64: return launch<64>(a, b, s);
+    case 128: return launch<128>(a, b, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -427,6 +427,63 @@ def test_flash_attention_matches_its_plain_version(cuda, b, h, kh, sq, skv,
     assert torch.equal(again, got.contiguous())
 
 
+# bf16 at the tensor-core kernel's edges (csrc/flash_attention_wgmma.cu:
+# 128-row q blocks of two 64-row warpgroups, 64-key kv tiles): D 64 and
+# 128, Sq in {1, 77, 200} and Skv in {77, 200, 1000} (no multiple of a
+# tile), GQA 12:1, a window of 100, non-causal (Sq > Skv too).
+TC_CASES = [
+    (1, 24, 2, 1, 77, 128, True, None),
+    (2, 24, 2, 77, 77, 128, True, None),
+    (1, 24, 2, 77, 200, 128, True, 100),
+    (1, 24, 2, 200, 1000, 128, True, None),
+    (1, 24, 2, 200, 1000, 128, True, 100),
+    (2, 24, 2, 200, 200, 128, False, None),
+    (1, 24, 2, 1, 1000, 128, False, 100),
+    (1, 8, 2, 200, 77, 64, False, None),
+    (2, 8, 8, 77, 200, 64, True, 100),
+    (1, 12, 1, 200, 1000, 64, False, 100),
+    (1, 4, 2, 1, 200, 64, True, None),
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,skv,d,causal,window", TC_CASES)
+def test_bf16_flash_kernel_at_its_edges(cuda, b, h, kh, sq, skv, d, causal,
+                                        window):
+    """Against the plain version on fp32 upcasts within 2^-8 |want| + 1e-5
+    (half a bf16 step: the output's own rounding, as chip_smoke.py holds
+    the model's shapes); the (B, S, H, D) views and contiguous (B, H, S, D)
+    tensors give the same bits."""
+    gen = torch.Generator().manual_seed(sq * 7 + skv + d)
+    q = _bshd(b, h, sq, d, torch.bfloat16, gen, cuda)
+    k = _bshd(b, kh, skv, d, torch.bfloat16, gen, cuda)
+    v = _bshd(b, kh, skv, d, torch.bfloat16, gen, cuda)
+    before = flash_attention.launches_wgmma
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_wgmma == before + 1
+    want = ref.flash_attention(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
+    limit = 2.0 ** -8 * want.abs() + 1e-5
+    assert bool(((got.float() - want).abs() <= limit).all())
+    again = flash_attention.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        window=window)
+    assert torch.equal(again, got.contiguous())
+
+
+def test_bf16_flash_refuses_what_tma_cannot_read(cuda):
+    """TMA reads 16-byte-aligned bases and strides of 8 bf16 elements."""
+    wide = torch.zeros((1, 2, 8, 36), dtype=torch.bfloat16, device=cuda)
+    q = wide[..., :32]                       # rows 72 bytes apart
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention.flash_attention(q, q, q)
+    flat = torch.zeros(2 * 8 * 32 + 1, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(1, 2, 8, 32)           # base 2 bytes off
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention.flash_attention(q, q, q)
+
+
 def test_flash_attention_refuses_what_it_cannot_run(cuda):
     q = torch.zeros((1, 2, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -455,12 +512,18 @@ def _gram_tolerance(xc: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("n,d", [(100, 8), (257, 40), (64, 129),
-                                 (5000, 300)])
+                                 (5000, 300), (20_001, 300), (12_345, 257)])
 def test_pccp_gram_matches_its_plain_version(cuda, n, d):
+    """The last three split n into chunks (n not a multiple of a chunk,
+    d not a multiple of the 128-column tile; 257 also not of the 16-byte
+    copies)."""
     gen = torch.Generator().manual_seed(n + d)
     x = (torch.randn((n, d), generator=gen)
          @ torch.randn((d, d), generator=gen) * 0.3 + 2.0).to(cuda)
     xc = (x - x.mean(0, keepdim=True)).contiguous()
+    if n > 1000:
+        slots = pccp_corr._device_slots(xc.device)
+        assert pccp_corr.schedule(n, d, slots)[1] > 1
     before = pccp_corr.launches
     gram = pccp_corr.pccp_gram(xc)
     torch.cuda.synchronize()
