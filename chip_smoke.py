@@ -15,7 +15,9 @@ Phases:
    of each function in the built library, where cuobjdump is present.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
-   bit-equal to the fused kernels' admit); the int8 quantizer on the card
+   bit-equal to the fused kernels' admit; #3's block-list entry over
+   non-contiguous lists with a short last block, and #1 over an unaligned
+   row span); the int8 quantizer on the card
    against the CPU's, bit for bit; and the whole search on the card
    against the same search on the CPU for every Bregman family on a small
    index, in both storage tiers.
@@ -28,7 +30,11 @@ Phases:
    0.  The ids are held against ``brute_force_knn`` over the index's point
    set (``rows_view``) on the card.  Each kernel is then held against its
    plain version, and timed with CUDA events beside its bound, at the
-   shapes that search gave it.  The unfused comparator (``fused=False``,
+   shapes that search gave it; in fp32 #1 and #3 also at the grouped
+   search's shape (one attempt's rows in one launch).  In fp32 the
+   grouped search must equal the per-block loop (a group cap below one
+   block) bit for bit, stats included; both loops' phase times and search
+   times are taken in turns.  The unfused comparator (``fused=False``,
    kernel #5 or #6 in place of #3 or #4) must give the fused search's
    results bit for bit.  On Deep, the index is then wrapped in a
    ``TieredPointStore`` holding 40% of its cold bytes on the card:
@@ -248,6 +254,8 @@ class Smoke:
                     ops.bregman_ub_matrix_quant(*a[:6], a[-1], a[7]),
                     "bregman_filter_prune": lambda *a:
                     ops.bregman_filter_prune_block(*a[:4], *a[5:]),
+                    "bregman_filter_prune_blocks": lambda *a:
+                    ops.bregman_filter_prune_blocks(*a[:4], *a[5:]),
                     "bregman_filter_prune_quant": lambda *a:
                     ops.bregman_filter_prune_block_quant(*a[:12], a[13],
                                                          a[14], a[16]),
@@ -257,6 +265,9 @@ class Smoke:
                     "bregman_prune_mask": ops.bregman_prune_block,
                     "bregman_prune_mask_quant":
                     ops.bregman_prune_block_quant}[name]
+        if name == "bregman_filter_prune_blocks":
+            from repro_torch.kernels import bregman_fused
+            return bregman_fused.bregman_filter_prune_blocks
         mod = self.counters[name][0]
         if name.startswith("bregman_ub_matrix"):
             return lambda *a: getattr(mod, name)(*a[:-1])
@@ -417,6 +428,104 @@ class Smoke:
         out["shape"] = [bn, m, q, nb]
         return out
 
+    def compare_blocks(self, tables: tuple, qs: dict, qb, blocks: list,
+                       bn: int, time_it: bool) -> dict:
+        """Kernel #3's block-list entry over the ``blocks`` (row blocks of
+        ``bn`` rows) of the full fp32 tables ``(alpha, sg, amin, gmax)``
+        against its plain version: the admit mask bit-equal, the UB within
+        (M + 2) eps32 of its terms, a short block's rows past n inert.
+        With ``time_it``, one launch's time beside its bound and the plain
+        version's."""
+        torch, ref = self.torch, self.ref
+        a, g, am, gm = tables
+        qc, sd = qs["qconst"], qs["sqrt_delta"]
+        qsum = torch.sum(qc, dim=-1)
+        n, m = a.shape
+        q = qc.shape[0]
+        ids = torch.tensor(blocks, dtype=torch.int32).to(self.dev)
+        kern = self.kernel("bregman_filter_prune_blocks")
+        got_ub, got_admit = kern(a, g, am, gm, qsum, qc, sd, qb, ids, bn)
+        want_ub, want_admit = ref.bregman_filter_prune_blocks(
+            a, g, am, gm, qc, sd, qb, ids, bn)
+        self.sync()
+        shape = (n, m, q, bn, len(blocks))
+        expect(got_admit.dtype == torch.int32
+               and bool(torch.equal(got_admit, want_admit)),
+               f"bregman_filter_prune_blocks admit mask is not bit-equal at "
+               f"{shape} ({int((got_admit != want_admit).sum())} differ)")
+        rows = ref.block_rows(ids, bn)
+        real = rows < n
+        expect(bool(torch.isinf(got_ub[~real]).all())
+               and not bool(got_admit[~real].any()),
+               f"bregman_filter_prune_blocks: rows past n not inert at "
+               f"{shape}")
+        idx = rows[real]
+        tol = (m + 2) * EPS32 * ub_term_scale(torch, (a[idx], g[idx]), qc, sd)
+        diff = (got_ub[real] - want_ub[real]).abs()
+        expect(bool((diff <= tol).all()),
+               f"bregman_filter_prune_blocks ub disagrees at {shape}: max "
+               f"|diff| {float(diff.max())}")
+        out = {"shape": list(shape), "err": float(diff.max()),
+               "err_over_tol": err_over_tol(diff, tol),
+               "admitted": int(want_admit.sum()),
+               "pairs": int(real.sum()) * q}
+        del got_ub, got_admit, want_ub, want_admit, diff, tol
+        if not time_it:
+            return out
+        reps = 3
+        out["ms"] = self.time_calls(
+            [lambda: kern(a, g, am, gm, qsum, qc, sd, qb, ids, bn)], reps)
+        out["plain_ms"] = self.time_calls(
+            [lambda: ref.bregman_filter_prune_blocks(a, g, am, gm, qc, sd,
+                                                     qb, ids, bn)], reps)
+        # The four tables' listed rows read once, the query tables and the
+        # block ids, the f32 UB and int32 admit of every listed row written
+        # (a short block's inert rows too); the UB's and the compare's
+        # operations over the real rows.
+        r, out_rows = int(real.sum()), len(blocks) * bn
+        nbytes = (16 * r * m + 4 * (q + 3 * q * m) + 4 * len(blocks)
+                  + 8 * out_rows * q)
+        ops = r * q * (2 * m + 2) + r * m + 4 * r * q * m
+        out["bound"] = bound(nbytes, ops)
+        return out
+
+    def compare_ub_span(self, alpha, sg, qs: dict, time_it: bool) -> dict:
+        """Kernel #1 over all of ``alpha``'s rows in one launch against its
+        plain version (within (M + 2) eps32 of its terms); with
+        ``time_it``, its time beside its bound, the plain version's and
+        ``addmm``'s."""
+        torch, ref = self.torch, self.ref
+        qc, sd = qs["qconst"], qs["sqrt_delta"]
+        qsum = torch.sum(qc, dim=-1)
+        n, m = alpha.shape
+        q = qc.shape[0]
+        kern = self.kernel("bregman_ub_matrix")
+        got = kern(alpha, sg, qsum, sd, qc)
+        want = ref.bregman_ub_matrix(alpha, sg, qc, sd)
+        self.sync()
+        tol = (m + 2) * EPS32 * ub_term_scale(torch, (alpha, sg), qc, sd)
+        diff = (got - want).abs()
+        expect(bool((diff <= tol).all()),
+               f"bregman_ub_matrix over {n} rows disagrees: max |diff| "
+               f"{float(diff.max())}")
+        out = {"shape": [n, m, q], "err": float(diff.max()),
+               "err_over_tol": err_over_tol(diff, tol)}
+        del got, want, diff, tol
+        if not time_it:
+            return out
+        reps = 3
+        out["ms"] = self.time_calls([lambda: kern(alpha, sg, qsum, sd, qc)],
+                                    reps)
+        out["plain_ms"] = self.time_calls(
+            [lambda: ref.bregman_ub_matrix(alpha, sg, qc, sd)], reps)
+        out["library_ms"] = self.time_calls(
+            [lambda: torch.addmm(alpha.sum(-1, keepdim=True) + qsum, sg,
+                                 sd.T)], reps)
+        nbytes = 8 * n * m + 4 * (q + q * m) + 4 * n * q
+        ops = n * q * (2 * m + 2) + n * m
+        out["bound"] = bound(nbytes, ops)
+        return out
+
     def compare_prune(self, corners: list, qs: dict, qb,
                       time_it: bool) -> dict:
         """Kernel #5 (fp32 corners) or #6 (int8 corner codes, each followed
@@ -563,6 +672,28 @@ class Smoke:
             say(f"ragged int8 filter {n}x{m}x{q}: max_err_over_tol ub "
                 f"{r['ub_err_over_tol']:.3g} fused {r['fp_err_over_tol']:.3g}"
                 f", admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
+        # #3 over block lists: non-contiguous, a short last block, one
+        # block, M even (70) and chunked (300), two query tiles (q = 65);
+        # #1 over a span that starts 3 rows into its table (not 16-byte
+        # aligned).
+        for n, m, q, bn, blocks in [(5000, 37, 14, 1024, [0, 2, 4]),
+                                    (3000, 70, 33, 512, [0, 1, 5]),
+                                    (2000, 300, 50, 256, [0, 7]),
+                                    (2000, 33, 65, 384, [0, 2, 5]),
+                                    (5000, 37, 13, 1024, [4])]:
+            a, sg, am, gm, qc, sd, qb = [
+                t.to(self.dev) for t in filter_inputs(torch, n, m, q,
+                                                      seed=n + m)]
+            qs = {"qconst": qc, "sqrt_delta": sd}
+            r = self.compare_blocks((a, sg, am, gm), qs, qb, blocks, bn,
+                                    time_it=False)
+            r1 = self.compare_ub_span(a[3:], sg[3:], qs, time_it=False)
+            expect(0 < r["admitted"] < r["pairs"],
+                   f"ragged block-list inputs {n, m, q} gave an unmixed mask")
+            say(f"ragged block list {n}x{m}x{q}, bn {bn}, blocks {blocks}: "
+                f"#3 admit bit-equal ({r['admitted']}/{r['pairs']}), ub "
+                f"max_err_over_tol {r['err_over_tol']:.3g}; #1 over rows "
+                f"3.. max_err_over_tol {r1['err_over_tol']:.3g}")
         # The prune-only kernels: Deep's block shape and a ragged one, each
         # with a mixed mask and the tie in row 0.
         for n, m, q in [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)]:
@@ -795,31 +926,8 @@ class Smoke:
 
         # Phase breakdown of one batch, each phase ended by a sync.
         ys0 = ys[:q_batch]
-        qs = tsearch.query_struct(ys0, forest.partition, forest.family)
-        self.sync()
-        marks = [time.perf_counter()]
-        _, idx = tsearch._batch_filter_topk(forest, qs, K, BLOCK_ROWS)
-        qb = tsearch.searching_bounds(forest, qs, idx)
-        self.sync()
-        marks.append(time.perf_counter())
-        sel, valid, _, _, blocks_run, _ = \
-            tsearch._stream_prune_compact(forest, qs, qb,
-                                          rec["budget_final"], BLOCK_ROWS)
-        self.sync()
-        marks.append(time.perf_counter())
-        if quantize:
-            operands = (forest.data[sel], forest.data_scale[sel],
-                        forest.data_zp[sel])
-        else:
-            operands = (forest.data[sel],)
-        self.sync()
-        marks.append(time.perf_counter())
-        tsearch._refine_batch(forest, qs, sel, valid, K)
-        self.sync()
-        marks.append(time.perf_counter())
-        rec["phases_ms"] = {
-            key: 1e3 * (marks[i + 1] - marks[i]) for i, key in enumerate(
-                ("filter", "prune_compact", "gather", "gather_refine_topk"))}
+        (rec["phases_ms"], qs, qb, sel, valid, operands,
+         blocks_run) = self.phase_times(forest, ys0, rec["budget_final"])
         bn, nb = tsearch._block_layout(forest.n, BLOCK_ROWS)
         rec["blocks_run"] = blocks_run
         rec["num_blocks"] = nb
@@ -830,7 +938,8 @@ class Smoke:
         say(f"{label}: device busy {rec['profile']['busy_share']} of the "
             f"unprofiled search")
 
-        # The kernels at the shapes this search gave them.
+        # The kernels at the shapes this search gave them: #1 and #3 a row
+        # block, and in fp32 also as the grouped search launches them.
         blocks = [f + c for f, c in zip(
             tsearch._filter_blocks(forest, bn, nb),
             tsearch._corner_blocks(forest, bn, nb), strict=True)]
@@ -846,6 +955,13 @@ class Smoke:
             + json.dumps(rec["filter_kernels"]) + " refine "
             + json.dumps(rec["refine_kernel"]) + " prune "
             + json.dumps(rec["prune_kernels"]))
+        if not quantize:
+            rec["grouped_kernels"] = self.compare_grouped(forest, qs, qb,
+                                                          bn, blocks_run)
+            say(f"{label}: #1 and #3 at the grouped shape "
+                + json.dumps(rec["grouped_kernels"]))
+            rec["per_block_loop"] = self.check_grouped(
+                label, forest, ys0, rec["budget_final"], search)
         rec["unfused"] = self.drive_unfused(label, forest, ys[:q_batch],
                                             rec["budget_final"], quantize)
         if name == "deep":
@@ -855,6 +971,112 @@ class Smoke:
         if not self.rehearsal:
             torch.cuda.empty_cache()
         return rec
+
+    def phase_times(self, forest, ys0, budget: int) -> tuple:
+        """Host ms of each search phase over the query batch ``ys0`` at
+        ``budget``, each ended by a sync; with the filter's ``qs`` and
+        ``qb``, the candidates, the refine's gathered operands and the
+        blocks the prune ran."""
+        from repro_torch.core import search as tsearch
+        qs = tsearch.query_struct(ys0, forest.partition, forest.family)
+        self.sync()
+        marks = [time.perf_counter()]
+        _, idx = tsearch._batch_filter_topk(forest, qs, K, BLOCK_ROWS)
+        qb = tsearch.searching_bounds(forest, qs, idx)
+        self.sync()
+        marks.append(time.perf_counter())
+        sel, valid, _, _, blocks_run, _ = \
+            tsearch._stream_prune_compact(forest, qs, qb, budget, BLOCK_ROWS)
+        self.sync()
+        marks.append(time.perf_counter())
+        operands = tuple(getattr(forest, f)[sel]
+                         for f in tsearch.REFINE_FIELDS[forest.storage])
+        self.sync()
+        marks.append(time.perf_counter())
+        tsearch._refine_batch(forest, qs, sel, valid, K)
+        self.sync()
+        marks.append(time.perf_counter())
+        phases = {key: 1e3 * (marks[i + 1] - marks[i]) for i, key in
+                  enumerate(("filter", "prune_compact", "gather",
+                             "gather_refine_topk"))}
+        return phases, qs, qb, sel, valid, operands, blocks_run
+
+    def compare_grouped(self, forest, qs: dict, qb, bn: int,
+                        blocks_run: int) -> dict:
+        """#1 and #3 of the fp32 tier as the grouped search launches them
+        over one attempt (at budget n every block is admitted where the
+        union holds every point): #1 over all n rows, #3 over every row
+        block in one block-list launch; each against its plain version and
+        timed beside its bound."""
+        nb = -(-forest.n // bn)
+        tables = (forest.alpha, forest.sqrt_gamma, forest.alpha_min_pt,
+                  forest.sqrt_gamma_max_pt)
+        return {"ub": self.compare_ub_span(forest.alpha, forest.sqrt_gamma,
+                                           qs, time_it=True),
+                "fp": self.compare_blocks(tables, qs, qb, list(range(nb)),
+                                          bn, time_it=True),
+                "blocks_admitted_by_the_search": blocks_run}
+
+    def check_grouped(self, label: str, forest, ys0, budget: int,
+                      search) -> dict:
+        """The grouped search against the per-block loop (a group cap below
+        one block, so #1 and #3 launch once a row block):
+        ``knn_search_batch_stats`` at ``budget`` and ``knn_batch`` bit for
+        bit, stats included.  Then, in turns (per-block, grouped, grouped,
+        per-block), each loop's phase times over the batch and one timed
+        ``search`` of all queries, with the launches of each."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        cap = tsearch.GROUP_OUTPUT_BYTES
+
+        def run(c: int, check: bool):
+            tsearch.GROUP_OUTPUT_BYTES = c
+            try:
+                out = {}
+                if check:
+                    self.reset_launches()
+                    out["stats"] = tsearch.knn_search_batch_stats(
+                        forest, ys0, K, budget, BLOCK_ROWS, device=self.dev)
+                    out["batch"] = tsearch.knn_batch(
+                        forest, ys0, K, return_stats=True, device=self.dev)
+                    self.sync()
+                    out["launches"] = self.launches()
+                out["phases_ms"] = self.phase_times(forest, ys0, budget)[0]
+                t0 = time.perf_counter()
+                search()
+                out["search_ms"] = 1e3 * (time.perf_counter() - t0)
+                return out
+            finally:
+                tsearch.GROUP_OUTPUT_BYTES = cap
+
+        runs = [("per_block", run(0, True)), ("grouped", run(cap, True)),
+                ("grouped", run(cap, False)), ("per_block", run(0, False))]
+        want, got = runs[0][1], runs[1][1]
+        (wres, wstats), (gres, gstats) = want["stats"], got["stats"]
+        for f in gres._fields:
+            expect(bool(torch.equal(getattr(gres, f), getattr(wres, f))),
+                   f"{label}: grouped search {f} differ from the per-block "
+                   "loop's")
+        for key, val in wstats.items():
+            same = (bool(torch.equal(gstats[key], val))
+                    if isinstance(val, torch.Tensor) else gstats[key] == val)
+            expect(same, f"{label}: grouped stats {key} differ from the "
+                   "per-block loop's")
+        (wb, wbs), (gb, gbs) = want["batch"], got["batch"]
+        expect(gbs == wbs and all(bool(torch.equal(getattr(gb, f),
+                                                   getattr(wb, f)))
+                                  for f in gb._fields),
+               f"{label}: grouped knn_batch differs from the per-block loop's")
+        names = ("bregman_ub_matrix", "bregman_filter_prune")
+        out = {"queries": int(ys0.shape[0]), "budget": budget,
+               "launches": {k: {n: r["launches"][n] for n in names}
+                            for k, r in runs[:2]},
+               "turns": [{"loop": k, "phases_ms": r["phases_ms"],
+                          "search_ms": r["search_ms"]} for k, r in runs]}
+        say(f"{label}: grouped search == per-block loop bit for bit (stats "
+            f"included) at budget {budget}; launches {out['launches']}; in "
+            "turns " + json.dumps(out["turns"]))
+        return out
 
     def expect_launches(self, label: str, launches: dict, path: tuple,
                         quantize: bool) -> None:
@@ -1869,7 +2091,7 @@ class Smoke:
                                         "bregman_prune.py:174")}
 
         def entry(name, source, err, over, ms, plain, bnd, library,
-                  launches=None):
+                  launches=None, **extra):
             launches = launches or rec["launches"]
             return {"name": name + sfx, "route": "cuda",
                     "source": src + source,
@@ -1879,15 +2101,42 @@ class Smoke:
                     "max_abs_err": err, "max_err_over_tol": over,
                     "ms": ms, "plain_ms": plain,
                     "bound_ms": bnd[0], "bound_by": bnd[1],
-                    "library_ms": library}
+                    "library_ms": library, **extra}
 
+        gk = rec.get("grouped_kernels")
+        if gk is None:          # int8: #2 and #4 a row block a launch
+            ub_row = entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
+                           fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
+                           fk["ub_bound"], fk["ub_library"])
+            fp_row = entry("bregman_filter_prune", "bregman_fused.cu",
+                           fk["fp_err"], fk["fp_err_over_tol"], fk["fp"],
+                           fk["fp_plain"], fk["fp_bound"], None)
+        else:
+            # fp32: #1 and #3 at the grouped search's shape (one attempt's
+            # rows in one launch), the 4096-row block beside.
+            u, f = gk["ub"], gk["fp"]
+            ub_row = entry(
+                "bregman_ub_matrix", "bregman_ub.cu",
+                max(fk["ub_err"], u["err"]),
+                max(fk["ub_err_over_tol"], u["err_over_tol"]), u["ms"],
+                u["plain_ms"], u["bound"], u["library_ms"],
+                tile_source=src + "filter_span.cuh", shape=u["shape"],
+                block_shape=fk["shape"], block_ms=fk["ub"],
+                block_plain_ms=fk["ub_plain"],
+                block_bound_ms=fk["ub_bound"][0],
+                block_library_ms=fk["ub_library"])
+            fp_row = entry(
+                "bregman_filter_prune", "bregman_fused.cu",
+                max(fk["fp_err"], f["err"]),
+                max(fk["fp_err_over_tol"], f["err_over_tol"]), f["ms"],
+                f["plain_ms"], f["bound"], None,
+                tile_source=src + "filter_span.cuh", shape=f["shape"],
+                block_shape=fk["shape"], block_ms=fk["fp"],
+                block_plain_ms=fk["fp_plain"],
+                block_bound_ms=fk["fp_bound"][0])
         return [
-            entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
-                  fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
-                  fk["ub_bound"], fk["ub_library"]),
-            entry("bregman_filter_prune", "bregman_fused.cu", fk["fp_err"],
-                  fk["fp_err_over_tol"], fk["fp"], fk["fp_plain"],
-                  fk["fp_bound"], None),
+            ub_row,
+            fp_row,
             entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
                   rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
                   None),

@@ -4,24 +4,26 @@ A (q, d) query block runs five phases:
 
   1. Q-transform of the block (Alg. 3).
   2. Filter: a streaming per-column k-selection over the (n, q) Cauchy
-     upper-bound matrix — one ``bregman_ub_matrix`` kernel launch per
-     ``block_rows`` row block, merged into a running (q, k) best set, so
-     the (n, q) matrix never exists.
+     upper-bound matrix — one ``bregman_ub_matrix`` kernel launch per group
+     of consecutive ``block_rows`` row blocks (whose outputs stay within
+     :data:`GROUP_OUTPUT_BYTES`), merged into a running (q, k) best set, so
+     the (n, q) matrix never exists for large n * q.
   3. Alg.-4 searching bounds ``qb`` from each query's k-th row.
   4. Prune + compact: the block envelopes gate every (block, query) pair
      in one vectorized pass; the host reads which blocks any query admits
      (one device sync per search) and launches the fused
-     ``bregman_filter_prune`` kernel on those blocks only (``fused=False``:
-     a per-block windowed gate and the prune-only ``bregman_prune_mask``
-     kernel, the comparator); each block's admitted rows fill the query's
-     ``budget`` candidate slots in index order.
+     ``bregman_filter_prune_blocks`` kernel once per group of those blocks
+     (``fused=False``: a per-block windowed gate and the prune-only
+     ``bregman_prune_mask`` kernel a block, the comparator); the admitted
+     rows fill the query's ``budget`` candidate slots in index order.
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
 In the int8 tier the same phases stream codes plus per-row decode scalars
-through the int8 kernels, ``qb`` is inflated by the filter stats' rounding
-slack, and the refine decodes only the candidate rows; results are exact
-over the decoded points (``BallForest.rows_view``).
+through the int8 kernels, one launch a row block, ``qb`` is inflated by
+the filter stats' rounding slack, and the refine decodes only the
+candidate rows; results are exact over the decoded points
+(``BallForest.rows_view``).
 
 The §8 approximate search (:func:`knn_search_batch_approx`) shrinks each
 query's bounds by the empirical CDF of the cross term before the prune.  A
@@ -44,6 +46,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
+from ..kernels import ref as kernel_ref
 from . import bounds
 from . import quantize as qz
 from .bregman import get_family, validate_rows
@@ -60,6 +63,13 @@ logger = logging.getLogger(__name__)
 DEFAULT_BLOCK_ROWS = 4096
 
 MAX_BUDGET_DOUBLINGS = 8
+
+# Output bytes of one grouped launch of the fp32 filter (#1: the UB) and
+# of the fused filter+prune (#3: the UB and the admit mask): consecutive
+# row blocks share a launch up to this cap, so no (n, q) tile is formed
+# for large n * q.  At 2^27 a Deep attempt (10^6 rows, q = 14) is one
+# group.
+GROUP_OUTPUT_BYTES = 1 << 27
 
 
 def resolve_block_rows(block_rows: int | None, n: int) -> int:
@@ -282,6 +292,15 @@ def _row_blocks(fields: tuple, bn: int, nb: int) -> list:
     return [tuple(t[b * bn:(b + 1) * bn] for t in fields) for b in range(nb)]
 
 
+def _group_blocks(storage: str, bn: int, q: int, pair_bytes: int) -> int:
+    """Row blocks a grouped fp32 launch takes, its (rows, q) outputs of
+    ``pair_bytes`` a (row, query) within :data:`GROUP_OUTPUT_BYTES`; the
+    int8 tier launches a block at a time."""
+    if storage == "int8":
+        return 1
+    return max(1, GROUP_OUTPUT_BYTES // (bn * q * pair_bytes))
+
+
 def _filter_blocks(index: BallForest, bn: int, nb: int) -> list:
     """Per-block filter operands: (alpha, sqrt_gamma), or in the int8 tier
     (alpha, a_s, a_z, sqrt_gamma, g_s, g_z) codes plus their decode."""
@@ -318,55 +337,75 @@ def _prune_block(storage: str, corners: tuple, qs: dict,
     return fn(*corners, qs["qconst"], qs["sqrt_delta"], qb)
 
 
+def _merge_topk(best_v: Tensor, best_i: Tensor, vals: Tensor, rows: Tensor,
+                k: int) -> tuple[Tensor, Tensor]:
+    """The k smallest of the running (q, k) best set and a (rows, q) UB
+    tile whose rows are ``rows`` (ascending, above every carried row), by
+    one stable sort of the carry followed by the tile: ties go to the
+    lower row, as in a full-column stable top-k."""
+    q = best_v.shape[0]
+    cand_v = torch.cat([best_v, vals.T], dim=1)
+    cand_i = torch.cat([best_i, rows.expand(q, -1)], dim=1)
+    sv, order = torch.sort(cand_v, dim=1, stable=True)
+    return sv[:, :k], torch.gather(cand_i, 1, order[:, :k])
+
+
 def _batch_filter_topk(index: BallForest, qs: dict, k: int,
                        block_rows: int) -> tuple[Tensor, Tensor]:
     """Streaming per-column k-selection over the (n, q) UB matrix.
 
-    One UB kernel launch per row block; the running (q, k) smallest totals
-    and their rows are merged with each block by a stable sort, carry
-    first, so ties resolve to the lower row index as in a full-column
-    stable top-k.  The int8 tier streams code blocks through the int8
-    kernel.  Returns (values, rows), ascending along k.
+    One UB kernel launch per group of consecutive row blocks
+    (:func:`_group_blocks`: a row block at a time in the int8 tier), each
+    merged into the running (q, k) smallest totals and their rows by
+    :func:`_merge_topk`.  The k smallest by (total, row) do not depend on
+    how the rows are grouped, so any cap gives the per-block result.
+    Returns (values, rows), ascending along k.
     """
     n = index.n
     q = qs["qconst"].shape[0]
     dev = index.device
     bn, nb = _block_layout(n, block_rows)
+    span = bn * _group_blocks(index.storage, bn, q, 4)
     ub_fn = (kernel_ops.bregman_ub_matrix_quant if index.storage == "int8"
              else kernel_ops.bregman_ub_matrix)
     best_v = torch.full((q, k), POS_BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((q, k), dtype=torch.long, device=dev)
-    for b, blk in enumerate(_filter_blocks(index, bn, nb)):
-        vals = ub_fn(*blk, qs["qconst"], qs["sqrt_delta"])        # (bl, q)
-        gidx = torch.arange(b * bn, b * bn + blk[0].shape[0], device=dev)
-        cand_v = torch.cat([best_v, vals.T], dim=1)
-        cand_i = torch.cat([best_i, gidx.expand(q, -1)], dim=1)
-        sv, order = torch.sort(cand_v, dim=1, stable=True)
-        best_v = sv[:, :k]
-        best_i = torch.gather(cand_i, 1, order[:, :k])
+    for g, blk in enumerate(_filter_blocks(index, span, -(-n // span))):
+        vals = ub_fn(*blk, qs["qconst"], qs["sqrt_delta"])        # (rows, q)
+        rows = torch.arange(g * span, g * span + blk[0].shape[0], device=dev)
+        best_v, best_i = _merge_topk(best_v, best_i, vals, rows, k)
     return best_v, best_i
 
 
-def _fill_block_slots(sel: Tensor, count: Tensor, admit: Tensor, off: int,
-                      budget: int) -> tuple[Tensor, Tensor]:
-    """Route one block's admitted rows into their budget slots, in place.
+def _fill_slots(sel: Tensor, count: Tensor, admit: Tensor, rows: Tensor,
+                budget: int) -> tuple[Tensor, Tensor]:
+    """Route a (R, q) admit tile's admitted rows into their budget slots,
+    in place.  ``rows`` (R,) are the tile's table rows, ascending and above
+    every row already routed; a row the tile does not admit may carry any
+    value (the inert rows of a short block do).
 
-    Query j's admitted row of within-block rank r (rows in index order)
+    Query j's admitted row of rank r within the tile (rows in index order)
     goes to slot ``count[j] + r``; members past the budget are dropped.
     Unfilled slots hold ``n - 1``, at least every row index, so one
-    scatter-min of the (q, bn) tile writes each member into its own slot
-    and leaves every other slot as it was: O(q * bn) work a block, where
+    scatter-min of the (q, R) tile writes each member into its own slot
+    and leaves every other slot as it was: O(q * R) work a tile, where
     the reference routes all ``budget`` slots (it avoids scatters, which
     XLA serializes on the CPU).  Returns ``(sel, count + admitted)``.
     """
-    admitted = admit.T.contiguous() > 0                     # (q, bn)
+    admitted = admit.T.contiguous() > 0                     # (q, R)
     rank = torch.cumsum(admitted, dim=1)                    # contiguous scan
     slot = count[:, None] + rank - 1
-    rows = torch.arange(off, off + admit.shape[0], device=admit.device)
     src = torch.where(admitted & (slot < budget), rows,
                       torch.iinfo(sel.dtype).max)
     sel.scatter_reduce_(1, slot.clamp(0, budget - 1), src, reduce="amin")
     return sel, count + rank[:, -1]
+
+
+def _fill_block_slots(sel: Tensor, count: Tensor, admit: Tensor, off: int,
+                      budget: int) -> tuple[Tensor, Tensor]:
+    """:func:`_fill_slots` for one block's admit tile, rows ``off`` on."""
+    rows = torch.arange(off, off + admit.shape[0], device=admit.device)
+    return _fill_slots(sel, count, admit, rows, budget)
 
 
 def _env_tables(index: BallForest, eb: int) -> tuple[Tensor, Tensor]:
@@ -453,14 +492,16 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
     1. **Envelope gate** — :func:`_envelope_gate` (``fused=False``: the
        windowed gate, the same bits).  The host reads the (nb,)
        any-admit vector once.
-    2. **Per-point admit** — each admitted block launches the fused
-       filter+prune kernel (its int8 sibling in the int8 tier, whose
-       envelopes were reduced over the decoded corners): the (block, q) UB
+    2. **Per-point admit** — the admitted blocks, in groups of
+       :func:`_group_blocks` (fp32) or one at a time (int8), launch the
+       fused filter+prune kernel (its int8 sibling in the int8 tier, whose
+       envelopes were reduced over the decoded corners): the (rows, q) UB
        tile and int32 admit tile.  ``fused=False`` launches the prune-only
-       kernel instead (:func:`_prune_block`), the same admit tile without
-       the UB.
-    3. **Compaction** — :func:`_fill_block_slots` routes the block's
-       members into the budget slots; slot order = index order.
+       kernel a block instead (:func:`_prune_block`), the same admit tile
+       without the UB.
+    3. **Compaction** — :func:`_fill_slots` routes the tile's members into
+       the budget slots; slot order = index order, so any grouping fills
+       the slots a per-block loop fills.
 
     Returns ``(sel (q, budget), valid (q, budget), num_candidates (q,),
     env_admitted (q,), blocks_run, tau (q,))``; ``tau`` is the per-query
@@ -474,26 +515,46 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
     eb = resolve_env_block_rows(env_block_rows)
     gate = _envelope_gate if fused else _envelope_gate_windowed
     env_admit_all = gate(index, qs, qb, bn, nb, eb)                   # (nb, q)
-    run_blocks = torch.nonzero(env_admit_all.any(dim=1)).flatten().tolist()
+    run = torch.nonzero(env_admit_all.any(dim=1)).flatten()
+    run_blocks = run.tolist()
 
     sel = torch.full((q, budget), n - 1, dtype=torch.long, device=dev)
     count = torch.zeros((q,), dtype=torch.long, device=dev)
     tau = torch.full((q,), POS_BIG, dtype=torch.float32, device=dev)
-    fp_fn = (kernel_ops.bregman_filter_prune_block_quant
-             if index.storage == "int8"
-             else kernel_ops.bregman_filter_prune_block)
-    filt = _filter_blocks(index, bn, nb)
-    corners = _corner_blocks(index, bn, nb)
-    for b in run_blocks:
-        if fused:
-            ub, admit = fp_fn(*filt[b], *corners[b], qs["qconst"],
-                              qs["sqrt_delta"], qb)
-            if with_tau:
-                tau = torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
-                                    .amin(dim=0))
-        else:
-            admit = _prune_block(index.storage, corners[b], qs, qb)
-        sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
+
+    def admitted_tau(ub, admit):
+        if not with_tau:
+            return tau
+        return torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
+                             .amin(dim=0))
+
+    if fused and index.storage != "int8":
+        gb = _group_blocks(index.storage, bn, q, 8)
+        run = run.to(torch.int32)
+        for g in range(0, len(run_blocks), gb):
+            blocks = run[g:g + gb]
+            ub, admit = kernel_ops.bregman_filter_prune_blocks(
+                index.alpha, index.sqrt_gamma, index.alpha_min_pt,
+                index.sqrt_gamma_max_pt, qs["qconst"], qs["sqrt_delta"], qb,
+                blocks, bn)
+            tau = admitted_tau(ub, admit)
+            sel, count = _fill_slots(sel, count, admit,
+                                     kernel_ref.block_rows(blocks, bn),
+                                     budget)
+    else:
+        # One launch a block: the int8 tier's fused kernel, or the
+        # prune-only kernel of either tier.
+        filt = _filter_blocks(index, bn, nb)
+        corners = _corner_blocks(index, bn, nb)
+        for b in run_blocks:
+            if fused:
+                ub, admit = kernel_ops.bregman_filter_prune_block_quant(
+                    *filt[b], *corners[b], qs["qconst"], qs["sqrt_delta"],
+                    qb)
+                tau = admitted_tau(ub, admit)
+            else:
+                admit = _prune_block(index.storage, corners[b], qs, qb)
+            sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
     return (sel, _slot_validity(count, budget), count,
             env_admit_all.sum(dim=0), len(run_blocks), tau)
 

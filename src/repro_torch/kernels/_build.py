@@ -28,7 +28,7 @@ LIB_NAME = "libbrekernels.so"
 SOURCES = ("bregman_ub.cu", "bregman_fused.cu", "bregman_prune.cu",
            "bregman_dist.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
            "pccp_corr.cu")
-HEADERS = ("filter_tile.cuh",)
+HEADERS = ("filter_tile.cuh", "filter_span.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,6 +41,7 @@ SIGNATURES = {
     "brk_ub_matrix": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _P),
     "brk_filter_prune": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I64, _I64, _I64, _I, _P),
+    "brk_filter_prune_blocks": (_P,) * 11 + (_I64,) * 5 + (_I, _P),
     "brk_refine_batch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P),
     "brk_ub_matrix_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
     "brk_filter_prune_quant": (_P,) * 19 + (_I64, _I64, _I64, _I, _P),

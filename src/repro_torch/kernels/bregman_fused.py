@@ -1,16 +1,20 @@
-"""CUDA fused filter + prune kernel — a row block's UB tile and admit mask.
+"""CUDA fused filter + prune kernel — UB tile and admit mask of row blocks.
 
     ub[n, q]    = rowsum(alpha)[n] + qsum[q] + sqrt_gamma[n, :] . sd[q, :]
     admit[n, q] = any_i ( amin[n, i] + qconst[q, i]
                           - gmax[n, i] * sd[q, i] <= qb[q, i] )
 
-:func:`bregman_filter_prune` replaces ``src/repro/kernels/bregman_fused.py::
-bregman_filter_prune`` and :func:`bregman_filter_prune_quant` its int8
-sibling ``bregman_filter_prune_quant``, whose corners decode per element as
-``code * scale + zp``.  Bound by bytes on the H100: the kernels
-(``csrc/bregman_fused.cu``) stage the query tile once for both outputs,
-read each table element once, and write the decode and the admit compare
-with round-to-nearest intrinsics so the mask is bit-equal to
+:func:`bregman_filter_prune_blocks` and :func:`bregman_filter_prune`
+replace ``src/repro/kernels/bregman_fused.py::bregman_filter_prune``: the
+first over a device list of row blocks of the full tables in one
+persistent launch (what the search runs), the second over one block.
+:func:`bregman_filter_prune_quant` replaces its int8 sibling
+``bregman_filter_prune_quant``, whose corners decode per element as
+``code * scale + zp``, a row block a launch.  Bound by bytes on the H100:
+the kernels (``csrc/bregman_fused.cu``, fp32 on ``csrc/filter_span.cuh``,
+int8 on ``csrc/filter_tile.cuh``) stage the query tables once for both
+outputs, read each table element once, and write the decode and the admit
+compare with round-to-nearest intrinsics so the mask is bit-equal to
 ``ref.bregman_filter_prune`` / ``ref.bregman_filter_prune_quant``.
 """
 
@@ -30,8 +34,9 @@ def bregman_filter_prune(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
                          qsum: torch.Tensor, qconst: torch.Tensor,
                          sqrt_delta: torch.Tensor, qb: torch.Tensor,
                          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(ub (n, q) f32, admit (n, q) int32); point tables (n, M), qsum (q,),
-    query tables (q, M), all contiguous fp32 on one CUDA device."""
+    """(ub (n, q) f32, admit (n, q) int32) over one row block, the tables'
+    n rows; point tables (n, M), qsum (q,), query tables (q, M), all
+    contiguous fp32 on one CUDA device."""
     global launches
     n, m = alpha.shape
     q = qsum.shape[0]
@@ -52,6 +57,49 @@ def bregman_filter_prune(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
         sqrt_delta.data_ptr(), qb.data_ptr(), ub.data_ptr(),
         admit.data_ptr(), n, m, q, dev.index, _build.stream_of(dev))
     _build.check(err, "bregman_filter_prune")
+    launches += 1
+    return ub, admit
+
+
+def bregman_filter_prune_blocks(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
+                                amin: torch.Tensor, gmax: torch.Tensor,
+                                qsum: torch.Tensor, qconst: torch.Tensor,
+                                sqrt_delta: torch.Tensor, qb: torch.Tensor,
+                                blocks: torch.Tensor, bn: int,
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ub, admit), each (len(blocks) * bn, q), over the listed row blocks
+    of the full (n, M) tables in one launch; ``blocks`` (nb,) int32 block
+    ids on the card, block b being rows ``[b * bn, (b + 1) * bn)``.  Listed
+    block i's rows come at ``[i * bn, (i + 1) * bn)``; the rows of a short
+    last block past n read ``ub = inf`` and ``admit = 0``.  Other operands
+    as :func:`bregman_filter_prune`'s."""
+    global launches
+    n, m = alpha.shape
+    q = qsum.shape[0]
+    for name, t in (("alpha", alpha), ("sqrt_gamma", sqrt_gamma),
+                    ("amin", amin), ("gmax", gmax)):
+        _build.expect(t, name, (n, m))
+    _build.expect(qsum, "qsum", (q,))
+    for name, t in (("qconst", qconst), ("sqrt_delta", sqrt_delta),
+                    ("qb", qb)):
+        _build.expect(t, name, (q, m))
+    if isinstance(bn, bool) or not isinstance(bn, int) or bn < 1:
+        raise ValueError(f"bn must be a positive int, got {bn!r}")
+    nb = blocks.shape[0] if blocks.ndim == 1 else -1
+    _build.expect(blocks, "blocks", (nb,), torch.int32)
+    dev = _build.same_device(alpha, sqrt_gamma, amin, gmax, qsum, qconst,
+                             sqrt_delta, qb, blocks)
+    ub = torch.empty((nb * bn, q), dtype=torch.float32, device=dev)
+    admit = torch.empty((nb * bn, q), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return ub, admit                      # nothing to launch
+    err = _build.library().brk_filter_prune_blocks(
+        alpha.data_ptr(), sqrt_gamma.data_ptr(), amin.data_ptr(),
+        gmax.data_ptr(), qsum.data_ptr(), qconst.data_ptr(),
+        sqrt_delta.data_ptr(), qb.data_ptr(), blocks.data_ptr(),
+        ub.data_ptr(), admit.data_ptr(), n, m, q, nb, bn, dev.index,
+        _build.stream_of(dev))
+    _build.check(err, "bregman_filter_prune_blocks")
     launches += 1
     return ub, admit
 

@@ -1,4 +1,4 @@
-"""CUDA filter kernels — the (n, q) Cauchy upper-bound totals of a row block.
+"""CUDA filter kernels — the (n, q) Cauchy upper-bound totals of a row span.
 
     ub[n, q] = rowsum(alpha)[n] + qsum[q] + sqrt_gamma[n, :] . sqrt_delta[q, :]
 
@@ -6,9 +6,12 @@
 bregman_ub_matrix`` (a Pallas MXU product with M padded to 128 lanes) and
 :func:`bregman_ub_matrix_quant` its int8 sibling ``bregman_ub_matrix_quant``
 (codes plus a per-row affine factored out of both sums).  On the H100 the
-work is bound by bytes, not operations: the kernels (``csrc/bregman_ub.cu``)
-read each table element once through shared memory, loop over the real M
-and write each output once.  Plain versions: ``ref.bregman_ub_matrix`` and
+work is bound by bytes, not operations.  The fp32 kernel
+(``csrc/bregman_ub.cu`` on ``csrc/filter_span.cuh``) takes any row span in
+one persistent launch, so the search hands it many row blocks at once; the
+int8 one (on ``csrc/filter_tile.cuh``) a row block.  Both read each table
+element once through shared memory, loop over the real M and write each
+output once.  Plain versions: ``ref.bregman_ub_matrix`` and
 ``ref.bregman_ub_matrix_quant``.
 """
 
@@ -26,8 +29,9 @@ launches_quant = 0
 def bregman_ub_matrix(alpha: torch.Tensor, sqrt_gamma: torch.Tensor,
                       qsum: torch.Tensor,
                       sqrt_delta: torch.Tensor) -> torch.Tensor:
-    """(n, q) UB totals; alpha, sqrt_gamma (n, M), qsum (q,), sqrt_delta
-    (q, M), all contiguous fp32 on one CUDA device."""
+    """(n, q) UB totals over any n rows, in one launch; alpha, sqrt_gamma
+    (n, M), qsum (q,), sqrt_delta (q, M), all contiguous fp32 on one CUDA
+    device."""
     global launches
     n, m = alpha.shape
     q = qsum.shape[0]

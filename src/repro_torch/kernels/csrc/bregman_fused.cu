@@ -1,34 +1,65 @@
-// Fused filter + prune kernels: a row block's UB tile and Theorem-3 admit mask.
+// Fused filter + prune kernels: the UB tile and Theorem-3 admit mask of
+// row blocks.
 //
 //   ub[n, q]    = (rowsum(alpha)[n] + qsum[q]) + sqrt_gamma[n, :] . sd[q, :]
 //   admit[n, q] = any_i ( (amin[n, i] + qconst[q, i]) - gmax[n, i] * sd[q, i]
 //                         <= qb[q, i] )
 //
-// brk_filter_prune replaces the TPU kernel src/repro/kernels/bregman_fused.py::
-// bregman_filter_prune (both tiles in one VMEM-resident pass; the admit
-// loop runs over the real M only).  brk_filter_prune_quant replaces
-// bregman_fused.py::bregman_filter_prune_quant: the UB of bregman_ub.cu's
-// int8 entry, and the admit over corner codes decoded per element as
-// amin = code * am_s + am_z (floor-coded) and gmax = code * gm_s + gm_z
-// (ceil-coded), each operation rounded on its own.  That decode is the one
-// the block envelopes were reduced over (core/index.refresh_envelopes): a
-// decode one ulp lower here would admit a row whose block the envelope gate
-// skipped, and the row would go missing, so the decode and the compare are
-// written with round-to-nearest intrinsics and no FMA.
+// brk_filter_prune_blocks and brk_filter_prune replace the TPU kernel
+// src/repro/kernels/bregman_fused.py::bregman_filter_prune (both tiles in
+// one VMEM-resident pass; the admit loop runs over the real M only):
+// brk_filter_prune_blocks over a device list of row blocks in one
+// persistent launch, brk_filter_prune over one block (a row span), both
+// through filter_span.cuh.  brk_filter_prune_quant replaces
+// bregman_fused.py::bregman_filter_prune_quant with filter_tile.cuh's
+// per-block tile: the UB of bregman_ub.cu's int8 entry, and the admit over
+// corner codes decoded per element as amin = code * am_s + am_z
+// (floor-coded) and gmax = code * gm_s + gm_z (ceil-coded), each operation
+// rounded on its own.  That decode is the one the block envelopes were
+// reduced over (core/index.refresh_envelopes): a decode one ulp lower here
+// would admit a row whose block the envelope gate skipped, and the row
+// would go missing, so the decode and the compare are written with
+// round-to-nearest intrinsics and no FMA.
 //
-// Bound on the H100: bytes.  One fp32 launch over a 4096-row block (M of
-// about 30-40, q = 14-50) reads four (n, M) fp32 tables, about 2.4 MB, and
-// writes the f32 UB and int32 admit tiles, up to 1.6 MB: about 1.2 us at
-// 3.35 TB/s, against about 50 MFLOP of compare arithmetic; the int8 launch
-// reads a quarter of the table bytes plus eight fp32 scalars a row.  The
-// query tile's sqrt_delta chunk is staged in shared memory once and feeds
-// both the Cauchy sum and the admit loop, each table element is read and
-// decoded once, and the admit mask stays bit-equal to the plain PyTorch
-// version.  Rows past n are neither read nor written.
+// Bound on the H100: bytes.  Over the admitted blocks of a Deep attempt
+// (10^6 rows, M = 39, q = 14) the fp32 launch reads four (n, M) tables,
+// 624 MB, and writes the f32 UB and int32 admit tiles, 112 MB: 0.22 ms at
+// 3.35 TB/s, against 0.13-0.16 ms of issue for the compare arithmetic
+// (filter_span.cuh says how the tile meets it).  The int8 launch over a
+// 4096-row block reads a quarter of the table bytes plus eight fp32
+// scalars a row.  Each table element is read and decoded once, and the
+// admit mask stays bit-equal to the plain PyTorch version.  Rows past n
+// are not read.
+#include "filter_span.cuh"
 #include "filter_tile.cuh"
 
 using brekernels::FilterArgs;
 
+namespace {
+
+brekernels::span::Tables fused_tables(
+    const float* alpha, const float* sqrt_gamma, const float* amin,
+    const float* gmax, const float* qsum, const float* qconst,
+    const float* sqrt_delta, const float* qb, float* ub, int32_t* admit,
+    int64_t n) {
+  brekernels::span::Tables t = {};
+  t.alpha = alpha;
+  t.sg = sqrt_gamma;
+  t.amin = amin;
+  t.gmax = gmax;
+  t.qsum = qsum;
+  t.qc = qconst;
+  t.sd = sqrt_delta;
+  t.qb = qb;
+  t.ub = ub;
+  t.admit = admit;
+  t.n = n;
+  return t;
+}
+
+}  // namespace
+
+// One row block: the tables' n rows, output (n, q).
 extern "C" int brk_filter_prune(const float* alpha, const float* sqrt_gamma,
                                 const float* amin, const float* gmax,
                                 const float* qsum, const float* qconst,
@@ -36,20 +67,34 @@ extern "C" int brk_filter_prune(const float* alpha, const float* sqrt_gamma,
                                 float* ub, int32_t* admit, int64_t n,
                                 int64_t m, int64_t q, int device,
                                 void* stream) {
-  FilterArgs<float> a = {};
-  a.alpha = alpha;
-  a.sg = sqrt_gamma;
-  a.amin = amin;
-  a.gmax = gmax;
-  a.qsum = qsum;
-  a.qc = qconst;
-  a.sd = sqrt_delta;
-  a.qb = qb;
-  a.ub = ub;
-  a.admit = admit;
-  a.n = n;
-  return brekernels::launch_filter_tile<float, true>(
-      a, m, q, device, static_cast<cudaStream_t>(stream));
+  brekernels::span::Tables t = fused_tables(
+      alpha, sqrt_gamma, amin, gmax, qsum, qconst, sqrt_delta, qb, ub,
+      admit, n);
+  t.bn = n > 0 ? n : 1;
+  t.nblocks = 1;
+  return brekernels::span::launch_filter_span<true>(
+      t, m, q, device, static_cast<cudaStream_t>(stream));
+}
+
+// The row blocks listed in blocks (nblocks int32 ids on the device) of the
+// (n, m) tables, bn rows a block; output (nblocks * bn, q), listed block
+// li's rows at [li * bn, (li + 1) * bn), a short block's rows past n
+// inert (ub +inf, admit 0).
+extern "C" int brk_filter_prune_blocks(
+    const float* alpha, const float* sqrt_gamma, const float* amin,
+    const float* gmax, const float* qsum, const float* qconst,
+    const float* sqrt_delta, const float* qb, const int32_t* blocks,
+    float* ub, int32_t* admit, int64_t n, int64_t m, int64_t q,
+    int64_t nblocks, int64_t bn, int device, void* stream) {
+  if (blocks == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  brekernels::span::Tables t = fused_tables(
+      alpha, sqrt_gamma, amin, gmax, qsum, qconst, sqrt_delta, qb, ub,
+      admit, n);
+  t.blocks = blocks;
+  t.bn = bn;
+  t.nblocks = nblocks;
+  return brekernels::span::launch_filter_span<true>(
+      t, m, q, device, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int brk_filter_prune_quant(

@@ -1,4 +1,4 @@
-// Filter kernels: the (n, q) Cauchy upper-bound totals of a row block.
+// Filter kernels: the (n, q) Cauchy upper-bound totals of a row span.
 //
 //   ub[n, q] = (rowsum(alpha)[n] + qsum[q]) + sqrt_gamma[n, :] . sqrt_delta[q, :]
 //
@@ -11,15 +11,15 @@
 //   ub[n, q] = (a_s[n] * sum(alpha_q[n, :]) + M * a_z[n] + qsum[q])
 //              + (g_s[n] * (sg_q[n, :] . sd[q, :]) + g_z[n] * sum(sd[q, :]))
 //
-// Bound on the H100: bytes.  At the search path's shape (a 4096-row block,
-// M of about 30-40, q = 14-50) one fp32 launch reads about 1.2 MB of point
-// tables and writes 0.8 MB or less, under a microsecond at 3.35 TB/s,
-// against about 15 MFLOP (0.2 us at 67 TFLOP/s fp32); the int8 launch reads
-// a quarter of the table bytes plus four fp32 scalars a row.  So the kernel
-// reads each table element once into shared memory, keeps the M-loop in
-// registers, writes each output once, and loops over the real M instead of
-// padding it.  At this size the launch itself costs more than the work; one
-// persistent launch over all blocks is later work.
+// Bound on the H100: bytes.  The fp32 entry runs filter_span.cuh's tile
+// over any row span in one persistent launch: the search hands it many
+// consecutive row blocks at once (a Deep attempt's 10^6 rows, 312 MB of
+// tables and 56 MB of totals, 0.11 ms at 3.35 TB/s), staged through
+// shared memory in contiguous spans, a thread a row and 8 queries.  The
+// int8 entry keeps filter_tile.cuh's per-block tile: a 4096-row launch
+// reads a quarter of the fp32 bytes plus four fp32 scalars a row, each
+// element once, looping over the real M.
+#include "filter_span.cuh"
 #include "filter_tile.cuh"
 
 using brekernels::FilterArgs;
@@ -28,15 +28,17 @@ extern "C" int brk_ub_matrix(const float* alpha, const float* sqrt_gamma,
                              const float* qsum, const float* sqrt_delta,
                              float* ub, int64_t n, int64_t m, int64_t q,
                              int device, void* stream) {
-  FilterArgs<float> a = {};
-  a.alpha = alpha;
-  a.sg = sqrt_gamma;
-  a.qsum = qsum;
-  a.sd = sqrt_delta;
-  a.ub = ub;
-  a.n = n;
-  return brekernels::launch_filter_tile<float, false>(
-      a, m, q, device, static_cast<cudaStream_t>(stream));
+  brekernels::span::Tables t = {};
+  t.alpha = alpha;
+  t.sg = sqrt_gamma;
+  t.qsum = qsum;
+  t.sd = sqrt_delta;
+  t.ub = ub;
+  t.n = n;
+  t.bn = n > 0 ? n : 1;      // the span is one block
+  t.nblocks = 1;
+  return brekernels::span::launch_filter_span<false>(
+      t, m, q, device, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int brk_ub_matrix_quant(const int8_t* alpha_q,

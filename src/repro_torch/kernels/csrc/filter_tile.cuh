@@ -1,6 +1,7 @@
-// Shared tile body of the filter kernels (bregman_ub.cu), the fused
-// filter+prune kernels (bregman_fused.cu) and the prune-only kernels
-// (bregman_prune.cu), fp32 and int8 tables alike.
+// Shared tile body of the int8 filter and fused filter+prune kernels
+// (bregman_ub.cu, bregman_fused.cu) and of the prune-only kernels
+// (bregman_prune.cu), fp32 and int8 tables alike; the fp32 filter and
+// fused kernels run filter_span.cuh.
 //
 // One block owns a TN x TQ tile of the (n, q) output; each of its 256
 // threads owns RPT = 4 outputs of one query column, so a warp writes 32

@@ -99,6 +99,27 @@ def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
                                        sqrt_delta, qb)
 
 
+def bregman_filter_prune_blocks(alpha, sqrt_gamma, amin, gmax, qconst,
+                                sqrt_delta, qb, blocks, bn: int):
+    """Fused (ub, admit) over the listed row blocks of the full (n, M)
+    tables in one launch: ``blocks`` (nb,) int32 block ids, ``bn`` rows a
+    block; each output (nb * bn, q), block i's rows at ``[i * bn,
+    (i + 1) * bn)``, a short last block's rows past n inert (ub inf,
+    admit 0)."""
+    _query_operands("bregman_filter_prune_blocks", qconst, sqrt_delta, qb)
+    if alpha.shape != amin.shape:
+        raise ValueError(
+            "filter and corner tables must share (n, M), got "
+            f"{tuple(alpha.shape)} vs {tuple(amin.shape)}")
+    if not _on_cuda(alpha):
+        return ref.bregman_filter_prune_blocks(alpha, sqrt_gamma, amin, gmax,
+                                               qconst, sqrt_delta, qb,
+                                               blocks, bn)
+    return _fused.bregman_filter_prune_blocks(
+        alpha, sqrt_gamma, amin, gmax, torch.sum(qconst, dim=-1), qconst,
+        sqrt_delta, qb, blocks, bn)
+
+
 def bregman_filter_prune_block_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
                                      sg_scale, sg_zp, amin_q, amin_scale,
                                      amin_zp, gmax_q, gmax_scale, gmax_zp,

@@ -78,6 +78,33 @@ def bregman_filter_prune(alpha: Tensor, sqrt_gamma: Tensor, amin: Tensor,
             bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb))
 
 
+def block_rows(blocks: Tensor, bn: int) -> Tensor:
+    """(nb * bn,) int64 table rows of the listed row blocks, block by block
+    (block b is rows ``[b * bn, (b + 1) * bn)``; rows of a short last block
+    run past the table)."""
+    offs = torch.arange(bn, dtype=torch.long, device=blocks.device)
+    return (blocks.long()[:, None] * bn + offs[None, :]).reshape(-1)
+
+
+def bregman_filter_prune_blocks(alpha: Tensor, sqrt_gamma: Tensor,
+                                amin: Tensor, gmax: Tensor, qconst: Tensor,
+                                sqrt_delta: Tensor, qb: Tensor,
+                                blocks: Tensor,
+                                bn: int) -> tuple[Tensor, Tensor]:
+    """:func:`bregman_filter_prune` over the rows of the listed blocks of
+    the full (n, M) tables: (ub, admit), each (len(blocks) * bn, q), listed
+    block i's rows at ``[i * bn, (i + 1) * bn)``; rows past n (a short
+    last block's) read ``ub = inf`` and ``admit = 0``."""
+    n = alpha.shape[0]
+    rows = block_rows(blocks, bn)
+    real = rows < n
+    idx = torch.clamp(rows, max=n - 1)
+    ub, admit = bregman_filter_prune(alpha[idx], sqrt_gamma[idx], amin[idx],
+                                     gmax[idx], qconst, sqrt_delta, qb)
+    return (torch.where(real[:, None], ub, torch.inf),
+            admit * real[:, None].to(admit.dtype))
+
+
 def bregman_filter_prune_quant(alpha_q: Tensor, alpha_scale: Tensor,
                                alpha_zp: Tensor, sg_q: Tensor,
                                sg_scale: Tensor, sg_zp: Tensor,

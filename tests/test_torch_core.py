@@ -52,8 +52,16 @@ def test_transforms_and_bounds_match_jax(family):
         ttr.p_transform(torch.from_numpy(x), tp, tf)
     jq = _np(jtr.q_transform(jnp.asarray(y), part, jf))
     tq = ttr.q_transform(torch.from_numpy(y), tp, tf)
+    # The port's transform in float64: a failure names the side that left
+    # it (this comparison failed intermittently in multi-worker runs).
+    f64 = ttr.p_transform(torch.from_numpy(x.astype(np.float64)), tp, tf)
     for k in jp:
-        np.testing.assert_allclose(tp_[k].numpy(), jp[k], **TOL, err_msg=k)
+        want = f64[k].numpy()
+        np.testing.assert_allclose(
+            tp_[k].numpy(), jp[k], **TOL,
+            err_msg=f"{k}: max |port - f64| "
+                    f"{np.max(np.abs(tp_[k].numpy() - want)):.3g}, "
+                    f"max |jax - f64| {np.max(np.abs(jp[k] - want)):.3g}")
     for k in jq:
         np.testing.assert_allclose(tq[k].numpy(), jq[k], **TOL, err_msg=k)
     jq2 = {k: v for k, v in jq.items() if v.ndim == 2}

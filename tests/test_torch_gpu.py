@@ -69,6 +69,171 @@ def test_filter_kernels_match_their_plain_versions(cuda, n, m, q):
     assert bool(admit[0].all())
 
 
+def _span_operands(n, m, q, seed, tie_row=0):
+    """fp32 filter and corner tables with a mixed admit mask; ``tie_row``
+    ties its bound exactly in subspace 0 for every query."""
+    gen = torch.Generator().manual_seed(seed)
+    alpha, amin = (torch.randn((n, m), generator=gen) for _ in range(2))
+    sg, gmax = (torch.randn((n, m), generator=gen).abs() for _ in range(2))
+    qc = torch.randn((q, m), generator=gen)
+    sd = torch.randn((q, m), generator=gen).abs()
+    rows = torch.randperm(n, generator=gen)[:1500]
+    lb = (amin[rows, :, None] + qc.T[None]) - gmax[rows, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = (amin[tie_row, 0] + qc[:, 0]) - gmax[tie_row, 0] * sd[:, 0]
+    return alpha, sg, amin, gmax, qc, sd, qb
+
+
+def _ub_tolerance(alpha, sg, qc, sd):
+    """(M + 2) fp32 terms summed in another order than the plain version's:
+    (M + 2) * eps32 times the magnitudes of the summed terms."""
+    m = alpha.shape[1]
+    return (m + 2) * EPS32 * (alpha.abs().sum(-1)[:, None]
+                              + qc.abs().sum(-1)[None] + sg @ sd.T)
+
+
+# (n, M, q, bn, listed blocks): non-contiguous lists, short last blocks
+# (n not a multiple of bn), one-block lists, M odd and even (70: a padded
+# row stride), M split into shared-memory chunks (300, 700: neither a
+# multiple of the chunk), the query tables held for the CTA's life or
+# chunked (700; 300 at q = 50), q from 1 to 65 (two query tiles).
+SPAN_CASES = [
+    (5000, 37, 14, 1024, [0, 2, 4]),
+    (5000, 37, 13, 1024, [4]),
+    (3000, 39, 1, 512, [1, 3, 5]),
+    (3000, 70, 33, 512, [0, 1, 5]),
+    (2000, 300, 50, 256, [0, 7]),
+    (2000, 33, 65, 384, [0, 2, 5]),
+    (1500, 700, 14, 200, [3, 7]),
+    (12293, 39, 14, 4096, [0, 1, 2, 3]),
+    (4096, 40, 64, 4096, [0]),
+]
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", SPAN_CASES)
+def test_filter_prune_blocks_matches_its_plain_version(cuda, n, m, q, bn,
+                                                       listed):
+    first = listed[0] * bn
+    ops_ = [t.to(cuda) for t in _span_operands(n, m, q, n + m + q,
+                                               tie_row=first)]
+    a, g, am, gm, qc, sd, qb = ops_
+    blocks = torch.tensor(listed, dtype=torch.int32, device=cuda)
+    before = bregman_fused.launches
+    ub, admit = bregman_fused.bregman_filter_prune_blocks(
+        a, g, am, gm, qc.sum(-1), qc, sd, qb, blocks, bn)
+    torch.cuda.synchronize()
+    assert bregman_fused.launches == before + 1
+    assert ub.shape == admit.shape == (len(listed) * bn, q)
+    want_ub, want_admit = ref.bregman_filter_prune_blocks(
+        a, g, am, gm, qc, sd, qb, blocks, bn)
+    assert admit.dtype == torch.int32 and torch.equal(admit, want_admit)
+    rows = ref.block_rows(blocks, bn)
+    real = rows < n
+    assert bool(torch.isinf(ub[~real]).all()) and not admit[~real].any()
+    idx = rows[real]
+    tol = _ub_tolerance(a[idx], g[idx], qc, sd)
+    assert bool(((ub[real] - want_ub[real]).abs() <= tol).all())
+    assert bool(admit[0].all())                     # the tie row
+    assert 0 < int(admit.sum()) < int(real.sum()) * q or q * n < 64
+    # Each listed block's tile is the one-block kernel's on its rows.
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one_ub, one_admit = bregman_fused.bregman_filter_prune(
+            a[s], g[s], am[s], gm[s], qc.sum(-1), qc, sd, qb)
+        rows_b = s.stop - s.start
+        got = slice(i * bn, i * bn + rows_b)
+        assert torch.equal(one_ub.view(torch.int32), ub[got].view(torch.int32))
+        assert torch.equal(one_admit, admit[got])
+
+
+@pytest.mark.parametrize("q", [1, 13, 14, 33, 50, 65])
+@pytest.mark.parametrize("n,m,skip", [(5000, 39, 0), (4133, 1, 3),
+                                      (2000, 70, 1), (700, 300, 5)])
+def test_ub_span_matches_its_plain_version(cuda, n, m, skip, q):
+    """#1 over a row span of any length, whose start need not be 16-byte
+    aligned (``skip`` rows into the table)."""
+    a, g, _, _, qc, sd, _ = [t.to(cuda)
+                             for t in _span_operands(n, m, q, n + q)]
+    a, g = a[skip:], g[skip:]
+    before = bregman_ub.launches
+    ub = bregman_ub.bregman_ub_matrix(a, g, qc.sum(-1), sd)
+    torch.cuda.synchronize()
+    assert bregman_ub.launches == before + 1
+    want = ref.bregman_ub_matrix(a, g, qc, sd)
+    assert ub.shape == want.shape == (n - skip, q)
+    assert bool(((ub - want).abs() <= _ub_tolerance(a, g, qc, sd)).all())
+    # A row's totals do not depend on the span it was launched in.
+    part = bregman_ub.bregman_ub_matrix(a[17:300], g[17:300], qc.sum(-1), sd)
+    assert torch.equal(part.view(torch.int32), ub[17:300].view(torch.int32))
+
+
+def test_filter_prune_blocks_refuses_what_it_cannot_run(cuda):
+    a = torch.ones((64, 3), device=cuda)
+    q = torch.ones((2, 3), device=cuda)
+    s = torch.ones(2, device=cuda)
+    ok = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        bregman_fused.bregman_filter_prune_blocks(a, a, a, a, s, q, q, q,
+                                                  ok.long(), 32)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bregman_fused.bregman_filter_prune_blocks(a, a, a, a, s, q, q, q,
+                                                  ok.cpu(), 32)
+    with pytest.raises(ValueError, match="bn must be a positive int"):
+        bregman_fused.bregman_filter_prune_blocks(a, a, a, a, s, q, q, q,
+                                                  ok, 0)
+    ub, admit = bregman_fused.bregman_filter_prune_blocks(
+        a, a, a, a, s, q, q, q, ok[:0], 32)
+    assert ub.shape == admit.shape == (0, 2)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_grouped_search_on_the_card_equals_the_per_block_loop(
+        cuda, monkeypatch, quantize):
+    """The grouped filter and prune (default cap; a cap of three blocks,
+    so that one search makes several groups) give the per-block loop's
+    results (a cap below one block) bit for bit, stats included, on a
+    forest whose gate rejects blocks."""
+    rng = np.random.default_rng(0)
+    per, d = 1000, 8
+    data = np.concatenate([rng.normal(size=(per, d)) + 40.0 * j
+                           for j in range(6)]).astype(np.float32)
+    queries = (data[rng.integers(0, per, 8)] + 0.01).astype(np.float32)
+    forest = tidx.build_index(data, "squared_euclidean", m=2,
+                              num_clusters=24, seed=0, quantize=quantize,
+                              device=cuda)
+
+    def run(cap):
+        monkeypatch.setattr(tsearch, "GROUP_OUTPUT_BYTES", cap)
+        counts = _counts(quantize)
+        res, stats = tsearch.knn_search_batch_stats(
+            forest, queries, 10, 64, block_rows=256, device=cuda)
+        batch = tsearch.knn_batch(forest, queries, 10, block_rows=256,
+                                  return_stats=True, device=cuda)
+        launched = [a - b for a, b in zip(_counts(quantize), counts,
+                                          strict=True)]
+        return res, stats, batch, launched
+
+    want, want_stats, want_batch, per_block = run(0)
+    assert 0 < want_stats["num_blocks_run"] < want_stats["num_blocks"]
+    for cap in (3 * 256 * 8 * 8, 1 << 27):
+        got, got_stats, got_batch, launched = run(cap)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (cap, f)
+        for key in want_stats:
+            if key == "tau_admit":
+                assert torch.equal(got_stats[key], want_stats[key])
+            else:
+                assert got_stats[key] == want_stats[key], key
+        assert got_batch[1] == want_batch[1]
+        for f in got_batch[0]._fields:
+            assert torch.equal(getattr(got_batch[0], f),
+                               getattr(want_batch[0], f)), (cap, f)
+        if not quantize:
+            assert launched[0] < per_block[0] and launched[1] < per_block[1]
+        else:
+            assert launched == per_block
+
+
 @pytest.mark.parametrize("family", family_names())
 @pytest.mark.parametrize("q,b,d", [(1, 1, 1), (3, 77, 33), (50, 130, 257)])
 def test_refine_kernel_matches_its_plain_version(cuda, family, q, b, d):
