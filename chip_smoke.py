@@ -12,29 +12,32 @@ Phases:
    the ten CUDA kernels (seven sources; fp32 and int8 entry points of the
    search kernels, fp32 and bf16 kernels of #10) from
    src/repro_torch/kernels/csrc with nvcc; the HGMMA (wgmma) instructions
-   of each function in the built library, where cuobjdump is present.
+   of each function in the built library and the 128-bit global loads of
+   the int8 refine kernel (#8), where cuobjdump is present.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
-   bit-equal to the fused kernels' admit; #3's block-list entry over
-   non-contiguous lists with a short last block, and #1 over an unaligned
-   row span); the int8 quantizer on the card
-   against the CPU's, bit for bit; and the whole search on the card
-   against the same search on the CPU for every Bregman family on a small
-   index, in both storage tiers.
+   bit-equal to the fused kernels' admit; the block-list entries of #3
+   and #4 over non-contiguous lists with a short last block, and #1 over
+   an unaligned row span; #8 on unaligned codes, and a (query, row) pair's
+   bits the same at b = 1, at another position and unaligned); the int8
+   quantizer on the card against the CPU's, bit for bit; and the whole
+   search on the card against the same search on the CPU for every
+   Bregman family on a small index, in both storage tiers.
 3. Audio (n=54,387, d=192, exponential) and 4. Deep (n=1,000,000, d=256,
    exponential), from PAPER_DATASETS at full size, each in the fp32 tier
    and then the int8 tier: ``build_index`` with m=None (Theorem 4), PCCP
    and ``quantize``, then ``knn_batch`` on 50 queries with k=10.  Every
    kernel's launch count is set to 0 just before the search and read just
    after; each kernel of the tier must be above 0 and the other tier's at
-   0.  The ids are held against ``brute_force_knn`` over the index's point
-   set (``rows_view``) on the card.  Each kernel is then held against its
+   0, and the fused prune (#3, #4) launched once an attempt.  The ids are
+   held against ``brute_force_knn`` over the index's point set
+   (``rows_view``) on the card.  Each kernel is then held against its
    plain version, and timed with CUDA events beside its bound, at the
-   shapes that search gave it; in fp32 #1 and #3 also at the grouped
-   search's shape (one attempt's rows in one launch).  In fp32 the
+   shapes that search gave it; #3 and #4 (and #1 in fp32) also at the
+   grouped search's shape (one attempt's rows in one launch).  The
    grouped search must equal the per-block loop (a group cap below one
-   block) bit for bit, stats included; both loops' phase times and search
-   times are taken in turns.  The unfused comparator (``fused=False``,
+   block) bit for bit, stats included, in both tiers; both loops' phase
+   times and search times are taken in turns.  The unfused comparator (``fused=False``,
    kernel #5 or #6 in place of #3 or #4) must give the fused search's
    results bit for bit.  On Deep, the index is then wrapped in a
    ``TieredPointStore`` holding 40% of its cold bytes on the card:
@@ -120,6 +123,14 @@ PCCP_PROBE_M = 32
 # (csrc/flash_attention.cu), bf16 on the tensor cores
 # (csrc/flash_attention_wgmma.cu).
 FLASH_KV_TILE = {"float32": 32, "bfloat16": 64}
+# Block lists of #3 and #4 against their plain versions (n, M, q, bn,
+# listed blocks): non-contiguous, a short last block, one block, M even
+# (70) and chunked (300), two query tiles (q = 65).
+BLOCK_LIST_CASES = [(5000, 37, 14, 1024, [0, 2, 4]),
+                    (3000, 70, 33, 512, [0, 1, 5]),
+                    (2000, 300, 50, 256, [0, 7]),
+                    (2000, 33, 65, 384, [0, 2, 5]),
+                    (5000, 37, 13, 1024, [4])]
 # tests/test_kernels.py::test_flash_attention's cases:
 # (b, h, kh, sq, skv, d, causal, window).
 FLASH_CASES = [
@@ -256,6 +267,9 @@ class Smoke:
                     ops.bregman_filter_prune_block(*a[:4], *a[5:]),
                     "bregman_filter_prune_blocks": lambda *a:
                     ops.bregman_filter_prune_blocks(*a[:4], *a[5:]),
+                    "bregman_filter_prune_blocks_quant": lambda *a:
+                    ops.bregman_filter_prune_blocks_quant(
+                        *a[:12], a[13], a[14], *a[16:]),
                     "bregman_filter_prune_quant": lambda *a:
                     ops.bregman_filter_prune_block_quant(*a[:12], a[13],
                                                          a[14], a[16]),
@@ -265,9 +279,9 @@ class Smoke:
                     "bregman_prune_mask": ops.bregman_prune_block,
                     "bregman_prune_mask_quant":
                     ops.bregman_prune_block_quant}[name]
-        if name == "bregman_filter_prune_blocks":
+        if name.startswith("bregman_filter_prune_blocks"):
             from repro_torch.kernels import bregman_fused
-            return bregman_fused.bregman_filter_prune_blocks
+            return getattr(bregman_fused, name)
         mod = self.counters[name][0]
         if name.startswith("bregman_ub_matrix"):
             return lambda *a: getattr(mod, name)(*a[:-1])
@@ -302,17 +316,27 @@ class Smoke:
             f"-> {_build.BUILD_DIR / _build.LIB_NAME}")
         for line in info["ptxas"]:
             say(f"  {line}")
-        self.record["hgmma"] = hgmma_counts(_build.BUILD_DIR
-                                            / _build.LIB_NAME)
-        if self.record["hgmma"] is None:
-            say("cuobjdump is missing: the HGMMA instructions of the built "
-                "library are not counted")
+        sass = sass_counts(_build.BUILD_DIR / _build.LIB_NAME)
+        self.record["sass"] = sass
+        if sass is None:
+            say("cuobjdump is missing: the HGMMA instructions and 128-bit "
+                "loads of the built library are not counted")
         else:
             say(f"HGMMA instructions in the built library, by function: "
-                f"{self.record['hgmma']}")
-            expect(any("flash_tc_kernel" in f
-                       for f in self.record["hgmma"]),
+                f"{sass['hgmma']}")
+            say("128-bit global loads of the int8 refine kernels (#8), by "
+                "function: " + json.dumps(
+                    {f: c for f, c in sass["ldg128"].items()
+                     if "refine_quant_kernel" in f}))
+            expect(any("flash_tc_kernel" in f for f in sass["hgmma"]),
                    "the bf16 flash kernel holds no HGMMA instruction")
+            # The 16-byte path: the kernels whose VEC argument is true
+            # (mangled ``Lb1E``).
+            expect(any("refine_quant_kernel" in f
+                       and ("Lb1E" in f or "true>" in f)
+                       for f in sass["ldg128"]),
+                   "the int8 refine kernel's 16-byte path holds no 128-bit "
+                   "global load")
 
     # -- kernel comparisons -------------------------------------------
     def compare_filter(self, blocks, qs, qb, time_it: bool) -> dict:
@@ -431,40 +455,46 @@ class Smoke:
     def compare_blocks(self, tables: tuple, qs: dict, qb, blocks: list,
                        bn: int, time_it: bool) -> dict:
         """Kernel #3's block-list entry over the ``blocks`` (row blocks of
-        ``bn`` rows) of the full fp32 tables ``(alpha, sg, amin, gmax)``
-        against its plain version: the admit mask bit-equal, the UB within
-        (M + 2) eps32 of its terms, a short block's rows past n inert.
-        With ``time_it``, one launch's time beside its bound and the plain
-        version's."""
+        ``bn`` rows) of the full fp32 tables ``(alpha, sg, amin, gmax)``,
+        or #4's over the int8 tables (the codes, each followed by its scale
+        and zero-point), against its plain version: the admit mask
+        bit-equal, the UB within (M + 2) eps32 of its terms, a short
+        block's rows past n inert.  With ``time_it``, one launch's time
+        beside its bound and the plain version's."""
         torch, ref = self.torch, self.ref
-        a, g, am, gm = tables
+        quant = len(tables) == 12
+        name = "bregman_filter_prune_blocks" + ("_quant" if quant else "")
+        plain = getattr(ref, name)
         qc, sd = qs["qconst"], qs["sqrt_delta"]
         qsum = torch.sum(qc, dim=-1)
-        n, m = a.shape
+        # The wrapper's query operands after the tables.
+        wq = ((qsum, qc, sd, torch.sum(sd, dim=-1), qb) if quant
+              else (qsum, qc, sd, qb))
+        n, m = tables[0].shape
         q = qc.shape[0]
         ids = torch.tensor(blocks, dtype=torch.int32).to(self.dev)
-        kern = self.kernel("bregman_filter_prune_blocks")
-        got_ub, got_admit = kern(a, g, am, gm, qsum, qc, sd, qb, ids, bn)
-        want_ub, want_admit = ref.bregman_filter_prune_blocks(
-            a, g, am, gm, qc, sd, qb, ids, bn)
+        kern = self.kernel(name)
+        got_ub, got_admit = kern(*tables, *wq, ids, bn)
+        want_ub, want_admit = plain(*tables, qc, sd, qb, ids, bn)
         self.sync()
         shape = (n, m, q, bn, len(blocks))
         expect(got_admit.dtype == torch.int32
                and bool(torch.equal(got_admit, want_admit)),
-               f"bregman_filter_prune_blocks admit mask is not bit-equal at "
+               f"{name} admit mask is not bit-equal at "
                f"{shape} ({int((got_admit != want_admit).sum())} differ)")
         rows = ref.block_rows(ids, bn)
         real = rows < n
         expect(bool(torch.isinf(got_ub[~real]).all())
                and not bool(got_admit[~real].any()),
-               f"bregman_filter_prune_blocks: rows past n not inert at "
-               f"{shape}")
+               f"{name}: rows past n not inert at {shape}")
         idx = rows[real]
-        tol = (m + 2) * EPS32 * ub_term_scale(torch, (a[idx], g[idx]), qc, sd)
+        filt = tables[:6] if quant else tables[:2]
+        tol = (m + 2) * EPS32 * ub_term_scale(torch, [t[idx] for t in filt],
+                                              qc, sd)
         diff = (got_ub[real] - want_ub[real]).abs()
         expect(bool((diff <= tol).all()),
-               f"bregman_filter_prune_blocks ub disagrees at {shape}: max "
-               f"|diff| {float(diff.max())}")
+               f"{name} ub disagrees at {shape}: max |diff| "
+               f"{float(diff.max())}")
         out = {"shape": list(shape), "err": float(diff.max()),
                "err_over_tol": err_over_tol(diff, tol),
                "admitted": int(want_admit.sum()),
@@ -473,19 +503,23 @@ class Smoke:
         if not time_it:
             return out
         reps = 3
-        out["ms"] = self.time_calls(
-            [lambda: kern(a, g, am, gm, qsum, qc, sd, qb, ids, bn)], reps)
+        out["ms"] = self.time_calls([lambda: kern(*tables, *wq, ids, bn)],
+                                    reps)
         out["plain_ms"] = self.time_calls(
-            [lambda: ref.bregman_filter_prune_blocks(a, g, am, gm, qc, sd,
-                                                     qb, ids, bn)], reps)
-        # The four tables' listed rows read once, the query tables and the
-        # block ids, the f32 UB and int32 admit of every listed row written
-        # (a short block's inert rows too); the UB's and the compare's
-        # operations over the real rows.
+            [lambda: plain(*tables, qc, sd, qb, ids, bn)], reps)
+        # The four tables' listed rows read once (1-byte codes and eight
+        # fp32 decode scalars a row in int8), the query tables (and sdsum)
+        # and the block ids, the f32 UB and int32 admit of every listed row
+        # written (a short block's inert rows too); the UB's and the
+        # compare's operations over the real rows, in int8 also the
+        # per-output decode of the factored sums and the corners' decode.
         r, out_rows = int(real.sum()), len(blocks) * bn
-        nbytes = (16 * r * m + 4 * (q + 3 * q * m) + 4 * len(blocks)
-                  + 8 * out_rows * q)
+        row_bytes = 4 * m + 32 if quant else 16 * m
+        nbytes = (row_bytes * r + 4 * ((2 if quant else 1) * q + 3 * q * m)
+                  + 4 * len(blocks) + 8 * out_rows * q)
         ops = r * q * (2 * m + 2) + r * m + 4 * r * q * m
+        if quant:
+            ops += 6 * r * q + 4 * r * m
         out["bound"] = bound(nbytes, ops)
         return out
 
@@ -676,11 +710,7 @@ class Smoke:
         # block, M even (70) and chunked (300), two query tiles (q = 65);
         # #1 over a span that starts 3 rows into its table (not 16-byte
         # aligned).
-        for n, m, q, bn, blocks in [(5000, 37, 14, 1024, [0, 2, 4]),
-                                    (3000, 70, 33, 512, [0, 1, 5]),
-                                    (2000, 300, 50, 256, [0, 7]),
-                                    (2000, 33, 65, 384, [0, 2, 5]),
-                                    (5000, 37, 13, 1024, [4])]:
+        for n, m, q, bn, blocks in BLOCK_LIST_CASES:
             a, sg, am, gm, qc, sd, qb = [
                 t.to(self.dev) for t in filter_inputs(torch, n, m, q,
                                                       seed=n + m)]
@@ -694,6 +724,21 @@ class Smoke:
                 f"#3 admit bit-equal ({r['admitted']}/{r['pairs']}), ub "
                 f"max_err_over_tol {r['err_over_tol']:.3g}; #1 over rows "
                 f"3.. max_err_over_tol {r1['err_over_tol']:.3g}")
+        # #4 over the same block lists: codes at -128 and 127, a scale-0
+        # row, the first listed row tying qb.
+        for n, m, q, bn, blocks in BLOCK_LIST_CASES:
+            *tables, qc, sd, qb = [
+                t.to(self.dev) for t in filter_inputs_quant(
+                    torch, n, m, q, seed=n + m + 1, tie_row=blocks[0] * bn)]
+            r = self.compare_blocks(tuple(tables), {"qconst": qc,
+                                                    "sqrt_delta": sd}, qb,
+                                    blocks, bn, time_it=False)
+            expect(0 < r["admitted"] < r["pairs"],
+                   f"ragged int8 block-list inputs {n, m, q} gave an unmixed "
+                   "mask")
+            say(f"ragged int8 block list {n}x{m}x{q}, bn {bn}, blocks "
+                f"{blocks}: #4 admit bit-equal ({r['admitted']}/"
+                f"{r['pairs']}), ub max_err_over_tol {r['err_over_tol']:.3g}")
         # The prune-only kernels: Deep's block shape and a ragged one, each
         # with a mixed mask and the tie in row 0.
         for n, m, q in [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)]:
@@ -745,8 +790,71 @@ class Smoke:
                 over = max(over, r["err_over_tol"])
             say(f"ragged int8 refine {q}x{b}x{d}: all families agree "
                 f"(max_err_over_tol {over:.3g})")
+        self.check_refine_quant_layouts()
         self.phase_quantizer()
         self.phase_cross_device()
+
+    def check_refine_quant_layouts(self) -> None:
+        """#8 on codes whose base is one byte past 16-byte alignment (byte
+        loads) against its plain version at d = 1, 33, 256 and 257, every
+        family, and on the card bit-equal to the aligned codes; one (query,
+        row) pair's bits alone (b = 1), at another position of a ragged
+        batch, and unaligned, equal to its bits in the full batch."""
+        torch = self.torch
+        from repro_torch.core.bounds import query_refine_constants
+        from repro_torch.core.bregman import family_names, get_family
+        from repro_torch.kernels import bregman_dist
+        gen = torch.Generator().manual_seed(3)
+        q, b = 5, 70
+        for d in (1, 33, 256, 257, 600):
+            over = 0.0
+            for family in family_names():
+                fam = get_family(family)
+                codes, scale, zp = quant_table(torch, q * b, d, gen)
+                if fam.domain_low == 0.0:
+                    zp = zp.abs() * 2.0
+                codes = codes.reshape(q, b, d).to(self.dev)
+                scale = scale.reshape(q, b).to(self.dev)
+                zp = zp.reshape(q, b).to(self.dev)
+                c = query_refine_constants(
+                    positive_or_not(torch, (q, d), fam, gen).to(self.dev),
+                    fam)
+                moved = unaligned(torch, codes)
+                r = self.compare_refine((moved, scale, zp), c["grad"],
+                                        c["c_y"], family, time_it=False)
+                over = max(over, r["err_over_tol"])
+                if self.rehearsal:
+                    continue
+                args = (scale, zp, c["grad"], c["c_y"], family)
+                full = bregman_dist.bregman_refine_batch_quant(codes, *args)
+                expect(same_bits(torch, bregman_dist.bregman_refine_batch_quant(
+                    moved, *args), full),
+                       f"bregman_refine_batch_quant[{family}] at d = {d}: "
+                       "unaligned codes change the bits")
+                qi, row = 3, 41
+                sl = (slice(qi, qi + 1), slice(row, row + 1))
+                one = bregman_dist.bregman_refine_batch_quant(
+                    codes[sl].contiguous(), scale[sl].contiguous(),
+                    zp[sl].contiguous(), c["grad"][qi:qi + 1].contiguous(),
+                    c["c_y"][qi:qi + 1].contiguous(), family)
+                batch = codes[qi:qi + 1, :33].clone()
+                bs = scale[qi:qi + 1, :33].clone()
+                bz = zp[qi:qi + 1, :33].clone()
+                batch[0, 7], bs[0, 7], bz[0, 7] = (codes[qi, row],
+                                                   scale[qi, row],
+                                                   zp[qi, row])
+                ragged = bregman_dist.bregman_refine_batch_quant(
+                    unaligned(torch, batch), bs, bz,
+                    c["grad"][qi:qi + 1].contiguous(),
+                    c["c_y"][qi:qi + 1].contiguous(), family)
+                expect(same_bits(torch, one[0, 0], full[qi, row])
+                       and same_bits(torch, ragged[0, 7], full[qi, row]),
+                       f"bregman_refine_batch_quant[{family}] at d = {d}: a "
+                       "pair's bits depend on b or its position")
+            say(f"int8 refine at d = {d} on unaligned codes: all families "
+                f"agree (max_err_over_tol {over:.3g}), bit-equal to aligned "
+                "codes, a pair's bits the same at b = 1 and at another "
+                "position")
 
     def phase_quantizer(self) -> None:
         """``quantize_rows``, ``dequantize_rows`` and ``encode_stat_tables``
@@ -883,6 +991,14 @@ class Smoke:
         rec["launches"] = self.launches()
         rec["search_peak_bytes"] = self.peak()
         self.expect_launches(label, rec["launches"], RESIDENT_PATH, quantize)
+        # One fused launch an attempt (the cap holds an attempt's admitted
+        # blocks), and the refine's one: equal counts.
+        sfx = "_quant" if quantize else ""
+        fused_n = rec["launches"]["bregman_filter_prune" + sfx]
+        expect(self.rehearsal
+               or fused_n == rec["launches"]["bregman_refine_batch" + sfx],
+               f"{label}: the fused prune launched {fused_n} times, not once "
+               "an attempt")
         steady = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -955,13 +1071,12 @@ class Smoke:
             + json.dumps(rec["filter_kernels"]) + " refine "
             + json.dumps(rec["refine_kernel"]) + " prune "
             + json.dumps(rec["prune_kernels"]))
-        if not quantize:
-            rec["grouped_kernels"] = self.compare_grouped(forest, qs, qb,
-                                                          bn, blocks_run)
-            say(f"{label}: #1 and #3 at the grouped shape "
-                + json.dumps(rec["grouped_kernels"]))
-            rec["per_block_loop"] = self.check_grouped(
-                label, forest, ys0, rec["budget_final"], search)
+        rec["grouped_kernels"] = self.compare_grouped(forest, qs, qb, bn,
+                                                      blocks_run)
+        say(f"{label}: {'#4' if quantize else '#1 and #3'} at the grouped "
+            "shape " + json.dumps(rec["grouped_kernels"]))
+        rec["per_block_loop"] = self.check_grouped(
+            label, forest, ys0, rec["budget_final"], search)
         rec["unfused"] = self.drive_unfused(label, forest, ys[:q_batch],
                                             rec["budget_final"], quantize)
         if name == "deep":
@@ -1003,24 +1118,27 @@ class Smoke:
 
     def compare_grouped(self, forest, qs: dict, qb, bn: int,
                         blocks_run: int) -> dict:
-        """#1 and #3 of the fp32 tier as the grouped search launches them
-        over one attempt (at budget n every block is admitted where the
-        union holds every point): #1 over all n rows, #3 over every row
-        block in one block-list launch; each against its plain version and
-        timed beside its bound."""
+        """The grouped kernels of a tier as the search launches them over
+        one attempt (at budget n every block is admitted where the union
+        holds every point): #3 (#4 in int8) over every row block in one
+        block-list launch, and in fp32 #1 over all n rows; each against its
+        plain version and timed beside its bound."""
+        from repro_torch.core import search as tsearch
         nb = -(-forest.n // bn)
-        tables = (forest.alpha, forest.sqrt_gamma, forest.alpha_min_pt,
-                  forest.sqrt_gamma_max_pt)
-        return {"ub": self.compare_ub_span(forest.alpha, forest.sqrt_gamma,
-                                           qs, time_it=True),
-                "fp": self.compare_blocks(tables, qs, qb, list(range(nb)),
-                                          bn, time_it=True),
-                "blocks_admitted_by_the_search": blocks_run}
+        tables = tuple(getattr(forest, f)
+                       for f in tsearch.FUSED_TABLES[forest.storage][1])
+        out = {"fp": self.compare_blocks(tables, qs, qb, list(range(nb)), bn,
+                                         time_it=True),
+               "blocks_admitted_by_the_search": blocks_run}
+        if forest.storage != "int8":
+            out["ub"] = self.compare_ub_span(forest.alpha, forest.sqrt_gamma,
+                                             qs, time_it=True)
+        return out
 
     def check_grouped(self, label: str, forest, ys0, budget: int,
                       search) -> dict:
         """The grouped search against the per-block loop (a group cap below
-        one block, so #1 and #3 launch once a row block):
+        one block, so #1 and #3, or #4, launch once a row block):
         ``knn_search_batch_stats`` at ``budget`` and ``knn_batch`` bit for
         bit, stats included.  Then, in turns (per-block, grouped, grouped,
         per-block), each loop's phase times over the batch and one timed
@@ -1067,7 +1185,8 @@ class Smoke:
                                                    getattr(wb, f)))
                                   for f in gb._fields),
                f"{label}: grouped knn_batch differs from the per-block loop's")
-        names = ("bregman_ub_matrix", "bregman_filter_prune")
+        sfx = "_quant" if forest.storage == "int8" else ""
+        names = ("bregman_ub_matrix" + sfx, "bregman_filter_prune" + sfx)
         out = {"queries": int(ys0.shape[0]), "budget": budget,
                "launches": {k: {n: r["launches"][n] for n in names}
                             for k, r in runs[:2]},
@@ -2103,18 +2222,21 @@ class Smoke:
                     "bound_ms": bnd[0], "bound_by": bnd[1],
                     "library_ms": library, **extra}
 
-        gk = rec.get("grouped_kernels")
-        if gk is None:          # int8: #2 and #4 a row block a launch
-            ub_row = entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
-                           fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
-                           fk["ub_bound"], fk["ub_library"])
-            fp_row = entry("bregman_filter_prune", "bregman_fused.cu",
-                           fk["fp_err"], fk["fp_err_over_tol"], fk["fp"],
-                           fk["fp_plain"], fk["fp_bound"], None)
-        else:
-            # fp32: #1 and #3 at the grouped search's shape (one attempt's
-            # rows in one launch), the 4096-row block beside.
-            u, f = gk["ub"], gk["fp"]
+        # #3 and #4 at the grouped search's shape (one attempt's admitted
+        # blocks in one launch), and #1 over an attempt's rows, each with
+        # the 4096-row block beside; #2 a row block a launch.
+        gk = rec["grouped_kernels"]
+        f = gk["fp"]
+        fp_row = entry(
+            "bregman_filter_prune", "bregman_fused.cu",
+            max(fk["fp_err"], f["err"]),
+            max(fk["fp_err_over_tol"], f["err_over_tol"]), f["ms"],
+            f["plain_ms"], f["bound"], None,
+            tile_source=src + "filter_span.cuh", shape=f["shape"],
+            block_shape=fk["shape"], block_ms=fk["fp"],
+            block_plain_ms=fk["fp_plain"], block_bound_ms=fk["fp_bound"][0])
+        if "ub" in gk:
+            u = gk["ub"]
             ub_row = entry(
                 "bregman_ub_matrix", "bregman_ub.cu",
                 max(fk["ub_err"], u["err"]),
@@ -2125,21 +2247,24 @@ class Smoke:
                 block_plain_ms=fk["ub_plain"],
                 block_bound_ms=fk["ub_bound"][0],
                 block_library_ms=fk["ub_library"])
-            fp_row = entry(
-                "bregman_filter_prune", "bregman_fused.cu",
-                max(fk["fp_err"], f["err"]),
-                max(fk["fp_err_over_tol"], f["err_over_tol"]), f["ms"],
-                f["plain_ms"], f["bound"], None,
-                tile_source=src + "filter_span.cuh", shape=f["shape"],
-                block_shape=fk["shape"], block_ms=fk["fp"],
-                block_plain_ms=fk["fp_plain"],
-                block_bound_ms=fk["fp_bound"][0])
+        else:
+            ub_row = entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
+                           fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
+                           fk["ub_bound"], fk["ub_library"],
+                           shape=fk["shape"])
+        refine_extra = {"shape": rk["shape"]}
+        sass = self.record.get("sass")
+        if sfx and sass is not None:
+            # 128-bit global loads in the SASS of the int8 refine kernels.
+            refine_extra["ldg128_sass"] = sum(
+                c for fn, c in sass["ldg128"].items()
+                if "refine_quant_kernel" in fn)
         return [
             ub_row,
             fp_row,
             entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
                   rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
-                  None),
+                  None, **refine_extra),
             # The masks are bit-equal (compare_prune), so the error is 0;
             # launches are those of the tiered Deep path.
             entry("bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0,
@@ -2162,7 +2287,8 @@ class Smoke:
         by_kernel = {name: kn["build_flash_kernels"][name]
                      + kn["serve_flash_kernels"][name]
                      for name in kn["build_flash_kernels"]}
-        hgmma = self.record.get("hgmma")
+        sass = self.record.get("sass")
+        hgmma = None if sass is None else sass["hgmma"]
         return [
             {"name": "flash_attention", "route": "cuda",
              "source": src + "flash_attention_wgmma.cu",
@@ -2215,22 +2341,29 @@ def attention_dropping(torch, q, k, v, causal: bool, drop: range):
     return torch.softmax(s, -1) @ v
 
 
-def hgmma_counts(lib) -> dict | None:
-    """HGMMA (wgmma) instructions in the SASS of each function of the built
-    library that holds any, from ``cuobjdump -sass``; None where cuobjdump
-    is missing."""
+def sass_counts(lib) -> dict | None:
+    """Instructions of two kinds in the SASS of each function of the built
+    library, from ``cuobjdump -sass``: ``hgmma`` (wgmma) and ``ldg128``
+    (128-bit global loads), each by function for the functions that hold
+    any; None where cuobjdump is missing."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
+    counts, fn = {"hgmma": {}, "ldg128": {}}, None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-        elif fn and "HGMMA" in line:
-            counts[fn] = counts.get(fn, 0) + 1
+            continue
+        op = line.split("*/", 1)[-1].split()
+        op = next((w for w in op if w[:1].isupper()), "")
+        for kind, hit in (("hgmma", op.startswith("HGMMA")),
+                          ("ldg128", op.startswith("LDG")
+                           and ".128" in op)):
+            if fn and hit:
+                counts[kind][fn] = counts[kind].get(fn, 0) + 1
     return counts
 
 
@@ -2374,10 +2507,10 @@ def quant_table(torch, n, m, gen, nonneg=False):
     return codes, scale, zp
 
 
-def filter_inputs_quant(torch, n, m, q, seed):
+def filter_inputs_quant(torch, n, m, q, seed, tie_row=0):
     """The int8 kernels' operands: four code tables with their decode, then
-    qc, sd, qb; the admit mask is mixed, and row 0's decoded lower bound
-    ties its bound exactly in subspace 0."""
+    qc, sd, qb; the admit mask is mixed, and row ``tie_row``'s decoded
+    lower bound ties its bound exactly in subspace 0."""
     from repro_torch.core.quantize import dequantize_stats
     gen = torch.Generator().manual_seed(seed)
     tables = [t for i in range(4)
@@ -2388,8 +2521,23 @@ def filter_inputs_quant(torch, n, m, q, seed):
     gmax = dequantize_stats(*tables[9:12])
     lb = (amin[:, :, None] + qc.T[None]) - gmax[:, :, None] * sd.T[None]
     qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
-    qb[:, 0] = lb[0, 0, :]
+    qb[:, 0] = lb[tie_row, 0, :]
     return (*tables, qc, sd, qb)
+
+
+def unaligned(torch, t):
+    """A contiguous copy of ``t`` whose data starts one byte past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def same_bits(torch, a, b) -> bool:
+    """fp32 tensors equal as int32 words."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
 
 
 def filter_inputs(torch, n, m, q, seed):

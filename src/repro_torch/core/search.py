@@ -6,24 +6,26 @@ A (q, d) query block runs five phases:
   2. Filter: a streaming per-column k-selection over the (n, q) Cauchy
      upper-bound matrix — one ``bregman_ub_matrix`` kernel launch per group
      of consecutive ``block_rows`` row blocks (whose outputs stay within
-     :data:`GROUP_OUTPUT_BYTES`), merged into a running (q, k) best set, so
+     :data:`GROUP_OUTPUT_BYTES`; the int8 filter a block a launch, see
+     :data:`PER_BLOCK_KERNELS`), merged into a running (q, k) best set, so
      the (n, q) matrix never exists for large n * q.
   3. Alg.-4 searching bounds ``qb`` from each query's k-th row.
   4. Prune + compact: the block envelopes gate every (block, query) pair
      in one vectorized pass; the host reads which blocks any query admits
      (one device sync per search) and launches the fused
-     ``bregman_filter_prune_blocks`` kernel once per group of those blocks
-     (``fused=False``: a per-block windowed gate and the prune-only
-     ``bregman_prune_mask`` kernel a block, the comparator); the admitted
-     rows fill the query's ``budget`` candidate slots in index order.
+     ``bregman_filter_prune_blocks`` kernel (its int8 sibling in the int8
+     tier) once per group of those blocks (``fused=False``: a per-block
+     windowed gate and the prune-only ``bregman_prune_mask`` kernel a
+     block, the comparator); the admitted rows fill the query's
+     ``budget`` candidate slots in index order.
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
 In the int8 tier the same phases stream codes plus per-row decode scalars
-through the int8 kernels, one launch a row block, ``qb`` is inflated by
-the filter stats' rounding slack, and the refine decodes only the
-candidate rows; results are exact over the decoded points
-(``BallForest.rows_view``).
+through the int8 kernels (the filter a row block a launch, the fused
+prune a group of blocks a launch), ``qb`` is inflated by the filter
+stats' rounding slack, and the refine decodes only the candidate rows;
+results are exact over the decoded points (``BallForest.rows_view``).
 
 The §8 approximate search (:func:`knn_search_batch_approx`) shrinks each
 query's bounds by the empirical CDF of the cross term before the prune.  A
@@ -65,11 +67,15 @@ DEFAULT_BLOCK_ROWS = 4096
 MAX_BUDGET_DOUBLINGS = 8
 
 # Output bytes of one grouped launch of the fp32 filter (#1: the UB) and
-# of the fused filter+prune (#3: the UB and the admit mask): consecutive
-# row blocks share a launch up to this cap, so no (n, q) tile is formed
-# for large n * q.  At 2^27 a Deep attempt (10^6 rows, q = 14) is one
-# group.
+# of the fused filter+prune (#3, #4 in int8: the UB and the admit mask):
+# consecutive row blocks share a launch up to this cap, so no (n, q) tile
+# is formed for large n * q.  At 2^27 a Deep attempt (10^6 rows, q = 14)
+# is one group.
 GROUP_OUTPUT_BYTES = 1 << 27
+
+# The kernels still launched once a row block: the int8 filter (#2) runs
+# filter_tile.cuh's per-block tile, not a row span.
+PER_BLOCK_KERNELS = frozenset({"bregman_ub_matrix_quant"})
 
 
 def resolve_block_rows(block_rows: int | None, n: int) -> int:
@@ -292,11 +298,11 @@ def _row_blocks(fields: tuple, bn: int, nb: int) -> list:
     return [tuple(t[b * bn:(b + 1) * bn] for t in fields) for b in range(nb)]
 
 
-def _group_blocks(storage: str, bn: int, q: int, pair_bytes: int) -> int:
-    """Row blocks a grouped fp32 launch takes, its (rows, q) outputs of
-    ``pair_bytes`` a (row, query) within :data:`GROUP_OUTPUT_BYTES`; the
-    int8 tier launches a block at a time."""
-    if storage == "int8":
+def _group_blocks(kernel: str, bn: int, q: int, pair_bytes: int) -> int:
+    """Row blocks one launch of ``kernel`` takes: its (rows, q) outputs of
+    ``pair_bytes`` a (row, query) within :data:`GROUP_OUTPUT_BYTES`, or one
+    for the kernels of :data:`PER_BLOCK_KERNELS`."""
+    if kernel in PER_BLOCK_KERNELS:
         return 1
     return max(1, GROUP_OUTPUT_BYTES // (bn * q * pair_bytes))
 
@@ -318,6 +324,16 @@ CORNER_FIELDS = {"f32": ("alpha_min_pt", "sqrt_gamma_max_pt"),
                  "int8": ("alpha_min_pt", "amin_scale", "amin_zp",
                           "sqrt_gamma_max_pt", "gmax_scale", "gmax_zp")}
 REFINE_FIELDS = {"f32": ("data",), "int8": ("data", "data_scale", "data_zp")}
+# The fused block-list dispatcher of each tier and its table operands (the
+# full tables, in argument order).
+FUSED_TABLES = {
+    "f32": ("bregman_filter_prune_blocks",
+            ("alpha", "sqrt_gamma", "alpha_min_pt", "sqrt_gamma_max_pt")),
+    "int8": ("bregman_filter_prune_blocks_quant",
+             ("alpha", "alpha_scale", "alpha_zp", "sqrt_gamma", "sg_scale",
+              "sg_zp", "alpha_min_pt", "amin_scale", "amin_zp",
+              "sqrt_gamma_max_pt", "gmax_scale", "gmax_zp")),
+}
 
 
 def _corner_blocks(index: BallForest, bn: int, nb: int) -> list:
@@ -365,9 +381,10 @@ def _batch_filter_topk(index: BallForest, qs: dict, k: int,
     q = qs["qconst"].shape[0]
     dev = index.device
     bn, nb = _block_layout(n, block_rows)
-    span = bn * _group_blocks(index.storage, bn, q, 4)
-    ub_fn = (kernel_ops.bregman_ub_matrix_quant if index.storage == "int8"
-             else kernel_ops.bregman_ub_matrix)
+    name = ("bregman_ub_matrix_quant" if index.storage == "int8"
+            else "bregman_ub_matrix")
+    span = bn * _group_blocks(name, bn, q, 4)
+    ub_fn = getattr(kernel_ops, name)
     best_v = torch.full((q, k), POS_BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((q, k), dtype=torch.long, device=dev)
     for g, blk in enumerate(_filter_blocks(index, span, -(-n // span))):
@@ -493,12 +510,12 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
        windowed gate, the same bits).  The host reads the (nb,)
        any-admit vector once.
     2. **Per-point admit** — the admitted blocks, in groups of
-       :func:`_group_blocks` (fp32) or one at a time (int8), launch the
-       fused filter+prune kernel (its int8 sibling in the int8 tier, whose
-       envelopes were reduced over the decoded corners): the (rows, q) UB
-       tile and int32 admit tile.  ``fused=False`` launches the prune-only
-       kernel a block instead (:func:`_prune_block`), the same admit tile
-       without the UB.
+       :func:`_group_blocks` (a device list of block ids a launch), launch
+       the fused filter+prune kernel (its int8 sibling in the int8 tier,
+       whose envelopes were reduced over the decoded corners): the (rows,
+       q) UB tile and int32 admit tile.  ``fused=False`` launches the
+       prune-only kernel a block instead (:func:`_prune_block`), the same
+       admit tile without the UB.
     3. **Compaction** — :func:`_fill_slots` routes the tile's members into
        the budget slots; slot order = index order, so any grouping fills
        the slots a per-block loop fills.
@@ -528,32 +545,25 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
         return torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
                              .amin(dim=0))
 
-    if fused and index.storage != "int8":
-        gb = _group_blocks(index.storage, bn, q, 8)
+    if fused:
+        name, tables = FUSED_TABLES[index.storage]
+        fn = getattr(kernel_ops, name)
+        tables = tuple(getattr(index, f) for f in tables)
+        gb = _group_blocks(name, bn, q, 8)
         run = run.to(torch.int32)
         for g in range(0, len(run_blocks), gb):
             blocks = run[g:g + gb]
-            ub, admit = kernel_ops.bregman_filter_prune_blocks(
-                index.alpha, index.sqrt_gamma, index.alpha_min_pt,
-                index.sqrt_gamma_max_pt, qs["qconst"], qs["sqrt_delta"], qb,
-                blocks, bn)
+            ub, admit = fn(*tables, qs["qconst"], qs["sqrt_delta"], qb,
+                           blocks, bn)
             tau = admitted_tau(ub, admit)
             sel, count = _fill_slots(sel, count, admit,
                                      kernel_ref.block_rows(blocks, bn),
                                      budget)
     else:
-        # One launch a block: the int8 tier's fused kernel, or the
-        # prune-only kernel of either tier.
-        filt = _filter_blocks(index, bn, nb)
+        # The prune-only kernel of either tier, one launch a block.
         corners = _corner_blocks(index, bn, nb)
         for b in run_blocks:
-            if fused:
-                ub, admit = kernel_ops.bregman_filter_prune_block_quant(
-                    *filt[b], *corners[b], qs["qconst"], qs["sqrt_delta"],
-                    qb)
-                tau = admitted_tau(ub, admit)
-            else:
-                admit = _prune_block(index.storage, corners[b], qs, qb)
+            admit = _prune_block(index.storage, corners[b], qs, qb)
             sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
     return (sel, _slot_validity(count, budget), count,
             env_admit_all.sum(dim=0), len(run_blocks), tau)

@@ -45,6 +45,7 @@ SIGNATURES = {
     "brk_refine_batch": (_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P),
     "brk_ub_matrix_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
     "brk_filter_prune_quant": (_P,) * 19 + (_I64, _I64, _I64, _I, _P),
+    "brk_filter_prune_blocks_quant": (_P,) * 20 + (_I64,) * 5 + (_I, _P),
     "brk_refine_batch_quant": (_P,) * 6 + (_I64, _I64, _I64, _I, _I, _P),
     "brk_prune_mask": (_P,) * 6 + (_I64, _I64, _I64, _I, _P),
     "brk_prune_mask_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),

@@ -6,12 +6,16 @@
 bregman_refine_batch`` and its q=1 wrapper ``bregman_refine``;
 :func:`bregman_refine_batch_quant` replaces ``bregman_refine_batch_quant``,
 which decodes x from int8 codes exactly as ``dequantize_rows`` does.  Bound
-by bytes on the H100 (each candidate row is read once): the kernels
-(``csrc/bregman_dist.cu``) give one warp to each (query, row) pair, its
-lanes stride over d in coalesced reads, and a warp-shuffle reduction takes
-the place of the TPU grid's sequential d-tile accumulator.  phi is chosen
-per family at compile time, with log arguments guarded at 1e-30.  Plain
-versions: ``ref.bregman_refine_batch`` and ``ref.bregman_refine_batch_quant``.
+by bytes on the H100 (each candidate row is read once), the kernels
+(``csrc/bregman_dist.cu``) take the place of the TPU grid's sequential
+d-tile accumulator with warp-shuffle reductions: the fp32 one gives a
+warp to each (query, row) pair, its lanes striding over d; the int8 one
+reads codes in 16-byte loads (up to four of a row a lane), gives a block
+runs of one query's rows with that query's grad staged in shared memory,
+and sums in an order fixed by d alone, so a pair's distance has the same
+bits at any b.  phi is chosen per family at compile time, with log
+arguments guarded at 1e-30.  Plain versions: ``ref.bregman_refine_batch``
+and ``ref.bregman_refine_batch_quant``.
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ extern "C" int brk_ub_matrix(const float* alpha, const float* sqrt_gamma,
                              const float* qsum, const float* sqrt_delta,
                              float* ub, int64_t n, int64_t m, int64_t q,
                              int device, void* stream) {
-  brekernels::span::Tables t = {};
+  brekernels::span::Tables<float> t = {};
   t.alpha = alpha;
   t.sg = sqrt_gamma;
   t.qsum = qsum;
@@ -37,7 +37,7 @@ extern "C" int brk_ub_matrix(const float* alpha, const float* sqrt_gamma,
   t.n = n;
   t.bn = n > 0 ? n : 1;      // the span is one block
   t.nblocks = 1;
-  return brekernels::span::launch_filter_span<false>(
+  return brekernels::span::launch_filter_span<float, false>(
       t, m, q, device, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,7 +1,8 @@
-// Shared tile body of the int8 filter and fused filter+prune kernels
-// (bregman_ub.cu, bregman_fused.cu) and of the prune-only kernels
-// (bregman_prune.cu), fp32 and int8 tables alike; the fp32 filter and
-// fused kernels run filter_span.cuh.
+// Shared tile body of the int8 filter kernel #2 (bregman_ub.cu) and of the
+// prune-only kernels #5 and #6 (bregman_prune.cu), fp32 and int8 tables
+// alike; the fp32 filter #1 and the fused kernels #3 and #4 run
+// filter_span.cuh, which keeps this tile's arithmetic operation for
+// operation (and takes its Decode column order).
 //
 // One block owns a TN x TQ tile of the (n, q) output; each of its 256
 // threads owns RPT = 4 outputs of one query column, so a warp writes 32
@@ -22,8 +23,8 @@
 // Two switches pick the outputs: UB computes and writes the (n, q) totals,
 // PRUNE the int32 admit mask.  Without UB the filter tables and their
 // decode are neither staged nor read, so the prune-only kernels read just
-// the corners and share the admit compare, and the corners' decode, with
-// the fused kernels by construction.
+// the corners; their decode and admit compare are the fused kernels'
+// (filter_span.cuh) operation for operation, so the masks are bit-equal.
 #pragma once
 
 #include <cstdint>

@@ -144,6 +144,32 @@ def bregman_filter_prune_block_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
         torch.sum(sqrt_delta, dim=-1), qb)
 
 
+def bregman_filter_prune_blocks_quant(alpha_q, alpha_scale, alpha_zp, sg_q,
+                                      sg_scale, sg_zp, amin_q, amin_scale,
+                                      amin_zp, gmax_q, gmax_scale, gmax_zp,
+                                      qconst, sqrt_delta, qb, blocks,
+                                      bn: int):
+    """Fused (ub, admit) from the int8 filter and corner codes over the
+    listed row blocks of the full (n, M) tables in one launch, laid out as
+    :func:`bregman_filter_prune_blocks` lays them out."""
+    _query_operands("bregman_filter_prune_blocks_quant", qconst, sqrt_delta,
+                    qb)
+    if alpha_q.shape != amin_q.shape:
+        raise ValueError(
+            "filter and corner tables must share (n, M), got "
+            f"{tuple(alpha_q.shape)} vs {tuple(amin_q.shape)}")
+    if not _on_cuda(alpha_q):
+        return ref.bregman_filter_prune_blocks_quant(
+            alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
+            amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp, qconst,
+            sqrt_delta, qb, blocks, bn)
+    return _fused.bregman_filter_prune_blocks_quant(
+        alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
+        amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp,
+        torch.sum(qconst, dim=-1), qconst, sqrt_delta,
+        torch.sum(sqrt_delta, dim=-1), qb, blocks, bn)
+
+
 def bregman_refine_batch(rows, grad, c_y, family: str):
     """Per-query exact distances.  (q,b,d),(q,d),(q,) -> (q,b)."""
     if rows.ndim != 3 or grad.ndim != 2:

@@ -122,6 +122,28 @@ def bregman_filter_prune_quant(alpha_q: Tensor, alpha_scale: Tensor,
                                      qb))
 
 
+def bregman_filter_prune_blocks_quant(
+        alpha_q: Tensor, alpha_scale: Tensor, alpha_zp: Tensor, sg_q: Tensor,
+        sg_scale: Tensor, sg_zp: Tensor, amin_q: Tensor, amin_scale: Tensor,
+        amin_zp: Tensor, gmax_q: Tensor, gmax_scale: Tensor, gmax_zp: Tensor,
+        qconst: Tensor, sqrt_delta: Tensor, qb: Tensor, blocks: Tensor,
+        bn: int) -> tuple[Tensor, Tensor]:
+    """:func:`bregman_filter_prune_quant` over the rows of the listed
+    blocks of the full int8 tables (codes (n, M), decode (n,)), laid out
+    as :func:`bregman_filter_prune_blocks` lays them out; rows past n read
+    ``ub = inf`` and ``admit = 0``."""
+    n = alpha_q.shape[0]
+    rows = block_rows(blocks, bn)
+    real = rows < n
+    idx = torch.clamp(rows, max=n - 1)
+    tables = (alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
+              amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp)
+    ub, admit = bregman_filter_prune_quant(*(t[idx] for t in tables),
+                                           qconst, sqrt_delta, qb)
+    return (torch.where(real[:, None], ub, torch.inf),
+            admit * real[:, None].to(admit.dtype))
+
+
 def _log_guarded(x: Tensor) -> Tensor:
     return torch.log(torch.clamp(x, min=1e-30))
 

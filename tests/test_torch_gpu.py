@@ -228,10 +228,13 @@ def test_grouped_search_on_the_card_equals_the_per_block_loop(
         for f in got_batch[0]._fields:
             assert torch.equal(getattr(got_batch[0], f),
                                getattr(want_batch[0], f)), (cap, f)
+        # #1 and #3 (#4 in int8) take fewer launches grouped; #2 stays
+        # one a block; the refine one an attempt.
         if not quantize:
-            assert launched[0] < per_block[0] and launched[1] < per_block[1]
+            assert launched[0] < per_block[0]
         else:
-            assert launched == per_block
+            assert launched[0] == per_block[0]
+        assert launched[1] < per_block[1] and launched[2] == per_block[2]
 
 
 @pytest.mark.parametrize("family", family_names())
@@ -308,6 +311,98 @@ def test_quant_filter_kernels_match_their_plain_versions(cuda, n, m, q):
         assert 0 < int(admit.sum()) < n * q
 
 
+def _span_operands_quant(n, m, q, seed, tie_row=0):
+    """Int8 filter and corner codes with their decode (codes at -128 and
+    127, a constant row of scale 0), a mixed admit mask, and ``tie_row``'s
+    decoded lower bound tying qb exactly in subspace 0 for every query."""
+    gen = torch.Generator().manual_seed(seed)
+    tables = [t for i in range(4)
+              for t in _quant_table(n, m, gen, nonneg=i in (1, 3))]
+    qc = torch.randn((q, m), generator=gen)
+    sd = torch.randn((q, m), generator=gen).abs()
+    amin = tqz.dequantize_stats(*tables[6:9])
+    gmax = tqz.dequantize_stats(*tables[9:12])
+    rows = torch.randperm(n, generator=gen)[:1500]
+    lb = (amin[rows, :, None] + qc.T[None]) - gmax[rows, :, None] * sd.T[None]
+    qb = torch.quantile(lb, 1.0 - 0.5 ** (1.0 / m), dim=0).T.contiguous()
+    qb[:, 0] = (amin[tie_row, 0] + qc[:, 0]) - gmax[tie_row, 0] * sd[:, 0]
+    return tables, qc, sd, qb
+
+
+def _ub_tolerance_quant(tables, qc, sd):
+    """(M + 2) * eps32 times the magnitudes of the int8 UB's summed terms
+    (the dot's by magnitude: signed codes may cancel)."""
+    a_q, a_s, a_z, g_q, g_s, g_z = tables[:6]
+    m = a_q.shape[1]
+    mags = ((a_s * a_q.float().sum(-1)).abs() + (m * a_z).abs())[:, None] \
+        + qc.sum(-1).abs()[None] + g_s.abs()[:, None] * (g_q.float().abs()
+                                                         @ sd.T) \
+        + (g_z[:, None] * sd.sum(-1)[None]).abs()
+    return (m + 2) * EPS32 * mags
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", SPAN_CASES)
+def test_filter_prune_blocks_quant_matches_its_plain_version(cuda, n, m, q,
+                                                             bn, listed):
+    """#4's block-list entry on #3's shapes (M odd, even and chunked, q to
+    65, short last blocks): the admit bit-equal to the plain version, the
+    UB within (M + 2) eps32 of its terms, rows past n inert, each listed
+    block's tile the one-block entry's bit for bit."""
+    first = listed[0] * bn
+    tables, qc, sd, qb = _span_operands_quant(n, m, q, n + m + q,
+                                              tie_row=first)
+    tables = [t.to(cuda) for t in tables]
+    qc, sd, qb = qc.to(cuda), sd.to(cuda), qb.to(cuda)
+    qsum, sdsum = qc.sum(-1), sd.sum(-1)
+    blocks = torch.tensor(listed, dtype=torch.int32, device=cuda)
+    before = bregman_fused.launches_quant
+    ub, admit = bregman_fused.bregman_filter_prune_blocks_quant(
+        *tables, qsum, qc, sd, sdsum, qb, blocks, bn)
+    torch.cuda.synchronize()
+    assert bregman_fused.launches_quant == before + 1
+    assert ub.shape == admit.shape == (len(listed) * bn, q)
+    want_ub, want_admit = ref.bregman_filter_prune_blocks_quant(
+        *tables, qc, sd, qb, blocks, bn)
+    assert admit.dtype == torch.int32 and torch.equal(admit, want_admit)
+    rows = ref.block_rows(blocks, bn)
+    real = rows < n
+    assert bool(torch.isinf(ub[~real]).all()) and not admit[~real].any()
+    idx = rows[real]
+    tol = _ub_tolerance_quant([t[idx] for t in tables[:6]], qc, sd)
+    assert bool(((ub[real] - want_ub[real]).abs() <= tol).all())
+    assert bool(admit[0].all())                     # the tie row
+    assert 0 < int(admit.sum()) < int(real.sum()) * q or q * n < 64
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one_ub, one_admit = bregman_fused.bregman_filter_prune_quant(
+            *(t[s] for t in tables), qsum, qc, sd, sdsum, qb)
+        got = slice(i * bn, i * bn + s.stop - s.start)
+        assert torch.equal(one_ub.view(torch.int32), ub[got].view(torch.int32))
+        assert torch.equal(one_admit, admit[got])
+
+
+def test_filter_prune_blocks_quant_refuses_what_it_cannot_run(cuda):
+    c = torch.zeros((64, 3), dtype=torch.int8, device=cuda)
+    r = torch.ones(64, device=cuda)
+    q = torch.ones((2, 3), device=cuda)
+    s = torch.ones(2, device=cuda)
+    tables = [c, r, r] * 4
+    ok = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        bregman_fused.bregman_filter_prune_blocks_quant(
+            *tables, s, q, q, s, q, ok.long(), 32)
+    with pytest.raises(ValueError, match="must be torch.int8"):
+        bregman_fused.bregman_filter_prune_blocks_quant(
+            *[r[:, None].expand(64, 3).contiguous()] + tables[1:], s, q, q,
+            s, q, ok, 32)
+    with pytest.raises(ValueError, match="bn must be a positive int"):
+        bregman_fused.bregman_filter_prune_blocks_quant(
+            *tables, s, q, q, s, q, ok, 0)
+    ub, admit = bregman_fused.bregman_filter_prune_blocks_quant(
+        *tables, s, q, q, s, q, ok[:0], 32)
+    assert ub.shape == admit.shape == (0, 2)
+
+
 @pytest.mark.parametrize("family", family_names())
 @pytest.mark.parametrize("q,b,d", [(1, 1, 1), (33, 31, 33), (50, 130, 257)])
 def test_quant_refine_kernel_matches_its_plain_version(cuda, family, q, b,
@@ -330,6 +425,84 @@ def test_quant_refine_kernel_matches_its_plain_version(cuda, family, q, b,
             + torch.einsum("qbd,qd->qb", x, c["grad"].double()).abs()
             + c["c_y"].double().abs()[:, None])
     assert bool(((got - want).abs() <= d * EPS32 * mags).all())
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts one byte past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 1
+    return out
+
+
+@pytest.mark.parametrize("family", family_names())
+@pytest.mark.parametrize("d", [1, 33, 256, 257])
+def test_quant_refine_kernel_on_unaligned_rows(cuda, family, d):
+    """#8 on codes whose base is not 16-byte aligned (byte loads) against
+    its plain version, and at d = 256 bit-equal to the aligned codes (16-
+    byte loads): the same sums in the same order."""
+    q, b = 5, 70
+    gen = torch.Generator().manual_seed(d)
+    codes, scale, zp = _quant_table(q * b, d, gen)
+    if get_family(family).domain_low == 0.0:
+        zp = zp.abs() * 2.0
+    codes = codes.reshape(q, b, d).to(cuda)
+    scale, zp = scale.reshape(q, b).to(cuda), zp.reshape(q, b).to(cuda)
+    c = query_refine_constants(_valid((q, d), family, gen).to(cuda),
+                               get_family(family))
+    args = (scale, zp, c["grad"], c["c_y"], family)
+    got = bregman_dist.bregman_refine_batch_quant(_unaligned(codes), *args)
+    aligned = bregman_dist.bregman_refine_batch_quant(codes, *args)
+    want = ref.bregman_refine_batch_quant(codes, *args)
+    x = tqz.dequantize_rows(codes, scale, zp, family).double()
+    mags = (ref.PHIS[family](x).abs().sum(-1)
+            + torch.einsum("qbd,qd->qb", x, c["grad"].double()).abs()
+            + c["c_y"].double().abs()[:, None])
+    assert bool(((got - want).abs() <= d * EPS32 * mags).all())
+    assert torch.equal(got.view(torch.int32), aligned.view(torch.int32))
+
+
+@pytest.mark.parametrize("family", ["exponential", "burg"])
+@pytest.mark.parametrize("d", [16, 33, 192, 256, 600])
+def test_quant_refine_is_bit_invariant_to_b_and_position(cuda, family, d):
+    """One (query, row) pair's distance from #8 has the same bits alone
+    (b = 1), in a ragged batch at another position, and from an unaligned
+    base: the summation order depends on d alone."""
+    gen = torch.Generator().manual_seed(d + 1)
+    codes, scale, zp = _quant_table(3 * 301, d, gen)
+    if get_family(family).domain_low == 0.0:
+        zp = zp.abs() * 2.0
+    codes = codes.reshape(3, 301, d).to(cuda)
+    scale, zp = scale.reshape(3, 301).to(cuda), zp.reshape(3, 301).to(cuda)
+    c = query_refine_constants(_valid((3, d), family, gen).to(cuda),
+                               get_family(family))
+    grad, c_y = c["grad"], c["c_y"]
+    full = bregman_dist.bregman_refine_batch_quant(codes, scale, zp, grad,
+                                                   c_y, family)
+    for qi, row in [(1, 0), (2, 157), (0, 300)]:
+        one = bregman_dist.bregman_refine_batch_quant(
+            codes[qi:qi + 1, row:row + 1].contiguous(),
+            scale[qi:qi + 1, row:row + 1].contiguous(),
+            zp[qi:qi + 1, row:row + 1].contiguous(),
+            grad[qi:qi + 1].contiguous(), c_y[qi:qi + 1].contiguous(),
+            family)
+        # The row at position 5 of a ragged batch of 77, and unaligned.
+        batch = codes[qi:qi + 1, :77].clone()
+        batch[0, 5] = codes[qi, row]
+        bs = scale[qi:qi + 1, :77].clone()
+        bz = zp[qi:qi + 1, :77].clone()
+        bs[0, 5], bz[0, 5] = scale[qi, row], zp[qi, row]
+        g1, c1 = grad[qi:qi + 1].contiguous(), c_y[qi:qi + 1].contiguous()
+        ragged = bregman_dist.bregman_refine_batch_quant(batch, bs, bz, g1,
+                                                         c1, family)
+        moved = bregman_dist.bregman_refine_batch_quant(_unaligned(batch), bs,
+                                                        bz, g1, c1, family)
+        bits = full[qi, row].view(torch.int32)
+        assert torch.equal(one[0, 0].view(torch.int32), bits)
+        assert torch.equal(ragged[0, 5].view(torch.int32), bits)
+        assert torch.equal(moved[0, 5].view(torch.int32), bits)
 
 
 @pytest.mark.parametrize("family", family_names())
