@@ -16,34 +16,37 @@ Phases:
    the int8 refine kernel (#8), where cuobjdump is present.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
-   bit-equal to the fused kernels' admit; the block-list entries of #3
-   and #4 over non-contiguous lists with a short last block, and #1 over
-   an unaligned row span; #8 on unaligned codes, and a (query, row) pair's
-   bits the same at b = 1, at another position and unaligned); the int8
-   quantizer on the card against the CPU's, bit for bit; and the whole
-   search on the card against the same search on the CPU for every
-   Bregman family on a small index, in both storage tiers.
+   bit-equal to the fused kernels' admit; the block-list entries of #3,
+   #4 and #6 over non-contiguous lists with a short last block, #6's
+   also bit-equal to #4's admit, and #1 and #2 over unaligned row spans;
+   #8 on unaligned codes, and a (query, row) pair's bits the same at
+   b = 1, at another position and unaligned); the int8 quantizer on the
+   card against the CPU's, bit for bit; and the whole search on the card
+   against the same search on the CPU for every Bregman family on a small
+   index, in both storage tiers.
 3. Audio (n=54,387, d=192, exponential) and 4. Deep (n=1,000,000, d=256,
    exponential), from PAPER_DATASETS at full size, each in the fp32 tier
    and then the int8 tier: ``build_index`` with m=None (Theorem 4), PCCP
    and ``quantize``, then ``knn_batch`` on 50 queries with k=10.  Every
    kernel's launch count is set to 0 just before the search and read just
    after; each kernel of the tier must be above 0 and the other tier's at
-   0, and the fused prune (#3, #4) launched once an attempt.  The ids are
-   held against ``brute_force_knn`` over the index's point set
-   (``rows_view``) on the card.  Each kernel is then held against its
-   plain version, and timed with CUDA events beside its bound, at the
-   shapes that search gave it; #3 and #4 (and #1 in fp32) also at the
-   grouped search's shape (one attempt's rows in one launch).  The
+   0, the filter (#1, #2) and the fused prune (#3, #4) launched once an
+   attempt, and no per-block ``filter_tile_kernel`` in the search's
+   profile.  The ids are held against ``brute_force_knn`` over the
+   index's point set (``rows_view``) on the card.  Each kernel is then
+   held against its plain version, and timed with CUDA events beside its
+   bound, at the shapes that search gave it; #1-#4 (and #6 in int8) also
+   at the grouped search's shape (one attempt's rows in one launch).  The
    grouped search must equal the per-block loop (a group cap below one
    block) bit for bit, stats included, in both tiers; both loops' phase
-   times and search times are taken in turns.  The unfused comparator (``fused=False``,
-   kernel #5 or #6 in place of #3 or #4) must give the fused search's
-   results bit for bit.  On Deep, the index is then wrapped in a
-   ``TieredPointStore`` holding 40% of its cold bytes on the card:
-   ``knn_batch`` through it (counts reset just before, read just after)
-   must return the resident ids, and a fixed-budget search must equal the
-   resident one bit for bit.
+   times and search times are taken in turns.  The unfused comparator
+   (``fused=False``, kernel #5 or #6 in place of #3 or #4) must give the
+   fused search's results bit for bit, #6 launched once a group of
+   admitted blocks and #5 once a block.  On Deep, the index is then
+   wrapped in a ``TieredPointStore`` holding 40% of its cold bytes on the
+   card: ``knn_batch`` through it (counts reset just before, read just
+   after) must return the resident ids, and a fixed-budget search must
+   equal the resident one bit for bit.
 5. A blob corpus where the envelope gate rejects blocks (the settings of
    benchmarks/bench_tiered.py at n = 2^20): a cold and a warm pass
    through the store, bit-equal to resident search.
@@ -87,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -278,10 +282,15 @@ class Smoke:
                     ops.bregman_refine_batch_quant,
                     "bregman_prune_mask": ops.bregman_prune_block,
                     "bregman_prune_mask_quant":
-                    ops.bregman_prune_block_quant}[name]
+                    ops.bregman_prune_block_quant,
+                    "bregman_prune_mask_blocks_quant":
+                    ops.bregman_prune_blocks_quant}[name]
         if name.startswith("bregman_filter_prune_blocks"):
             from repro_torch.kernels import bregman_fused
             return getattr(bregman_fused, name)
+        if name == "bregman_prune_mask_blocks_quant":
+            from repro_torch.kernels import bregman_prune
+            return bregman_prune.bregman_prune_mask_blocks_quant
         mod = self.counters[name][0]
         if name.startswith("bregman_ub_matrix"):
             return lambda *a: getattr(mod, name)(*a[:-1])
@@ -523,24 +532,32 @@ class Smoke:
         out["bound"] = bound(nbytes, ops)
         return out
 
-    def compare_ub_span(self, alpha, sg, qs: dict, time_it: bool) -> dict:
-        """Kernel #1 over all of ``alpha``'s rows in one launch against its
-        plain version (within (M + 2) eps32 of its terms); with
-        ``time_it``, its time beside its bound, the plain version's and
-        ``addmm``'s."""
+    def compare_ub_span(self, filt: tuple, qs: dict, time_it: bool) -> dict:
+        """Kernel #1 over all rows of the fp32 ``(alpha, sg)``, or #2 over
+        the int8 filter codes (each followed by its scale and zero-point),
+        in one launch against its plain version (within (M + 2) eps32 of
+        its terms); with ``time_it``, its time beside its bound, the plain
+        version's and ``addmm``'s (after the decode in int8)."""
         torch, ref = self.torch, self.ref
+        quant = len(filt) == 6
+        name = "bregman_ub_matrix" + ("_quant" if quant else "")
+        plain = getattr(ref, name)
         qc, sd = qs["qconst"], qs["sqrt_delta"]
         qsum = torch.sum(qc, dim=-1)
-        n, m = alpha.shape
+        # The wrapper's query operands after the tables (qconst last, for
+        # the rehearsal's plain version).
+        wq = (qsum, sd, torch.sum(sd, dim=-1), qc) if quant else (qsum, sd,
+                                                                  qc)
+        n, m = filt[0].shape
         q = qc.shape[0]
-        kern = self.kernel("bregman_ub_matrix")
-        got = kern(alpha, sg, qsum, sd, qc)
-        want = ref.bregman_ub_matrix(alpha, sg, qc, sd)
+        kern = self.kernel(name)
+        got = kern(*filt, *wq)
+        want = plain(*filt, qc, sd)
         self.sync()
-        tol = (m + 2) * EPS32 * ub_term_scale(torch, (alpha, sg), qc, sd)
+        tol = (m + 2) * EPS32 * ub_term_scale(torch, filt, qc, sd)
         diff = (got - want).abs()
         expect(bool((diff <= tol).all()),
-               f"bregman_ub_matrix over {n} rows disagrees: max |diff| "
+               f"{name} over {n} rows disagrees: max |diff| "
                f"{float(diff.max())}")
         out = {"shape": [n, m, q], "err": float(diff.max()),
                "err_over_tol": err_over_tol(diff, tol)}
@@ -548,15 +565,87 @@ class Smoke:
         if not time_it:
             return out
         reps = 3
-        out["ms"] = self.time_calls([lambda: kern(alpha, sg, qsum, sd, qc)],
-                                    reps)
+        if quant:
+            from repro_torch.core.quantize import dequantize_stats
+
+            def library():
+                return torch.addmm(dequantize_stats(*filt[:3]).sum(
+                    -1, keepdim=True) + qsum, dequantize_stats(*filt[3:]),
+                    sd.T)
+        else:
+            def library():
+                return torch.addmm(filt[0].sum(-1, keepdim=True) + qsum,
+                                   filt[1], sd.T)
+        out["ms"] = self.time_calls([lambda: kern(*filt, *wq)], reps)
+        out["plain_ms"] = self.time_calls([lambda: plain(*filt, qc, sd)],
+                                          reps)
+        out["library_ms"] = self.time_calls([library], reps)
+        # The two tables read once (1-byte codes and their four fp32 decode
+        # columns in int8), qsum, sd (and sdsum), the (n, q) totals written;
+        # the sums' operations, in int8 also the per-output decode of the
+        # factored sums.
+        if quant:
+            nbytes = 2 * n * m + 16 * n + 4 * (2 * q + q * m) + 4 * n * q
+        else:
+            nbytes = 8 * n * m + 4 * (q + q * m) + 4 * n * q
+        ops = n * q * (2 * m + 2) + n * m + (6 * n * q if quant else 0)
+        out["bound"] = bound(nbytes, ops)
+        return out
+
+    def compare_prune_blocks(self, tables: tuple, qs: dict, qb,
+                             blocks: list, bn: int, time_it: bool) -> dict:
+        """Kernel #6's block-list entry over the ``blocks`` (row blocks of
+        ``bn`` rows) of the int8 corner codes (``tables[6:]``, each code
+        table followed by its scale and zero-point) against its plain
+        version and against #4's admit over the same list of the twelve
+        ``tables``: bit-equal, a short block's rows past n inert.  With
+        ``time_it``, one launch's time beside its bound and the plain
+        version's."""
+        torch, ref = self.torch, self.ref
+        corners = tables[6:]
+        qc, sd = qs["qconst"], qs["sqrt_delta"]
+        n, m = corners[0].shape
+        q = qc.shape[0]
+        ids = torch.tensor(blocks, dtype=torch.int32).to(self.dev)
+        kern = self.kernel("bregman_prune_mask_blocks_quant")
+        plain = ref.bregman_prune_mask_blocks_quant
+        got = kern(*corners, qc, sd, qb, ids, bn)
+        want = plain(*corners, qc, sd, qb, ids, bn)
+        _, fused = self.kernel("bregman_filter_prune_blocks_quant")(
+            *tables, torch.sum(qc, dim=-1), qc, sd, torch.sum(sd, dim=-1),
+            qb, ids, bn)
+        self.sync()
+        shape = (n, m, q, bn, len(blocks))
+        real = ref.block_rows(ids, bn) < n
+        expect(got.dtype == torch.int32 and bool(torch.equal(got, want)),
+               f"bregman_prune_mask_blocks_quant is not bit-equal to its "
+               f"plain version at {shape} ({int((got != want).sum())} "
+               "differ)")
+        expect(bool(torch.equal(got, fused)),
+               f"bregman_prune_mask_blocks_quant differs from #4's admit at "
+               f"{shape}")
+        expect(not bool(got[~real].any()),
+               f"bregman_prune_mask_blocks_quant: rows past n not inert at "
+               f"{shape}")
+        out = {"shape": list(shape), "admitted": int(want.sum()),
+               "pairs": int(real.sum()) * q}
+        del got, want, fused
+        if not time_it:
+            return out
+        reps = 3
+        out["ms"] = self.time_calls(
+            [lambda: kern(*corners, qc, sd, qb, ids, bn)], reps)
         out["plain_ms"] = self.time_calls(
-            [lambda: ref.bregman_ub_matrix(alpha, sg, qc, sd)], reps)
-        out["library_ms"] = self.time_calls(
-            [lambda: torch.addmm(alpha.sum(-1, keepdim=True) + qsum, sg,
-                                 sd.T)], reps)
-        nbytes = 8 * n * m + 4 * (q + q * m) + 4 * n * q
-        ops = n * q * (2 * m + 2) + n * m
+            [lambda: plain(*corners, qc, sd, qb, ids, bn)], reps)
+        # The listed rows' corner codes and their four fp32 decode columns
+        # read once, the three (q, M) query tables and the block ids, the
+        # int32 mask of every listed row written (a short block's inert
+        # rows too); the decode's multiply and add per corner element, the
+        # add, multiply, subtract and compare per (row, query, subspace).
+        r, out_rows = int(real.sum()), len(blocks) * bn
+        nbytes = (2 * m * r + 16 * r + 12 * q * m + 4 * len(blocks)
+                  + 4 * out_rows * q)
+        ops = 4 * r * q * m + 4 * r * m
         out["bound"] = bound(nbytes, ops)
         return out
 
@@ -717,28 +806,37 @@ class Smoke:
             qs = {"qconst": qc, "sqrt_delta": sd}
             r = self.compare_blocks((a, sg, am, gm), qs, qb, blocks, bn,
                                     time_it=False)
-            r1 = self.compare_ub_span(a[3:], sg[3:], qs, time_it=False)
+            r1 = self.compare_ub_span((a[3:], sg[3:]), qs, time_it=False)
             expect(0 < r["admitted"] < r["pairs"],
                    f"ragged block-list inputs {n, m, q} gave an unmixed mask")
             say(f"ragged block list {n}x{m}x{q}, bn {bn}, blocks {blocks}: "
                 f"#3 admit bit-equal ({r['admitted']}/{r['pairs']}), ub "
                 f"max_err_over_tol {r['err_over_tol']:.3g}; #1 over rows "
                 f"3.. max_err_over_tol {r1['err_over_tol']:.3g}")
-        # #4 over the same block lists: codes at -128 and 127, a scale-0
-        # row, the first listed row tying qb.
+        # #4 and #6 over the same block lists: codes at -128 and 127, a
+        # scale-0 row, the first listed row tying qb; #2 over a span that
+        # starts 3 rows into its tables (neither the codes nor the decode
+        # columns 16-byte aligned).
         for n, m, q, bn, blocks in BLOCK_LIST_CASES:
             *tables, qc, sd, qb = [
                 t.to(self.dev) for t in filter_inputs_quant(
                     torch, n, m, q, seed=n + m + 1, tie_row=blocks[0] * bn)]
-            r = self.compare_blocks(tuple(tables), {"qconst": qc,
-                                                    "sqrt_delta": sd}, qb,
-                                    blocks, bn, time_it=False)
+            qs = {"qconst": qc, "sqrt_delta": sd}
+            r = self.compare_blocks(tuple(tables), qs, qb, blocks, bn,
+                                    time_it=False)
+            r6 = self.compare_prune_blocks(tuple(tables), qs, qb, blocks, bn,
+                                           time_it=False)
+            r2 = self.compare_ub_span(tuple(t[3:] for t in tables[:6]), qs,
+                                      time_it=False)
             expect(0 < r["admitted"] < r["pairs"],
                    f"ragged int8 block-list inputs {n, m, q} gave an unmixed "
                    "mask")
             say(f"ragged int8 block list {n}x{m}x{q}, bn {bn}, blocks "
                 f"{blocks}: #4 admit bit-equal ({r['admitted']}/"
-                f"{r['pairs']}), ub max_err_over_tol {r['err_over_tol']:.3g}")
+                f"{r['pairs']}), ub max_err_over_tol {r['err_over_tol']:.3g};"
+                f" #6 bit-equal to its plain version and #4's admit "
+                f"({r6['admitted']} admitted); #2 over rows 3.. "
+                f"max_err_over_tol {r2['err_over_tol']:.3g}")
         # The prune-only kernels: Deep's block shape and a ragged one, each
         # with a mixed mask and the tie in row 0.
         for n, m, q in [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)]:
@@ -991,14 +1089,16 @@ class Smoke:
         rec["launches"] = self.launches()
         rec["search_peak_bytes"] = self.peak()
         self.expect_launches(label, rec["launches"], RESIDENT_PATH, quantize)
-        # One fused launch an attempt (the cap holds an attempt's admitted
-        # blocks), and the refine's one: equal counts.
+        # One filter and one fused launch an attempt (the cap holds an
+        # attempt's rows and its admitted blocks), and the refine's one:
+        # equal counts.
         sfx = "_quant" if quantize else ""
-        fused_n = rec["launches"]["bregman_filter_prune" + sfx]
-        expect(self.rehearsal
-               or fused_n == rec["launches"]["bregman_refine_batch" + sfx],
-               f"{label}: the fused prune launched {fused_n} times, not once "
-               "an attempt")
+        refine_n = rec["launches"]["bregman_refine_batch" + sfx]
+        for kname in ("bregman_ub_matrix" + sfx, "bregman_filter_prune" + sfx):
+            got_n = rec["launches"][kname]
+            expect(self.rehearsal or got_n == refine_n,
+                   f"{label}: {kname} launched {got_n} times, not once an "
+                   f"attempt ({refine_n} attempts)")
         steady = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -1053,6 +1153,11 @@ class Smoke:
         rec["profile"] = self.profile(search, rec["search_ms"])
         say(f"{label}: device busy {rec['profile']['busy_share']} of the "
             f"unprofiled search")
+        # Every kernel of the resident search runs filter_span.cuh's tile or
+        # the refine's: none the per-block filter_tile.cuh.
+        expect(self.rehearsal or rec["profile"]["filter_tile_calls"] == 0,
+               f"{label}: the resident search ran filter_tile_kernel "
+               f"{rec['profile'].get('filter_tile_calls')} times")
 
         # The kernels at the shapes this search gave them: #1 and #3 a row
         # block, and in fp32 also as the grouped search launches them.
@@ -1073,12 +1178,13 @@ class Smoke:
             + json.dumps(rec["prune_kernels"]))
         rec["grouped_kernels"] = self.compare_grouped(forest, qs, qb, bn,
                                                       blocks_run)
-        say(f"{label}: {'#4' if quantize else '#1 and #3'} at the grouped "
-            "shape " + json.dumps(rec["grouped_kernels"]))
+        say(f"{label}: {'#2, #4 and #6' if quantize else '#1 and #3'} at the "
+            "grouped shape " + json.dumps(rec["grouped_kernels"]))
         rec["per_block_loop"] = self.check_grouped(
             label, forest, ys0, rec["budget_final"], search)
         rec["unfused"] = self.drive_unfused(label, forest, ys[:q_batch],
-                                            rec["budget_final"], quantize)
+                                            rec["budget_final"], quantize,
+                                            blocks_run)
         if name == "deep":
             rec["tiered"] = self.drive_tiered(label, forest, ys, q_batch,
                                               ids, quantize)
@@ -1121,8 +1227,9 @@ class Smoke:
         """The grouped kernels of a tier as the search launches them over
         one attempt (at budget n every block is admitted where the union
         holds every point): #3 (#4 in int8) over every row block in one
-        block-list launch, and in fp32 #1 over all n rows; each against its
-        plain version and timed beside its bound."""
+        block-list launch, #1 (#2) over all n rows, and in int8 the
+        unfused search's #6 over every row block in one block-list launch;
+        each against its plain version and timed beside its bound."""
         from repro_torch.core import search as tsearch
         nb = -(-forest.n // bn)
         tables = tuple(getattr(forest, f)
@@ -1130,15 +1237,18 @@ class Smoke:
         out = {"fp": self.compare_blocks(tables, qs, qb, list(range(nb)), bn,
                                          time_it=True),
                "blocks_admitted_by_the_search": blocks_run}
-        if forest.storage != "int8":
-            out["ub"] = self.compare_ub_span(forest.alpha, forest.sqrt_gamma,
-                                             qs, time_it=True)
+        quant = forest.storage == "int8"
+        out["ub"] = self.compare_ub_span(tables[:6] if quant else tables[:2],
+                                         qs, time_it=True)
+        if quant:
+            out["prune"] = self.compare_prune_blocks(
+                tables, qs, qb, list(range(nb)), bn, time_it=True)
         return out
 
     def check_grouped(self, label: str, forest, ys0, budget: int,
                       search) -> dict:
         """The grouped search against the per-block loop (a group cap below
-        one block, so #1 and #3, or #4, launch once a row block):
+        one block, so #1 and #3, or #2 and #4, launch once a row block):
         ``knn_search_batch_stats`` at ``budget`` and ``knn_batch`` bit for
         bit, stats included.  Then, in turns (per-block, grouped, grouped,
         per-block), each loop's phase times over the batch and one timed
@@ -1213,10 +1323,12 @@ class Smoke:
                        f"{count} times off the path")
 
     def drive_unfused(self, label: str, forest, ys, budget: int,
-                      quantize: bool) -> dict:
+                      quantize: bool, blocks_run: int) -> dict:
         """The unfused comparator (``fused=False``: windowed gate, kernel #5
         or #6, no UB tile) at the fused search's budget: ids, dists,
-        exact and num_candidates bit-equal.  One timed search of each."""
+        exact and num_candidates bit-equal; #6 launched once a group of the
+        ``blocks_run`` admitted blocks, #5 once a block.  One timed search
+        of each."""
         torch = self.torch
         from repro_torch.core import search as tsearch
 
@@ -1237,6 +1349,14 @@ class Smoke:
                "launches": self.launches()}
         self.expect_launches(label + " fused=False", out["launches"],
                              UNFUSED_PATH, quantize)
+        name = "bregman_prune_mask" + ("_quant" if quantize else "")
+        gb = tsearch._group_blocks(name, tsearch._block_layout(
+            forest.n, BLOCK_ROWS)[0], int(ys.shape[0]), 4)
+        out["prune_groups"] = -(-blocks_run // gb)
+        expect(self.rehearsal or out["launches"][name] == out["prune_groups"],
+               f"{label} fused=False: {name} launched "
+               f"{out['launches'][name]} times for {blocks_run} admitted "
+               f"blocks in groups of {gb}")
         for f in got._fields:
             expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
                    f"{label}: fused=False {f} differ from the fused search's")
@@ -1368,8 +1488,7 @@ class Smoke:
         copies = spans(lambda e: e.get("cat") == "gpu_memcpy"
                        and "HtoD" in e.get("name", ""))
         prunes = spans(lambda e: e.get("cat") == "kernel"
-                       and "filter_tile_kernel" in e.get("name", "")
-                       and "true, false>" in e.get("name", ""))
+                       and PRUNE_ONLY_KERNEL.search(e.get("name", "")))
         kernels = spans(lambda e: e.get("cat") == "kernel")
         device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy",
                                                   "gpu_memset"))
@@ -1558,6 +1677,8 @@ class Smoke:
         busy_ms = sum(r[0] for r in rows) / 1e3
         return {"busy_share": busy_ms / wall_ms, "wall_ms": wall_ms,
                 "device_ms": busy_ms, "profiled_wall_ms": profiled_ms,
+                "filter_tile_calls": sum(c for _, k, c in rows
+                                         if "filter_tile_kernel" in k),
                 "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                         for us, k, c in rows[:10]]}
 
@@ -2223,8 +2344,9 @@ class Smoke:
                     "library_ms": library, **extra}
 
         # #3 and #4 at the grouped search's shape (one attempt's admitted
-        # blocks in one launch), and #1 over an attempt's rows, each with
-        # the 4096-row block beside; #2 a row block a launch.
+        # blocks in one launch), #1 and #2 over an attempt's rows, and #6
+        # over an attempt's blocks as the unfused search launches it, each
+        # with the 4096-row block beside; #5 a row block a launch.
         gk = rec["grouped_kernels"]
         f = gk["fp"]
         fp_row = entry(
@@ -2235,23 +2357,34 @@ class Smoke:
             tile_source=src + "filter_span.cuh", shape=f["shape"],
             block_shape=fk["shape"], block_ms=fk["fp"],
             block_plain_ms=fk["fp_plain"], block_bound_ms=fk["fp_bound"][0])
-        if "ub" in gk:
-            u = gk["ub"]
-            ub_row = entry(
-                "bregman_ub_matrix", "bregman_ub.cu",
-                max(fk["ub_err"], u["err"]),
-                max(fk["ub_err_over_tol"], u["err_over_tol"]), u["ms"],
-                u["plain_ms"], u["bound"], u["library_ms"],
-                tile_source=src + "filter_span.cuh", shape=u["shape"],
-                block_shape=fk["shape"], block_ms=fk["ub"],
-                block_plain_ms=fk["ub_plain"],
-                block_bound_ms=fk["ub_bound"][0],
-                block_library_ms=fk["ub_library"])
+        u = gk["ub"]
+        ub_row = entry(
+            "bregman_ub_matrix", "bregman_ub.cu", max(fk["ub_err"], u["err"]),
+            max(fk["ub_err_over_tol"], u["err_over_tol"]), u["ms"],
+            u["plain_ms"], u["bound"], u["library_ms"],
+            tile_source=src + "filter_span.cuh", shape=u["shape"],
+            block_shape=fk["shape"], block_ms=fk["ub"],
+            block_plain_ms=fk["ub_plain"], block_bound_ms=fk["ub_bound"][0],
+            block_library_ms=fk["ub_library"])
+        # The masks are bit-equal (compare_prune, compare_prune_blocks), so
+        # the error is 0.  #5's launches are those of the tiered Deep path
+        # (Stage B, a block a launch); #6's those of the unfused search
+        # (a group a launch), the tiered path's beside.
+        tiered = rec["tiered"]["launches"]
+        if "prune" in gk:
+            p = gk["prune"]
+            prune_row = entry(
+                "bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0, p["ms"],
+                p["plain_ms"], p["bound"], None,
+                launches=rec["unfused"]["launches"],
+                tile_source=src + "filter_span.cuh", shape=p["shape"],
+                launches_tiered=tiered["bregman_prune_mask" + sfx],
+                block_shape=pk["shape"], block_ms=pk["ms"],
+                block_plain_ms=pk["plain_ms"], block_bound_ms=pk["bound"][0])
         else:
-            ub_row = entry("bregman_ub_matrix", "bregman_ub.cu", fk["ub_err"],
-                           fk["ub_err_over_tol"], fk["ub"], fk["ub_plain"],
-                           fk["ub_bound"], fk["ub_library"],
-                           shape=fk["shape"])
+            prune_row = entry("bregman_prune_mask", "bregman_prune.cu", 0.0,
+                              0.0, pk["ms"], pk["plain_ms"], pk["bound"],
+                              None, launches=tiered, shape=pk["shape"])
         refine_extra = {"shape": rk["shape"]}
         sass = self.record.get("sass")
         if sfx and sass is not None:
@@ -2265,11 +2398,7 @@ class Smoke:
             entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
                   rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
                   None, **refine_extra),
-            # The masks are bit-equal (compare_prune), so the error is 0;
-            # launches are those of the tiered Deep path.
-            entry("bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0,
-                  pk["ms"], pk["plain_ms"], pk["bound"], None,
-                  launches=rec["tiered"]["launches"]),
+            prune_row,
         ]
 
 
@@ -2376,6 +2505,11 @@ def device_events(torch, prof) -> list:
             and e.self_device_time_total > 0
             and not e.key.startswith("Command Buffer Full")]
 
+
+# The prune-only kernels' names in a profiler trace: #5 is filter_tile.cuh's
+# kernel, #6 filter_span.cuh's int8 instance with PRUNE true, UB false.
+PRUNE_ONLY_KERNEL = re.compile(
+    r"filter_tile_kernel|filter_span_kernel<signed char, true, false,")
 
 # The kernels each path launches (the tier's variant of each).
 RESIDENT_PATH = ("bregman_ub_matrix", "bregman_filter_prune",

@@ -4,28 +4,30 @@ A (q, d) query block runs five phases:
 
   1. Q-transform of the block (Alg. 3).
   2. Filter: a streaming per-column k-selection over the (n, q) Cauchy
-     upper-bound matrix — one ``bregman_ub_matrix`` kernel launch per group
-     of consecutive ``block_rows`` row blocks (whose outputs stay within
-     :data:`GROUP_OUTPUT_BYTES`; the int8 filter a block a launch, see
-     :data:`PER_BLOCK_KERNELS`), merged into a running (q, k) best set, so
-     the (n, q) matrix never exists for large n * q.
+     upper-bound matrix — one ``bregman_ub_matrix`` kernel launch (its
+     int8 sibling in the int8 tier) per group of consecutive
+     ``block_rows`` row blocks (whose outputs stay within
+     :data:`GROUP_OUTPUT_BYTES`), merged into a running (q, k) best set,
+     so the (n, q) matrix never exists for large n * q.
   3. Alg.-4 searching bounds ``qb`` from each query's k-th row.
   4. Prune + compact: the block envelopes gate every (block, query) pair
      in one vectorized pass; the host reads which blocks any query admits
      (one device sync per search) and launches the fused
      ``bregman_filter_prune_blocks`` kernel (its int8 sibling in the int8
-     tier) once per group of those blocks (``fused=False``: a per-block
-     windowed gate and the prune-only ``bregman_prune_mask`` kernel a
-     block, the comparator); the admitted rows fill the query's
+     tier) once per group of those blocks (``fused=False``, the
+     comparator: the windowed gate and the prune-only kernel, int8's
+     once per group through its block list, fp32's
+     ``bregman_prune_mask`` a block a launch, see
+     :data:`PER_BLOCK_KERNELS`); the admitted rows fill the query's
      ``budget`` candidate slots in index order.
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
 In the int8 tier the same phases stream codes plus per-row decode scalars
-through the int8 kernels (the filter a row block a launch, the fused
-prune a group of blocks a launch), ``qb`` is inflated by the filter
-stats' rounding slack, and the refine decodes only the candidate rows;
-results are exact over the decoded points (``BallForest.rows_view``).
+through the int8 kernels (the filter and the prune a group of blocks a
+launch), ``qb`` is inflated by the filter stats' rounding slack, and the
+refine decodes only the candidate rows; results are exact over the
+decoded points (``BallForest.rows_view``).
 
 The §8 approximate search (:func:`knn_search_batch_approx`) shrinks each
 query's bounds by the empirical CDF of the cross term before the prune.  A
@@ -66,16 +68,17 @@ DEFAULT_BLOCK_ROWS = 4096
 
 MAX_BUDGET_DOUBLINGS = 8
 
-# Output bytes of one grouped launch of the fp32 filter (#1: the UB) and
-# of the fused filter+prune (#3, #4 in int8: the UB and the admit mask):
-# consecutive row blocks share a launch up to this cap, so no (n, q) tile
-# is formed for large n * q.  At 2^27 a Deep attempt (10^6 rows, q = 14)
-# is one group.
+# Output bytes of one grouped launch of the filter (#1, #2 in int8: the
+# UB), of the fused filter+prune (#3, #4 in int8: the UB and the admit
+# mask) and of the int8 prune-only kernel (#6: the admit mask):
+# consecutive or listed row blocks share a launch up to this cap, so no
+# (n, q) tile is formed for large n * q.  At 2^27 a Deep attempt (10^6
+# rows, q = 14) is one group.
 GROUP_OUTPUT_BYTES = 1 << 27
 
-# The kernels still launched once a row block: the int8 filter (#2) runs
-# filter_tile.cuh's per-block tile, not a row span.
-PER_BLOCK_KERNELS = frozenset({"bregman_ub_matrix_quant"})
+# The kernels still launched once a row block: the fp32 prune-only kernel
+# (#5) runs filter_tile.cuh's per-block tile, not a row span.
+PER_BLOCK_KERNELS = frozenset({"bregman_prune_mask"})
 
 
 def resolve_block_rows(block_rows: int | None, n: int) -> int:
@@ -371,10 +374,10 @@ def _batch_filter_topk(index: BallForest, qs: dict, k: int,
     """Streaming per-column k-selection over the (n, q) UB matrix.
 
     One UB kernel launch per group of consecutive row blocks
-    (:func:`_group_blocks`: a row block at a time in the int8 tier), each
-    merged into the running (q, k) smallest totals and their rows by
-    :func:`_merge_topk`.  The k smallest by (total, row) do not depend on
-    how the rows are grouped, so any cap gives the per-block result.
+    (:func:`_group_blocks`), each merged into the running (q, k) smallest
+    totals and their rows by :func:`_merge_topk`.  The k smallest by
+    (total, row) do not depend on how the rows are grouped, so any cap
+    gives the per-block result.
     Returns (values, rows), ascending along k.
     """
     n = index.n
@@ -514,8 +517,9 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
        the fused filter+prune kernel (its int8 sibling in the int8 tier,
        whose envelopes were reduced over the decoded corners): the (rows,
        q) UB tile and int32 admit tile.  ``fused=False`` launches the
-       prune-only kernel a block instead (:func:`_prune_block`), the same
-       admit tile without the UB.
+       prune-only kernel instead, the same admit tile without the UB: in
+       the int8 tier its block-list entry once a group, in fp32 a block a
+       launch (:func:`_prune_block`).
     3. **Compaction** — :func:`_fill_slots` routes the tile's members into
        the budget slots; slot order = index order, so any grouping fills
        the slots a per-block loop fills.
@@ -559,8 +563,21 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
             sel, count = _fill_slots(sel, count, admit,
                                      kernel_ref.block_rows(blocks, bn),
                                      budget)
+    elif index.storage == "int8":
+        # The int8 prune-only kernel (#6), once a group of admitted blocks.
+        corners = tuple(getattr(index, f) for f in CORNER_FIELDS["int8"])
+        gb = _group_blocks("bregman_prune_mask_quant", bn, q, 4)
+        run = run.to(torch.int32)
+        for g in range(0, len(run_blocks), gb):
+            blocks = run[g:g + gb]
+            admit = kernel_ops.bregman_prune_blocks_quant(
+                *corners, qs["qconst"], qs["sqrt_delta"], qb, blocks, bn)
+            sel, count = _fill_slots(sel, count, admit,
+                                     kernel_ref.block_rows(blocks, bn),
+                                     budget)
     else:
-        # The prune-only kernel of either tier, one launch a block.
+        # The fp32 prune-only kernel (#5, in PER_BLOCK_KERNELS), one launch
+        # a block.
         corners = _corner_blocks(index, bn, nb)
         for b in run_blocks:
             admit = _prune_block(index.storage, corners[b], qs, qb)

@@ -49,6 +49,7 @@ SIGNATURES = {
     "brk_refine_batch_quant": (_P,) * 6 + (_I64, _I64, _I64, _I, _I, _P),
     "brk_prune_mask": (_P,) * 6 + (_I64, _I64, _I64, _I, _P),
     "brk_prune_mask_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
+    "brk_prune_mask_blocks_quant": (_P,) * 11 + (_I64,) * 5 + (_I, _P),
     "brk_flash_attention": (_P,) * 5 + (_I,) * 8 + (_F, _I, _P),
     "brk_flash_attention_bf16": (_P,) * 5 + (_I,) * 8 + (_F, _I, _P),
     "brk_pccp_slots": (_I,),

@@ -6,13 +6,12 @@
 bregman_ub_matrix`` (a Pallas MXU product with M padded to 128 lanes) and
 :func:`bregman_ub_matrix_quant` its int8 sibling ``bregman_ub_matrix_quant``
 (codes plus a per-row affine factored out of both sums).  On the H100 the
-work is bound by bytes, not operations.  The fp32 kernel
-(``csrc/bregman_ub.cu`` on ``csrc/filter_span.cuh``) takes any row span in
-one persistent launch, so the search hands it many row blocks at once; the
-int8 one (on ``csrc/filter_tile.cuh``) a row block.  Both read each table
-element once through shared memory, loop over the real M and write each
-output once.  Plain versions: ``ref.bregman_ub_matrix`` and
-``ref.bregman_ub_matrix_quant``.
+work is bound by bytes, not operations.  Both kernels
+(``csrc/bregman_ub.cu`` on ``csrc/filter_span.cuh``) take any row span in
+one persistent launch, so the search hands them many row blocks at once;
+each reads every table element once through shared memory, loops over the
+real M and writes each output once.  Plain versions:
+``ref.bregman_ub_matrix`` and ``ref.bregman_ub_matrix_quant``.
 """
 
 from __future__ import annotations
@@ -55,9 +54,10 @@ def bregman_ub_matrix_quant(alpha_q: torch.Tensor, alpha_scale: torch.Tensor,
                             sg_scale: torch.Tensor, sg_zp: torch.Tensor,
                             qsum: torch.Tensor, sqrt_delta: torch.Tensor,
                             sdsum: torch.Tensor) -> torch.Tensor:
-    """(n, q) UB totals from int8 filter codes; codes (n, M) int8, per-row
-    decode (n,) fp32, qsum (q,), sqrt_delta (q, M) and its row sums sdsum
-    (q,), all contiguous on one CUDA device."""
+    """(n, q) UB totals over any n rows, in one launch, from int8 filter
+    codes; codes (n, M) int8, per-row decode (n,) fp32, qsum (q,),
+    sqrt_delta (q, M) and its row sums sdsum (q,), all contiguous on one
+    CUDA device."""
     global launches_quant
     n, m = alpha_q.shape
     q = qsum.shape[0]

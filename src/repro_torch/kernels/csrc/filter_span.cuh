@@ -1,25 +1,27 @@
-// The filter tile of kernels #1 (bregman_ub.cu, fp32 UB only), #3 and #4
-// (bregman_fused.cu, UB and the Theorem-3 admit; fp32 tables and int8
-// codes), one launch over many row blocks.
+// The filter tile of kernels #1 and #2 (bregman_ub.cu, the UB alone; fp32
+// tables and int8 codes), #3 and #4 (bregman_fused.cu, UB and the
+// Theorem-3 admit) and #6 (bregman_prune.cu, the int8 admit alone), one
+// launch over many row blocks.
 //
 //   ub[r, j]    = (rowsum(alpha)[r] + qsum[j]) + sg[r, :] . sd[j, :]
 //   admit[r, j] = any_i (amin[r, i] + qc[j, i]) - gmax[r, i] * sd[j, i]
 //                       <= qb[j, i]
 //
 // In the int8 tier (T = int8_t) the four tables are codes, each row with
-// its own affine decode ``code * scale + zp`` (filter_tile.cuh's Decode
-// columns), and the totals factor the affine out of both sums:
+// its own affine decode ``code * scale + zp`` (the Decode columns), and
+// the totals factor the affine out of both sums:
 //
 //   ub[r, j] = (a_s * rowsum(alpha_q) + M * a_z + qsum[j])
 //              + (g_s * (sg_q . sd[j]) + g_z * sdsum[j])
 //
-// It replaces, for #1, #3 and #4, the per-block tile of filter_tile.cuh
-// (which keeps #2 and the prune-only kernels).  The TPU kernels
-// (src/repro/kernels/bregman_ub.py::bregman_ub_matrix and
-// bregman_fused.py::bregman_filter_prune, bregman_filter_prune_quant) are
-// one grid step a row block; the search used to launch them once a
-// 4096-row block, 128 blocks of 256 threads each, less than one wave on 132
-// SMs.
+// Two switches pick the outputs: UB the totals, PRUNE the admit mask; a
+// stage holds only the tables (and, for int8, the decode columns) its
+// outputs read.  It replaces, for #1-#4 and #6, the per-block tile of
+// filter_tile.cuh (which keeps the fp32 prune-only kernel #5).  The TPU
+// kernels (src/repro/kernels/bregman_ub.py, bregman_fused.py and
+// bregman_prune.py) are one grid step a row block; the search used to
+// launch them once a 4096-row block, 128 blocks of 256 threads each, less
+// than one wave on 132 SMs.
 //
 // Bound on the H100: bytes.  Over a Deep attempt (10^6 rows, M = 39,
 // q = 14) #3 reads four (n, M) tables, 624 MB, and writes 112 MB of
@@ -28,7 +30,9 @@
 // query lanes).  On an H100 80GB HBM3 at 700 W it takes 0.335 ms there,
 // 66% of the bound (PERF.md, run T).  #4 reads a quarter of the table
 // bytes plus eight fp32 decode scalars a row, 188 MB, and writes 104 MB at
-// q = 13: 0.087 ms, so the same arithmetic bounds it by issue.  The design:
+// q = 13: 0.087 ms, so the same arithmetic bounds it by issue.  #2 and #6
+// each read two of the int8 tables with their four decode columns (94 MB)
+// and write one output (52 MB): 0.044 ms each.  The design:
 //
 // - One launch takes a list of row blocks (block ids on the device, or
 //   every block in order) and a persistent grid of the resident blocks the
@@ -52,7 +56,8 @@
 //   stride padded to an odd width; int8 codes in 16-byte copies of the
 //   aligned span (with 32-row items a span starts on 32 * M bytes), the
 //   rest byte by byte.  Beside an int8 span the item's 32 rows of the
-//   eight decode columns are staged the same way.  Where a stage of all M
+//   decode columns its tables need (four for #2 or #6, eight for #4) are
+//   staged the same way.  Where a stage of all M
 //   does not fit shared memory, M is walked in chunks, each its own
 //   pipeline step.
 // - The query tables (sd, and qc and qb for the admit) are staged once a
@@ -62,16 +67,17 @@
 //   and leave in coalesced stores: with one query tile a tile's outputs are
 //   one contiguous span of the (rows, q) result.
 //
-// The arithmetic is filter_tile.cuh's, operation for operation, so the UB
-// and the mask are bit-equal to it: the row sum over i = 0..M-1 in order
-// (an exact int for codes), the Cauchy term as one fmaf chain in that
-// order, and the admit compare rounded op by op with the _rn intrinsics (no
-// contraction into an FMA), as the plain version rounds it.  An int8
-// corner is decoded on read as __fadd_rn(__fmul_rn(code, scale), zp), its
-// cost spread over the thread's QPT queries; the int8 epilogue is written
-// with explicit _rn intrinsics in the form nvcc contracted filter_tile's
-// ``s * rowsum + m * z`` and ``g_s * cauchy + g_z * sdsum`` into, so no
-// layout can change the UB bits.
+// The arithmetic is fixed operation for operation, so the UB and the mask
+// keep the bits of the per-block kernels this tile replaced (held against
+// them by tools/kernel_tree_parity.py): the row sum over i = 0..M-1 in
+// order (an exact int for codes), the Cauchy term as one fmaf chain in
+// that order, and the admit compare rounded op by op with the _rn
+// intrinsics (no contraction into an FMA), as the plain version rounds it.
+// An int8 corner is decoded on read as __fadd_rn(__fmul_rn(code, scale),
+// zp), its cost spread over the thread's QPT queries; the int8 epilogue is
+// written with explicit _rn intrinsics in the form nvcc contracted the
+// per-block kernels' ``s * rowsum + m * z`` and ``g_s * cauchy + g_z *
+// sdsum`` into, so no layout can change the UB bits.
 //
 // Output rows: with a block list, listed block li owns output rows
 // [li * bn, (li + 1) * bn); the rows of a short (last) block past n are
@@ -83,9 +89,12 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
-#include "filter_tile.cuh"    // the int8 decode columns (Decode)
-
 namespace brekernels {
+
+// The per-row decode columns of an int8 table set, in this order.
+enum Decode { kAlphaScale = 0, kAlphaZp, kSgScale, kSgZp,
+              kAminScale, kAminZp, kGmaxScale, kGmaxZp, kDecodeCols };
+
 namespace span {
 
 constexpr int TN = 32;                   // rows a work item, one warp
@@ -544,6 +553,18 @@ filter_span_kernel(const Plan<T> p) {
 
 inline int round4(int64_t x) { return static_cast<int>((x + 3) / 4 * 4); }
 
+// What launch_tq caches a device: the dynamic shared memory each kernel
+// instance was granted, and the SM count.  Internal linkage: a static
+// local of the template function would be one object process-wide
+// (STB_GNU_UNIQUE), shared by two builds of this library loaded into one
+// process (tools/kernel_tree_parity.py), and one build would then launch
+// a kernel the other had opted in.
+namespace {
+template <typename T, bool PRUNE, bool UB, int TQ>
+int opted_bytes[MAX_DEVICES] = {};
+int sm_count[MAX_DEVICES] = {};
+}  // namespace
+
 template <typename T, bool PRUNE, bool UB, int TQ>
 int launch_tq(Plan<T> p, int nqt, int device, cudaStream_t stream) {
   constexpr bool QUANT = std::is_same<T, int8_t>::value;
@@ -610,8 +631,8 @@ int launch_tq(Plan<T> p, int nqt, int device, cudaStream_t stream) {
 
   // The shared-memory opt-in and the device's SM count, once a device
   // (the opt-in again when a launch needs more than any before).
-  static int opted[MAX_DEVICES] = {};
-  static int sms[MAX_DEVICES] = {};
+  int* const opted = opted_bytes<T, PRUNE, UB, TQ>;
+  int* const sms = sm_count;
   cudaError_t err = cudaSuccess;
   if (bytes > opted[device]) {
     err = cudaFuncSetAttribute(filter_span_kernel<T, PRUNE, UB, TQ>,

@@ -83,6 +83,23 @@ def bregman_prune_block_quant(amin_q, amin_scale, amin_zp, gmax_q,
                                            qconst, sqrt_delta, qb)
 
 
+def bregman_prune_blocks_quant(amin_q, amin_scale, amin_zp, gmax_q,
+                               gmax_scale, gmax_zp, qconst, sqrt_delta, qb,
+                               blocks, bn: int):
+    """Admit mask from the int8 corner codes over the listed row blocks of
+    the full (n, M) tables in one launch: ``blocks`` (nb,) int32 block
+    ids, ``bn`` rows a block; output (nb * bn, q) int32, block i's rows at
+    ``[i * bn, (i + 1) * bn)``, a short last block's rows past n 0."""
+    _query_operands("bregman_prune_blocks_quant", qconst, sqrt_delta, qb)
+    if not _on_cuda(amin_q):
+        return ref.bregman_prune_mask_blocks_quant(
+            amin_q, amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp, qconst,
+            sqrt_delta, qb, blocks, bn)
+    return _prune.bregman_prune_mask_blocks_quant(
+        amin_q, amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp, qconst,
+        sqrt_delta, qb, blocks, bn)
+
+
 def bregman_filter_prune_block(alpha, sqrt_gamma, amin, gmax, qconst,
                                sqrt_delta, qb):
     """Fused filter UB + Theorem-3 admit for a row block -> (ub, admit)."""

@@ -105,6 +105,24 @@ def bregman_filter_prune_blocks(alpha: Tensor, sqrt_gamma: Tensor,
             admit * real[:, None].to(admit.dtype))
 
 
+def bregman_prune_mask_blocks_quant(
+        amin_q: Tensor, amin_scale: Tensor, amin_zp: Tensor, gmax_q: Tensor,
+        gmax_scale: Tensor, gmax_zp: Tensor, qconst: Tensor,
+        sqrt_delta: Tensor, qb: Tensor, blocks: Tensor, bn: int) -> Tensor:
+    """:func:`bregman_prune_mask_quant` over the rows of the listed blocks
+    of the full int8 corner tables (codes (n, M), decode (n,)):
+    (len(blocks) * bn, q) int32, listed block i's rows at ``[i * bn,
+    (i + 1) * bn)``; rows past n (a short last block's) read 0."""
+    n = amin_q.shape[0]
+    rows = block_rows(blocks, bn)
+    real = rows < n
+    idx = torch.clamp(rows, max=n - 1)
+    corners = (amin_q, amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp)
+    admit = bregman_prune_mask_quant(*(t[idx] for t in corners), qconst,
+                                     sqrt_delta, qb)
+    return admit * real[:, None].to(admit.dtype)
+
+
 def bregman_filter_prune_quant(alpha_q: Tensor, alpha_scale: Tensor,
                                alpha_zp: Tensor, sg_q: Tensor,
                                sg_scale: Tensor, sg_zp: Tensor,

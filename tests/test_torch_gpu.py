@@ -228,13 +228,24 @@ def test_grouped_search_on_the_card_equals_the_per_block_loop(
         for f in got_batch[0]._fields:
             assert torch.equal(getattr(got_batch[0], f),
                                getattr(want_batch[0], f)), (cap, f)
-        # #1 and #3 (#4 in int8) take fewer launches grouped; #2 stays
-        # one a block; the refine one an attempt.
-        if not quantize:
-            assert launched[0] < per_block[0]
-        else:
-            assert launched[0] == per_block[0]
+        # The filter #1 (#2 in int8) and the fused prune #3 (#4) take
+        # fewer launches grouped; the refine one an attempt.
+        assert launched[0] < per_block[0]
         assert launched[1] < per_block[1] and launched[2] == per_block[2]
+        # The unfused comparator gives the same result bit for bit, its
+        # int8 prune (#6) once a group of admitted blocks, fp32's (#5) a
+        # block a launch.
+        attr = "launches_quant" if quantize else "launches"
+        before = getattr(bregman_prune, attr)
+        unfused = tsearch._knn_search_batch_unfused(forest, queries, 10, 64,
+                                                    256, device=cuda)
+        for f in unfused._fields:
+            assert torch.equal(getattr(unfused, f), getattr(want, f)), f
+        pruned = getattr(bregman_prune, attr) - before
+        gb = tsearch._group_blocks("bregman_prune_mask"
+                                   + ("_quant" if quantize else ""), 256,
+                                   queries.shape[0], 4)
+        assert pruned == -(-want_stats["num_blocks_run"] // gb)
 
 
 @pytest.mark.parametrize("family", family_names())
@@ -339,6 +350,92 @@ def _ub_tolerance_quant(tables, qc, sd):
                                                          @ sd.T) \
         + (g_z[:, None] * sd.sum(-1)[None]).abs()
     return (m + 2) * EPS32 * mags
+
+
+@pytest.mark.parametrize("q", [1, 13, 14, 33, 50, 65])
+@pytest.mark.parametrize("n,m,skip", [(5000, 39, 0), (4133, 1, 3),
+                                      (2000, 70, 1), (700, 300, 5)])
+def test_ub_span_quant_matches_its_plain_version(cuda, n, m, skip, q):
+    """#2 over a row span of any length, whose codes and decode columns
+    need not be 16-byte aligned (``skip`` rows into the tables): within
+    (M + 2) eps32 of its terms, a row's totals the same bits in any span."""
+    tables, qc, sd, _ = _span_operands_quant(n, m, q, n + q + 1)
+    filt = [t[skip:].to(cuda) for t in tables[:6]]
+    qc, sd = qc.to(cuda), sd.to(cuda)
+    qsum, sdsum = qc.sum(-1), sd.sum(-1)
+    before = bregman_ub.launches_quant
+    ub = bregman_ub.bregman_ub_matrix_quant(*filt, qsum, sd, sdsum)
+    torch.cuda.synchronize()
+    assert bregman_ub.launches_quant == before + 1
+    want = ref.bregman_ub_matrix_quant(*filt, qc, sd)
+    assert ub.shape == want.shape == (n - skip, q)
+    assert bool(((ub - want).abs()
+                 <= _ub_tolerance_quant(filt, qc, sd)).all())
+    part = bregman_ub.bregman_ub_matrix_quant(
+        *(t[17:300] for t in filt), qsum, sd, sdsum)
+    assert torch.equal(part.view(torch.int32), ub[17:300].view(torch.int32))
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", SPAN_CASES)
+def test_prune_blocks_quant_matches_its_plain_version_and_the_fused_admit(
+        cuda, n, m, q, bn, listed):
+    """#6's block-list entry on #3's shapes: bit-equal to its plain version
+    and to #4's admit over the same list, rows past n inert, each listed
+    block's tile the one-span entry's on its rows."""
+    first = listed[0] * bn
+    tables, qc, sd, qb = _span_operands_quant(n, m, q, n + m + q + 2,
+                                              tie_row=first)
+    tables = [t.to(cuda) for t in tables]
+    qc, sd, qb = qc.to(cuda), sd.to(cuda), qb.to(cuda)
+    corners = tables[6:]
+    blocks = torch.tensor(listed, dtype=torch.int32, device=cuda)
+    before = bregman_prune.launches_quant
+    admit = bregman_prune.bregman_prune_mask_blocks_quant(*corners, qc, sd,
+                                                          qb, blocks, bn)
+    torch.cuda.synchronize()
+    assert bregman_prune.launches_quant == before + 1
+    assert admit.dtype == torch.int32 and admit.shape == (len(listed) * bn,
+                                                          q)
+    want = ref.bregman_prune_mask_blocks_quant(*corners, qc, sd, qb, blocks,
+                                               bn)
+    assert torch.equal(admit, want)
+    _, fused = bregman_fused.bregman_filter_prune_blocks_quant(
+        *tables, qc.sum(-1), qc, sd, sd.sum(-1), qb, blocks, bn)
+    assert torch.equal(admit, fused)
+    real = ref.block_rows(blocks, bn) < n
+    assert not admit[~real].any()
+    assert bool(admit[0].all())                     # the tie row
+    assert 0 < int(admit.sum()) < int(real.sum()) * q or q * n < 64
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one = bregman_prune.bregman_prune_mask_quant(
+            *(t[s] for t in corners), qc, sd, qb)
+        assert torch.equal(one, admit[i * bn:i * bn + s.stop - s.start])
+
+
+def test_prune_blocks_quant_refuses_what_it_cannot_run(cuda):
+    c = torch.zeros((64, 3), dtype=torch.int8, device=cuda)
+    r = torch.ones(64, device=cuda)
+    q = torch.ones((2, 3), device=cuda)
+    corners = [c, r, r, c, r, r]
+    ok = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        bregman_prune.bregman_prune_mask_blocks_quant(*corners, q, q, q,
+                                                      ok.long(), 32)
+    with pytest.raises(ValueError, match="must be torch.int8"):
+        bregman_prune.bregman_prune_mask_blocks_quant(
+            r[:, None].expand(64, 3).contiguous(), *corners[1:], q, q, q,
+            ok, 32)
+    with pytest.raises(ValueError, match="bn must be a positive int"):
+        bregman_prune.bregman_prune_mask_blocks_quant(*corners, q, q, q, ok,
+                                                      0)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bregman_prune.bregman_prune_mask_blocks_quant(*corners, q, q, q,
+                                                      ok.cpu(), 32)
+    before = bregman_prune.launches_quant
+    admit = bregman_prune.bregman_prune_mask_blocks_quant(*corners, q, q, q,
+                                                          ok[:0], 32)
+    assert admit.shape == (0, 2) and bregman_prune.launches_quant == before
 
 
 @pytest.mark.parametrize("n,m,q,bn,listed", SPAN_CASES)

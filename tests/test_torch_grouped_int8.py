@@ -1,15 +1,17 @@
-"""The grouped int8 search on the CPU: the fused filter+prune (#4) launched
-once per group of row blocks, against the JAX package's int8 search on a
-quantized blob corpus whose envelope gate admits some blocks and rejects
-others; the plain version of #4's block-list entry against the JAX
-package's oracle and Pallas kernel (interpret mode) over the listed rows;
-and the int8 filter (#2), which still launches once a row block.
+"""The grouped int8 search on the CPU: the filter (#2), the fused
+filter+prune (#4) and, under ``fused=False``, the prune-only kernel (#6)
+launched once per group of row blocks, against the JAX package's int8
+search on a quantized blob corpus whose envelope gate admits some blocks
+and rejects others; the plain versions of #4's and #6's block-list
+entries against the JAX package's oracle and Pallas kernel (interpret
+mode) over the listed rows.
 
 The group cap is ``search.GROUP_OUTPUT_BYTES``; the tests set it small so
 that one search makes several groups, a short last block included."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,9 +23,12 @@ from repro.core.index import build_index as jax_build_index
 from repro.kernels import ref as jref
 from repro.kernels.bregman_fused import \
     bregman_filter_prune_quant as pallas_filter_prune_quant
+from repro.kernels.bregman_prune import \
+    bregman_prune_mask_quant as pallas_prune_quant
 
 import repro_torch.core.search as tsearch
-from repro_torch.kernels import bregman_fused, ops, ref
+from repro_torch.kernels import _build, bregman_fused, bregman_prune, ops, \
+    ref
 
 from torch_parity import filter_inputs_quant, to_port
 
@@ -52,15 +57,24 @@ def blob_forests():
 
 
 def _cap_for(blocks_a_group: int) -> int:
-    """A cap at which #4 takes ``blocks_a_group`` row blocks a launch."""
+    """A cap at which #4 takes ``blocks_a_group`` row blocks a launch (#2
+    and #6, four output bytes a pair to #4's eight, twice as many)."""
     return blocks_a_group * BLOCK_ROWS * Q * 8
+
+
+def _group_rows(n: int, span: int) -> list:
+    """The rows of each group of ``span`` consecutive rows over n rows, a
+    short last group included."""
+    return [min(span, n - s) for s in range(0, n, span)]
 
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The (rows, q) tiles #2 was handed, and the block lists of #4."""
-    seen = {"ub": [], "fp": []}
+    """The (rows, q) tiles #2 was handed, the block lists of #4 and #6, and
+    the blocks #5 was handed one at a time."""
+    seen = {"ub": [], "fp": [], "prune": [], "prune_f32": []}
     ub, fp = ops.bregman_ub_matrix_quant, ops.bregman_filter_prune_blocks_quant
+    pr, pr32 = ops.bregman_prune_blocks_quant, ops.bregman_prune_block
 
     def ub_spy(alpha_q, *args):
         seen["ub"].append(alpha_q.shape[0])
@@ -71,8 +85,19 @@ def launches(monkeypatch):
         seen["fp"].append((args[15].tolist(), out[1].shape[0]))
         return out
 
+    def pr_spy(*args):
+        out = pr(*args)
+        seen["prune"].append((args[9].tolist(), out.shape[0]))
+        return out
+
+    def pr32_spy(amin, *args):
+        seen["prune_f32"].append(amin.shape[0])
+        return pr32(amin, *args)
+
     monkeypatch.setattr(ops, "bregman_ub_matrix_quant", ub_spy)
     monkeypatch.setattr(ops, "bregman_filter_prune_blocks_quant", fp_spy)
+    monkeypatch.setattr(ops, "bregman_prune_blocks_quant", pr_spy)
+    monkeypatch.setattr(ops, "bregman_prune_block", pr32_spy)
     return seen
 
 
@@ -105,15 +130,20 @@ def test_grouped_int8_search_matches_jax(monkeypatch, launches,
                                np.asarray(want["tau_admit"]), **DIST_TOL)
     nb = got["num_blocks"]
     assert nb == 25 and 0 < got["num_blocks_run"] < nb
-    # #2 saw every row block once; #4 the admitted blocks, in order, at
-    # most the cap's count a launch.
-    assert launches["ub"] == [BLOCK_ROWS] * (nb - 1) + [tf.n - (nb - 1)
-                                                        * BLOCK_ROWS]
+    # #2 saw the rows in groups of twice the cap's blocks (its outputs
+    # take half #4's bytes a pair), a short last group included; #4 the
+    # admitted blocks, in order, at most the cap's count a launch.
+    assert tsearch._group_blocks("bregman_ub_matrix_quant", BLOCK_ROWS, Q,
+                                 4) == 2 * blocks_a_group
+    assert launches["ub"] == _group_rows(tf.n,
+                                         2 * blocks_a_group * BLOCK_ROWS)
+    assert launches["ub"][-1] < 2 * blocks_a_group * BLOCK_ROWS
     listed = [b for blocks, _ in launches["fp"] for b in blocks]
     assert listed == sorted(listed) and len(listed) == got["num_blocks_run"]
     assert all(len(b) <= blocks_a_group for b, _ in launches["fp"])
     assert len(launches["fp"]) == -(-len(listed) // blocks_a_group)
     assert all(rows == len(b) * BLOCK_ROWS for b, rows in launches["fp"])
+    assert launches["prune"] == launches["prune_f32"] == []
 
 
 @pytest.mark.parametrize("blocks_a_group", [1, None])
@@ -131,6 +161,85 @@ def test_grouped_int8_knn_batch_matches_jax(monkeypatch, blocks_a_group):
     assert got_stats == want_stats
     assert got_stats.escalations > 0
     _assert_same_result(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_unfused(forest_key: str):
+    """The JAX package's unfused int8 (or fp32) search on the blob corpus at
+    budget 64, with its gate's stats: (result, env_admitted, blocks_run,
+    tau)."""
+    jf = blob_forests()[0] if forest_key == "int8" else fp32_blob_forests()[0]
+    queries = blob_forests()[2]
+    run = jax.jit(lambda index, ys: jsearch._knn_search_batch_core(
+        index, ys, K, 64, None, BLOCK_ROWS, with_stats=True, fused=False))
+    return run(jf, jnp.asarray(queries))
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_blob_forests():
+    """(reference fp32 forest, port forest): the blob corpus unquantized."""
+    _, _, queries = blob_forests()
+    rng = np.random.default_rng(0)
+    data = np.concatenate([rng.normal(size=(PER, D)) + 100.0 * j
+                           for j in range(BLOBS)]).astype(np.float32)
+    jf = jax_build_index(data, "squared_euclidean", m=M,
+                         num_clusters=CLUSTERS, seed=0)
+    return jf, to_port(jf)
+
+
+@pytest.mark.parametrize("blocks_a_group", [1, 2, 3, None])
+def test_grouped_unfused_int8_search_matches_jax(monkeypatch, launches,
+                                                 blocks_a_group):
+    """``fused=False`` in the int8 tier: #6 handed the admitted blocks in
+    order, once per group of the cap's blocks (twice #4's: four output
+    bytes a pair), with the JAX package's unfused search's ids, exact,
+    num_candidates and gate stats, and the fused search's result bit for
+    bit."""
+    _, tf, queries = blob_forests()
+    if blocks_a_group is not None:
+        monkeypatch.setattr(tsearch, "GROUP_OUTPUT_BYTES",
+                            _cap_for(blocks_a_group))
+    want, want_env, want_run, want_tau = jax_unfused("int8")
+    ys = torch.from_numpy(queries)
+    got, env, blocks_run, tau = tsearch._knn_search_batch_core(
+        tf, ys, K, 64, BLOCK_ROWS, with_stats=True, fused=False)
+    _assert_same_result(got, want)
+    np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
+    assert blocks_run == int(want_run) and 0 < blocks_run < 25
+    np.testing.assert_array_equal(tau.numpy(), np.asarray(want_tau))
+    fused = tsearch.knn_search_batch(tf, queries, K, 64,
+                                     block_rows=BLOCK_ROWS, device="cpu")
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(fused, f)), f
+    gb = tsearch._group_blocks("bregman_prune_mask_quant", BLOCK_ROWS, Q, 4)
+    assert gb == 2 * blocks_a_group if blocks_a_group else gb >= 25
+    unfused = launches["prune"]
+    listed = [b for blocks, _ in unfused for b in blocks]
+    assert len(unfused) == -(-blocks_run // gb)
+    assert listed == sorted(listed) and len(listed) == blocks_run
+    assert all(len(b) <= gb for b, _ in unfused)
+    assert all(rows == len(b) * BLOCK_ROWS for b, rows in unfused)
+    assert launches["prune_f32"] == []
+
+
+def test_unfused_fp32_search_keeps_one_prune_launch_a_block(launches):
+    """#5 stays in ``PER_BLOCK_KERNELS``: the fp32 unfused search hands it
+    each admitted block on its own (a short last block's real rows), and
+    matches the JAX package's unfused search."""
+    assert tsearch.PER_BLOCK_KERNELS == {"bregman_prune_mask"}
+    assert tsearch._group_blocks("bregman_prune_mask", BLOCK_ROWS, Q, 4) == 1
+    _, tf = fp32_blob_forests()
+    queries = blob_forests()[2]
+    want, want_env, want_run, _ = jax_unfused("f32")
+    got, env, blocks_run, _ = tsearch._knn_search_batch_core(
+        tf, torch.from_numpy(queries), K, 64, BLOCK_ROWS, with_stats=True,
+        fused=False)
+    _assert_same_result(got, want)
+    np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
+    assert blocks_run == int(want_run)
+    assert launches["prune"] == []
+    assert len(launches["prune_f32"]) == blocks_run
+    assert all(rows <= BLOCK_ROWS for rows in launches["prune_f32"])
 
 
 def _ub_tolerance(m, a_q, a_s, a_z, g_q, g_s, g_z, qc, sd):
@@ -196,6 +305,69 @@ def test_blocks_quant_plain_version_matches_jax(n, m, q, bn, listed):
                                    **DIST_TOL)
     if int(real.sum()) * q >= 64:
         assert 0 < int(admit.sum()) < int(real.sum()) * q
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", BLOCK_CASES)
+def test_prune_blocks_quant_plain_version_matches_jax(n, m, q, bn, listed):
+    """The plain version of #6's block-list entry against the JAX
+    package's oracle and Pallas kernel (interpret mode) over the listed
+    rows: bit-equal, a short last block's rows past n inert, equal to #4's
+    block-list admit and to the one-span entry's mask block by block."""
+    inputs = filter_inputs_quant(n, m, q, seed=n + 11)
+    corners, query = inputs[6:12], inputs[12:]
+    blocks = torch.tensor(listed, dtype=torch.int32)
+    before = bregman_prune.launches_quant
+    admit = ops.bregman_prune_blocks_quant(
+        *(torch.from_numpy(x) for x in corners + query), blocks, bn)
+    assert bregman_prune.launches_quant == before     # no kernel on the CPU
+    assert admit.shape == (len(listed) * bn, q) and admit.dtype == torch.int32
+    rows = ref.block_rows(blocks, bn).numpy()
+    real = rows < n
+    assert not admit.numpy()[~real].any()
+    idx = rows[real]
+    sub = [x[idx] for x in corners] + list(query)
+    np.testing.assert_array_equal(
+        admit.numpy()[real], np.asarray(jref.bregman_prune_mask_quant(*sub)))
+    p_admit = pallas_prune_quant(*map(jnp.asarray, sub), **PALLAS_TILES)
+    # Row 0's exact tie may contract into a fused multiply-add under jit
+    # (ROADMAP queue 3): off that row, bit-equal.
+    off_tie = idx != 0
+    np.testing.assert_array_equal(admit.numpy()[real][off_tie],
+                                  np.asarray(p_admit)[off_tie])
+    _, fused = ops.bregman_filter_prune_blocks_quant(
+        *(torch.from_numpy(x) for x in inputs), blocks, bn)
+    assert torch.equal(admit, fused)
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one = ops.bregman_prune_block_quant(
+            *(torch.from_numpy(x[s]) for x in corners),
+            *(torch.from_numpy(x) for x in query))
+        assert torch.equal(one, admit[i * bn:i * bn + s.stop - s.start])
+    if int(real.sum()) * q >= 64:
+        assert 0 < int(admit.sum()) < int(real.sum()) * q
+
+
+def test_prune_blocks_quant_wrapper_checks_its_operands():
+    """#6's block-list wrapper refuses CPU tensors without launching, the
+    dispatcher checks the query operands, an empty list gives an empty
+    mask, and the C entry point is declared to ctypes."""
+    inputs = [torch.from_numpy(x)
+              for x in filter_inputs_quant(16, 3, 2, seed=0)]
+    corners, (qc, sd, qb) = inputs[6:12], inputs[12:]
+    blocks = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(q, M\) query operands"):
+        ops.bregman_prune_blocks_quant(*corners, qc, sd[0], qb, blocks, 8)
+    before = bregman_prune.launches_quant
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bregman_prune.bregman_prune_mask_blocks_quant(*corners, qc, sd, qb,
+                                                      blocks, 8)
+    assert bregman_prune.launches_quant == before
+    empty = ops.bregman_prune_blocks_quant(*corners, qc, sd, qb, blocks[:0],
+                                           8)
+    assert empty.shape == (0, 2) and empty.dtype == torch.int32
+    assert "brk_prune_mask_blocks_quant" in _build.SIGNATURES
+    assert _build.SIGNATURES["brk_prune_mask_blocks_quant"][9:11] == (
+        _build.SIGNATURES["brk_prune_mask_blocks_quant"][0],) * 2
 
 
 class _LargestOutput(TorchDispatchMode):

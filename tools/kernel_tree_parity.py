@@ -1,6 +1,6 @@
-"""Hold this tree's filter kernels (#1, #3, #4) bit for bit, and its int8
-refine (#8) within its tolerance, against another checkout's, on one CUDA
-card.
+"""Hold this tree's filter and prune kernels (#1-#6) bit for bit, and its
+int8 refine (#8) within its tolerance, against another checkout's, on one
+CUDA card.
 
     python3 tools/kernel_tree_parity.py --other DIR [--out FILE]
 
@@ -9,16 +9,19 @@ unpacked ``git archive`` of the parent commit under ``build/``).  Both
 trees' kernel libraries are built from their own sources
 (``src/repro_torch/kernels/_build.py`` of each, loaded by path) and called
 through ``ctypes`` on the same inputs: ``brk_ub_matrix`` (#1),
-``brk_filter_prune`` (#3) and ``brk_filter_prune_quant`` (#4) over one row
-block at the search's block shape and at ragged shapes, and over a Deep
-attempt's 10^6 rows, where this tree's #3 and #4 also run as one
-block-list launch over every block against the other tree's per-block
-launches.  The UB totals must match bit for bit (compared as int32 words)
-and the admit masks exactly.  ``brk_refine_batch_quant`` (#8) of both
-trees, every family, must each lie within d * eps32 * sum |terms| of the
-plain version; the records give their largest difference over that
-tolerance and the share of bit-equal distances.  Prints one JSON line per
-shape and exits 1 if any check fails.
+``brk_ub_matrix_quant`` (#2), ``brk_filter_prune`` (#3),
+``brk_filter_prune_quant`` (#4), ``brk_prune_mask`` (#5) and
+``brk_prune_mask_quant`` (#6) over one row block at the search's block
+shape and at ragged shapes, and over a Deep attempt's 10^6 rows, where
+this tree's #1 and #2 run as one span launch and its #3, #4 and #6 as
+one block-list launch over every block (``brk_prune_mask_blocks_quant``
+for #6, also held against this tree's #4 admit) against the other tree's
+per-block launches.  The UB totals must match bit for bit (compared as
+int32 words) and the admit masks exactly.  ``brk_refine_batch_quant``
+(#8) of both trees, every family, must each lie within d * eps32 * sum
+|terms| of the plain version; the records give their largest difference
+over that tolerance and the share of bit-equal distances.  Prints one JSON
+line per shape and exits 1 if any check fails.
 """
 
 from __future__ import annotations
@@ -127,6 +130,41 @@ def fused_quant_of(lib, tables, qc, sd, qb, blocks=None, bn=None):
     return ub, admit
 
 
+def ub_quant_of(lib, filt, qc, sd):
+    """#2 over the int8 filter tables' n rows (codes and decode, six
+    tables) in one launch."""
+    n, m = filt[0].shape
+    q = qc.shape[0]
+    out = torch.empty((n, q), device=qc.device)
+    ptrs = [t.data_ptr() for t in (*filt, qc.sum(-1), sd, sd.sum(-1))]
+    err = lib.brk_ub_matrix_quant(*ptrs, out.data_ptr(), n, m, q,
+                                  qc.device.index,
+                                  torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out
+
+
+def prune_quant_of(lib, corners, qc, sd, qb, blocks=None, bn=None):
+    """#6 over the int8 corner tables' n rows (codes and decode, six
+    tables), or over ``blocks`` of ``bn`` rows through the block-list
+    entry."""
+    n, m = corners[0].shape
+    q = qc.shape[0]
+    rows = n if blocks is None else blocks.shape[0] * bn
+    admit = torch.empty((rows, q), dtype=torch.int32, device=qc.device)
+    ptrs = [t.data_ptr() for t in (*corners, qc, sd, qb)]
+    stream = torch.cuda.current_stream().cuda_stream
+    if blocks is None:
+        err = lib.brk_prune_mask_quant(*ptrs, admit.data_ptr(), n, m, q,
+                                       qc.device.index, stream)
+    else:
+        err = lib.brk_prune_mask_blocks_quant(
+            *ptrs, blocks.data_ptr(), admit.data_ptr(), n, m, q,
+            blocks.shape[0], bn, qc.device.index, stream)
+    assert err == 0, err
+    return admit
+
+
 def refine_quant_of(lib, codes, scale, zp, grad, c_y, family):
     q, b, d = codes.shape
     out = torch.empty((q, b), device=codes.device)
@@ -203,6 +241,19 @@ def fused_of(lib, a, g, am, gm, qsum, qc, sd, qb):
     return ub, admit
 
 
+def prune_of(lib, am, gm, qc, sd, qb):
+    """#5 over the fp32 corner tables' n rows."""
+    n, m = am.shape
+    q = qc.shape[0]
+    admit = torch.empty((n, q), dtype=torch.int32, device=am.device)
+    err = lib.brk_prune_mask(am.data_ptr(), gm.data_ptr(), qc.data_ptr(),
+                             sd.data_ptr(), qb.data_ptr(), admit.data_ptr(),
+                             n, m, q, am.device.index,
+                             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return admit
+
+
 def fused_blocks_of(lib, tables, qsum, qc, sd, qb, blocks, bn):
     a, g, am, gm = tables
     n, m = a.shape
@@ -249,19 +300,31 @@ def main(argv=None) -> int:
         (fu_a, ad_a), (fu_b, ad_b) = (
             fused_of(lib, a, g, am, gm, qsum, qc, sd, qb)
             for lib in (ours, other))
+        pr_a, pr_b = (prune_of(lib, am, gm, qc, sd, qb)
+                      for lib in (ours, other))
         torch.cuda.synchronize()
         rec = {"shape": [n, m, q], "ub_bit_equal": same_bits(ub_a, ub_b),
                "fused_ub_bit_equal": same_bits(fu_a, fu_b),
                "admit_equal": bool(torch.equal(ad_a, ad_b)),
+               "prune_admit_equal": bool(torch.equal(pr_a, pr_b)),
+               "prune_equals_fused_admit": bool(torch.equal(pr_a, ad_a)),
                "admitted": int(ad_a.sum()), "pairs": n * q}
         report(rec)
     for n, m, q in BLOCK_SHAPES:
         *tables, qc, sd, qb = inputs_quant(n, m, q, n + m + q + 1, dev)
         (fu_a, ad_a), (fu_b, ad_b) = (fused_quant_of(lib, tables, qc, sd, qb)
                                       for lib in (ours, other))
+        ub_a, ub_b = (ub_quant_of(lib, tables[:6], qc, sd)
+                      for lib in (ours, other))
+        pr_a, pr_b = (prune_quant_of(lib, tables[6:], qc, sd, qb)
+                      for lib in (ours, other))
+        torch.cuda.synchronize()
         report({"shape": [n, m, q], "int8": True,
+                "ub_bit_equal": same_bits(ub_a, ub_b),
                 "fused_ub_bit_equal": same_bits(fu_a, fu_b),
                 "admit_equal": bool(torch.equal(ad_a, ad_b)),
+                "prune_admit_equal": bool(torch.equal(pr_a, pr_b)),
+                "prune_equals_fused_admit": bool(torch.equal(pr_a, ad_a)),
                 "admitted": int(ad_a.sum()), "pairs": n * q})
     n, m, q, bn = DEEP
     *tables, qc, sd, qb = inputs_quant(n, m, DEEP_INT8_Q, 8, dev)
@@ -272,13 +335,27 @@ def main(argv=None) -> int:
              for s in range(0, n, bn)]
     fu_b = torch.cat([u for u, _ in parts])
     ad_b = torch.cat([d for _, d in parts])
+    del parts
+    ub_a = ub_quant_of(ours, tables[:6], qc, sd)
+    ub_b = torch.cat([ub_quant_of(other, [t[s:s + bn] for t in tables[:6]],
+                                  qc, sd) for s in range(0, n, bn)])
+    pr_a = prune_quant_of(ours, tables[6:], qc, sd, qb, blocks, bn)
+    pr_span = prune_quant_of(ours, tables[6:], qc, sd, qb)
+    pr_b = torch.cat([prune_quant_of(other, [t[s:s + bn] for t in tables[6:]],
+                                     qc, sd, qb) for s in range(0, n, bn)])
+    torch.cuda.synchronize()
     report({"shape": [n, m, DEEP_INT8_Q], "int8": True, "block_rows": bn,
-            "blocks": nb, "fused_ub_bit_equal": same_bits(fu_a[:n], fu_b),
+            "blocks": nb, "ub_bit_equal": same_bits(ub_a, ub_b),
+            "fused_ub_bit_equal": same_bits(fu_a[:n], fu_b),
             "admit_equal": bool(torch.equal(ad_a[:n], ad_b)),
+            "prune_admit_equal": bool(torch.equal(pr_a[:n], pr_b)),
+            "prune_span_admit_equal": bool(torch.equal(pr_span, pr_b)),
+            "prune_equals_fused_admit": bool(torch.equal(pr_a, ad_a)),
             "inert_rows_ok": bool(torch.isinf(fu_a[n:]).all()
-                                  and not ad_a[n:].any()),
+                                  and not ad_a[n:].any()
+                                  and not pr_a[n:].any()),
             "admitted": int(ad_a.sum()), "pairs": n * DEEP_INT8_Q})
-    del tables, parts, fu_a, fu_b, ad_a, ad_b
+    del tables, fu_a, fu_b, ad_a, ad_b, ub_a, ub_b, pr_a, pr_b, pr_span
     a, g, am, gm, qc, sd, qb = inputs(n, m, q, 7, dev)
     qsum = qc.sum(-1)
     nb = -(-n // bn)
@@ -308,7 +385,8 @@ def main(argv=None) -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))
     keys = ("ub_bit_equal", "fused_ub_bit_equal", "admit_equal",
-            "inert_rows_ok", "within_tol")
+            "prune_admit_equal", "prune_span_admit_equal",
+            "prune_equals_fused_admit", "inert_rows_ok", "within_tol")
     bad = [r for r in records if not all(r.get(k, True) for k in keys)]
     mixed = all(0 < r["admitted"] < r["pairs"] for r in records
                 if r.get("pairs", 0) >= 64)
