@@ -16,9 +16,10 @@ Phases:
    the int8 refine kernel (#8), where cuobjdump is present.
 2. Each kernel against its plain PyTorch version on the card at ragged
    shapes (admit masks bit-equal; the prune-only masks #5 and #6 also
-   bit-equal to the fused kernels' admit; the block-list entries of #3,
-   #4 and #6 over non-contiguous lists with a short last block, #6's
-   also bit-equal to #4's admit, and #1 and #2 over unaligned row spans;
+   bit-equal to the fused kernels' admit, #5 also over an unaligned row
+   span; the block-list entries of #3, #4, #5 and #6 over non-contiguous
+   lists with a short last block, #5's also bit-equal to #3's admit and
+   #6's to #4's, and #1 and #2 over unaligned row spans;
    #8 on unaligned codes, and a (query, row) pair's bits the same at
    b = 1, at another position and unaligned); the int8 quantizer on the
    card against the CPU's, bit for bit; and the whole search on the card
@@ -31,22 +32,28 @@ Phases:
    kernel's launch count is set to 0 just before the search and read just
    after; each kernel of the tier must be above 0 and the other tier's at
    0, the filter (#1, #2) and the fused prune (#3, #4) launched once an
-   attempt, and no per-block ``filter_tile_kernel`` in the search's
-   profile.  The ids are held against ``brute_force_knn`` over the
-   index's point set (``rows_view``) on the card.  Each kernel is then
-   held against its plain version, and timed with CUDA events beside its
-   bound, at the shapes that search gave it; #1-#4 (and #6 in int8) also
-   at the grouped search's shape (one attempt's rows in one launch).  The
-   grouped search must equal the per-block loop (a group cap below one
-   block) bit for bit, stats included, in both tiers; both loops' phase
-   times and search times are taken in turns.  The unfused comparator
-   (``fused=False``, kernel #5 or #6 in place of #3 or #4) must give the
-   fused search's results bit for bit, #6 launched once a group of
-   admitted blocks and #5 once a block.  On Deep, the index is then
-   wrapped in a ``TieredPointStore`` holding 40% of its cold bytes on the
-   card: ``knn_batch`` through it (counts reset just before, read just
-   after) must return the resident ids, and a fixed-budget search must
-   equal the resident one bit for bit.
+   attempt, and no prune-only kernel in the search's profile.  The ids
+   are held against ``brute_force_knn`` over the index's point set
+   (``rows_view``) on the card.  Each kernel is then held against its
+   plain version, and timed with CUDA events beside its bound, at the
+   shapes that search gave it; #1-#6 also at the grouped search's shape
+   (one attempt's rows in one launch).  The grouped search must equal the
+   per-block loop (a group cap below one block) bit for bit, stats
+   included, in both tiers; both loops' phase times and search times are
+   taken in turns.  The unfused comparator (``fused=False``, kernel #5 or
+   #6 in place of #3 or #4) must give the fused search's results bit for
+   bit, its prune-only kernel launched once an attempt, and equal its own
+   per-block loop bit for bit, gate stats included.  On Deep, the index
+   is then wrapped in a ``TieredPointStore`` holding 40% of its cold
+   bytes on the card: ``knn_batch`` through it (counts reset just before,
+   read just after) must return the resident ids, and a fixed-budget
+   search must equal the resident one bit for bit, with #5 or #6
+   launched once a Stage B window; Stage B in windows must equal Stage B
+   a block at a time (``tiered.WINDOW_BYTES`` below one block; Stage A
+   unchanged) bit for bit, stats and the order of the store's block
+   fetches included, both timed in turns; #5 or #6 over the first
+   window's pooled corner rows, as Stage B launches it, must equal its
+   plain version and the fused kernel's admit bit for bit, and is timed.
 5. A blob corpus where the envelope gate rejects blocks (the settings of
    benchmarks/bench_tiered.py at n = 2^20): a cold and a warm pass
    through the store, bit-equal to resident search.
@@ -89,6 +96,7 @@ present) or when it does not stand in a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -283,14 +291,15 @@ class Smoke:
                     "bregman_prune_mask": ops.bregman_prune_block,
                     "bregman_prune_mask_quant":
                     ops.bregman_prune_block_quant,
+                    "bregman_prune_mask_blocks": ops.bregman_prune_blocks,
                     "bregman_prune_mask_blocks_quant":
                     ops.bregman_prune_blocks_quant}[name]
         if name.startswith("bregman_filter_prune_blocks"):
             from repro_torch.kernels import bregman_fused
             return getattr(bregman_fused, name)
-        if name == "bregman_prune_mask_blocks_quant":
+        if name.startswith("bregman_prune_mask_blocks"):
             from repro_torch.kernels import bregman_prune
-            return bregman_prune.bregman_prune_mask_blocks_quant
+            return getattr(bregman_prune, name)
         mod = self.counters[name][0]
         if name.startswith("bregman_ub_matrix"):
             return lambda *a: getattr(mod, name)(*a[:-1])
@@ -594,39 +603,41 @@ class Smoke:
 
     def compare_prune_blocks(self, tables: tuple, qs: dict, qb,
                              blocks: list, bn: int, time_it: bool) -> dict:
-        """Kernel #6's block-list entry over the ``blocks`` (row blocks of
-        ``bn`` rows) of the int8 corner codes (``tables[6:]``, each code
-        table followed by its scale and zero-point) against its plain
-        version and against #4's admit over the same list of the twelve
-        ``tables``: bit-equal, a short block's rows past n inert.  With
-        ``time_it``, one launch's time beside its bound and the plain
-        version's."""
+        """The prune-only kernel's block-list entry (#5, or #6 for the
+        twelve int8 tables) over the ``blocks`` (row blocks of ``bn`` rows)
+        of the corner tables (``tables[2:]`` of ``(alpha, sg, amin,
+        gmax)``, or ``tables[6:]``, each code table followed by its scale
+        and zero-point) against its plain version and against the fused
+        kernel's (#3's or #4's) admit over the same list of ``tables``:
+        bit-equal, a short block's rows past n inert.  With ``time_it``,
+        one launch's time beside its bound and the plain version's."""
         torch, ref = self.torch, self.ref
-        corners = tables[6:]
+        quant = len(tables) == 12
+        sfx = "_quant" if quant else ""
+        name = "bregman_prune_mask_blocks" + sfx
+        corners = tables[6:] if quant else tables[2:]
         qc, sd = qs["qconst"], qs["sqrt_delta"]
         n, m = corners[0].shape
         q = qc.shape[0]
         ids = torch.tensor(blocks, dtype=torch.int32).to(self.dev)
-        kern = self.kernel("bregman_prune_mask_blocks_quant")
-        plain = ref.bregman_prune_mask_blocks_quant
+        kern = self.kernel(name)
+        plain = getattr(ref, name)
         got = kern(*corners, qc, sd, qb, ids, bn)
         want = plain(*corners, qc, sd, qb, ids, bn)
-        _, fused = self.kernel("bregman_filter_prune_blocks_quant")(
-            *tables, torch.sum(qc, dim=-1), qc, sd, torch.sum(sd, dim=-1),
-            qb, ids, bn)
+        query = ((torch.sum(qc, dim=-1), qc, sd, torch.sum(sd, dim=-1), qb)
+                 if quant else (torch.sum(qc, dim=-1), qc, sd, qb))
+        _, fused = self.kernel("bregman_filter_prune_blocks" + sfx)(
+            *tables, *query, ids, bn)
         self.sync()
         shape = (n, m, q, bn, len(blocks))
         real = ref.block_rows(ids, bn) < n
         expect(got.dtype == torch.int32 and bool(torch.equal(got, want)),
-               f"bregman_prune_mask_blocks_quant is not bit-equal to its "
-               f"plain version at {shape} ({int((got != want).sum())} "
-               "differ)")
+               f"{name} is not bit-equal to its plain version at {shape} "
+               f"({int((got != want).sum())} differ)")
         expect(bool(torch.equal(got, fused)),
-               f"bregman_prune_mask_blocks_quant differs from #4's admit at "
-               f"{shape}")
+               f"{name} differs from the fused kernel's admit at {shape}")
         expect(not bool(got[~real].any()),
-               f"bregman_prune_mask_blocks_quant: rows past n not inert at "
-               f"{shape}")
+               f"{name}: rows past n not inert at {shape}")
         out = {"shape": list(shape), "admitted": int(want.sum()),
                "pairs": int(real.sum()) * q}
         del got, want, fused
@@ -637,15 +648,17 @@ class Smoke:
             [lambda: kern(*corners, qc, sd, qb, ids, bn)], reps)
         out["plain_ms"] = self.time_calls(
             [lambda: plain(*corners, qc, sd, qb, ids, bn)], reps)
-        # The listed rows' corner codes and their four fp32 decode columns
-        # read once, the three (q, M) query tables and the block ids, the
-        # int32 mask of every listed row written (a short block's inert
-        # rows too); the decode's multiply and add per corner element, the
-        # add, multiply, subtract and compare per (row, query, subspace).
+        # The listed rows' corner tables read once (fp32; or int8 codes
+        # with their four fp32 decode columns), the three (q, M) query
+        # tables and the block ids, the int32 mask of every listed row
+        # written (a short block's inert rows too); the add, multiply,
+        # subtract and compare per (row, query, subspace), and in int8 the
+        # decode's multiply and add per corner element.
         r, out_rows = int(real.sum()), len(blocks) * bn
-        nbytes = (2 * m * r + 16 * r + 12 * q * m + 4 * len(blocks)
-                  + 4 * out_rows * q)
-        ops = 4 * r * q * m + 4 * r * m
+        elem, per_row = (1, 16) if quant else (4, 0)
+        nbytes = (2 * elem * m * r + per_row * r + 12 * q * m
+                  + 4 * len(blocks) + 4 * out_rows * q)
+        ops = 4 * r * q * m + (4 * r * m if quant else 0)
         out["bound"] = bound(nbytes, ops)
         return out
 
@@ -795,10 +808,10 @@ class Smoke:
             say(f"ragged int8 filter {n}x{m}x{q}: max_err_over_tol ub "
                 f"{r['ub_err_over_tol']:.3g} fused {r['fp_err_over_tol']:.3g}"
                 f", admit bit-equal ({r['admitted']}/{r['pairs']} admitted)")
-        # #3 over block lists: non-contiguous, a short last block, one
-        # block, M even (70) and chunked (300), two query tiles (q = 65);
-        # #1 over a span that starts 3 rows into its table (not 16-byte
-        # aligned).
+        # #3 and #5 over block lists: non-contiguous, a short last block,
+        # one block, M even (70) and chunked (300), two query tiles (q =
+        # 65); #1 over a span that starts 3 rows into its table (not
+        # 16-byte aligned).
         for n, m, q, bn, blocks in BLOCK_LIST_CASES:
             a, sg, am, gm, qc, sd, qb = [
                 t.to(self.dev) for t in filter_inputs(torch, n, m, q,
@@ -806,13 +819,17 @@ class Smoke:
             qs = {"qconst": qc, "sqrt_delta": sd}
             r = self.compare_blocks((a, sg, am, gm), qs, qb, blocks, bn,
                                     time_it=False)
+            r5 = self.compare_prune_blocks((a, sg, am, gm), qs, qb, blocks,
+                                           bn, time_it=False)
             r1 = self.compare_ub_span((a[3:], sg[3:]), qs, time_it=False)
             expect(0 < r["admitted"] < r["pairs"],
                    f"ragged block-list inputs {n, m, q} gave an unmixed mask")
             say(f"ragged block list {n}x{m}x{q}, bn {bn}, blocks {blocks}: "
                 f"#3 admit bit-equal ({r['admitted']}/{r['pairs']}), ub "
-                f"max_err_over_tol {r['err_over_tol']:.3g}; #1 over rows "
-                f"3.. max_err_over_tol {r1['err_over_tol']:.3g}")
+                f"max_err_over_tol {r['err_over_tol']:.3g}; #5 bit-equal to "
+                f"its plain version and #3's admit ({r5['admitted']} "
+                f"admitted); #1 over rows 3.. max_err_over_tol "
+                f"{r1['err_over_tol']:.3g}")
         # #4 and #6 over the same block lists: codes at -128 and 127, a
         # scale-0 row, the first listed row tying qb; #2 over a span that
         # starts 3 rows into its tables (neither the codes nor the decode
@@ -837,9 +854,11 @@ class Smoke:
                 f" #6 bit-equal to its plain version and #4's admit "
                 f"({r6['admitted']} admitted); #2 over rows 3.. "
                 f"max_err_over_tol {r2['err_over_tol']:.3g}")
-        # The prune-only kernels: Deep's block shape and a ragged one, each
-        # with a mixed mask and the tie in row 0.
-        for n, m, q in [(4096, 39, 14), (4133, 1, 1), (77, 70, 33)]:
+        # The prune-only kernels: Deep's block shape and ragged ones (M odd
+        # and even), each with a mixed mask and the tie in row 0; #5 also
+        # over a span 3 rows into its tables (not 16-byte aligned).
+        for n, m, q in [(4096, 39, 14), (4096, 40, 14), (4133, 1, 1),
+                        (77, 70, 33)]:
             _, _, am, gm, qc, sd, qb = [
                 t.to(self.dev) for t in filter_inputs(torch, n, m, q, seed=n)]
             *tables, qc8, sd8, qb8 = [
@@ -851,6 +870,9 @@ class Smoke:
             r8 = self.compare_prune([tuple(tables[6:])],
                                     {"qconst": qc8, "sqrt_delta": sd8}, qb8,
                                     time_it=False)
+            self.compare_prune([(am[3:], gm[3:])], {"qconst": qc,
+                                                    "sqrt_delta": sd}, qb,
+                               time_it=False)
             for rr in (r, r8):
                 expect(0 < rr["admitted"] < rr["pairs"] or rr["pairs"] < 8,
                        f"ragged prune inputs {n, m, q} gave an unmixed mask")
@@ -1153,33 +1175,35 @@ class Smoke:
         rec["profile"] = self.profile(search, rec["search_ms"])
         say(f"{label}: device busy {rec['profile']['busy_share']} of the "
             f"unprofiled search")
-        # Every kernel of the resident search runs filter_span.cuh's tile or
-        # the refine's: none the per-block filter_tile.cuh.
-        expect(self.rehearsal or rec["profile"]["filter_tile_calls"] == 0,
-               f"{label}: the resident search ran filter_tile_kernel "
-               f"{rec['profile'].get('filter_tile_calls')} times")
+        # The fused search launches no prune-only kernel (#5, #6).
+        expect(self.rehearsal or rec["profile"]["prune_only_calls"] == 0,
+               f"{label}: the resident search ran a prune-only kernel "
+               f"{rec['profile'].get('prune_only_calls')} times")
 
-        # The kernels at the shapes this search gave them: #1 and #3 a row
-        # block, and in fp32 also as the grouped search launches them.
+        # The kernels at the shapes this search gave them a row block at a
+        # time, then as the grouped search launches them.
+        corners = tsearch._row_blocks(
+            tuple(getattr(forest, f)
+                  for f in tsearch.CORNER_FIELDS[forest.storage]), bn, nb)
         blocks = [f + c for f, c in zip(
-            tsearch._filter_blocks(forest, bn, nb),
-            tsearch._corner_blocks(forest, bn, nb), strict=True)]
+            tsearch._filter_blocks(forest, bn, nb), corners, strict=True)]
         rec["filter_kernels"] = self.compare_filter(blocks, qs, qb,
                                                     time_it=True)
         rec["refine_kernel"] = self.compare_refine(
             operands, qs["grad"], qs["c_y"], forest.family_name,
             time_it=True)
         del operands, sel, valid, blocks
-        rec["prune_kernels"] = self.compare_prune(
-            tsearch._corner_blocks(forest, bn, nb), qs, qb, time_it=True)
+        rec["prune_kernels"] = self.compare_prune(corners, qs, qb,
+                                                  time_it=True)
+        del corners
         say(f"{label}: kernels agree at the path's shapes: filter "
             + json.dumps(rec["filter_kernels"]) + " refine "
             + json.dumps(rec["refine_kernel"]) + " prune "
             + json.dumps(rec["prune_kernels"]))
         rec["grouped_kernels"] = self.compare_grouped(forest, qs, qb, bn,
                                                       blocks_run)
-        say(f"{label}: {'#2, #4 and #6' if quantize else '#1 and #3'} at the "
-            "grouped shape " + json.dumps(rec["grouped_kernels"]))
+        say(f"{label}: {'#2, #4 and #6' if quantize else '#1, #3 and #5'} at "
+            "the grouped shape " + json.dumps(rec["grouped_kernels"]))
         rec["per_block_loop"] = self.check_grouped(
             label, forest, ys0, rec["budget_final"], search)
         rec["unfused"] = self.drive_unfused(label, forest, ys[:q_batch],
@@ -1227,8 +1251,8 @@ class Smoke:
         """The grouped kernels of a tier as the search launches them over
         one attempt (at budget n every block is admitted where the union
         holds every point): #3 (#4 in int8) over every row block in one
-        block-list launch, #1 (#2) over all n rows, and in int8 the
-        unfused search's #6 over every row block in one block-list launch;
+        block-list launch, #1 (#2) over all n rows, and the unfused
+        search's #5 (#6) over every row block in one block-list launch;
         each against its plain version and timed beside its bound."""
         from repro_torch.core import search as tsearch
         nb = -(-forest.n // bn)
@@ -1240,9 +1264,9 @@ class Smoke:
         quant = forest.storage == "int8"
         out["ub"] = self.compare_ub_span(tables[:6] if quant else tables[:2],
                                          qs, time_it=True)
-        if quant:
-            out["prune"] = self.compare_prune_blocks(
-                tables, qs, qb, list(range(nb)), bn, time_it=True)
+        out["prune"] = self.compare_prune_blocks(tables, qs, qb,
+                                                 list(range(nb)), bn,
+                                                 time_it=True)
         return out
 
     def check_grouped(self, label: str, forest, ys0, budget: int,
@@ -1258,8 +1282,7 @@ class Smoke:
         cap = tsearch.GROUP_OUTPUT_BYTES
 
         def run(c: int, check: bool):
-            tsearch.GROUP_OUTPUT_BYTES = c
-            try:
+            with capped(tsearch, "GROUP_OUTPUT_BYTES", c):
                 out = {}
                 if check:
                     self.reset_launches()
@@ -1274,8 +1297,6 @@ class Smoke:
                 search()
                 out["search_ms"] = 1e3 * (time.perf_counter() - t0)
                 return out
-            finally:
-                tsearch.GROUP_OUTPUT_BYTES = cap
 
         runs = [("per_block", run(0, True)), ("grouped", run(cap, True)),
                 ("grouped", run(cap, False)), ("per_block", run(0, False))]
@@ -1326,9 +1347,11 @@ class Smoke:
                       quantize: bool, blocks_run: int) -> dict:
         """The unfused comparator (``fused=False``: windowed gate, kernel #5
         or #6, no UB tile) at the fused search's budget: ids, dists,
-        exact and num_candidates bit-equal; #6 launched once a group of the
-        ``blocks_run`` admitted blocks, #5 once a block.  One timed search
-        of each."""
+        exact and num_candidates bit-equal; the prune-only kernel launched
+        once a group of the ``blocks_run`` admitted blocks, one group an
+        attempt.  Then, in turns (per-block, grouped, grouped, per-block),
+        the unfused search against its per-block loop (a group cap below
+        one block): bit-equal, the gate's stats included, each timed."""
         torch = self.torch
         from repro_torch.core import search as tsearch
 
@@ -1350,13 +1373,14 @@ class Smoke:
         self.expect_launches(label + " fused=False", out["launches"],
                              UNFUSED_PATH, quantize)
         name = "bregman_prune_mask" + ("_quant" if quantize else "")
-        gb = tsearch._group_blocks(name, tsearch._block_layout(
+        gb = tsearch._group_blocks(tsearch._block_layout(
             forest.n, BLOCK_ROWS)[0], int(ys.shape[0]), 4)
         out["prune_groups"] = -(-blocks_run // gb)
-        expect(self.rehearsal or out["launches"][name] == out["prune_groups"],
+        expect(self.rehearsal
+               or out["launches"][name] == out["prune_groups"] == 1,
                f"{label} fused=False: {name} launched "
                f"{out['launches'][name]} times for {blocks_run} admitted "
-               f"blocks in groups of {gb}")
+               f"blocks in groups of {gb}, not once an attempt")
         for f in got._fields:
             expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
                    f"{label}: fused=False {f} differ from the fused search's")
@@ -1368,7 +1392,50 @@ class Smoke:
             out[key] = 1e3 * (time.perf_counter() - t0)
         say(f"{label}: fused=False == fused bit for bit at budget {budget} "
             f"(q = {out['queries']}); one search {out['unfused_ms']:.2f} ms "
-            f"against fused {out['fused_ms']:.2f} ms")
+            f"against fused {out['fused_ms']:.2f} ms; {name} launched "
+            f"{out['launches'][name]} times")
+        out["per_block_loop"] = self.check_unfused_grouped(label, forest, ys,
+                                                           budget, name)
+        return out
+
+    def check_unfused_grouped(self, label: str, forest, ys, budget: int,
+                              name: str) -> dict:
+        """``fused=False`` grouped (the default cap) against its per-block
+        loop (a cap below one block), in turns: results, gate stats
+        (env_admitted, blocks_run) and tau bit for bit; the launches of
+        the prune-only kernel ``name`` and the host ms of each."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        cap = tsearch.GROUP_OUTPUT_BYTES
+
+        def run(c: int):
+            with capped(tsearch, "GROUP_OUTPUT_BYTES", c):
+                self.reset_launches()
+                self.sync()
+                t0 = time.perf_counter()
+                res = tsearch._knn_search_batch_core(
+                    forest, ys, K, budget, BLOCK_ROWS, with_stats=True,
+                    fused=False)
+                self.sync()
+                return {"res": res, "ms": 1e3 * (time.perf_counter() - t0),
+                        "launches": self.launches()[name]}
+
+        runs = [("per_block", run(0)), ("grouped", run(cap)),
+                ("grouped", run(cap)), ("per_block", run(0))]
+        (wres, wenv, wrun, wtau) = runs[0][1]["res"]
+        (gres, genv, grun, gtau) = runs[1][1]["res"]
+        same = (all(bool(torch.equal(getattr(gres, f), getattr(wres, f)))
+                    for f in gres._fields)
+                and bool(torch.equal(genv, wenv)) and grun == wrun
+                and bool(torch.equal(gtau, wtau)))
+        expect(same, f"{label}: grouped fused=False differs from its "
+               "per-block loop")
+        out = {"blocks_run": int(wrun),
+               "launches": {k: r["launches"] for k, r in runs[:2]},
+               "turns": [{"loop": k, "ms": r["ms"]} for k, r in runs]}
+        say(f"{label}: grouped fused=False == per-block loop bit for bit "
+            f"(gate stats included) at budget {budget}; {name} launches "
+            f"{out['launches']}; in turns " + json.dumps(out["turns"]))
         return out
 
     def drive_tiered(self, label: str, forest, ys, q_batch: int, ids,
@@ -1441,14 +1508,27 @@ class Smoke:
             expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
                    f"{label}: tiered {f} at budget {budget} differ from the "
                    "resident search's")
+        out["stage_b"] = self.check_stage_b(label, forest, ys0, budget, want,
+                                            quantize)
+        # The Stage B window is transient (freed when a search returns)
+        # and outside resident_bytes; counted here at its last size.
+        info = store.cache_info()
+        out["window_bytes"] = info["window_bytes"]
         out["store_device_bytes"] = (forest_device_bytes(store._hot)
-                                     + store.cache_info()["bytes_cached"]
-                                     + store.cache_info()["pool_bytes"])
+                                     + info["bytes_cached"]
+                                     + info["pool_bytes"]
+                                     + info["window_bytes"])
         out["resident_device_bytes"] = forest_device_bytes(forest)
         out["copies"] = self.copy_overlap(
             lambda: tsearch.knn_search_batch(store, ys0, K, budget,
                                              device=self.dev),
             f"tiered_trace_{'int8' if quantize else 'fp32'}.json")
+        # The profiled search's prune-only launches: one a Stage B window.
+        expect(self.rehearsal or out["copies"]["prune_launches"]
+               == out["stage_b"]["windows"],
+               f"{label}: the profiled tiered search ran "
+               f"{out['copies'].get('prune_launches')} prune-only kernels "
+               f"in {out['stage_b']['windows']} Stage B windows")
         fast = TieredPointStore.from_index(forest, resident_bytes=2 * cold,
                                            block_rows=BLOCK_ROWS)
         got = fast.search(ys0, K, budget, device=self.dev)
@@ -1460,6 +1540,125 @@ class Smoke:
             f"store holds {out['store_device_bytes']} B on its device against "
             f"{out['resident_device_bytes']} B resident; copies "
             + json.dumps(out["copies"]) + "; resident fast path at 2x cold")
+        return out
+
+    def check_stage_b(self, label: str, forest, ys0, budget: int, want,
+                      quantize: bool) -> dict:
+        """Stage B in windows (the default ``tiered.WINDOW_BYTES``) against
+        Stage B a block at a time (a window cap below one block; Stage A
+        reads the search's own group cap, so it runs the same in both),
+        each one search of ``ys0`` at ``budget`` through a fresh store at
+        40% of the cold bytes, in turns (windows, a block at a time, a
+        block at a time, windows): the results bit-equal (and to the
+        resident search's ``want``), the stats equal, the store's
+        ``_block`` calls the same blocks in the same order; the prune-only
+        kernel launched once a window against once a block.  Host ms of
+        each beside.  Then the prune-only kernel at the shape Stage B gives
+        it: the store's corner blocks of the first window concatenated as
+        Stage B pools them, in one span launch, bit-equal to its plain
+        version and to the fused kernel's admit, and timed."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.core import tiered
+        from repro_torch.core.tiered import TieredPointStore
+        cap = tiered.WINDOW_BYTES
+        name = "bregman_prune_mask" + ("_quant" if quantize else "")
+        fields = tsearch.CORNER_FIELDS[forest.storage]
+        bn = tsearch._block_layout(forest.n, BLOCK_ROWS)[0]
+        q = int(ys0.shape[0])
+        row_bytes = sum(getattr(forest, f)[0].numel()
+                        * getattr(forest, f).element_size() for f in fields)
+
+        def run(c: int, keep: bool = False) -> dict:
+            with capped(tiered, "WINDOW_BYTES", c):
+                store = TieredPointStore.from_index(
+                    forest, resident_bytes=int(0.4 * cold_bytes(forest)),
+                    block_rows=BLOCK_ROWS)
+                calls = []
+                fetch = store._block
+
+                def block(bid):
+                    calls.append(bid)
+                    return fetch(bid)
+
+                store._block = block
+                try:
+                    self.reset_launches()
+                    self.sync()
+                    t0 = time.perf_counter()
+                    res = store.search(ys0, K, budget, device=self.dev)
+                    self.sync()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    wb = tiered._window_blocks(row_bytes, bn, q)
+                    admitted = store.stats["blocks_admitted"]
+                    return {"res": res, "ms": ms, "stats": dict(store.stats),
+                            "calls": calls,
+                            "launches": self.launches()[name],
+                            "window_blocks": wb,
+                            "windows": -(-admitted // wb),
+                            "window_bytes":
+                                store.cache_info()["window_bytes"],
+                            "store": store if keep else None}
+                finally:
+                    store.close()
+
+        runs = [("windows", run(cap, keep=True)), ("per_block", run(0)),
+                ("per_block", run(0)), ("windows", run(cap))]
+        win, one = runs[0][1], runs[1][1]
+        for _, r in runs:
+            for f in win["res"]._fields:
+                expect(bool(torch.equal(getattr(r["res"], f),
+                                        getattr(want, f))),
+                       f"{label}: Stage B gives other {f} in windows or a "
+                       "block at a time than the resident search")
+            expect(r["stats"] == win["stats"] and r["calls"] == win["calls"],
+                   f"{label}: Stage B in windows fetched otherwise than a "
+                   "block at a time")
+        admitted = win["stats"]["blocks_admitted"]
+        expect(self.rehearsal or (win["launches"] == win["windows"]
+                                  and one["launches"] == admitted),
+               f"{label}: Stage B launched {name} {win['launches']} times "
+               f"in {win['windows']} windows and {one['launches']} times a "
+               f"block at a time for {admitted} admitted blocks")
+        expect(win["window_bytes"] == min(win["window_blocks"], admitted)
+               * bn * row_bytes,
+               f"{label}: the store reports a {win['window_bytes']}-byte "
+               f"window for {win['window_blocks']} blocks of {row_bytes} "
+               "corner bytes a row")
+
+        # The first window's corner rows as Stage B pools them, from the
+        # store's own host blocks (a short last block padded inert).
+        store = win.pop("store")
+        qs, qb, env = tiered._stage_a(store._hot, ys0, K, BLOCK_ROWS,
+                                      tsearch.resolve_env_block_rows(None),
+                                      None)
+        listed = torch.nonzero(env.any(dim=1)).flatten().tolist()
+        expect(listed == win["calls"][:admitted],
+               f"{label}: Stage A's admitted blocks are not the ones Stage "
+               "B resolved")
+        first = listed[:win["window_blocks"]]
+        corners = tuple(torch.cat([store._blocks[f][b] for b in first])
+                        .to(self.dev) for f in fields)
+        del store
+        window_kernel = self.compare_prune([corners], qs, qb, time_it=True)
+        del corners
+        out = {"budget": budget, "queries": q,
+               "blocks_admitted": admitted,
+               "window_blocks": win["window_blocks"],
+               "windows": win["windows"],
+               "window_bytes": win["window_bytes"], "stats": win["stats"],
+               "launches": {"windows": win["launches"],
+                            "per_block": one["launches"]},
+               "turns": [{"loop": k, "ms": r["ms"]} for k, r in runs],
+               "window_kernel": window_kernel}
+        say(f"{label} tiered: Stage B in windows == a block at a time bit "
+            f"for bit (stats and fetch order included) at budget {budget}; "
+            f"{name} launched {win['launches']} times ({win['windows']} "
+            f"windows of up to {win['window_blocks']} blocks, "
+            f"{win['window_bytes']} B a window outside resident_bytes) "
+            f"against {one['launches']}; in turns "
+            + json.dumps(out["turns"]) + f"; {name} at the window's shape "
+            + json.dumps(window_kernel))
         return out
 
     def copy_overlap(self, fn, trace_name: str) -> dict:
@@ -1677,8 +1876,8 @@ class Smoke:
         busy_ms = sum(r[0] for r in rows) / 1e3
         return {"busy_share": busy_ms / wall_ms, "wall_ms": wall_ms,
                 "device_ms": busy_ms, "profiled_wall_ms": profiled_ms,
-                "filter_tile_calls": sum(c for _, k, c in rows
-                                         if "filter_tile_kernel" in k),
+                "prune_only_calls": sum(c for _, k, c in rows
+                                        if PRUNE_ONLY_KERNEL.search(k)),
                 "top": [{"name": k[:80], "device_ms": us / 1e3, "calls": c}
                         for us, k, c in rows[:10]]}
 
@@ -2344,9 +2543,10 @@ class Smoke:
                     "library_ms": library, **extra}
 
         # #3 and #4 at the grouped search's shape (one attempt's admitted
-        # blocks in one launch), #1 and #2 over an attempt's rows, and #6
-        # over an attempt's blocks as the unfused search launches it, each
-        # with the 4096-row block beside; #5 a row block a launch.
+        # blocks in one launch), #1 and #2 over an attempt's rows, and #5
+        # and #6 over an attempt's blocks as the unfused search launches
+        # them, each with the 4096-row block beside (and #5/#6 also at the
+        # shape of a tiered Stage B window).
         gk = rec["grouped_kernels"]
         f = gk["fp"]
         fp_row = entry(
@@ -2367,24 +2567,25 @@ class Smoke:
             block_plain_ms=fk["ub_plain"], block_bound_ms=fk["ub_bound"][0],
             block_library_ms=fk["ub_library"])
         # The masks are bit-equal (compare_prune, compare_prune_blocks), so
-        # the error is 0.  #5's launches are those of the tiered Deep path
-        # (Stage B, a block a launch); #6's those of the unfused search
-        # (a group a launch), the tiered path's beside.
+        # the error is 0.  #5's and #6's launches are those of the unfused
+        # search (a group a launch), the tiered cold pass's beside (Stage
+        # B, a window a launch), with one window's launch timed.
         tiered = rec["tiered"]["launches"]
-        if "prune" in gk:
-            p = gk["prune"]
-            prune_row = entry(
-                "bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0, p["ms"],
-                p["plain_ms"], p["bound"], None,
-                launches=rec["unfused"]["launches"],
-                tile_source=src + "filter_span.cuh", shape=p["shape"],
-                launches_tiered=tiered["bregman_prune_mask" + sfx],
-                block_shape=pk["shape"], block_ms=pk["ms"],
-                block_plain_ms=pk["plain_ms"], block_bound_ms=pk["bound"][0])
-        else:
-            prune_row = entry("bregman_prune_mask", "bregman_prune.cu", 0.0,
-                              0.0, pk["ms"], pk["plain_ms"], pk["bound"],
-                              None, launches=tiered, shape=pk["shape"])
+        stage_b = rec["tiered"]["stage_b"]
+        w = stage_b["window_kernel"]
+        p = gk["prune"]
+        prune_row = entry(
+            "bregman_prune_mask", "bregman_prune.cu", 0.0, 0.0, p["ms"],
+            p["plain_ms"], p["bound"], None,
+            launches=rec["unfused"]["launches"],
+            tile_source=src + "filter_span.cuh", shape=p["shape"],
+            launches_tiered=tiered["bregman_prune_mask" + sfx],
+            stage_b_windows=stage_b["windows"],
+            stage_b_window_shape=w["shape"], stage_b_window_ms=w["ms"],
+            stage_b_window_plain_ms=w["plain_ms"],
+            stage_b_window_bound_ms=w["bound"][0],
+            block_shape=pk["shape"], block_ms=pk["ms"],
+            block_plain_ms=pk["plain_ms"], block_bound_ms=pk["bound"][0])
         refine_extra = {"shape": rk["shape"]}
         sass = self.record.get("sass")
         if sfx and sass is not None:
@@ -2442,6 +2643,18 @@ class Smoke:
              "bound_ms": pc["bound"][0], "bound_by": pc["bound"][1],
              "library_ms": pc["library_ms"]},
         ]
+
+
+@contextlib.contextmanager
+def capped(module, name: str, value: int):
+    """The module constant ``name`` (a byte cap) set to ``value`` within
+    the block, restored after it."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
 
 
 def middle_tile(skv: int, tile: int) -> range:
@@ -2506,10 +2719,10 @@ def device_events(torch, prof) -> list:
             and not e.key.startswith("Command Buffer Full")]
 
 
-# The prune-only kernels' names in a profiler trace: #5 is filter_tile.cuh's
-# kernel, #6 filter_span.cuh's int8 instance with PRUNE true, UB false.
+# The prune-only kernels' names in a profiler trace: filter_span.cuh's
+# instances with PRUNE true and UB false, fp32 (#5) and int8 (#6).
 PRUNE_ONLY_KERNEL = re.compile(
-    r"filter_tile_kernel|filter_span_kernel<signed char, true, false,")
+    r"filter_span_kernel<(?:float|signed char), true, false,")
 
 # The kernels each path launches (the tier's variant of each).
 RESIDENT_PATH = ("bregman_ub_matrix", "bregman_filter_prune",

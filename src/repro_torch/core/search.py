@@ -15,11 +15,10 @@ A (q, d) query block runs five phases:
      (one device sync per search) and launches the fused
      ``bregman_filter_prune_blocks`` kernel (its int8 sibling in the int8
      tier) once per group of those blocks (``fused=False``, the
-     comparator: the windowed gate and the prune-only kernel, int8's
-     once per group through its block list, fp32's
-     ``bregman_prune_mask`` a block a launch, see
-     :data:`PER_BLOCK_KERNELS`); the admitted rows fill the query's
-     ``budget`` candidate slots in index order.
+     comparator: the windowed gate and the prune-only kernel's block-list
+     entry, ``bregman_prune_mask_blocks`` or its int8 sibling, once per
+     group); the admitted rows fill the query's ``budget`` candidate
+     slots in index order.
   5. Refine: one ``bregman_refine_batch`` launch over all queries'
      candidate rows, then the k smallest exact distances.
 
@@ -70,15 +69,12 @@ MAX_BUDGET_DOUBLINGS = 8
 
 # Output bytes of one grouped launch of the filter (#1, #2 in int8: the
 # UB), of the fused filter+prune (#3, #4 in int8: the UB and the admit
-# mask) and of the int8 prune-only kernel (#6: the admit mask):
+# mask) and of the prune-only kernel (#5, #6 in int8: the admit mask):
 # consecutive or listed row blocks share a launch up to this cap, so no
 # (n, q) tile is formed for large n * q.  At 2^27 a Deep attempt (10^6
-# rows, q = 14) is one group.
+# rows, q = 14) is one group.  The tiered store's Stage B windows count
+# their pooled corner bytes against it too.
 GROUP_OUTPUT_BYTES = 1 << 27
-
-# The kernels still launched once a row block: the fp32 prune-only kernel
-# (#5) runs filter_tile.cuh's per-block tile, not a row span.
-PER_BLOCK_KERNELS = frozenset({"bregman_prune_mask"})
 
 
 def resolve_block_rows(block_rows: int | None, n: int) -> int:
@@ -301,12 +297,9 @@ def _row_blocks(fields: tuple, bn: int, nb: int) -> list:
     return [tuple(t[b * bn:(b + 1) * bn] for t in fields) for b in range(nb)]
 
 
-def _group_blocks(kernel: str, bn: int, q: int, pair_bytes: int) -> int:
-    """Row blocks one launch of ``kernel`` takes: its (rows, q) outputs of
-    ``pair_bytes`` a (row, query) within :data:`GROUP_OUTPUT_BYTES`, or one
-    for the kernels of :data:`PER_BLOCK_KERNELS`."""
-    if kernel in PER_BLOCK_KERNELS:
-        return 1
+def _group_blocks(bn: int, q: int, pair_bytes: int) -> int:
+    """Row blocks one grouped launch takes: its (rows, q) outputs of
+    ``pair_bytes`` a (row, query) within :data:`GROUP_OUTPUT_BYTES`."""
     return max(1, GROUP_OUTPUT_BYTES // (bn * q * pair_bytes))
 
 
@@ -337,20 +330,19 @@ FUSED_TABLES = {
               "sg_zp", "alpha_min_pt", "amin_scale", "amin_zp",
               "sqrt_gamma_max_pt", "gmax_scale", "gmax_zp")),
 }
-
-
-def _corner_blocks(index: BallForest, bn: int, nb: int) -> list:
-    """Per-block corner operands: (alpha_min_pt, sqrt_gamma_max_pt), or in
-    the int8 tier their codes, each followed by its scale and zero-point."""
-    fields = tuple(getattr(index, f) for f in CORNER_FIELDS[index.storage])
-    return _row_blocks(fields, bn, nb)
+# The prune-only block-list dispatcher of each tier (``fused=False``) and
+# its corner operands.
+PRUNE_TABLES = {
+    "f32": ("bregman_prune_blocks", CORNER_FIELDS["f32"]),
+    "int8": ("bregman_prune_blocks_quant", CORNER_FIELDS["int8"]),
+}
 
 
 def _prune_block(storage: str, corners: tuple, qs: dict,
                  qb: Tensor) -> Tensor:
-    """The (rows, q) int32 Theorem-3 admit tile of one block's corner
+    """The (rows, q) int32 Theorem-3 admit tile of a row span's corner
     operands (:data:`CORNER_FIELDS` order) through the prune-only kernel
-    of the tier."""
+    of the tier, in one launch."""
     fn = (kernel_ops.bregman_prune_block_quant if storage == "int8"
           else kernel_ops.bregman_prune_block)
     return fn(*corners, qs["qconst"], qs["sqrt_delta"], qb)
@@ -386,7 +378,7 @@ def _batch_filter_topk(index: BallForest, qs: dict, k: int,
     bn, nb = _block_layout(n, block_rows)
     name = ("bregman_ub_matrix_quant" if index.storage == "int8"
             else "bregman_ub_matrix")
-    span = bn * _group_blocks(name, bn, q, 4)
+    span = bn * _group_blocks(bn, q, 4)
     ub_fn = getattr(kernel_ops, name)
     best_v = torch.full((q, k), POS_BIG, dtype=torch.float32, device=dev)
     best_i = torch.zeros((q, k), dtype=torch.long, device=dev)
@@ -517,9 +509,9 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
        the fused filter+prune kernel (its int8 sibling in the int8 tier,
        whose envelopes were reduced over the decoded corners): the (rows,
        q) UB tile and int32 admit tile.  ``fused=False`` launches the
-       prune-only kernel instead, the same admit tile without the UB: in
-       the int8 tier its block-list entry once a group, in fp32 a block a
-       launch (:func:`_prune_block`).
+       prune-only kernel's block-list entry instead (:data:`PRUNE_TABLES`),
+       the same admit tile without the UB, once a group of twice as many
+       blocks (half the output bytes a pair).
     3. **Compaction** — :func:`_fill_slots` routes the tile's members into
        the budget slots; slot order = index order, so any grouping fills
        the slots a per-block loop fills.
@@ -549,39 +541,19 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
         return torch.minimum(tau, torch.where(admit > 0, ub, POS_BIG)
                              .amin(dim=0))
 
-    if fused:
-        name, tables = FUSED_TABLES[index.storage]
-        fn = getattr(kernel_ops, name)
-        tables = tuple(getattr(index, f) for f in tables)
-        gb = _group_blocks(name, bn, q, 8)
-        run = run.to(torch.int32)
-        for g in range(0, len(run_blocks), gb):
-            blocks = run[g:g + gb]
-            ub, admit = fn(*tables, qs["qconst"], qs["sqrt_delta"], qb,
-                           blocks, bn)
-            tau = admitted_tau(ub, admit)
-            sel, count = _fill_slots(sel, count, admit,
-                                     kernel_ref.block_rows(blocks, bn),
-                                     budget)
-    elif index.storage == "int8":
-        # The int8 prune-only kernel (#6), once a group of admitted blocks.
-        corners = tuple(getattr(index, f) for f in CORNER_FIELDS["int8"])
-        gb = _group_blocks("bregman_prune_mask_quant", bn, q, 4)
-        run = run.to(torch.int32)
-        for g in range(0, len(run_blocks), gb):
-            blocks = run[g:g + gb]
-            admit = kernel_ops.bregman_prune_blocks_quant(
-                *corners, qs["qconst"], qs["sqrt_delta"], qb, blocks, bn)
-            sel, count = _fill_slots(sel, count, admit,
-                                     kernel_ref.block_rows(blocks, bn),
-                                     budget)
-    else:
-        # The fp32 prune-only kernel (#5, in PER_BLOCK_KERNELS), one launch
-        # a block.
-        corners = _corner_blocks(index, bn, nb)
-        for b in run_blocks:
-            admit = _prune_block(index.storage, corners[b], qs, qb)
-            sel, count = _fill_block_slots(sel, count, admit, b * bn, budget)
+    name, tables = (FUSED_TABLES if fused else PRUNE_TABLES)[index.storage]
+    fn = getattr(kernel_ops, name)
+    tables = tuple(getattr(index, f) for f in tables)
+    gb = _group_blocks(bn, q, 8 if fused else 4)    # UB and admit, or admit
+    run = run.to(torch.int32)
+    for g in range(0, len(run_blocks), gb):
+        blocks = run[g:g + gb]
+        admit = fn(*tables, qs["qconst"], qs["sqrt_delta"], qb, blocks, bn)
+        if fused:
+            tau = admitted_tau(*admit)
+            admit = admit[1]
+        sel, count = _fill_slots(sel, count, admit,
+                                 kernel_ref.block_rows(blocks, bn), budget)
     return (sel, _slot_validity(count, budget), count,
             env_admit_all.sum(dim=0), len(run_blocks), tau)
 

@@ -19,28 +19,37 @@ A search is the resident pipeline re-cut at the host/device boundary:
    ``qb`` (with the int8 slack and the optional §8 shrink), then the
    resident path's own envelope gate (``search._envelope_gate``): the
    host reads once which blocks some query admits.  Hot tables only.
-2. **Stage B** — the admitted blocks, in index order, through the
-   prune-only kernel (#5, or #6 in int8) and ``search._fill_block_slots``.
-   While block i is pruned, the next ``prefetch_depth`` admitted blocks
-   are in flight: a worker thread copies each block's tables to the device
-   on the store's own CUDA stream (``non_blocking`` from pinned memory)
-   and records an event; the compute stream waits on that event before it
-   reads the block, and each block tensor is marked as used by the compute
-   stream (``record_stream``), so an LRU eviction never frees memory a
-   queued kernel still reads.  Fetched blocks land in a device-side LRU
-   cache budgeted by ``resident_bytes``.
+2. **Stage B** — the admitted blocks are resolved in index order, and
+   each one's corner tables are copied into its rows of a window buffer
+   on the device; a full window (or the last) takes one launch of the
+   prune-only kernel (#5, or #6 in int8) over its rows and one pooled
+   rank fill (:func:`_prune_pool`).  A window holds as many blocks as keep
+   its corner bytes and its mask within :data:`WINDOW_BYTES`
+   (:func:`_window_blocks`); the window is transient device memory of the
+   search, outside ``resident_bytes`` (``cache_info()["window_bytes"]``
+   gives the last one's size).  While block i is resolved, the next
+   ``prefetch_depth`` admitted blocks are in flight: a worker thread
+   copies each block's tables to the device on the store's own CUDA
+   stream (``non_blocking`` from pinned memory) and records an event; the
+   compute stream waits on that event before it reads the block, and each
+   block tensor is marked as used by the compute stream
+   (``record_stream``), so an LRU eviction never frees memory a queued
+   copy or kernel still reads.  Fetched blocks land in a device-side LRU
+   cache budgeted by ``resident_bytes``; the calls into it, and so
+   ``stats``, are those of a loop that prunes one block at a time.
 3. **Stage C** — the admitted blocks' rows are concatenated into one
    refine pool; the candidates' global rows are remapped into it, and the
    refine kernel (#7, or #8 in int8) and the stable top-k run as in the
    resident ``search._refine_batch``.
 
 When every admitted block is already cached (the warm path), Stages B and
-C run once over the pooled rows: one prune launch over all of them, then a
-rank compaction that gives the per-block fills' ``(sel, count)`` bit for
-bit.  Results are bit-equal to the resident ``knn_search_batch`` /
-``knn_search_batch_approx`` on the same index.  When the cold tables fit
-``resident_bytes`` (or it is ``None``) the store keeps the whole forest on
-the device and delegates to the resident search.
+C run once over the pooled rows: one prune launch over all of them.  A
+pooled rank fill, a window's or the warm pool's, gives the per-block
+fills' ``(sel, count)`` bit for bit.  Results are bit-equal to the
+resident ``knn_search_batch`` / ``knn_search_batch_approx`` on the same
+index.  When the cold tables fit ``resident_bytes`` (or it is ``None``)
+the store keeps the whole forest on the device and delegates to the
+resident search.
 
 On the CPU the same code runs with host copies, and nothing is pinned.
 """
@@ -56,6 +65,7 @@ from concurrent.futures import TimeoutError as _FutureTimeoutError
 import numpy as np
 import torch
 
+from ..kernels import ref as kernel_ref
 from . import search as _search
 from .index import BallForest, cold_point_fields, inert_fill
 from .search import (CORNER_FIELDS, POS_BIG, REFINE_FIELDS, SearchResult,
@@ -69,6 +79,11 @@ Tensor = torch.Tensor
 # prune, one more is held against fetch jitter.
 DEFAULT_PREFETCH_DEPTH = 2
 MAX_PREFETCH_DEPTH = 64
+
+# Cap of one Stage B window: its pooled corner bytes plus its (rows, q)
+# int32 mask, 2^27 bytes as the resident search's group cap.  Transient
+# device memory beside the block cache, not counted in ``resident_bytes``.
+WINDOW_BYTES = 1 << 27
 
 
 class FetchTimeout(RuntimeError):
@@ -137,28 +152,25 @@ def _stage_a(hot: BallForest, ys: Tensor, k: int, block_rows: int,
     return qs, qb, env_admit
 
 
-def _prune_step(sel: Tensor, count: Tensor, corners: tuple, qs: dict,
-                qb: Tensor, off: int, budget: int, n: int,
-                storage: str) -> tuple[Tensor, Tensor]:
-    """One admitted block: the prune-only kernel, then the resident scan's
-    own slot fill over the block's real rows (its pad rows cut off)."""
-    admit = _search._prune_block(storage, corners, qs, qb)
-    return _search._fill_block_slots(sel, count, admit[:n - off], off,
-                                     budget)
+def _window_blocks(row_bytes: int, bn: int, q: int) -> int:
+    """Blocks one Stage B window pools: their corner rows (``row_bytes``
+    a row) and their (rows, q) int32 mask within :data:`WINDOW_BYTES`."""
+    return max(1, WINDOW_BYTES // (bn * (row_bytes + 4 * q)))
 
 
 def _prune_pool(sel: Tensor, count: Tensor, corners: tuple, gidx: Tensor,
                 qs: dict, qb: Tensor, budget: int, n: int,
                 storage: str) -> tuple[Tensor, Tensor]:
-    """All admitted blocks in ONE prune launch over the pooled rows.
+    """Pooled admitted blocks in ONE prune launch over their rows: the
+    warm path's whole admitted set, or one Stage B window.
 
-    ``corners`` are the admitted blocks' corner tables concatenated in
-    ascending block order; ``gidx`` maps each pooled row to its global row
-    (pad rows carry a row >= n and are masked).  The admit kernel is
-    elementwise per row and the pool keeps ascending global order, so one
-    rank search over the pool's running admit count routes the same rows
-    into the same slots as the per-block fills: ``(sel, count)`` bit for
-    bit.
+    ``corners`` are the blocks' corner tables concatenated in ascending
+    block order; ``gidx`` maps each pooled row to its global row (pad rows
+    carry a row >= n and are masked).  The admit kernel is elementwise per
+    row and the pool keeps ascending global order, above every row routed
+    before it, so one rank search over the pool's running admit count
+    routes the same rows into the same slots as the per-block fills:
+    ``(sel, count)`` bit for bit.
     """
     admit = _search._prune_block(storage, corners, qs, qb)
     admit = admit * (gidx < n).to(admit.dtype)[:, None]
@@ -234,6 +246,9 @@ class TieredPointStore:
         # refine tables, block -> pool slot).  One more device copy of the
         # admitted set, reported as pool_bytes.
         self._pool_cache: tuple | None = None
+        # Bytes of the last Stage B window buffer (transient, freed when
+        # the search returns; outside resident_bytes).
+        self._window_bytes = 0
         self._executor: ThreadPoolExecutor | None = None
         self._copy_stream = None
 
@@ -373,6 +388,7 @@ class TieredPointStore:
         return {"blocks_cached": len(self._cache),
                 "bytes_cached": self._cache_bytes,
                 "pool_bytes": pool_bytes,
+                "window_bytes": self._window_bytes,
                 "pinned_blocks": len(self._pinned),
                 "num_blocks": self._nb,
                 "resident_bytes": self.resident_bytes,
@@ -515,8 +531,7 @@ class TieredPointStore:
         tables = tuple(torch.cat(parts) for parts in zip(*(
             self._fields(b, REFINE_FIELDS[self.storage]) for b in bundles),
             strict=True))
-        gidx = (torch.tensor(key, device=dev)[:, None] * bn
-                + torch.arange(bn, device=dev)[None, :]).reshape(-1)
+        gidx = kernel_ref.block_rows(torch.tensor(key, device=dev), bn)
         pos_of = torch.zeros(self._nb, dtype=torch.long, device=dev)
         pos_of[list(key)] = torch.arange(len(key), device=dev)
         self._pool_cache = (key, corners, gidx, tables, pos_of)
@@ -562,6 +577,43 @@ class TieredPointStore:
                 validate=False, device=dev)
         return self._search_tiered(ys, k, budget, p_guarantee, eb)
 
+    def _stage_b(self, admitted: list, sel: Tensor, count: Tensor, qs: dict,
+                 qb: Tensor, budget: int) -> tuple[Tensor, Tensor]:
+        """The admitted blocks in windows: each block resolved as a loop
+        that pruned it alone would (prefetch ``prefetch_depth`` blocks
+        ahead, then ``_block``), its corner tables copied into its rows of
+        the window on the compute stream, one prune launch and one pooled
+        fill a full window.  The window buffer (up to :data:`WINDOW_BYTES`
+        with its mask) lives for this call only, outside
+        ``resident_bytes``."""
+        n, bn, dev = self.n, self._bn, self.device
+        names = CORNER_FIELDS[self.storage]
+        depth = self.prefetch_depth
+        ids = torch.tensor(admitted, device=dev)
+        window, wb = (), 1
+        for j, bid in enumerate(admitted):
+            for ahead in admitted[j:j + 1 + depth]:
+                self._ensure_inflight(ahead)
+            corners = self._fields(self._block(bid), names)
+            if not window:
+                row_bytes = sum(_nbytes(t) for t in corners) // bn
+                wb = min(_window_blocks(row_bytes, bn, qb.shape[0]),
+                         len(admitted))
+                window = tuple(torch.empty((wb * bn,) + t.shape[1:],
+                                           dtype=t.dtype, device=dev)
+                               for t in corners)
+                self._window_bytes = sum(_nbytes(b) for b in window)
+            w = j % wb
+            for buf, t in zip(window, corners, strict=True):
+                buf[w * bn:(w + 1) * bn].copy_(t)
+            if w == wb - 1 or j == len(admitted) - 1:
+                rows = (w + 1) * bn
+                sel, count = _prune_pool(
+                    sel, count, tuple(buf[:rows] for buf in window),
+                    kernel_ref.block_rows(ids[j - w:j + 1], bn), qs, qb,
+                    budget, n, self.storage)
+        return sel, count
+
     def _search_tiered(self, ys: Tensor, k: int, budget: int, p_guarantee,
                        env_block_rows: int) -> SearchResult:
         q = ys.shape[0]
@@ -597,16 +649,7 @@ class TieredPointStore:
             sel, count = _prune_pool(sel, count, corners, gidx, qs, qb,
                                      budget, n, storage)
         else:
-            # Stage B: prefetch runs prefetch_depth blocks ahead of the
-            # block being pruned.
-            depth = self.prefetch_depth
-            for j, bid in enumerate(admitted):
-                for ahead in admitted[j:j + 1 + depth]:
-                    self._ensure_inflight(ahead)
-                corners = self._fields(self._block(bid),
-                                       CORNER_FIELDS[storage])
-                sel, count = _prune_step(sel, count, corners, qs, qb,
-                                         bid * bn, budget, n, storage)
+            sel, count = self._stage_b(admitted, sel, count, qs, qb, budget)
             # Stage C pool: every valid candidate lies in an admitted
             # block, so the pool is the admitted set; blocks evicted during
             # Stage B are fetched again.

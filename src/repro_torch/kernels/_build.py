@@ -28,7 +28,7 @@ LIB_NAME = "libbrekernels.so"
 SOURCES = ("bregman_ub.cu", "bregman_fused.cu", "bregman_prune.cu",
            "bregman_dist.cu", "flash_attention.cu", "flash_attention_wgmma.cu",
            "pccp_corr.cu")
-HEADERS = ("filter_tile.cuh", "filter_span.cuh")
+HEADERS = ("filter_span.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,6 +48,7 @@ SIGNATURES = {
     "brk_filter_prune_blocks_quant": (_P,) * 20 + (_I64,) * 5 + (_I, _P),
     "brk_refine_batch_quant": (_P,) * 6 + (_I64, _I64, _I64, _I, _I, _P),
     "brk_prune_mask": (_P,) * 6 + (_I64, _I64, _I64, _I, _P),
+    "brk_prune_mask_blocks": (_P,) * 7 + (_I64,) * 5 + (_I, _P),
     "brk_prune_mask_quant": (_P,) * 10 + (_I64, _I64, _I64, _I, _P),
     "brk_prune_mask_blocks_quant": (_P,) * 11 + (_I64,) * 5 + (_I, _P),
     "brk_flash_attention": (_P,) * 5 + (_I,) * 8 + (_F, _I, _P),

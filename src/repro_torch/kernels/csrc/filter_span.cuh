@@ -1,6 +1,6 @@
 // The filter tile of kernels #1 and #2 (bregman_ub.cu, the UB alone; fp32
 // tables and int8 codes), #3 and #4 (bregman_fused.cu, UB and the
-// Theorem-3 admit) and #6 (bregman_prune.cu, the int8 admit alone), one
+// Theorem-3 admit) and #5 and #6 (bregman_prune.cu, the admit alone), one
 // launch over many row blocks.
 //
 //   ub[r, j]    = (rowsum(alpha)[r] + qsum[j]) + sg[r, :] . sd[j, :]
@@ -16,23 +16,24 @@
 //
 // Two switches pick the outputs: UB the totals, PRUNE the admit mask; a
 // stage holds only the tables (and, for int8, the decode columns) its
-// outputs read.  It replaces, for #1-#4 and #6, the per-block tile of
-// filter_tile.cuh (which keeps the fp32 prune-only kernel #5).  The TPU
-// kernels (src/repro/kernels/bregman_ub.py, bregman_fused.py and
-// bregman_prune.py) are one grid step a row block; the search used to
+// outputs read.  It replaces the per-block tiles of the first port: the
+// TPU kernels (src/repro/kernels/bregman_ub.py, bregman_fused.py and
+// bregman_prune.py) are one grid step a row block, and the search used to
 // launch them once a 4096-row block, 128 blocks of 256 threads each, less
 // than one wave on 132 SMs.
 //
-// Bound on the H100: bytes.  Over a Deep attempt (10^6 rows, M = 39,
-// q = 14) #3 reads four (n, M) tables, 624 MB, and writes 112 MB of
-// outputs: 0.22 ms at 3.35 TB/s, against 0.13-0.16 ms of issue for the
-// arithmetic (about six instructions a (row, query, subspace) over 16
-// query lanes).  On an H100 80GB HBM3 at 700 W it takes 0.335 ms there,
-// 66% of the bound (PERF.md, run T).  #4 reads a quarter of the table
-// bytes plus eight fp32 decode scalars a row, 188 MB, and writes 104 MB at
-// q = 13: 0.087 ms, so the same arithmetic bounds it by issue.  #2 and #6
-// each read two of the int8 tables with their four decode columns (94 MB)
-// and write one output (52 MB): 0.044 ms each.  The design:
+// Bound on the H100 80GB HBM3 (3.35 TB/s at 700 W): bytes.  Over a Deep
+// attempt (10^6 rows, M = 39, q = 14) #3 reads four (n, M) tables, 624
+// MB, and writes 112 MB of outputs: 0.22 ms, against 0.13-0.16 ms of
+// issue for the arithmetic (about six instructions a (row, query,
+// subspace) over 16 query lanes); it takes 0.337 ms there at 700 W, 65%
+// of the bound (PERF.md, run W).  #5 reads two of the fp32 tables (313
+// MB) and writes one output (56 MB): 0.110 ms, with the admit's issue
+// about as long.  #4 reads a quarter of the table bytes plus eight fp32
+// decode scalars a row, 188 MB, and writes 104 MB at q = 13: 0.087 ms, so
+// the same arithmetic bounds it by issue.  #2 and #6 each read two of the
+// int8 tables with their four decode columns (94 MB) and write one output
+// (52 MB): 0.044 ms each.  The design:
 //
 // - One launch takes a list of row blocks (block ids on the device, or
 //   every block in order) and a persistent grid of the resident blocks the

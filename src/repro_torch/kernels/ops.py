@@ -61,13 +61,26 @@ def _query_operands(name: str, qconst, sqrt_delta, qb) -> None:
 
 
 def bregman_prune_block(amin, gmax, qconst, sqrt_delta, qb):
-    """Theorem-3 admit mask for a row block.  (n,M)x2, (q,M)x3 -> (n,q)
-    int32: the per-point stage of the tiered store and of the unfused
-    prune (``fused=False``)."""
+    """Theorem-3 admit mask over any row span.  (n,M)x2, (q,M)x3 -> (n,q)
+    int32: the tiered store's Stage B window and warm pool."""
     _query_operands("bregman_prune_block", qconst, sqrt_delta, qb)
     if not _on_cuda(amin):
         return ref.bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb)
     return _prune.bregman_prune_mask(amin, gmax, qconst, sqrt_delta, qb)
+
+
+def bregman_prune_blocks(amin, gmax, qconst, sqrt_delta, qb, blocks,
+                         bn: int):
+    """Admit mask from the fp32 corner tables over the listed row blocks
+    of the full (n, M) tables in one launch: ``blocks`` (nb,) int32 block
+    ids, ``bn`` rows a block; output (nb * bn, q) int32, block i's rows at
+    ``[i * bn, (i + 1) * bn)``, a short last block's rows past n 0."""
+    _query_operands("bregman_prune_blocks", qconst, sqrt_delta, qb)
+    if not _on_cuda(amin):
+        return ref.bregman_prune_mask_blocks(amin, gmax, qconst, sqrt_delta,
+                                             qb, blocks, bn)
+    return _prune.bregman_prune_mask_blocks(amin, gmax, qconst, sqrt_delta,
+                                            qb, blocks, bn)
 
 
 def bregman_prune_block_quant(amin_q, amin_scale, amin_zp, gmax_q,

@@ -86,6 +86,14 @@ def block_rows(blocks: Tensor, bn: int) -> Tensor:
     return (blocks.long()[:, None] * bn + offs[None, :]).reshape(-1)
 
 
+def _listed_rows(n: int, blocks: Tensor, bn: int) -> tuple[Tensor, Tensor]:
+    """(rows of the listed blocks clamped into the table, which of them
+    are real rows): block b is rows ``[b * bn, (b + 1) * bn)``, and the
+    rows of a short last block past n are not."""
+    rows = block_rows(blocks, bn)
+    return torch.clamp(rows, max=n - 1), rows < n
+
+
 def bregman_filter_prune_blocks(alpha: Tensor, sqrt_gamma: Tensor,
                                 amin: Tensor, gmax: Tensor, qconst: Tensor,
                                 sqrt_delta: Tensor, qb: Tensor,
@@ -95,14 +103,23 @@ def bregman_filter_prune_blocks(alpha: Tensor, sqrt_gamma: Tensor,
     the full (n, M) tables: (ub, admit), each (len(blocks) * bn, q), listed
     block i's rows at ``[i * bn, (i + 1) * bn)``; rows past n (a short
     last block's) read ``ub = inf`` and ``admit = 0``."""
-    n = alpha.shape[0]
-    rows = block_rows(blocks, bn)
-    real = rows < n
-    idx = torch.clamp(rows, max=n - 1)
+    idx, real = _listed_rows(alpha.shape[0], blocks, bn)
     ub, admit = bregman_filter_prune(alpha[idx], sqrt_gamma[idx], amin[idx],
                                      gmax[idx], qconst, sqrt_delta, qb)
     return (torch.where(real[:, None], ub, torch.inf),
             admit * real[:, None].to(admit.dtype))
+
+
+def bregman_prune_mask_blocks(amin: Tensor, gmax: Tensor, qconst: Tensor,
+                              sqrt_delta: Tensor, qb: Tensor, blocks: Tensor,
+                              bn: int) -> Tensor:
+    """:func:`bregman_prune_mask` over the rows of the listed blocks of
+    the full (n, M) corner tables: (len(blocks) * bn, q) int32, listed
+    block i's rows at ``[i * bn, (i + 1) * bn)``; rows past n (a short
+    last block's) read 0."""
+    idx, real = _listed_rows(amin.shape[0], blocks, bn)
+    admit = bregman_prune_mask(amin[idx], gmax[idx], qconst, sqrt_delta, qb)
+    return admit * real[:, None].to(admit.dtype)
 
 
 def bregman_prune_mask_blocks_quant(
@@ -113,10 +130,7 @@ def bregman_prune_mask_blocks_quant(
     of the full int8 corner tables (codes (n, M), decode (n,)):
     (len(blocks) * bn, q) int32, listed block i's rows at ``[i * bn,
     (i + 1) * bn)``; rows past n (a short last block's) read 0."""
-    n = amin_q.shape[0]
-    rows = block_rows(blocks, bn)
-    real = rows < n
-    idx = torch.clamp(rows, max=n - 1)
+    idx, real = _listed_rows(amin_q.shape[0], blocks, bn)
     corners = (amin_q, amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp)
     admit = bregman_prune_mask_quant(*(t[idx] for t in corners), qconst,
                                      sqrt_delta, qb)
@@ -150,10 +164,7 @@ def bregman_filter_prune_blocks_quant(
     blocks of the full int8 tables (codes (n, M), decode (n,)), laid out
     as :func:`bregman_filter_prune_blocks` lays them out; rows past n read
     ``ub = inf`` and ``admit = 0``."""
-    n = alpha_q.shape[0]
-    rows = block_rows(blocks, bn)
-    real = rows < n
-    idx = torch.clamp(rows, max=n - 1)
+    idx, real = _listed_rows(alpha_q.shape[0], blocks, bn)
     tables = (alpha_q, alpha_scale, alpha_zp, sg_q, sg_scale, sg_zp, amin_q,
               amin_scale, amin_zp, gmax_q, gmax_scale, gmax_zp)
     ub, admit = bregman_filter_prune_quant(*(t[idx] for t in tables),

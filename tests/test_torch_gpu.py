@@ -186,6 +186,95 @@ def test_filter_prune_blocks_refuses_what_it_cannot_run(cuda):
     assert ub.shape == admit.shape == (0, 2)
 
 
+# (n, M, q) of #5's span entry: Deep's row block, ragged shapes, M odd
+# (16-byte copies of an aligned span) and even (4-byte copies to a padded
+# stride), M chunked (300), q past one query tile (65).
+PRUNE_SHAPES = [(4096, 39, 14), (4133, 37, 50), (31, 1, 1), (77, 70, 33),
+                (4096, 33, 50), (1000, 300, 13), (500, 40, 65)]
+
+
+@pytest.mark.parametrize("skip", [0, 3])
+@pytest.mark.parametrize("n,m,q", PRUNE_SHAPES)
+def test_prune_span_matches_its_plain_version_and_the_fused_admit(
+        cuda, n, m, q, skip):
+    """#5's span entry over rows ``skip`` on (3: no span 16-byte aligned):
+    bit-equal to its plain version and to #3's admit on the same rows, a
+    row's bits the same in any span."""
+    ops_ = [t.to(cuda) for t in _span_operands(n, m, q, n + m + q + 3,
+                                               tie_row=skip)]
+    a, g, am, gm, qc, sd, qb = ops_
+    am, gm, a, g = am[skip:], gm[skip:], a[skip:], g[skip:]
+    before = bregman_prune.launches
+    admit = bregman_prune.bregman_prune_mask(am, gm, qc, sd, qb)
+    torch.cuda.synchronize()
+    assert bregman_prune.launches == before + 1
+    assert admit.dtype == torch.int32 and admit.shape == (n - skip, q)
+    assert torch.equal(admit, ref.bregman_prune_mask(am, gm, qc, sd, qb))
+    _, fused = bregman_fused.bregman_filter_prune(a, g, am, gm, qc.sum(-1),
+                                                  qc, sd, qb)
+    assert torch.equal(admit, fused)
+    assert bool(admit[0].all())                     # the tie row
+    if (n - skip) * q >= 64:
+        assert 0 < int(admit.sum()) < (n - skip) * q
+    part = bregman_prune.bregman_prune_mask(am[5:29], gm[5:29], qc, sd, qb)
+    assert torch.equal(part, admit[5:29])
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", SPAN_CASES
+                         + [(n, m, q, 1024, [0, (n - 1) // 1024])
+                            for n, m, q in PRUNE_SHAPES])
+def test_prune_blocks_matches_its_plain_version_and_the_fused_admit(
+        cuda, n, m, q, bn, listed):
+    """#5's block-list entry: bit-equal to its plain version and to #3's
+    admit over the same list, rows past n inert, each listed block's tile
+    the span entry's on its rows."""
+    listed = sorted(set(listed))
+    first = listed[0] * bn
+    ops_ = [t.to(cuda) for t in _span_operands(n, m, q, n + m + q + 4,
+                                               tie_row=first)]
+    a, g, am, gm, qc, sd, qb = ops_
+    blocks = torch.tensor(listed, dtype=torch.int32, device=cuda)
+    before = bregman_prune.launches
+    admit = bregman_prune.bregman_prune_mask_blocks(am, gm, qc, sd, qb,
+                                                    blocks, bn)
+    torch.cuda.synchronize()
+    assert bregman_prune.launches == before + 1
+    assert admit.dtype == torch.int32 and admit.shape == (len(listed) * bn,
+                                                          q)
+    assert torch.equal(admit, ref.bregman_prune_mask_blocks(
+        am, gm, qc, sd, qb, blocks, bn))
+    _, fused = bregman_fused.bregman_filter_prune_blocks(
+        a, g, am, gm, qc.sum(-1), qc, sd, qb, blocks, bn)
+    assert torch.equal(admit, fused)
+    real = ref.block_rows(blocks, bn) < n
+    assert not admit[~real].any()
+    assert bool(admit[0].all())                     # the tie row
+    assert 0 < int(admit.sum()) < int(real.sum()) * q or q * n < 64
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one = bregman_prune.bregman_prune_mask(am[s], gm[s], qc, sd, qb)
+        assert torch.equal(one, admit[i * bn:i * bn + s.stop - s.start])
+
+
+def test_prune_blocks_refuses_what_it_cannot_run(cuda):
+    c = torch.zeros((64, 3), device=cuda)
+    q = torch.ones((2, 3), device=cuda)
+    ok = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="must be torch.int32"):
+        bregman_prune.bregman_prune_mask_blocks(c, c, q, q, q, ok.long(), 32)
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        bregman_prune.bregman_prune_mask_blocks(c.double(), c, q, q, q, ok,
+                                                32)
+    with pytest.raises(ValueError, match="bn must be a positive int"):
+        bregman_prune.bregman_prune_mask_blocks(c, c, q, q, q, ok, 0)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bregman_prune.bregman_prune_mask_blocks(c, c, q, q, q, ok.cpu(), 32)
+    before = bregman_prune.launches
+    admit = bregman_prune.bregman_prune_mask_blocks(c, c, q, q, q, ok[:0],
+                                                    32)
+    assert admit.shape == (0, 2) and bregman_prune.launches == before
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 def test_grouped_search_on_the_card_equals_the_per_block_loop(
         cuda, monkeypatch, quantize):
@@ -233,8 +322,8 @@ def test_grouped_search_on_the_card_equals_the_per_block_loop(
         assert launched[0] < per_block[0]
         assert launched[1] < per_block[1] and launched[2] == per_block[2]
         # The unfused comparator gives the same result bit for bit, its
-        # int8 prune (#6) once a group of admitted blocks, fp32's (#5) a
-        # block a launch.
+        # prune-only kernel (#5, #6 in int8) once a group of admitted
+        # blocks.
         attr = "launches_quant" if quantize else "launches"
         before = getattr(bregman_prune, attr)
         unfused = tsearch._knn_search_batch_unfused(forest, queries, 10, 64,
@@ -242,9 +331,7 @@ def test_grouped_search_on_the_card_equals_the_per_block_loop(
         for f in unfused._fields:
             assert torch.equal(getattr(unfused, f), getattr(want, f)), f
         pruned = getattr(bregman_prune, attr) - before
-        gb = tsearch._group_blocks("bregman_prune_mask"
-                                   + ("_quant" if quantize else ""), 256,
-                                   queries.shape[0], 4)
+        gb = tsearch._group_blocks(256, queries.shape[0], 4)
         assert pruned == -(-want_stats["num_blocks_run"] // gb)
 
 

@@ -1,13 +1,17 @@
-"""The grouped exact search on the CPU: the filter (#1) and the fused
-filter+prune (#3) launched once per group of row blocks, against the JAX
-package on a blob corpus whose envelope gate admits some blocks and
-rejects others, and against a per-block loop over the same inputs.
+"""The grouped exact search on the CPU: the filter (#1), the fused
+filter+prune (#3) and, under ``fused=False``, the prune-only kernel (#5)
+launched once per group of row blocks, against the JAX package on a blob
+corpus whose envelope gate admits some blocks and rejects others, and
+against a per-block loop over the same inputs; the plain versions of #3's
+and #5's block-list entries against the JAX package's oracle and Pallas
+kernel (interpret mode) over the listed rows.
 
 The group cap is ``search.GROUP_OUTPUT_BYTES``; the tests set it small so
 that one search makes several groups, a short last block included."""
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +23,12 @@ from repro.core.index import build_index as jax_build_index
 from repro.kernels import ref as jref
 from repro.kernels.bregman_fused import \
     bregman_filter_prune as pallas_filter_prune
+from repro.kernels.bregman_prune import \
+    bregman_prune_mask as pallas_prune
 
 import repro_torch.core.search as tsearch
-from repro_torch.kernels import bregman_fused, bregman_ub, ops, ref
+from repro_torch.kernels import _build, bregman_fused, bregman_prune, \
+    bregman_ub, ops, ref
 
 from torch_parity import filter_inputs, to_port
 
@@ -55,9 +62,11 @@ def _cap_for(blocks_a_group: int) -> int:
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The (rows, q) tiles each grouped dispatcher was handed, by name."""
-    seen = {"ub": [], "fp": []}
+    """The (rows, q) tiles each grouped dispatcher was handed, by name:
+    #1's rows, and the block lists of #3 and #5 with their masks' rows."""
+    seen = {"ub": [], "fp": [], "prune": []}
     ub, fp = ops.bregman_ub_matrix, ops.bregman_filter_prune_blocks
+    pr = ops.bregman_prune_blocks
 
     def ub_spy(alpha, *args):
         seen["ub"].append(alpha.shape[0])
@@ -68,8 +77,14 @@ def launches(monkeypatch):
         seen["fp"].append((args[7].tolist(), out[1].shape[0]))
         return out
 
+    def pr_spy(*args):
+        out = pr(*args)
+        seen["prune"].append((args[5].tolist(), out.shape[0]))
+        return out
+
     monkeypatch.setattr(ops, "bregman_ub_matrix", ub_spy)
     monkeypatch.setattr(ops, "bregman_filter_prune_blocks", fp_spy)
+    monkeypatch.setattr(ops, "bregman_prune_blocks", pr_spy)
     return seen
 
 
@@ -129,6 +144,57 @@ def test_grouped_knn_batch_matches_jax(monkeypatch, blocks_a_group):
     assert got_stats == want_stats
     assert got_stats.escalations > 0
     _assert_same_result(got, want)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_unfused():
+    """The JAX package's unfused search on the blob corpus at budget 64,
+    with its gate's stats: (result, env_admitted, blocks_run, tau)."""
+    jf, _, queries = blob_forests()
+    run = jax.jit(lambda index, ys: jsearch._knn_search_batch_core(
+        index, ys, K, 64, None, BLOCK_ROWS, with_stats=True, fused=False))
+    return run(jf, jnp.asarray(queries))
+
+
+def _unfused(forest, queries):
+    return tsearch._knn_search_batch_core(
+        forest, torch.from_numpy(queries), K, 64, BLOCK_ROWS,
+        with_stats=True, fused=False)
+
+
+@pytest.mark.parametrize("blocks_a_group", [1, 2, 3, None])
+def test_grouped_unfused_search_matches_jax(monkeypatch, launches,
+                                            blocks_a_group):
+    """``fused=False`` in fp32: #5's block-list entry handed the admitted
+    blocks in order, at most the cap's count a launch (twice #3's: four
+    output bytes a pair), with the JAX package's unfused search's ids,
+    exact, num_candidates and gate stats, dists within 1e-5, and the
+    per-block loop's (a cap below one block) results bit for bit."""
+    _, tf, queries = blob_forests()
+    cap = (tsearch.GROUP_OUTPUT_BYTES if blocks_a_group is None
+           else _cap_for(blocks_a_group))
+    monkeypatch.setattr(tsearch, "GROUP_OUTPUT_BYTES", 0)
+    per_block = _unfused(tf, queries)
+    assert all(len(b) == 1 for b, _ in launches["prune"])
+    launches["prune"].clear()
+    monkeypatch.setattr(tsearch, "GROUP_OUTPUT_BYTES", cap)
+    got, env, blocks_run, tau = _unfused(tf, queries)
+    want, want_env, want_run, want_tau = jax_unfused()
+    _assert_same_result(got, want)
+    np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
+    assert blocks_run == int(want_run) and 0 < blocks_run < 25
+    np.testing.assert_array_equal(tau.numpy(), np.asarray(want_tau))
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(per_block[0], f)), f
+    assert torch.equal(env, per_block[1]) and blocks_run == per_block[2]
+    gb = tsearch._group_blocks(BLOCK_ROWS, Q, 4)
+    assert gb == 2 * blocks_a_group if blocks_a_group else gb >= 25
+    listed = [b for blocks, _ in launches["prune"] for b in blocks]
+    assert listed == sorted(listed) and len(listed) == blocks_run
+    assert len(launches["prune"]) == -(-blocks_run // gb)
+    assert all(len(b) <= gb for b, _ in launches["prune"])
+    assert all(rows == len(b) * BLOCK_ROWS for b, rows in launches["prune"])
+    assert launches["fp"] == []
 
 
 def _per_block_topk(vals, k, bn):
@@ -272,3 +338,70 @@ def test_blocks_dispatch_checks_its_operands():
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         bregman_fused.bregman_filter_prune_blocks(a, g, am, gm, qc.sum(-1),
                                                   qc, sd, qb, blocks, 8)
+
+
+# (n, M, q, bn, listed blocks): non-contiguous lists with a short last
+# block, one block, M = 1, and q past one Pallas query tile.
+PRUNE_BLOCK_CASES = [(257, 50, 5, 64, [0, 2, 4]), (100, 28, 3, 32, [3]),
+                     (64, 8, 1, 8, [0, 5, 6, 7]), (300, 1, 6, 64, [0, 1, 4]),
+                     (130, 37, 9, 48, [0, 2])]
+
+
+@pytest.mark.parametrize("n,m,q,bn,listed", PRUNE_BLOCK_CASES)
+def test_prune_blocks_plain_version_matches_jax(n, m, q, bn, listed):
+    """The plain version of #5's block-list entry against the JAX
+    package's oracle and Pallas kernel (interpret mode) over the listed
+    rows: bit-equal, a short last block's rows past n inert, equal to #3's
+    block-list admit and to the one-span entry's mask block by block."""
+    inputs = filter_inputs(n, m, q, seed=n + 13)
+    corners, query = inputs[2:4], inputs[4:]
+    blocks = torch.tensor(listed, dtype=torch.int32)
+    before = bregman_prune.launches
+    admit = ops.bregman_prune_blocks(
+        *(torch.from_numpy(x) for x in corners + query), blocks, bn)
+    assert bregman_prune.launches == before           # no kernel on the CPU
+    assert admit.shape == (len(listed) * bn, q) and admit.dtype == torch.int32
+    rows = ref.block_rows(blocks, bn).numpy()
+    real = rows < n
+    assert not admit.numpy()[~real].any()
+    idx = rows[real]
+    sub = [x[idx] for x in corners] + list(query)
+    np.testing.assert_array_equal(
+        admit.numpy()[real], np.asarray(jref.bregman_prune_mask(*sub)))
+    p_admit = pallas_prune(*map(jnp.asarray, sub), **PALLAS_TILES)
+    # Row 0's exact tie may contract into a fused multiply-add under jit
+    # (ROADMAP queue 3): off that row, bit-equal.
+    off_tie = idx != 0
+    np.testing.assert_array_equal(admit.numpy()[real][off_tie],
+                                  np.asarray(p_admit)[off_tie])
+    _, fused = ops.bregman_filter_prune_blocks(
+        *(torch.from_numpy(x) for x in inputs), blocks, bn)
+    assert torch.equal(admit, fused)
+    for i, b in enumerate(listed):
+        s = slice(b * bn, min((b + 1) * bn, n))
+        one = ref.bregman_prune_mask(*(torch.from_numpy(x[s])
+                                       for x in corners),
+                                     *(torch.from_numpy(x) for x in query))
+        assert torch.equal(one, admit[i * bn:i * bn + s.stop - s.start])
+    if int(real.sum()) * q >= 64:
+        assert 0 < int(admit.sum()) < int(real.sum()) * q
+
+
+def test_prune_blocks_wrapper_checks_its_operands():
+    """#5's block-list wrapper refuses CPU tensors without launching, the
+    dispatcher checks the query operands, an empty list gives an empty
+    mask, and the C entry point is declared to ctypes."""
+    inputs = [torch.from_numpy(x) for x in filter_inputs(16, 3, 2, seed=0)]
+    _, _, am, gm, qc, sd, qb = inputs
+    blocks = torch.tensor([0, 1], dtype=torch.int32)
+    with pytest.raises(ValueError, match=r"\(q, M\) query operands"):
+        ops.bregman_prune_blocks(am, gm, qc, sd[0], qb, blocks, 8)
+    before = bregman_prune.launches
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        bregman_prune.bregman_prune_mask_blocks(am, gm, qc, sd, qb, blocks,
+                                                8)
+    assert bregman_prune.launches == before
+    empty = ops.bregman_prune_blocks(am, gm, qc, sd, qb, blocks[:0], 8)
+    assert empty.shape == (0, 2) and empty.dtype == torch.int32
+    sig = _build.SIGNATURES["brk_prune_mask_blocks"]
+    assert len(sig) == 14 and sig[:7] == (sig[0],) * 7

@@ -70,11 +70,11 @@ def _group_rows(n: int, span: int) -> list:
 
 @pytest.fixture
 def launches(monkeypatch):
-    """The (rows, q) tiles #2 was handed, the block lists of #4 and #6, and
-    the blocks #5 was handed one at a time."""
+    """The (rows, q) tiles #2 was handed, and the block lists of #4, #6
+    and #5 (with the rows of each mask)."""
     seen = {"ub": [], "fp": [], "prune": [], "prune_f32": []}
     ub, fp = ops.bregman_ub_matrix_quant, ops.bregman_filter_prune_blocks_quant
-    pr, pr32 = ops.bregman_prune_blocks_quant, ops.bregman_prune_block
+    pr, pr32 = ops.bregman_prune_blocks_quant, ops.bregman_prune_blocks
 
     def ub_spy(alpha_q, *args):
         seen["ub"].append(alpha_q.shape[0])
@@ -90,14 +90,15 @@ def launches(monkeypatch):
         seen["prune"].append((args[9].tolist(), out.shape[0]))
         return out
 
-    def pr32_spy(amin, *args):
-        seen["prune_f32"].append(amin.shape[0])
-        return pr32(amin, *args)
+    def pr32_spy(*args):
+        out = pr32(*args)
+        seen["prune_f32"].append((args[5].tolist(), out.shape[0]))
+        return out
 
     monkeypatch.setattr(ops, "bregman_ub_matrix_quant", ub_spy)
     monkeypatch.setattr(ops, "bregman_filter_prune_blocks_quant", fp_spy)
     monkeypatch.setattr(ops, "bregman_prune_blocks_quant", pr_spy)
-    monkeypatch.setattr(ops, "bregman_prune_block", pr32_spy)
+    monkeypatch.setattr(ops, "bregman_prune_blocks", pr32_spy)
     return seen
 
 
@@ -133,8 +134,7 @@ def test_grouped_int8_search_matches_jax(monkeypatch, launches,
     # #2 saw the rows in groups of twice the cap's blocks (its outputs
     # take half #4's bytes a pair), a short last group included; #4 the
     # admitted blocks, in order, at most the cap's count a launch.
-    assert tsearch._group_blocks("bregman_ub_matrix_quant", BLOCK_ROWS, Q,
-                                 4) == 2 * blocks_a_group
+    assert tsearch._group_blocks(BLOCK_ROWS, Q, 4) == 2 * blocks_a_group
     assert launches["ub"] == _group_rows(tf.n,
                                          2 * blocks_a_group * BLOCK_ROWS)
     assert launches["ub"][-1] < 2 * blocks_a_group * BLOCK_ROWS
@@ -211,7 +211,7 @@ def test_grouped_unfused_int8_search_matches_jax(monkeypatch, launches,
                                      block_rows=BLOCK_ROWS, device="cpu")
     for f in got._fields:
         assert torch.equal(getattr(got, f), getattr(fused, f)), f
-    gb = tsearch._group_blocks("bregman_prune_mask_quant", BLOCK_ROWS, Q, 4)
+    gb = tsearch._group_blocks(BLOCK_ROWS, Q, 4)
     assert gb == 2 * blocks_a_group if blocks_a_group else gb >= 25
     unfused = launches["prune"]
     listed = [b for blocks, _ in unfused for b in blocks]
@@ -223,11 +223,14 @@ def test_grouped_unfused_int8_search_matches_jax(monkeypatch, launches,
 
 
 def test_unfused_fp32_search_keeps_one_prune_launch_a_block(launches):
-    """#5 stays in ``PER_BLOCK_KERNELS``: the fp32 unfused search hands it
-    each admitted block on its own (a short last block's real rows), and
-    matches the JAX package's unfused search."""
-    assert tsearch.PER_BLOCK_KERNELS == {"bregman_prune_mask"}
-    assert tsearch._group_blocks("bregman_prune_mask", BLOCK_ROWS, Q, 4) == 1
+    """#5 no longer launches once a block (the name is the check's older
+    form, kept so its history reads on): it takes the admitted blocks as
+    #6 does.  The fp32 unfused search (default cap) hands its block-list
+    entry every admitted block, in order, in ONE launch (a short last
+    block's rows past n included in its mask), and matches the JAX
+    package's unfused search."""
+    assert not hasattr(tsearch, "PER_BLOCK_KERNELS")
+    assert tsearch._group_blocks(BLOCK_ROWS, Q, 4) >= 25
     _, tf = fp32_blob_forests()
     queries = blob_forests()[2]
     want, want_env, want_run, _ = jax_unfused("f32")
@@ -236,10 +239,12 @@ def test_unfused_fp32_search_keeps_one_prune_launch_a_block(launches):
         fused=False)
     _assert_same_result(got, want)
     np.testing.assert_array_equal(env.numpy(), np.asarray(want_env))
-    assert blocks_run == int(want_run)
+    assert blocks_run == int(want_run) and 0 < blocks_run < 25
     assert launches["prune"] == []
-    assert len(launches["prune_f32"]) == blocks_run
-    assert all(rows <= BLOCK_ROWS for rows in launches["prune_f32"])
+    assert len(launches["prune_f32"]) == 1
+    listed, rows = launches["prune_f32"][0]
+    assert listed == sorted(listed) and len(listed) == blocks_run
+    assert rows == blocks_run * BLOCK_ROWS
 
 
 def _ub_tolerance(m, a_q, a_s, a_z, g_q, g_s, g_z, qc, sd):

@@ -33,7 +33,7 @@ from repro_torch.core.tiered import (DEFAULT_PREFETCH_DEPTH, FetchTimeout,
                                      TieredPointStore,
                                      resolve_prefetch_depth,
                                      resolve_resident_bytes)
-from repro_torch.kernels import bregman_prune
+from repro_torch.kernels import bregman_prune, ops
 
 from torch_parity import D, K, M, N, NUM_CLUSTERS, Q, jax_forest, to_port
 
@@ -156,6 +156,14 @@ def test_gate_prunes_blocks_like_the_jax_store():
     assert 0 < fetched < store.cold_bytes
 
 
+def _per_block_fill(sel, count, corners, qs, qb, off, budget, n, storage):
+    """The per-block oracle: one block's admit tile (its corner tables
+    alone), then the resident scan's slot fill over the block's real rows
+    (its pad rows cut off)."""
+    admit = tsearch._prune_block(storage, corners, qs, qb)
+    return tsearch._fill_block_slots(sel, count, admit[:n - off], off, budget)
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("budget", [8, 64, N])
 def test_pooled_prune_equals_the_per_block_fills(quantize, budget):
@@ -170,9 +178,9 @@ def test_pooled_prune_equals_the_per_block_fills(quantize, budget):
     sel = torch.full((q, budget), n - 1, dtype=torch.long)
     count = torch.zeros(q, dtype=torch.long)
     for b, bundle in enumerate(blocks):
-        sel, count = tiered._prune_step(sel, count,
-                                        store._fields(bundle, names), qs, qb,
-                                        b * bn, budget, n, forest.storage)
+        sel, count = _per_block_fill(sel, count, store._fields(bundle, names),
+                                     qs, qb, b * bn, budget, n,
+                                     forest.storage)
     corners, gidx, _, _ = store._pooled(tuple(range(store.num_blocks)))
     psel, pcount = tiered._prune_pool(
         torch.full((q, budget), n - 1, dtype=torch.long),
@@ -180,6 +188,87 @@ def test_pooled_prune_equals_the_per_block_fills(quantize, budget):
         forest.storage)
     assert torch.equal(psel, sel) and torch.equal(pcount, count)
     assert int(count.min()) > 0
+
+
+def _corner_row_bytes(forest) -> int:
+    return sum(getattr(forest, f)[0].numel() * getattr(forest, f)
+               .element_size() for f in tsearch.CORNER_FIELDS[forest.storage])
+
+
+@pytest.mark.parametrize("approx", [False, True], ids=["exact", "approx"])
+@pytest.mark.parametrize("quantize", [False, True])
+def test_stage_b_windows_equal_the_per_block_loop_and_the_jax_store(
+        monkeypatch, quantize, approx):
+    """Stage B at a window cap of two blocks (several windows, a short
+    last one) against a cap below one block (the per-block loop): the
+    same results bit for bit, the same ``_block`` calls in the same order,
+    the JAX store's results and stats; one prune launch a window.  The
+    window cap is Stage B's alone: Stage A's filter launches the same
+    either way."""
+    family = "itakura_saito"
+    jf, _, queries = jax_forest(family, quantize)
+    forest = port_forest(family, quantize)
+    p = P_APPROX if approx else None
+    q = queries.shape[0]
+    prune = ("bregman_prune_block_quant" if quantize
+             else "bregman_prune_block")
+    masks = []
+
+    def prune_spy(*args, _fn=getattr(ops, prune)):
+        out = _fn(*args)
+        masks.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(ops, prune, prune_spy)
+
+    filters = []
+    ub = "bregman_ub_matrix_quant" if quantize else "bregman_ub_matrix"
+
+    def ub_spy(*args, _fn=getattr(ops, ub)):
+        out = _fn(*args)
+        filters.append(out.shape[0])
+        return out
+
+    monkeypatch.setattr(ops, ub, ub_spy)
+
+    def run(cap):
+        monkeypatch.setattr(tiered, "WINDOW_BYTES", cap)
+        store = _store(forest)
+        calls = []
+
+        def block_spy(bid, _fn=store._block):
+            calls.append(bid)
+            return _fn(bid)
+
+        store._block = block_spy
+        masks.clear()
+        filters.clear()
+        res = store.search(queries, K, BUDGET, p_guarantee=p, device="cpu")
+        return (res, dict(store.stats), calls, list(masks), list(filters),
+                store.cache_info()["window_bytes"])
+
+    (want, want_stats, want_calls, per_block, want_filters,
+     one_bytes) = run(0)
+    admitted = want_stats["blocks_admitted"]
+    assert admitted >= 3 and per_block == [BLOCK_ROWS] * admitted
+    row_bytes = _corner_row_bytes(forest)
+    assert tiered._window_blocks(row_bytes, BLOCK_ROWS, q) == 1
+    assert one_bytes == BLOCK_ROWS * row_bytes
+    two = 2 * BLOCK_ROWS * (row_bytes + 4 * q)
+    monkeypatch.setattr(tiered, "WINDOW_BYTES", two)
+    assert tiered._window_blocks(row_bytes, BLOCK_ROWS, q) == 2
+    got, stats, calls, windows, got_filters, two_bytes = run(two)
+    assert want_filters and got_filters == want_filters
+    assert two_bytes == 2 * BLOCK_ROWS * row_bytes
+    _assert_bit_equal(got, want)
+    assert stats == want_stats and calls == want_calls
+    assert windows == ([2 * BLOCK_ROWS] * (admitted // 2)
+                       + [BLOCK_ROWS] * (admitted % 2))
+    jstore = JaxStore(jf, resident_bytes=_budget(forest),
+                      block_rows=BLOCK_ROWS)
+    _assert_same_result(got, jstore.search(jnp.asarray(queries), K, BUDGET,
+                                           p_guarantee=p))
+    assert stats == jstore.stats
 
 
 # ---------------------------------------------------------------------------

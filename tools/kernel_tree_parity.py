@@ -13,10 +13,11 @@ through ``ctypes`` on the same inputs: ``brk_ub_matrix`` (#1),
 ``brk_filter_prune_quant`` (#4), ``brk_prune_mask`` (#5) and
 ``brk_prune_mask_quant`` (#6) over one row block at the search's block
 shape and at ragged shapes, and over a Deep attempt's 10^6 rows, where
-this tree's #1 and #2 run as one span launch and its #3, #4 and #6 as
-one block-list launch over every block (``brk_prune_mask_blocks_quant``
-for #6, also held against this tree's #4 admit) against the other tree's
-per-block launches.  The UB totals must match bit for bit (compared as
+this tree's #1 and #2 run as one span launch and its #3, #4, #5 and #6
+as one block-list launch over every block (``brk_prune_mask_blocks`` for
+#5 and ``brk_prune_mask_blocks_quant`` for #6, each also held against
+this tree's #3 or #4 admit; #5 and #6 also as one span launch) against
+the other tree's per-block launches.  The UB totals must match bit for bit (compared as
 int32 words) and the admit masks exactly.  ``brk_refine_batch_quant``
 (#8) of both trees, every family, must each lie within d * eps32 * sum
 |terms| of the plain version; the records give their largest difference
@@ -254,6 +255,22 @@ def prune_of(lib, am, gm, qc, sd, qb):
     return admit
 
 
+def prune_blocks_of(lib, am, gm, qc, sd, qb, blocks, bn):
+    """#5 over ``blocks`` of ``bn`` rows of the fp32 corner tables through
+    the block-list entry (this tree's)."""
+    n, m = am.shape
+    q = qc.shape[0]
+    admit = torch.empty((blocks.shape[0] * bn, q), dtype=torch.int32,
+                        device=am.device)
+    err = lib.brk_prune_mask_blocks(
+        am.data_ptr(), gm.data_ptr(), qc.data_ptr(), sd.data_ptr(),
+        qb.data_ptr(), blocks.data_ptr(), admit.data_ptr(), n, m, q,
+        blocks.shape[0], bn, am.device.index,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return admit
+
+
 def fused_blocks_of(lib, tables, qsum, qc, sd, qb, blocks, bn):
     a, g, am, gm = tables
     n, m = a.shape
@@ -370,15 +387,24 @@ def main(argv=None) -> int:
              for s in range(0, n, bn)]
     fu_b = torch.cat([u for u, _ in parts])
     ad_b = torch.cat([d for _, d in parts])
+    del parts
+    pr_a = prune_blocks_of(ours, am, gm, qc, sd, qb, blocks, bn)
+    pr_span = prune_of(ours, am, gm, qc, sd, qb)
+    pr_b = torch.cat([prune_of(other, am[s:s + bn], gm[s:s + bn], qc, sd,
+                               qb) for s in range(0, n, bn)])
     torch.cuda.synchronize()
     report({"shape": [n, m, q], "block_rows": bn, "blocks": nb,
             "ub_bit_equal": same_bits(ub_a, ub_b),
             "fused_ub_bit_equal": same_bits(fu_a[:n], fu_b),
             "admit_equal": bool(torch.equal(ad_a[:n], ad_b)),
+            "prune_admit_equal": bool(torch.equal(pr_a[:n], pr_b)),
+            "prune_span_admit_equal": bool(torch.equal(pr_span, pr_b)),
+            "prune_equals_fused_admit": bool(torch.equal(pr_a, ad_a)),
             "inert_rows_ok": bool(torch.isinf(fu_a[n:]).all()
-                                  and not ad_a[n:].any()),
+                                  and not ad_a[n:].any()
+                                  and not pr_a[n:].any()),
             "admitted": int(ad_a.sum()), "pairs": n * q})
-    del a, g, am, gm, parts
+    del a, g, am, gm, pr_a, pr_b, pr_span
     for rec in refine_records(ours, other, dev):
         report(rec)
     if args.out:
