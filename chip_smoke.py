@@ -83,7 +83,28 @@ Phases:
    correlations against the plain version and numpy float64,
    ``pccp_order`` equal to numpy's at the build's M and at M = 32; the
    Gram timed beside ``torch.mm``.
-9. The last line is ``{"ok": true, "device": {...}}``.
+9. Single-query search, the mask oracle and recall calibration, on the
+   indexes phases 2-5 built: each index's checks run at the end of its
+   own drive, before it is freed, so no index stays on the card into a
+   later peak.  On Audio and Deep in both tiers, the first 4 queries: ``knn`` against brute force (phase 3's near-tie rule);
+   ``knn_search`` and ``knn_search_approx`` (p = 0.9) at the batch's final
+   budget against the rows of ``knn_search_batch`` /
+   ``knn_search_batch_approx`` (ids, exact, num_candidates equal, dists
+   within 1e-5, their bits recorded); one ``knn_search`` launches #1, #5
+   and #7 (int8: #2, #6, #8) once each and nothing else; those kernels at
+   its q = 1 shapes against their plain versions (masks bit-equal),
+   timed; one ``knn_search`` and one ``knn`` timed on the host.  The
+   oracle ``knn_search_batch_reference`` (the materialized (n, q) mask)
+   bit-equal to the streamed search on the blob corpus (a mixed mask) and
+   Audio int8, exact and at p_guarantee = 0.9.  ``ensure_calibration``
+   (k = 10, 64 queries, the default grid) on the blob corpus and Audio
+   int8, the fit timed: a non-decreasing curve to p = 1, with recall 1.0
+   there or misses only at near ties with brute force;
+   ``target_recall`` 0.9 and 0.99 bit-equal to ``approx_p`` at the
+   resolved p, with recall against the exact ids at least the expected
+   recall less 0.15; phase 2's small index fitted on the card equal to
+   the CPU's fit, in both tiers (run in phase 2).
+10. The last line is ``{"ok": true, "device": {...}}``.
 
 The line before the last holds the kernel table as JSON, the line before
 that the nvidia-smi name and power limit.  The full record goes to
@@ -97,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import statistics
@@ -131,6 +153,18 @@ LOGITS_BATCH = 2
 PROFILE_TOKENS = 8
 # A subspace count at which pccp_order reads the correlations (phase 8).
 PCCP_PROBE_M = 32
+# Phase 9: the queries of a single-query check, the guarantee of its
+# approximate search and of the oracle's, the held-out queries of a
+# calibration fit and the recall targets it is inverted at.
+SINGLE_QUERIES = 4
+SINGLE_P = 0.9
+CALIBRATION_QUERIES = 64
+RECALL_TARGETS = (0.9, 0.99)
+# The indexes phase 9 runs the oracle and the calibration on.
+ORACLE_LABELS = ("blobs", "audio int8")
+# The reference's rule (tests/test_calibration.py): measured recall at a
+# target at least the curve's expected recall less this.
+RECALL_SLACK = 0.15
 # Keys in a kv tile of #10's two kernels: fp32 on the fp32 cores
 # (csrc/flash_attention.cu), bf16 on the tensor cores
 # (csrc/flash_attention_wgmma.cu).
@@ -202,6 +236,9 @@ class Smoke:
                               "bf16_wgmma": (flash_attention,
                                              "launches_wgmma")}
         self._store = None     # the kNN-LM datastore, for phase 8
+        # Phase 9's record, filled by the drives of phases 2-5.
+        self.single: dict = {"oracle": {}, "calibration": {},
+                             "seconds": 0.0}
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -1029,6 +1066,8 @@ class Smoke:
                     num_clusters=forest.num_clusters,
                     storage=forest.storage, device=self.dev)
                 queries = data[:12] * 1.01
+                if family == "exponential":
+                    self.check_small_calibration(forest, moved)
                 want = tsearch.knn_batch(forest, queries, K, budget=64,
                                          block_rows=512, device="cpu")
                 got = tsearch.knn_batch(moved, queries, K, budget=64,
@@ -1064,7 +1103,8 @@ class Smoke:
         queries = make_queries(spec, num=NUM_QUERIES, scale=scale, data=data)
         rec = {"dataset": name, "tier": tier, "n": int(data.shape[0]),
                "d": spec.d, "family": spec.measure,
-               "data_s": time.perf_counter() - t0}
+               "data_s": time.perf_counter() - t0,
+               "left_on_card_bytes": self.left_on_card()}
         say(f"{label}: n={rec['n']} d={spec.d} family={spec.measure}")
 
         self.sync()
@@ -1160,7 +1200,9 @@ class Smoke:
             f"rows_view ({rec['bf_position_mismatches']} near-tie swaps; "
             f"its scan took {rec['brute_force_ms']:.1f} ms)")
         say(f"{label}: table bytes {rec['table_bytes']}, peak bytes: build "
-            f"{rec['build_peak_bytes']}, search {rec['search_peak_bytes']}")
+            f"{rec['build_peak_bytes']}, search {rec['search_peak_bytes']} "
+            f"({rec['left_on_card_bytes']} left on the card by the phases "
+            "before)")
 
         # Phase breakdown of one batch, each phase ended by a sync.
         ys0 = ys[:q_batch]
@@ -1212,6 +1254,10 @@ class Smoke:
         if name == "deep":
             rec["tiered"] = self.drive_tiered(label, forest, ys, q_batch,
                                               ids, quantize)
+        self.phase9_of(label, {"forest": forest, "ys": ys, "ids": ids,
+                               "budget": rec["budget_final"],
+                               "search_ms": rec["search_ms"],
+                               "family": spec.measure})
         del forest
         if not self.rehearsal:
             torch.cuda.empty_cache()
@@ -1727,7 +1773,7 @@ class Smoke:
         family = "squared_euclidean"
         rec = {"n": n, "d": d, "m": m, "q": q, "blobs": blobs,
                "block_rows": block_rows, "family": family,
-               "num_clusters": 64}
+               "num_clusters": 64, "left_on_card_bytes": self.left_on_card()}
         t0 = time.perf_counter()
         rng = np.random.default_rng(0)
         per = n // blobs
@@ -1801,17 +1847,38 @@ class Smoke:
         say("blob corpus: pooled prune kernel at the warm path's shape "
             + json.dumps(rec["pooled_prune"]))
         store.close()
+        self.phase9_of("blobs", {"forest": forest, "ys": ys,
+                                 "ids": exact.ids, "budget": budget,
+                                 "block_rows": block_rows,
+                                 "family": family})
         return rec
 
     def reset_peak(self) -> None:
         if not self.rehearsal:
             self.torch.cuda.reset_peak_memory_stats()
+            self._peak_base = self.torch.cuda.memory_allocated()
 
     def peak(self):
         """Peak device bytes since :meth:`reset_peak` (None on the CPU)."""
         if self.rehearsal:
             return None
         return self.torch.cuda.max_memory_allocated()
+
+    def left_on_card(self):
+        """Device bytes allocated after a garbage collection: what the
+        phases before left on the card (None on the CPU)."""
+        if self.rehearsal:
+            return None
+        gc.collect()
+        return self.torch.cuda.memory_allocated()
+
+    def peak_above(self):
+        """Peak device bytes since :meth:`reset_peak` beyond those
+        allocated at the reset: the working memory of what ran between
+        (None on the CPU)."""
+        if self.rehearsal:
+            return None
+        return self.torch.cuda.max_memory_allocated() - self._peak_base
 
     def check_brute_force(self, data, ys, ids, dists, family: str,
                           k: int = K) -> dict:
@@ -2497,7 +2564,285 @@ class Smoke:
         self._store = None
         return rec
 
-    # -- the whole run -------------------------------------------------
+    # -- phase 9: single-query search, the oracle, calibration ----------
+    def phase9_of(self, label: str, kept: dict) -> None:
+        """Phase 9's checks on one index of phases 3-5, run by its drive
+        before the index is freed: single-query search on Audio and Deep,
+        the oracle and the calibration on the blob corpus and Audio int8.
+        ``kept`` holds the index, its queries, their exact ids, the
+        batch's final budget and the family."""
+        t0 = time.perf_counter()
+        if label != "blobs":
+            self.single[label] = self.drive_single(label, kept)
+        if label in ORACLE_LABELS:
+            self.single["oracle"][label] = self.check_oracle(label, kept)
+            self.single["calibration"][label] = self.check_calibration(
+                label, kept)
+        self.single["seconds"] += time.perf_counter() - t0
+
+    def drive_single(self, label: str, kept: dict) -> dict:
+        """``knn`` on the first queries against brute force;
+        ``knn_search`` and ``knn_search_approx`` at the batch's final
+        budget against the rows of the batched search; the launches of
+        one ``knn_search``; #1/#2, #5/#6 and #7/#8 at its q = 1 shapes
+        against their plain versions, timed; one ``knn_search`` and one
+        ``knn`` timed on the host."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        forest, b = kept["forest"], kept["budget"]
+        ys = kept["ys"][:SINGLE_QUERIES]
+        sfx = "_quant" if forest.storage == "int8" else ""
+        out = {"n": forest.n, "budget": b, "queries": ys.shape[0]}
+
+        got = [tsearch.knn(forest, y, K, device=self.dev) for y in ys]
+        expect(all(bool(g.exact) for g in got),
+               f"{label}: a knn result is not exact")
+        points = forest.rows_view()[torch.argsort(forest.point_ids.long())]
+        out["knn_vs_brute_force"] = self.check_brute_force(
+            points, ys, torch.stack([g.ids for g in got]),
+            torch.stack([g.dists for g in got]), kept["family"])
+        del points, got
+
+        batch = tsearch.knn_search_batch(forest, ys, K, b, device=self.dev)
+        approx = tsearch.knn_search_batch_approx(forest, ys, K, b, SINGLE_P,
+                                                 device=self.dev)
+        bits, worst = True, 0.0
+        for j, y in enumerate(ys):
+            for mode, want, one in (
+                    ("knn_search", batch, tsearch.knn_search(
+                        forest, y, K, b, device=self.dev)),
+                    ("knn_search_approx", approx, tsearch.knn_search_approx(
+                        forest, y, K, b, SINGLE_P, device=self.dev))):
+                diff = (one.dists - want.dists[j]).abs()
+                tol = 1e-5 + 1e-5 * want.dists[j].abs()
+                if self.rehearsal:
+                    # The plain refine's einsum rounds by the batch's
+                    # shape: hold it to its own fp32 error bound as well.
+                    tol = torch.maximum(tol, self.refine_error_bound(
+                        forest, one.ids, y))
+                expect(bool(torch.equal(one.ids, want.ids[j]))
+                       and bool(one.exact) == bool(want.exact[j])
+                       and int(one.num_candidates)
+                       == int(want.num_candidates[j])
+                       and bool((diff <= tol).all()),
+                       f"{label}: {mode} of query {j} differs from row {j} "
+                       f"of the batched search (dists max |diff| "
+                       f"{float(diff.max())})")
+                bits &= bool(torch.equal(one.dists, want.dists[j]))
+                worst = max(worst, float(diff.max()))
+        out["dists_bit_equal_to_batch_row"] = bits
+        out["dists_max_abs_diff_to_batch_row"] = worst
+        del batch, approx
+
+        self.sync()
+        self.reset_launches()
+        tsearch.knn_search(forest, ys[0], K, b, device=self.dev)
+        self.sync()
+        out["launches"] = self.launches()
+        path = {name + sfx: 1 for name in ("bregman_ub_matrix",
+                                           "bregman_prune_mask",
+                                           "bregman_refine_batch")}
+        expect(self.rehearsal or out["launches"] == {
+            name: path.get(name, 0) for name in out["launches"]},
+               f"{label}: one knn_search launched {out['launches']}, not "
+               f"each of {sorted(path)} once and nothing else")
+
+        # The kernels at the q = 1 shapes of the first query's search.
+        q1 = tsearch.query_struct(ys[0], forest.partition, forest.family)
+        totals, _, qb = tsearch._single_filter(forest, q1, K)
+        qs1 = {"qconst": q1["qconst"][None],
+               "sqrt_delta": q1["sqrt_delta"][None]}
+        filt = tsearch._filter_blocks(forest, forest.n, 1)[0]
+        out["ub"] = self.compare_ub_span(filt, qs1, time_it=True)
+        corners = tuple(getattr(forest, f)
+                        for f in tsearch.CORNER_FIELDS[forest.storage])
+        out["prune"] = self.compare_prune([corners], qs1, qb[None],
+                                          time_it=True)
+        mask = tsearch._candidate_mask(forest, q1, qb)
+        priority = torch.where(mask, tsearch.POS_BIG - totals,
+                               tsearch.NEG_BIG - totals)
+        sel = torch.sort(priority, descending=True,
+                         stable=True).indices[:b]
+        operands = tuple(getattr(forest, f)[sel[None]]
+                         for f in tsearch.REFINE_FIELDS[forest.storage])
+        out["refine"] = self.compare_refine(
+            operands, q1["grad"][None], q1["c_y"][None], forest.family_name,
+            time_it=True)
+        del operands, sel, priority, mask, totals
+
+        out["default_budget"] = tsearch.default_budget(forest, K)
+        out["knn_search_ms"] = self.host_ms(
+            lambda: tsearch.knn_search(forest, ys[0], K, None,
+                                       device=self.dev), 5)
+        out["knn_ms"] = self.host_ms(
+            lambda: tsearch.knn(forest, ys[0], K, device=self.dev), 3)
+        out["batch_ms_per_query"] = kept["search_ms"] / NUM_QUERIES
+        say(f"single-query {label}: knn == brute force on {ys.shape[0]} "
+            f"queries ({out['knn_vs_brute_force']['bf_position_mismatches']}"
+            f" near-tie swaps); knn_search / knn_search_approx at budget {b} "
+            f"== the batch rows (dists bit-equal: {bits}); one knn_search "
+            f"launched {path}; knn_search {out['knn_search_ms']:.3f} ms at "
+            f"budget {out['default_budget']}, knn {out['knn_ms']:.3f} ms, "
+            f"batch {out['batch_ms_per_query']:.3f} ms a query; kernels at "
+            "q = 1: ub " + json.dumps(out["ub"]) + " prune "
+            + json.dumps(out["prune"]) + " refine "
+            + json.dumps(out["refine"]))
+        return out
+
+    def refine_error_bound(self, forest, ids, y):
+        """:func:`refine_tolerance` of the rows ``ids`` (original ids) of
+        ``forest`` for the one query ``y``."""
+        from repro_torch.core.bounds import query_refine_constants
+        order = self.torch.argsort(forest.point_ids.long())
+        rows = forest.rows_view()[order[ids.long()]]
+        c = query_refine_constants(y, forest.family)
+        return refine_tolerance(self.torch, rows[None], c["grad"][None],
+                                c["c_y"].reshape(1), forest.family_name,
+                                rows.shape[1])[0]
+
+    def check_oracle(self, label: str, kept: dict) -> dict:
+        """``knn_search_batch_reference`` (the materialized mask) against
+        the streamed ``knn_search_batch`` at the phase's budget, exact and
+        at ``p_guarantee = SINGLE_P``: every field bit-equal; both timed,
+        with the peak device bytes each adds to the resident index."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        forest, ys, b = kept["forest"], kept["ys"], kept["budget"]
+        br = kept.get("block_rows", BLOCK_ROWS)
+        out = {"n": forest.n, "q": ys.shape[0], "budget": b,
+               "block_rows": br}
+        for p in (None, SINGLE_P):
+            def streamed(p=p):
+                if p is None:
+                    return tsearch.knn_search_batch(forest, ys, K, b, br,
+                                                    device=self.dev)
+                return tsearch.knn_search_batch_approx(
+                    forest, ys, K, b, p, br, device=self.dev)
+
+            def oracle(p=p):
+                return tsearch.knn_search_batch_reference(
+                    forest, ys, K, b, p_guarantee=p, block_rows=br,
+                    device=self.dev)
+
+            self.sync()
+            self.reset_peak()
+            want = streamed()
+            self.sync()
+            streamed_peak = self.peak_above()
+            self.reset_peak()
+            got = oracle()
+            self.sync()
+            peak = self.peak_above()
+            for f in got._fields:
+                expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                       f"{label}: the oracle's {f} differ from the streamed "
+                       f"search's (p_guarantee={p})")
+            admitted = int(got.num_candidates.sum())
+            out["exact" if p is None else f"p={p}"] = {
+                "admitted_pairs": admitted,
+                "pairs": forest.n * ys.shape[0],
+                "oracle_working_bytes": peak,
+                "streamed_working_bytes": streamed_peak,
+                "oracle_ms": self.host_ms(oracle, 3),
+                "streamed_ms": self.host_ms(streamed, 3)}
+        if label == "blobs":
+            e = out["exact"]
+            expect(0 < e["admitted_pairs"] < e["pairs"],
+                   f"blob corpus: the oracle's mask admits "
+                   f"{e['admitted_pairs']} of {e['pairs']} pairs, not a "
+                   "mixed mask")
+        say(f"oracle {label}: knn_search_batch_reference == knn_search_batch"
+            " bit for bit, exact and at p_guarantee="
+            f"{SINGLE_P}: " + json.dumps(out))
+        return out
+
+    def check_p1_near_ties(self, forest, kept: dict) -> dict:
+        """The fit's held-out queries searched at p = 1 against brute force
+        under phase 3's near-tie rule."""
+        torch = self.torch
+        from repro_torch.core import calibrate as tcal
+        from repro_torch.core import search as tsearch
+        qs = torch.as_tensor(tcal.held_out_queries(
+            forest, CALIBRATION_QUERIES, seed=0), device=self.dev)
+        res = tsearch.knn_batch(forest, qs, K, approx_p=1.0,
+                                block_rows=kept.get("block_rows"),
+                                device=self.dev)
+        points = forest.rows_view()[torch.argsort(forest.point_ids.long())]
+        return self.check_brute_force(points, qs, res.ids, res.dists,
+                                      kept["family"])
+
+    def check_calibration(self, label: str, kept: dict) -> dict:
+        """``ensure_calibration`` on one index: a non-decreasing curve to
+        p = 1, whose recall there is 1.0 or misses only at near ties with
+        brute force, the fit timed; ``target_recall`` bit-equal to
+        ``approx_p`` at the resolved p, its recall against the exact ids
+        at least the expected recall less RECALL_SLACK."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import calibrate as tcal
+        from repro_torch.core import search as tsearch
+        br = kept.get("block_rows")
+        self.sync()
+        t0 = time.perf_counter()
+        forest = tcal.ensure_calibration(kept["forest"], k=K,
+                                         num_queries=CALIBRATION_QUERIES)
+        self.sync()
+        cal = forest.calibration
+        r = cal.recall_grid
+        entry = {"fit_s": time.perf_counter() - t0,
+                 "p_grid": cal.p_grid.tolist(), "recall_grid": r.tolist()}
+        expect(bool(np.all(np.diff(r) >= 0)) and cal.p_grid[-1] == 1.0,
+               f"{label}: the fitted curve {r.tolist()} is not "
+               "non-decreasing to p = 1")
+        if r[-1] != 1.0:
+            # Recall is counted by ids: at p = 1 a miss must be a near tie
+            # with brute force (the refine form and the oracle's round
+            # apart on data of large magnitude).
+            entry["p1_near_ties"] = self.check_p1_near_ties(forest, kept)
+        exact_ids = kept["ids"].cpu().numpy()
+        for t in RECALL_TARGETS:
+            p, expected = tcal.resolve_p_guarantee(forest, t)
+            got = tsearch.knn_batch(forest, kept["ys"], K, target_recall=t,
+                                    block_rows=br, device=self.dev)
+            want = tsearch.knn_batch(forest, kept["ys"], K, approx_p=p,
+                                     block_rows=br, device=self.dev)
+            for f in got._fields:
+                expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                       f"{label}: target_recall={t} {f} differ from "
+                       f"approx_p={p}")
+            ids = got.ids.cpu().numpy()
+            recall = float(np.mean([
+                len(set(a.tolist()) & set(e.tolist())) / K
+                for a, e in zip(ids, exact_ids, strict=True)]))
+            expect(recall >= expected - RECALL_SLACK,
+                   f"{label}: recall {recall} at target_recall={t} is "
+                   f"below the expected {expected} less {RECALL_SLACK}")
+            entry[f"target={t}"] = {"p": p, "expected_recall": expected,
+                                    "measured_recall": recall}
+        say(f"calibration {label}: " + json.dumps(entry))
+        return entry
+
+    def check_small_calibration(self, on_cpu, on_card) -> None:
+        """Phase 9's check on phase 2's small index: the curve fitted on
+        the card equal to the CPU's, element for element."""
+        import numpy as np
+        from repro_torch.core import calibrate as tcal
+        tier = on_cpu.storage
+        t0 = time.perf_counter()
+        a = tcal.fit_calibration(on_cpu, k=K, num_queries=CALIBRATION_QUERIES)
+        b = tcal.fit_calibration(on_card, k=K,
+                                 num_queries=CALIBRATION_QUERIES)
+        expect(np.array_equal(a.p_grid, b.p_grid)
+               and np.array_equal(a.recall_grid, b.recall_grid),
+               f"small {tier} index: the curve fitted on the card "
+               f"{b.recall_grid.tolist()} differs from the CPU's "
+               f"{a.recall_grid.tolist()}")
+        self.single["calibration"][f"small {tier}"] = {
+            "recall_grid": b.recall_grid.tolist()}
+        self.single["seconds"] += time.perf_counter() - t0
+        say(f"calibration: phase 2's small index ({tier}), the curve fitted "
+            "on the card == on the CPU: " + json.dumps(b.recall_grid.tolist()))
+
     def run(self) -> dict:
         t_start = time.perf_counter()
         self.phase_card_and_build()
@@ -2506,6 +2851,8 @@ class Smoke:
             self.record[name] = self.drive(name, quantize=False)
             self.record[name + "_int8"] = self.drive(name, quantize=True)
         self.record["blobs"] = self.drive_blobs()
+        self.record["single"] = self.single
+        say(f"phase 9: {self.single['seconds']:.1f} s")
         self.record["flash"] = self.phase_flash()
         self.record["knnlm"] = self.phase_knnlm()
         self.record["pccp"] = self.phase_pccp()
@@ -2593,14 +2940,29 @@ class Smoke:
             refine_extra["ldg128_sass"] = sum(
                 c for fn, c in sass["ldg128"].items()
                 if "refine_quant_kernel" in fn)
-        return [
-            ub_row,
-            fp_row,
-            entry("bregman_refine_batch", "bregman_dist.cu", rk["err"],
-                  rk["err_over_tol"], rk["kernel"], rk["plain"], rk["bound"],
-                  None, **refine_extra),
-            prune_row,
-        ]
+        refine_row = entry("bregman_refine_batch", "bregman_dist.cu",
+                           rk["err"], rk["err_over_tol"], rk["kernel"],
+                           rk["plain"], rk["bound"], None, **refine_extra)
+        # Beside them, each kernel of the single-query search (phase 9) at
+        # the q = 1 shape one knn_search gives it, and its launches there.
+        single = self.record["single"][f"deep {rec['tier']}"]
+        for row, name, key in ((ub_row, "bregman_ub_matrix", "ub"),
+                               (prune_row, "bregman_prune_mask", "prune"),
+                               (refine_row, "bregman_refine_batch",
+                                "refine")):
+            k1 = single[key]
+            row.update(q1_shape=k1["shape"],
+                       q1_ms=k1["kernel" if key == "refine" else "ms"],
+                       q1_plain_ms=k1["plain" if key == "refine"
+                                      else "plain_ms"],
+                       q1_bound_ms=k1["bound"][0],
+                       q1_bound_by=k1["bound"][1],
+                       q1_max_abs_err=k1.get("err", 0.0),
+                       q1_max_err_over_tol=k1.get("err_over_tol", 0.0),
+                       q1_launches=single["launches"][name + sfx])
+            if "library_ms" in k1:
+                row["q1_library_ms"] = k1["library_ms"]
+        return [ub_row, fp_row, refine_row, prune_row]
 
 
     def lm_kernel_table(self) -> list:

@@ -4,7 +4,9 @@ Every family is separable, ``f(x) = sum_j phi(x_j)``, so the distance over
 the full space is the sum of the distances over disjoint subspaces — the
 property dimensionality partitioning rests on.  Each family exposes the
 elementwise generator ``phi``, its derivative ``phi_prime`` and the
-inverse of the derivative, as torch functions on tensors.
+inverse of the derivative, as torch functions on tensors, with a domain
+sampler (drawing from an explicit ``torch.Generator``) and a domain
+projection.
 """
 
 from __future__ import annotations
@@ -41,6 +43,40 @@ class BregmanFamily:
         """``D_f(x, y)`` over the trailing axis (broadcasts on leading axes)."""
         term = self.phi(x) - self.phi(y) - self.phi_prime(y) * (x - y)
         return torch.sum(term, dim=-1)
+
+    def distance_masked(self, x: Tensor, y: Tensor, mask: Tensor) -> Tensor:
+        """``D_f`` restricted to dims where ``mask`` is 1 (padded subspaces)."""
+        term = self.phi(x) - self.phi(y) - self.phi_prime(y) * (x - y)
+        return torch.sum(term * mask, dim=-1)
+
+    def pairwise_distance(self, xs: Tensor, y: Tensor) -> Tensor:
+        """``D_f(xs[i], y)`` for a stack of points ``xs`` of shape (n, d)."""
+        return self.distance(xs, y[None, :])
+
+    # -- domain helpers ------------------------------------------------------
+    def project(self, x: Tensor) -> Tensor:
+        """Clip into the (numerically safe interior of the) domain."""
+        lo = self.domain_low + 1e-6 if math.isfinite(self.domain_low) \
+            else None
+        hi = self.domain_high - 1e-6 if math.isfinite(self.domain_high) \
+            else None
+        if lo is None and hi is None:
+            return x
+        return torch.clamp(x, lo, hi)
+
+    def sample(self, generator: torch.Generator, shape,
+               scale: float = 1.0) -> Tensor:
+        """Draw valid fp32 data for this family from ``generator`` (on the
+        generator's device): standard normals times ``scale``, made
+        strictly positive for the positive-domain families and clipped to
+        [-4, 4] for the exponential one (so exp(x) stays in range)."""
+        raw = torch.randn(tuple(shape), generator=generator,
+                          device=generator.device) * scale
+        if self.name in ("itakura_saito", "burg", "shannon"):
+            return torch.abs(raw) + 0.05
+        if self.name == "exponential":
+            return torch.clamp(raw, -4.0, 4.0)
+        return raw
 
 
 def validate_rows(family, rows, *, mode: str = "raise", what: str = "row"):
@@ -135,6 +171,31 @@ def _shannon() -> BregmanFamily:
         phi_prime=lambda x: torch.log(x) + 1.0,
         phi_prime_inv=lambda t: torch.exp(t - 1.0),
         domain_low=0.0,
+        domain_high=math.inf,
+    )
+
+
+def mahalanobis(q_diag) -> BregmanFamily:
+    """Squared Mahalanobis distance with a diagonal PSD matrix ``Q``.
+
+    ``f(x) = 0.5 x^T Q x`` with diagonal ``Q`` stays separable; a full ``Q``
+    would couple dimensions and break the partition bound.  ``q_diag`` is
+    held in fp32 and follows the operand to its device.  The family is
+    not in the registry (as in the reference), so no index is built by
+    its name and the refine kernels have no generator for it: use it with
+    the family-level operations (``distance``, ``pairwise_distance``).
+    """
+    q = torch.as_tensor(np.asarray(q_diag, dtype=np.float32))
+
+    def on(x: Tensor) -> Tensor:
+        return q.to(x.device)
+
+    return BregmanFamily(
+        name="mahalanobis",
+        phi=lambda x: 0.5 * on(x) * x * x,
+        phi_prime=lambda x: on(x) * x,
+        phi_prime_inv=lambda t: t / on(t),
+        domain_low=-math.inf,
         domain_high=math.inf,
     )
 

@@ -41,6 +41,19 @@ def _assign(points: Tensor, centers: Tensor, mask: Tensor, family) -> Tensor:
         for s in range(0, n, rows)])
 
 
+def _cluster_sums(points: Tensor, assign: Tensor, c: int) -> Tensor:
+    """Per-cluster row sums, (c, w).  ``index_add_`` adds the rows in
+    order on the CPU but with atomics in no fixed order on the card, where
+    the centres, and so the whole build, would then differ from run to
+    run; ``index_put_(accumulate=True)`` sorts the indices there and adds
+    each cluster's rows in a fixed order."""
+    out = torch.zeros((c, points.shape[1]), dtype=points.dtype,
+                      device=points.device)
+    if points.is_cuda:
+        return out.index_put_((assign,), points, accumulate=True)
+    return out.index_add_(0, assign, points)
+
+
 def kmeans(
     points: Tensor,
     mask: Tensor,
@@ -65,8 +78,8 @@ def kmeans(
     ones = torch.ones((n,), dtype=points.dtype, device=points.device)
     for _ in range(iters):
         assign = _assign(points, centers, mask, family)
-        sums = torch.zeros((c, w), dtype=points.dtype,
-                           device=points.device).index_add_(0, assign, points)
+        sums = _cluster_sums(points, assign, c)
+        # Counts are whole numbers, exact in any order of addition.
         cnts = torch.zeros((c,), dtype=points.dtype,
                            device=points.device).index_add_(0, assign, ones)
         means = sums / torch.clamp(cnts, min=1.0)[:, None]

@@ -73,6 +73,10 @@ class BallForest:
     amin_zp: Tensor | None = None
     gmax_scale: Tensor | None = None
     gmax_zp: Tensor | None = None
+    # Host-only recall calibration (core/calibrate.py RecallCalibration):
+    # numpy, never moved to a device nor counted in its bytes; it rides
+    # along through every dataclasses.replace of the forest.
+    calibration: object | None = None
 
     @property
     def family(self) -> BregmanFamily:
@@ -363,6 +367,8 @@ def build_index(
     gamma_buckets: int = 4,
     quantize: bool = False,
     calibrate: bool = False,
+    calibrate_k: int = 10,
+    calibration_queries: int = 64,
     seed: int = 0,
     device="cuda",
 ) -> BallForest:
@@ -378,11 +384,13 @@ def build_index(
     built over the decoded rows, the stat tables are re-encoded, and the
     envelopes are reduced over the decoded corners last.  Search over it
     is exact over :meth:`BallForest.rows_view`.
+
+    ``calibrate=True`` also fits the recall-calibration curve
+    (core/calibrate.py) over the finished index: measured recall@
+    ``calibrate_k`` over a ``p_guarantee`` grid on
+    ``calibration_queries`` held-out jittered rows, stored host-side on
+    :attr:`BallForest.calibration` so ``target_recall`` can be inverted.
     """
-    if calibrate:
-        raise NotImplementedError(
-            "build_index(calibrate=True): recall calibration is not ported "
-            "yet (ROADMAP queue 1 item 5)")
     dev = resolve_device(device)
     fam = get_family(family) if isinstance(family, str) else family
     if isinstance(data, torch.Tensor):
@@ -424,6 +432,15 @@ def build_index(
         order = forest.point_ids.long()
         forest = quantize_point_tables(forest, codes[order], scale[order],
                                        zp[order])
+    if calibrate:
+        # Fit over the finished index (calibrate drives the search, which
+        # imports this module).
+        from . import calibrate as _calibrate
+        forest = dataclasses.replace(
+            forest,
+            calibration=_calibrate.fit_calibration(
+                forest, k=min(calibrate_k, n),
+                num_queries=calibration_queries, seed=seed))
     return forest
 
 
@@ -446,10 +463,13 @@ def forest_to_numpy(forest: BallForest) -> dict:
 def forest_from_numpy(arrays: dict, *, family_name: str,
                       partition_idx, partition_mask, d: int,
                       num_clusters: int, storage: str = "f32",
-                      device="cuda") -> BallForest:
+                      calibration=None, device="cuda") -> BallForest:
     """A forest from numpy tables (:func:`interchange_fields` of
     ``storage``) and its partition layout; dtypes are kept, so
-    export(import(x)) is bit-equal."""
+    export(import(x)) is bit-equal.  ``calibration``, a fitted recall
+    curve with the fields of ``calibrate.RecallCalibration`` (one the
+    reference package fitted, say), is attached as host numpy."""
+    from .calibrate import as_calibration
     dev = resolve_device(device)
     if storage not in ("f32", "int8"):
         raise ValueError(f"storage must be 'f32' or 'int8', got {storage!r}")
@@ -468,5 +488,6 @@ def forest_from_numpy(arrays: dict, *, family_name: str,
     return BallForest(
         family_name=get_family(family_name).name, partition=part,
         num_clusters=int(num_clusters), storage=storage,
+        calibration=as_calibration(calibration),
         **{f: torch.from_numpy(np.array(arrays[f], copy=True)).to(dev)
            for f in fields})

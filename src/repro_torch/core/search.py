@@ -1,6 +1,6 @@
-"""Exact batched kNN on a BallForest (port of ``repro.core.search``).
+"""Exact and approximate kNN on a BallForest (port of ``repro.core.search``).
 
-A (q, d) query block runs five phases:
+A (q, d) query block (:func:`knn_search_batch`) runs five phases:
 
   1. Q-transform of the block (Alg. 3).
   2. Filter: a streaming per-column k-selection over the (n, q) Cauchy
@@ -29,9 +29,23 @@ refine decodes only the candidate rows; results are exact over the
 decoded points (``BallForest.rows_view``).
 
 The §8 approximate search (:func:`knn_search_batch_approx`) shrinks each
-query's bounds by the empirical CDF of the cross term before the prune.  A
-:class:`~repro_torch.core.tiered.TieredPointStore` passed to an entry point
-runs the same phases with its cold tables fetched block by block.
+query's bounds by the empirical CDF of the cross term before the prune,
+at a guarantee ``p_guarantee``, or at the ``p`` that the index's fitted
+recall curve gives for a ``target_recall`` (core/calibrate.py).
+:func:`knn_batch` is the host wrapper of both, with the budget ladder: it
+takes ``approx_p`` or ``target_recall`` for the approximate mode.  A
+:class:`~repro_torch.core.tiered.TieredPointStore` passed to an entry
+point runs the same phases with its cold tables fetched block by block.
+
+One (d,) query runs :func:`knn_search` (exact) or
+:func:`knn_search_approx` at a fixed budget, :func:`knn` with a doubling
+budget (:func:`default_budget` to start): the filter is kernel #1 (int8:
+#2) at q = 1 over all n rows, the Theorem-3 mask the prune-only kernel
+#5 (#6) at q = 1 over all n rows, the union members are cut to the
+budget in index order, and the refine is the q = 1 slice of the batch
+refine.  :func:`knn_search_batch_reference` is the materialized oracle:
+the (n, q) mask in plain torch and a (q, n) running count, which the
+streamed search must match bit for bit.
 
 Ties resolve to the lower row index everywhere (stable sorts), as in the
 reference.  When a query's Theorem-3 union overflows the budget it is
@@ -53,11 +67,13 @@ from ..kernels import ref as kernel_ref
 from . import bounds
 from . import quantize as qz
 from .bregman import get_family, validate_rows
+from .calibrate import resolve_p_guarantee
 from .index import ENV_BLOCK_ROWS, BallForest
 from .transform import q_transform
 
 Tensor = torch.Tensor
 
+NEG_BIG = -1e30
 POS_BIG = 1e30
 
 logger = logging.getLogger(__name__)
@@ -565,6 +581,58 @@ def _slot_validity(count: Tensor, budget: int) -> Tensor:
     return targets[None, :] <= torch.clamp(count, max=budget)[:, None]
 
 
+def _corner_admit(amin: Tensor, gmax: Tensor, qconst: Tensor,
+                  sqrt_delta: Tensor, qb: Tensor, sub_axis: int) -> Tensor:
+    """The Theorem-3 membership test in plain torch, op by op (no fused
+    multiply-add): some subspace's cluster lower bound within its bound.
+    ``sub_axis`` names the subspace axis of the broadcast operands."""
+    lb = amin + qconst - gmax * sqrt_delta
+    return torch.any(lb <= qb, dim=sub_axis)
+
+
+def _candidate_mask_batch(index: BallForest, qs: dict, qb: Tensor,
+                          block_rows: int) -> Tensor:
+    """The materialized Theorem-3 union, (n, q) bool: :func:`_corner_admit`
+    broadcast over the query batch in ``block_rows``-row chunks (the int8
+    corners decoded first), so the (rows, M, q) intermediate bounds the
+    peak memory.  Plain torch on every device: the oracle does not run
+    the prune kernels it exists to check."""
+    bn, nb = _block_layout(index.n, block_rows)
+    qc = qs["qconst"].T[None]                                   # (1, M, q)
+    sd = qs["sqrt_delta"].T[None]
+    qbT = qb.T[None]
+    corners = tuple(getattr(index, f) for f in CORNER_FIELDS[index.storage])
+    masks = []
+    for blk in _row_blocks(corners, bn, nb):
+        if index.storage == "int8":
+            amin = qz.dequantize_stats(*blk[:3])                # (rows, M)
+            gmax = qz.dequantize_stats(*blk[3:])
+        else:
+            amin, gmax = blk
+        masks.append(_corner_admit(amin[:, :, None], gmax[:, :, None], qc,
+                                   sd, qbT, sub_axis=1))        # (rows, q)
+    return torch.cat(masks)
+
+
+def _compact_candidates(mask: Tensor,
+                        budget: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Each query's union members in ``budget`` slots, by the (q, n) int32
+    running member count: slot s holds the row where the count first
+    reaches s + 1 (``searchsorted``, left), clamped to ``n - 1`` where the
+    members ran out.  Returns (sel (q, budget), valid (q, budget),
+    num_candidates (q,)); members past the budget are dropped in index
+    order."""
+    masks = mask.T.contiguous()                                 # (q, n)
+    q, n = masks.shape
+    csum = torch.cumsum(masks, dim=1, dtype=torch.int32)
+    num_candidates = csum[:, -1].long()
+    targets = torch.arange(1, budget + 1, dtype=torch.int32,
+                           device=mask.device)
+    sel = torch.searchsorted(csum, targets.expand(q, budget).contiguous())
+    sel = torch.clamp(sel, max=n - 1)
+    return sel, _slot_validity(num_candidates, budget), num_candidates
+
+
 def _refine_topk(tables: tuple, rows: Tensor, sel: Tensor, valid: Tensor,
                  qs: dict, point_ids: Tensor, k: int, family_name: str):
     """One refine kernel launch over all queries' candidates, then the k
@@ -601,7 +669,8 @@ def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
                            with_stats: bool = False,
                            env_block_rows: int | None = None,
                            fused: bool = True,
-                           p_guarantee: float | None = None):
+                           p_guarantee: float | None = None,
+                           streaming: bool = True):
     if k > index.n:
         raise ValueError(f"k={k} exceeds index size n={index.n}")
     if budget < k:
@@ -612,10 +681,16 @@ def _knn_search_batch_core(index: BallForest, ys: Tensor, k: int,
     qs = query_struct(ys, index.partition, index.family)
     qb = _filter_bounds(index, qs, k, block_rows, p_guarantee)       # (q, M)
 
-    (sel, valid, num_candidates, env_admitted, blocks_run,
-     tau) = _stream_prune_compact(index, qs, qb, budget, block_rows,
-                                  env_block_rows=env_block_rows,
-                                  with_tau=with_stats, fused=fused)
+    if streaming:
+        (sel, valid, num_candidates, env_admitted, blocks_run,
+         tau) = _stream_prune_compact(index, qs, qb, budget, block_rows,
+                                      env_block_rows=env_block_rows,
+                                      with_tau=with_stats, fused=fused)
+    else:
+        # The oracle: the materialized (n, q) mask and (q, n) count.
+        mask = _candidate_mask_batch(index, qs, qb, block_rows)
+        sel, valid, num_candidates = _compact_candidates(mask, budget)
+        del mask
     ids, dists = _refine_batch(index, qs, sel, valid, k)
     res = SearchResult(ids=ids, dists=dists,
                        exact=num_candidates <= budget,
@@ -662,20 +737,32 @@ def _knn_search_batch_unfused(index: BallForest, ys, k: int, budget: int,
 
 
 def knn_search_batch_approx(index: BallForest, ys, k: int,
-                            budget: int | None, p_guarantee,
+                            budget: int | None, p_guarantee=None,
                             block_rows: int | None = None,
                             validate: bool = True,
+                            target_recall: float | None = None,
                             device="cuda") -> SearchResult:
     """§8 approximate kNN for a (q, d) block: each query's bounds shrink
     by the cross term's empirical CDF so that a true neighbour is kept
     with probability ``p_guarantee`` (Prop. 1); ``p_guarantee = 1`` keeps
-    the exact bounds' candidates.  A tiered store runs its own search."""
-    if p_guarantee is None:
-        raise ValueError("knn_search_batch_approx needs p_guarantee")
+    the exact bounds' candidates.  A tiered store runs its own search.
+
+    Exactly one of ``p_guarantee`` and ``target_recall`` is given.
+    ``target_recall`` inverts the index's fitted recall curve on the host
+    (``core/calibrate.py``) to the smallest grid ``p`` that met it; on an
+    uncalibrated index it falls back to ``p_guarantee = target_recall``
+    with a one-time warning."""
+    if (p_guarantee is None) == (target_recall is None):
+        raise ValueError(
+            "knn_search_batch_approx needs p_guarantee or target_recall: "
+            "pass exactly one of p_guarantee / target_recall")
     if getattr(index, "is_tiered_store", False):
         return index.search(ys, k, budget, p_guarantee=p_guarantee,
+                            target_recall=target_recall,
                             block_rows=block_rows, validate=validate,
                             device=device)
+    if target_recall is not None:
+        p_guarantee, _ = resolve_p_guarantee(index, target_recall)
     validate_p_guarantee(p_guarantee)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
@@ -723,22 +810,210 @@ def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
     return res, stats
 
 
-def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
+def knn_search_batch_reference(index: BallForest, ys, k: int,
+                               budget: int | None, p_guarantee=None,
+                               block_rows: int | None = None,
+                               device="cuda") -> SearchResult:
+    """The materialized mask pipeline: the bit-parity oracle.
+
+    The math of :func:`knn_search_batch` (or, with ``p_guarantee``, of
+    :func:`knn_search_batch_approx`), but the prune is the full (n, q)
+    Theorem-3 mask in plain torch and the compaction a binary search on
+    the (q, n) running member count.  O(n * q) peak memory, so for tests
+    and checks only; the streamed search must match it bit for bit on
+    every output field.  A tiered store is refused.
+    """
+    if getattr(index, "is_tiered_store", False):
+        raise TypeError(
+            "knn_search_batch_reference materializes the full (n, q) mask "
+            "on device — meaningless for an out-of-core store; pass "
+            "store.as_resident_forest() to oracle against the same points")
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    validate_p_guarantee(p_guarantee)
+    ys = _queries(ys, dev)
+    br = resolve_block_rows(block_rows, index.n)
+    return _knn_search_batch_core(
+        index, ys, k, budget, br, streaming=False,
+        p_guarantee=None if p_guarantee is None else float(p_guarantee))
+
+
+# ---------------------------------------------------------------------------
+# Single-query search
+# ---------------------------------------------------------------------------
+
+def _smallest(totals: Tensor, k: int) -> Tensor:
+    """Rows of the k smallest totals, ascending, ties to the lower row (a
+    stable sort)."""
+    return torch.sort(totals, stable=True).indices[:k]
+
+
+def _single_filter(index: BallForest, q: dict, k: int):
+    """Filter phase of one query: (totals (n,), top-k rows (k,), qb (M,)).
+
+    The fp32 tier runs ``bregman_ub_filter`` (kernel #1 at q = 1 over all
+    n rows); the int8 tier runs the int8 UB kernel (#2) at q = 1 and
+    inflates the Alg.-4 bounds by the filter stats' rounding slack."""
+    if index.storage == "int8":
+        totals = kernel_ops.bregman_ub_matrix_quant(
+            index.alpha, index.alpha_scale, index.alpha_zp,
+            index.sqrt_gamma, index.sg_scale, index.sg_zp,
+            q["qconst"][None], q["sqrt_delta"][None])[:, 0]
+        idx = _smallest(totals, k)
+        qb = (bounds.ub_components(_tuple_rows(index, idx[-1]), q)
+              + _qb_slack(index, idx, q["sqrt_delta"]))
+    else:
+        totals, comp_of = kernel_ops.bregman_ub_filter(
+            index.alpha, index.sqrt_gamma, q["qconst"], q["sqrt_delta"])
+        idx = _smallest(totals, k)
+        qb = comp_of(idx[-1])
+    return totals, idx, qb
+
+
+def _candidate_mask(index: BallForest, q: dict, qb: Tensor) -> Tensor:
+    """Theorem-3 union membership of one query, (n,) bool: the prune-only
+    kernel (#5, #6 in int8) at q = 1 over all n rows in one launch."""
+    corners = tuple(getattr(index, f) for f in CORNER_FIELDS[index.storage])
+    qs1 = {"qconst": q["qconst"][None], "sqrt_delta": q["sqrt_delta"][None]}
+    return _prune_block(index.storage, corners, qs1, qb[None])[:, 0] > 0
+
+
+def _knn_search_core(index: BallForest, y: Tensor, k: int, budget: int,
+                     p_guarantee: float | None = None) -> SearchResult:
+    """One (d,) query at a fixed budget: filter, bounds (shrunk by §8 when
+    ``p_guarantee`` is given), the Theorem-3 mask, then the union members
+    first (in index order, as ``POS_BIG - totals`` rounds to ``POS_BIG``
+    in fp32), non-members after them by UB, cut at ``budget`` and
+    refined as the q = 1 slice of the batch refine."""
+    q = query_struct(y, index.partition, index.family)
+    totals, idx, qb = _single_filter(index, q, k)
+    if p_guarantee is not None:
+        qb = _approx_bounds(index, {"sqrt_delta": q["sqrt_delta"][None]},
+                            idx[None], qb[None], p_guarantee)[0]
+    mask = _candidate_mask(index, q, qb)
+    num_candidates = mask.sum()
+    priority = torch.where(mask, POS_BIG - totals, NEG_BIG - totals)
+    sel = torch.sort(priority, descending=True, stable=True).indices[:budget]
+    ids, dists = _refine_batch(
+        index, {"grad": q["grad"][None], "c_y": q["c_y"][None]}, sel[None],
+        mask[sel][None], k)
+    return SearchResult(ids=ids[0], dists=dists[0],
+                        exact=num_candidates <= budget,
+                        num_candidates=num_candidates)
+
+
+def _query(y, dev: torch.device) -> Tensor:
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev).contiguous()
+    if y.ndim != 1:
+        raise ValueError(f"expected one (d,) query, got {tuple(y.shape)}")
+    return y
+
+
+def _store_search_one(store, y, k: int, budget, validate: bool, device,
+                      **approx) -> SearchResult:
+    """One query through a tiered store's batched search, sliced back."""
+    res = store.search(torch.as_tensor(y, dtype=torch.float32)[None], k,
+                       budget, validate=validate, device=device, **approx)
+    return SearchResult(ids=res.ids[0], dists=res.dists[0],
+                        exact=res.exact[0],
+                        num_candidates=res.num_candidates[0])
+
+
+def knn_search(index: BallForest, y, k: int, budget: int | None,
+               validate: bool = True, device="cuda") -> SearchResult:
+    """Exact kNN for one (d,) query at a fixed ``budget``; fields are
+    (k,) and scalars.  A tiered store runs its batched search on the one
+    query."""
+    if getattr(index, "is_tiered_store", False):
+        return _store_search_one(index, y, k, budget, validate, device)
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    y = _query(y, dev)
+    if validate:
+        validate_queries(index.family, y)
+    return _knn_search_core(index, y, k, budget)
+
+
+def knn_search_approx(index: BallForest, y, k: int, budget: int | None,
+                      p_guarantee, validate: bool = True,
+                      device="cuda") -> SearchResult:
+    """§8 approximate kNN for one (d,) query at a fixed ``budget``, with
+    the probability guarantee ``p_guarantee``.  A tiered store runs its
+    batched search on the one query."""
+    if p_guarantee is None:
+        raise ValueError("knn_search_approx needs p_guarantee")
+    if getattr(index, "is_tiered_store", False):
+        return _store_search_one(index, y, k, budget, validate, device,
+                                 p_guarantee=p_guarantee)
+    validate_p_guarantee(p_guarantee)
+    dev = _on_index_device(index, device)
+    budget = resolve_budget(budget, index.n, k)
+    y = _query(y, dev)
+    if validate:
+        validate_queries(index.family, y)
+    return _knn_search_core(index, y, k, budget,
+                            p_guarantee=float(p_guarantee))
+
+
+def default_budget(index: BallForest, k: int) -> int:
+    """Initial refine budget: the cost model's candidate estimate."""
+    return resolve_budget(None, index.n, k)
+
+
+def knn(index: BallForest, y, k: int, budget: int | None = None,
+        approx_p: float | None = None, device="cuda") -> SearchResult:
+    """One query with the budget ladder: on overflow the budget doubles
+    (capped at n) and the search runs again.  Always exact when
+    ``approx_p`` is None; with ``approx_p`` the result carries the §8
+    probability guarantee instead."""
+    dev = _on_index_device(index, device)
+    y = _query(y, dev)
+    validate_queries(index.family, y)
+    validate_p_guarantee(approx_p)
+    budget = resolve_budget(budget, index.n, k)
+    while True:
+        if approx_p is None:
+            res = knn_search(index, y, k, budget, validate=False, device=dev)
+        else:
+            res = knn_search_approx(index, y, k, budget, approx_p,
+                                    validate=False, device=dev)
+        if bool(res.exact) or budget >= index.n:
+            return res
+        budget = min(index.n, budget * 2)
+
+
+# ---------------------------------------------------------------------------
+# Host wrapper of the batched search: the budget ladder
+# ---------------------------------------------------------------------------
+
+def knn_batch(index: BallForest, ys, k: int, budget: int | None = None,
+              approx_p: float | None = None, *,
+              target_recall: float | None = None,
               max_doublings: int = MAX_BUDGET_DOUBLINGS,
               block_rows: int | None = None,
               stop_retry=None, return_stats: bool = False,
               validate: bool = True, device="cuda"):
-    """Exact batched kNN with the budget-retry ladder.
+    """Batched kNN with the budget-retry ladder, exact or §8 approximate.
 
     If any query's Theorem-3 union overflows, the block re-runs at the
     budget fitted to the largest observed union (a power of two), at most
     ``max_doublings`` times; then it falls back to one brute-force scan
-    (over ``as_resident_forest()`` for a tiered store), so results are
-    always exact.  ``stop_retry`` (no-arg callable -> bool)
-    is consulted before every additional launch and ends the ladder with
-    the best result so far.  ``return_stats=True`` returns
-    ``(SearchResult, BatchStats)``.
+    (over ``as_resident_forest()`` for a tiered store), so exact results
+    are always exact and approximate ones keep their guarantee.
+    ``stop_retry`` (no-arg callable -> bool) is consulted before every
+    additional launch and ends the ladder with the best result so far.
+    ``return_stats=True`` returns ``(SearchResult, BatchStats)``.
+
+    ``approx_p`` runs every attempt through
+    :func:`knn_search_batch_approx` at that ``p_guarantee``;
+    ``target_recall`` (not with ``approx_p``) picks it from the index's
+    fitted recall curve (``core/calibrate.py``) first.
     """
+    if target_recall is not None:
+        if approx_p is not None:
+            raise ValueError("pass at most one of approx_p / target_recall")
+        approx_p, _ = resolve_p_guarantee(index, target_recall)
+    validate_p_guarantee(approx_p)
     dev = _on_index_device(index, device)
     ys = _queries(ys, dev)
     if ys.ndim != 2:
@@ -747,6 +1022,14 @@ def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
     if validate:
         validate_queries(index.family, ys)
     budget = resolve_budget(budget, index.n, k)
+    p = None if approx_p is None else float(approx_p)
+
+    def run(b):
+        if p is None:
+            return knn_search_batch(index, ys, k, b, block_rows,
+                                    validate=False, device=dev)
+        return knn_search_batch_approx(index, ys, k, b, p, block_rows,
+                                       validate=False, device=dev)
 
     def done(res, escalations, scan=False, stopped=False):
         stats = BatchStats(escalations=escalations, budget_final=budget,
@@ -754,8 +1037,7 @@ def knn_batch(index: BallForest, ys, k: int, budget: int | None = None, *,
         return (res, stats) if return_stats else res
 
     for attempt in range(max_doublings + 1):
-        res = knn_search_batch(index, ys, k, budget, block_rows,
-                               validate=False, device=dev)
+        res = run(budget)
         if bool(res.exact.all()) or budget >= index.n:
             return done(res, attempt)
         if attempt == max_doublings:

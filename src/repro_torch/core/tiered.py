@@ -67,6 +67,7 @@ import torch
 
 from ..kernels import ref as kernel_ref
 from . import search as _search
+from .calibrate import resolve_p_guarantee
 from .index import BallForest, cold_point_fields, inert_fill
 from .search import (CORNER_FIELDS, POS_BIG, REFINE_FIELDS, SearchResult,
                      resolve_block_rows, resolve_budget,
@@ -353,6 +354,11 @@ class TieredPointStore:
         return self._hot.storage
 
     @property
+    def calibration(self):
+        """The hot forest's fitted recall curve (host-only), or None."""
+        return self._hot.calibration
+
+    @property
     def live_n(self) -> int:
         return self._live_n
 
@@ -540,17 +546,25 @@ class TieredPointStore:
     # -- search -------------------------------------------------------------
 
     def search(self, ys, k: int, budget: int | None = None, *,
-               p_guarantee=None, block_rows: int | None = None,
+               p_guarantee=None, target_recall: float | None = None,
+               block_rows: int | None = None,
                env_block_rows: int | None = None, validate: bool = True,
                device="cuda") -> SearchResult:
         """Batched kNN over the store: bit-equal to the resident
-        ``knn_search_batch``, or to ``knn_search_batch_approx`` when
-        ``p_guarantee`` is given, on the same index.
+        ``knn_search_batch``, or to ``knn_search_batch_approx`` when one
+        of ``p_guarantee`` / ``target_recall`` is given, on the same index
+        (``target_recall`` resolves through the hot forest's recall
+        curve).
 
         ``block_rows`` was fixed at construction (the host blocks are cut
         at it): another explicit value raises.  ``env_block_rows`` only
         coarsens the gate; results do not move, the admitted set may.
         """
+        if p_guarantee is not None and target_recall is not None:
+            raise ValueError(
+                "pass at most one of p_guarantee / target_recall")
+        if target_recall is not None:
+            p_guarantee, _ = resolve_p_guarantee(self, target_recall)
         validate_p_guarantee(p_guarantee)
         dev = _search._on_index_device(self, device)
         budget = resolve_budget(budget, self.n, k)

@@ -27,6 +27,32 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def bregman_ub_filter(alpha, sqrt_gamma, qconst, sqrt_delta):
+    """Total UBs for one query and a closure for the Alg.-4 k-th components.
+
+    Returns ``(totals (n,), comp_of(kth) -> (M,))``.  Strictly single-query:
+    ``qconst``/``sqrt_delta`` must be (M,); a (q, M) batch goes through
+    :func:`bregman_ub_matrix`.  On the card the totals are kernel #1 at
+    q = 1 over all n rows in one launch.
+    """
+    if qconst.ndim != 1 or sqrt_delta.ndim != 1:
+        raise ValueError(
+            "bregman_ub_filter is single-query: qconst/sqrt_delta must be "
+            f"(M,), got {tuple(qconst.shape)}/{tuple(sqrt_delta.shape)}; use "
+            "bregman_ub_matrix for query batches")
+    if not _on_cuda(alpha):
+        totals = ref.bregman_ub_totals(alpha, sqrt_gamma, qconst, sqrt_delta)
+    else:
+        totals = _ub.bregman_ub_matrix(alpha, sqrt_gamma,
+                                       torch.sum(qconst)[None],
+                                       sqrt_delta[None, :])[:, 0]
+
+    def comp_of(kth):
+        return alpha[kth] + qconst + sqrt_gamma[kth] * sqrt_delta
+
+    return totals, comp_of
+
+
 def bregman_ub_matrix(alpha, sqrt_gamma, qconst, sqrt_delta):
     """(n, q) UB totals for a query batch: (n,M)x2, (q,M)x2 -> (n,q)."""
     if not _on_cuda(alpha):

@@ -14,6 +14,13 @@ from ..core import quantize as qz
 Tensor = torch.Tensor
 
 
+def bregman_ub_totals(alpha: Tensor, sqrt_gamma: Tensor, qconst: Tensor,
+                      sqrt_delta: Tensor) -> Tensor:
+    """Total UB per point for a single query.  (n,M),(n,M),(M,),(M,) -> (n,)."""
+    return (torch.sum(alpha, -1) + torch.sum(qconst, -1)
+            + sqrt_gamma @ sqrt_delta)
+
+
 def bregman_ub_matrix(alpha: Tensor, sqrt_gamma: Tensor, qconst: Tensor,
                       sqrt_delta: Tensor) -> Tensor:
     """UB totals for a query batch.  (n,M),(n,M),(q,M),(q,M) -> (n,q)."""

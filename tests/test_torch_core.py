@@ -261,10 +261,13 @@ def test_validate_rows_matches_jax():
 
 
 def test_build_index_options_not_ported_raise():
-    """calibrate=True still raises; quantize=True builds the int8 tier."""
+    """Both options are ported: calibrate=True attaches a fitted recall
+    curve (host-side) and quantize=True builds the int8 tier."""
     data = sample("burg", (64, 4), seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tidx.build_index(data, "burg", calibrate=True, device="cpu")
+    calibrated = tidx.build_index(data, "burg", m=2, calibrate=True,
+                                  calibration_queries=8, device="cpu")
+    assert calibrated.calibration is not None
+    assert calibrated.calibration.recall_grid[-1] == 1.0
     forest = tidx.build_index(data, "burg", m=2, quantize=True, device="cpu")
     assert forest.storage == "int8" and forest.data.dtype == torch.int8
     assert all(getattr(forest, f).shape == (64,) for f in tidx.QUANT_FIELDS)

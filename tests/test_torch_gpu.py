@@ -1125,3 +1125,122 @@ def test_knnlm_path_on_the_card_launches_its_kernels(cuda, monkeypatch):
     bf_ids, _ = tsearch.brute_force_knn(keys, seen["hidden"].float(), 4,
                                         "squared_euclidean", device=cuda)
     assert torch.equal(res.ids.long(), bf_ids.long())
+
+
+def _small_pair(cuda, family, quantize, seed):
+    """A small index built on the CPU and the same tables on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    data = _valid((3000, 24), family, gen).numpy()
+    forest = tidx.build_index(data, family, m=6, quantize=quantize,
+                              device="cpu")
+    moved = tidx.forest_from_numpy(
+        tidx.forest_to_numpy(forest), family_name=family,
+        partition_idx=forest.partition.idx,
+        partition_mask=forest.partition.mask, d=forest.d,
+        num_clusters=forest.num_clusters, storage=forest.storage,
+        device=cuda)
+    return forest, moved, np.ascontiguousarray(data[:6] * 1.01)
+
+
+def _single_counts() -> dict:
+    return {(mod.__name__.rsplit(".", 1)[-1], attr): getattr(mod, attr)
+            for mod in (bregman_ub, bregman_fused, bregman_prune,
+                        bregman_dist)
+            for attr in ("launches", "launches_quant")}
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("family", ["exponential", "burg"])
+def test_single_query_on_the_card_matches_the_cpu(cuda, family, quantize):
+    """knn_search, knn_search_approx and knn on the card against the same
+    calls on the CPU; one knn_search launches the filter (#1 or #2), the
+    prune-only mask (#5 or #6) and the refine (#7 or #8) once each at
+    q = 1, and nothing else."""
+    forest, moved, queries = _small_pair(cuda, family, quantize, seed=7)
+    attr = "launches_quant" if quantize else "launches"
+    for y in queries:
+        for call in (
+                lambda f, dev: tsearch.knn_search(f, y, 10, 256, device=dev),
+                lambda f, dev: tsearch.knn_search_approx(f, y, 10, 256, 0.8,
+                                                         device=dev),
+                lambda f, dev: tsearch.knn(f, y, 10, device=dev)):
+            want = call(forest, "cpu")
+            before = _single_counts()
+            got = call(moved, cuda)
+            torch.cuda.synchronize()
+            assert torch.equal(got.ids.cpu(), want.ids)
+            assert bool(got.exact) == bool(want.exact)
+            assert int(got.num_candidates) == int(want.num_candidates)
+            assert torch.allclose(got.dists.cpu(), want.dists, rtol=1e-4,
+                                  atol=1e-4)
+            grew = {key for key, n in _single_counts().items()
+                    if n > before[key]}
+            assert {("bregman_ub", attr), ("bregman_prune", attr),
+                    ("bregman_dist", attr)} == grew
+    before = _single_counts()
+    tsearch.knn_search(moved, queries[0], 10, 256, device=cuda)
+    after = _single_counts()
+    assert {key: after[key] - before[key] for key in after} == {
+        key: int(key[1] == attr and key[0] != "bregman_fused")
+        for key in after}
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_oracle_on_the_card_equals_the_streamed_search(cuda, quantize):
+    """knn_search_batch_reference on the card (the (n, q) mask in plain
+    torch) against knn_search_batch and knn_search_batch_approx on the
+    card, bit for bit, on blobs where the mask is mixed."""
+    rng = np.random.default_rng(0)
+    data = np.concatenate([rng.normal(size=(600, 16)) + 10.0 * j
+                           for j in range(6)]).astype(np.float32)
+    forest = tidx.build_index(data, "squared_euclidean", m=4,
+                              quantize=quantize, device=cuda)
+    queries = np.ascontiguousarray(data[[0, 90, 700, 1300]] * 1.01)
+    for p in (None, 0.9):
+        if p is None:
+            want = tsearch.knn_search_batch(forest, queries, 10, 512,
+                                            block_rows=512, device=cuda)
+        else:
+            want = tsearch.knn_search_batch_approx(
+                forest, queries, 10, 512, p, block_rows=512, device=cuda)
+        got = tsearch.knn_search_batch_reference(
+            forest, queries, 10, 512, p_guarantee=p, block_rows=512,
+            device=cuda)
+        for f in got._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (p, f)
+        assert 0 < int(got.num_candidates.sum()) < forest.n * len(queries)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_calibration_fitted_on_the_card_equals_the_cpu(cuda, quantize):
+    from repro_torch.core import calibrate as tcal
+    forest, moved, queries = _small_pair(cuda, "exponential", quantize,
+                                         seed=8)
+    want = tcal.fit_calibration(forest, k=10, num_queries=32)
+    got = tcal.fit_calibration(moved, k=10, num_queries=32)
+    np.testing.assert_array_equal(got.p_grid, want.p_grid)
+    np.testing.assert_array_equal(got.recall_grid, want.recall_grid)
+    calibrated = tcal.ensure_calibration(moved, k=10, num_queries=32)
+    assert calibrated.calibration.recall_grid.tolist() == \
+        got.recall_grid.tolist()
+    p, _ = tcal.resolve_p_guarantee(calibrated, 0.95)
+    a = tsearch.knn_batch(calibrated, queries, 10, target_recall=0.95,
+                          device=cuda)
+    b = tsearch.knn_batch(calibrated, queries, 10, approx_p=p, device=cuda)
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_build_on_the_card_repeats_bit_for_bit(cuda):
+    """Two builds of one blob corpus on the card give the same tables: the
+    k-means centre sums add each cluster's rows in a fixed order (with
+    ``index_add_``'s atomics the centres drift by an ulp between runs,
+    and with them the assignment and the held-out calibration queries)."""
+    rng = np.random.default_rng(0)
+    data = np.concatenate([rng.normal(size=(1 << 14, 32)) + 100.0 * j
+                           for j in range(16)]).astype(np.float32)
+    a, b = (tidx.build_index(data, "squared_euclidean", m=4,
+                             num_clusters=64, seed=0, device=cuda)
+            for _ in range(2))
+    for f in tidx.interchange_fields(a.storage):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

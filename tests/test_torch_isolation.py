@@ -191,7 +191,11 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "kNN-LM: the hook's ids on the last tick match brute force",
                  "kNN-LM: the engine's",
                  "first-token logits through #10",
-                 "pccp_correlation on the datastore's keys"):
+                 "pccp_correlation on the datastore's keys",
+                 "single-query deep int8: knn == brute force",
+                 "oracle blobs: knn_search_batch_reference == "
+                 "knn_search_batch bit for bit",
+                 "calibration: phase 2's small index"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

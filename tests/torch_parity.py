@@ -71,6 +71,20 @@ def jax_forest(family: str, quantize: bool = False):
                            seed=0, quantize=quantize), data, queries
 
 
+@functools.lru_cache(maxsize=None)
+def blob_forest(quantize: bool = False):
+    """(reference forest, data, queries) over six Gaussian blobs 10 apart
+    (squared Euclidean, N rows), where the Theorem-3 mask of a query near
+    the first blobs admits some rows and rejects the others."""
+    rng = np.random.default_rng(0)
+    data = np.concatenate([rng.normal(size=(N // 6, D)) + 10.0 * j
+                           for j in range(6)]).astype(np.float32)
+    queries = data[[0, 40, 77, 150]] * np.float32(1.01)
+    return jax_build_index(data, "squared_euclidean", m=M,
+                           num_clusters=NUM_CLUSTERS, seed=0,
+                           quantize=quantize), data, queries
+
+
 def quant_inputs(n: int, m: int, seed: int) -> tuple:
     """Int8 codes (n, m) with their per-row (scale, zp): the codes reach
     -128 and 127, and row 1 is a constant row (scale 0, codes 0)."""
