@@ -104,7 +104,30 @@ Phases:
    resolved p, with recall against the exact ids at least the expected
    recall less 0.15; phase 2's small index fitted on the card equal to
    the CPU's fit, in both tiers (run in phase 2).
-10. The last line is ``{"ok": true, "device": {...}}``.
+10. The mutable index (``core/segments.py``), at the end of each drive
+   before its index is freed.  Deep, both tiers, on phase 4's index:
+   ``SegmentedForest.from_forest``, the last 100,000 ids deleted and the
+   same rows inserted again in 10 batches (new ids n ... n + 99,999):
+   ``knn_batch`` equals phase 4's result through the id map (ids, exact,
+   num_candidates, dists bit for bit); 50,000 more ids deleted (half
+   sealed, half appended, the first 4 queries' top 10 among them): the
+   ids equal brute force over the live rows (phase 3's near-tie rule),
+   no deleted id surfaces, ``knn`` equals the batch rows, the tier's
+   kernels launched once an attempt; fp32: a ``TieredPointStore`` at 40%
+   of the mutated index's cold bytes pins the append rows' blocks and is
+   bit-equal to the resident search; ``decide()`` recorded;
+   ``compact("merge")`` bit-equal at budget live_n (int8: the codes
+   too); fp32 ``compact("rebuild")`` the same ids and dists.  Audio, both
+   tiers: two mutable copies, 10% deleted and 5% inserted alike, rebuild
+   to bit-equal tables.  The blob corpus: its last tenth deleted and
+   reinserted, bit-equal to phase 5's resident search through the id map
+   before and after a merge, the gate's blocks recorded.  kNN-LM, after
+   serving: ``grow`` by the keys of 8 more sequences (one forward
+   through #10), ``evict`` 4,096 keys; the hook's ids equal brute force
+   over the live keys, a new key finds itself and its token leads the
+   mix at lambda 0.5, and a second call is bit-equal.  Inserts,
+   deletes, ``view()``, ``decide()``, merge and rebuild are timed.
+11. The last line is ``{"ok": true, "device": {...}}``.
 
 The line before the last holds the kernel table as JSON, the line before
 that the nvidia-smi name and power limit.  The full record goes to
@@ -160,6 +183,11 @@ SINGLE_QUERIES = 4
 SINGLE_P = 0.9
 CALIBRATION_QUERIES = 64
 RECALL_TARGETS = (0.9, 0.99)
+# Phase 10: insert batches of the delete-and-reinsert update, the kNN-LM
+# datastore's grow (sequences of CORPUS_LEN tokens) and eviction.
+MUTATION_BATCHES = 10
+MUTATION_SEQS = 8
+EVICT_KEYS = 4096
 # The indexes phase 9 runs the oracle and the calibration on.
 ORACLE_LABELS = ("blobs", "audio int8")
 # The reference's rule (tests/test_calibration.py): measured recall at a
@@ -1258,6 +1286,13 @@ class Smoke:
                                "budget": rec["budget_final"],
                                "search_ms": rec["search_ms"],
                                "family": spec.measure})
+        if name == "deep":
+            rec["mutable"] = self.drive_mutable(
+                label, forest, data, ys, q_batch,
+                {"ids": ids, "dists": dists, "exact": exact,
+                 "num_candidates": ncand}, spec.measure, rec["search_ms"])
+        else:
+            rec["mutable"] = self.check_audio_rebuilds(label, forest, data)
         del forest
         if not self.rehearsal:
             torch.cuda.empty_cache()
@@ -1847,6 +1882,8 @@ class Smoke:
         say("blob corpus: pooled prune kernel at the warm path's shape "
             + json.dumps(rec["pooled_prune"]))
         store.close()
+        rec["mutable"] = self.drive_blobs_mutable(forest, data, ys, want,
+                                                  budget, block_rows)
         self.phase9_of("blobs", {"forest": forest, "ys": ys,
                                  "ids": exact.ids, "budget": budget,
                                  "block_rows": block_rows,
@@ -2320,6 +2357,8 @@ class Smoke:
         say(f"kNN-LM: device busy {rec['profile']['busy_share']} of a "
             f"{SLOTS}-request, {PROFILE_TOKENS}-token serving run")
         rec["hook_calls_ms"] = [c["ms"] for c in calls]
+        rec["mutable"] = self.knnlm_mutable(bundle, params, store, cfg,
+                                            seq_len, rng)
         self._store = store
         del eng, bundle, params
         if not self.rehearsal:
@@ -2843,6 +2882,516 @@ class Smoke:
         say(f"calibration: phase 2's small index ({tier}), the curve fitted "
             "on the card == on the CPU: " + json.dumps(b.recall_grid.tolist()))
 
+    # -- phase 10: the mutable index ---------------------------------------
+    def reinsert_tail(self, label: str, forest, data) -> tuple:
+        """The update phase 10 makes with no build: ``forest`` as a
+        mutable index, its last tenth of original ids deleted, the same
+        rows (``data`` in original order) inserted again in
+        ``MUTATION_BATCHES`` batches, so id i >= n - cut comes back as
+        i + cut.  Returns (index, cut, timings)."""
+        import numpy as np
+        from repro_torch.core.segments import SegmentedForest
+        n = forest.n
+        cut = n // 10
+        out = {"n": n, "cut": cut}
+        self.sync()
+        t0 = time.perf_counter()
+        sf = SegmentedForest.from_forest(forest)
+        removed = sf.delete(np.arange(n - cut, n), auto_compact=False)
+        self.sync()
+        out["delete_tail_ms"] = 1e3 * (time.perf_counter() - t0)
+        expect(removed == cut, f"{label}: deleted {removed} of {cut} ids")
+        out["insert_ms"], out["insert_rows"] = [], []
+        for part in np.array_split(np.arange(n - cut, n), MUTATION_BATCHES):
+            self.sync()
+            t0 = time.perf_counter()
+            ids = sf.insert(data[part], auto_compact=False)
+            self.sync()
+            out["insert_ms"].append(1e3 * (time.perf_counter() - t0))
+            out["insert_rows"].append(int(part.size))
+            expect(np.array_equal(ids, part + cut),
+                   f"{label}: an insert returned ids {ids[:3]}..., not "
+                   f"{(part + cut)[:3]}...")
+        self.sync()
+        t0 = time.perf_counter()
+        sf.view()
+        self.sync()
+        out["view_ms"] = 1e3 * (time.perf_counter() - t0)
+        expect(sf.live_n == n and sf.n == n + cut,
+               f"{label}: {sf.live_n} live of {sf.n} rows after the update")
+        return sf, cut, out
+
+    def counted_search(self, label: str, index, ys, q_batch: int,
+                       quantize: bool, **kw) -> tuple:
+        """``knn_batch`` of ``ys`` in batches of ``q_batch`` through the
+        resident path, counts set to 0 just before and read just after:
+        each kernel of the tier's path launched, the filter and the fused
+        prune once an attempt.  Returns (result fields, launches)."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        sfx = "_quant" if quantize else ""
+        self.sync()
+        self.reset_launches()
+        outs = [tsearch.knn_batch(index, ys[s:s + q_batch], K,
+                                  device=self.dev, **kw)
+                for s in range(0, ys.shape[0], q_batch)]
+        self.sync()
+        launches = self.launches()
+        self.expect_launches(label, launches, RESIDENT_PATH, quantize)
+        attempts = launches["bregman_refine_batch" + sfx]
+        for kname in ("bregman_ub_matrix" + sfx,
+                      "bregman_filter_prune" + sfx):
+            expect(self.rehearsal or launches[kname] == attempts,
+                   f"{label}: {kname} launched {launches[kname]} times, "
+                   f"not once an attempt ({attempts} attempts)")
+        res = {f: torch.cat([getattr(o, f) for o in outs])
+               for f in ("ids", "dists", "exact", "num_candidates")}
+        return res, launches
+
+    def expect_same_result(self, label: str, got: dict,
+                           want: dict) -> None:
+        """ids, exact and num_candidates equal, dists bit-equal (within
+        1e-5 in a rehearsal, where the plain refine rounds by the batch's
+        shape)."""
+        torch = self.torch
+        for f in ("ids", "exact", "num_candidates"):
+            expect(bool(torch.equal(got[f], want[f])),
+                   f"{label}: {f} differ")
+        diff = (got["dists"] - want["dists"]).abs()
+        if not self.rehearsal:
+            expect(bool(torch.equal(got["dists"], want["dists"])),
+                   f"{label}: dists differ (max |diff| {float(diff.max())})")
+        else:
+            expect(bool((diff <= 1e-5 + 1e-5 * want["dists"].abs()).all()),
+                   f"{label}: dists differ (max |diff| {float(diff.max())})")
+
+    def drive_mutable(self, label: str, forest, data, ys, q_batch: int,
+                      want: dict, family: str, search_ms: float) -> dict:
+        """Phase 10 on Deep: phase 4's index as a mutable index through
+        the delete-and-reinsert update, then 50,000 more deletes, the
+        tiered store (fp32), a merge and (fp32) a rebuild, each held to
+        phase 4's result, brute force or the search before it."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import search as tsearch
+        quantize = forest.storage == "int8"
+        t_phase = time.perf_counter()
+        self.sync()
+        self.reset_peak()
+        sf, cut, out = self.reinsert_tail(label, forest, data)
+        n = forest.n
+
+        # 4. The live set is phase 4's: its result through the id map.
+        got, out["reinsert_launches"] = self.counted_search(
+            f"{label} mutated", sf, ys, q_batch, quantize)
+        got["ids"] = torch.where(got["ids"] >= n, got["ids"] - cut,
+                                 got["ids"])
+        self.expect_same_result(f"{label} mutated (delete and reinsert) "
+                                "against phase 4 through the id map", got,
+                                want)
+        out["search_ms"] = self.host_ms(
+            lambda: [tsearch.knn_batch(sf, ys[s:s + q_batch], K,
+                                       device=self.dev)
+                     for s in range(0, NUM_QUERIES, q_batch)], 3)
+        out["phase4_search_ms"] = search_ms
+
+        # 5. 50,000 more deletes, half of the main segment's, half of the
+        # appended rows, the first queries' top-k among them.
+        rng = np.random.default_rng(SEED)
+        top = want["ids"][:SINGLE_QUERIES].reshape(-1).cpu().numpy()
+        top = np.unique(np.where(top >= n - cut, top + cut, top))
+        half = n // 40
+        doomed = []
+        for pool, mine in ((np.arange(n - cut), top[top < n]),
+                           (np.arange(n, n + cut), top[top >= n])):
+            rest = np.setdiff1d(pool, mine)
+            doomed += [mine, rng.choice(rest, max(half - mine.size, 0),
+                                        replace=False)]
+        doomed = np.concatenate(doomed)
+        self.sync()
+        t0 = time.perf_counter()
+        removed = sf.delete(doomed, auto_compact=False)
+        self.sync()
+        out["delete_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["deleted"] = removed
+        expect(removed == doomed.size,
+               f"{label}: deleted {removed} of {doomed.size} ids")
+        t0 = time.perf_counter()
+        view = sf.view()
+        self.sync()
+        out["view_after_delete_ms"] = 1e3 * (time.perf_counter() - t0)
+        got, out["delete_launches"] = self.counted_search(
+            f"{label} after deletes", sf, ys, q_batch, quantize)
+        ids = got["ids"]
+        expect(bool(got["exact"].all()),
+               f"{label} after deletes: a result is not exact")
+        expect(not bool(torch.isin(ids, torch.as_tensor(
+            doomed, device=ids.device)).any()) and bool((ids >= 0).all()),
+               f"{label} after deletes: a deleted id or -1 surfaced")
+        live = view.point_ids >= 0
+        live_ids = view.point_ids[live].long()
+        pos = torch.full((sf.next_id,), -1, dtype=torch.long,
+                         device=live_ids.device)
+        pos[live_ids] = torch.arange(live_ids.numel(), device=pos.device)
+        out["brute_force"] = self.check_brute_force(
+            view.rows_view()[live], ys, pos[ids.long()], got["dists"],
+            family)
+        del pos, live, live_ids
+        bits = True
+        for j in range(SINGLE_QUERIES):
+            one = tsearch.knn(sf, ys[j], K, device=self.dev)
+            expect(bool(torch.equal(one.ids, ids[j])) and bool(one.exact),
+                   f"{label} after deletes: knn of query {j} differs from "
+                   "the batch row")
+            diff = (one.dists - got["dists"][j]).abs()
+            expect(self.rehearsal or bool(
+                (diff <= 1e-5 + 1e-5 * got["dists"][j].abs()).all()),
+                f"{label} after deletes: knn dists of query {j} differ")
+            bits &= bool(torch.equal(one.dists, got["dists"][j]))
+        out["knn_dists_bit_equal"] = bits
+        say(f"mutable {label}: delete {out['delete_tail_ms']:.1f} ms for "
+            f"{cut} ids, {len(out['insert_ms'])} inserts of "
+            f"{out['insert_rows'][0]} rows "
+            f"({statistics.median(out['insert_ms']):.1f} ms median), view "
+            f"{out['view_ms']:.1f} ms; knn_batch == phase 4 through the id "
+            f"map; search {out['search_ms']:.1f} ms per {NUM_QUERIES} "
+            f"queries (phase 4 {search_ms:.1f}); {removed} more deleted in "
+            f"{out['delete_ms']:.1f} ms (view {out['view_after_delete_ms']:.1f}"
+            f" ms): ids match brute force over the live rows "
+            f"({out['brute_force']['bf_position_mismatches']} near-tie "
+            f"swaps), knn == the batch rows (dists bit-equal: {bits}); "
+            f"launches {out['delete_launches']}")
+
+        ys0 = ys[:q_batch]
+        if not quantize:
+            out["tiered"] = self.mutable_tiered(label, sf, ys0)
+        self.sync()
+        t0 = time.perf_counter()
+        out["decide"] = sf.decide()
+        out["decide_s"] = time.perf_counter() - t0
+        out["stale_fraction"] = sf.stale_fraction
+
+        # 6. The merge: n == live_n, the search at budget live_n unchanged.
+        budget = sf.live_n
+        before = tsearch.knn_search_batch(sf, ys0, K, budget,
+                                          device=self.dev)
+        before = before._asdict()
+        codes = None
+        if quantize:
+            codes = self.codes_by_id(sf.view())
+        del view
+        self.sync()
+        t0 = time.perf_counter()
+        sf.compact("merge")
+        self.sync()
+        out["merge_s"] = time.perf_counter() - t0
+        expect(sf.n == sf.live_n == budget and not sf.segments,
+               f"{label}: the merge left {sf.n} rows, {sf.live_n} live")
+        after = tsearch.knn_search_batch(sf, ys0, K, budget, device=self.dev)
+        self.expect_same_result(f"{label} merge at budget {budget}",
+                                after._asdict(), before)
+        if quantize:
+            merged = self.codes_by_id(sf.view())
+            expect(all(bool(torch.equal(a, b)) for a, b in
+                       zip(codes, merged, strict=True)),
+                   f"{label}: the merge moved a point's codes")
+            del codes, merged
+        # 7. fp32: a rebuild gives the same ids and bit-equal dists.
+        if not quantize:
+            self.sync()
+            t0 = time.perf_counter()
+            sf.compact("rebuild", seed=SEED)
+            self.sync()
+            out["rebuild_s"] = time.perf_counter() - t0
+            after = tsearch.knn_search_batch(sf, ys0, K, budget,
+                                             device=self.dev)._asdict()
+            for f in ("ids", "exact"):
+                expect(bool(torch.equal(after[f], before[f])),
+                       f"{label} rebuild: {f} differ from before it")
+            expect(self.rehearsal or bool(torch.equal(after["dists"],
+                                                      before["dists"])),
+                   f"{label} rebuild: dists differ from before it")
+            out["rebuild_num_candidates_equal"] = bool(torch.equal(
+                after["num_candidates"], before["num_candidates"]))
+        out["peak_bytes"] = self.peak()
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"mutable {label}: decide() would choose {out['decide']} "
+            f"({out['decide_s']:.2f} s, stale fraction "
+            f"{out['stale_fraction']:.4f}); merge {out['merge_s']:.2f} s, "
+            f"bit-equal at budget {budget}"
+            + (", codes bit-equal" if quantize else
+               f"; rebuild {out['rebuild_s']:.2f} s, same ids, dists "
+               "bit-equal") + f"; peak {out['peak_bytes']} B; phase "
+            f"{out['seconds']:.1f} s")
+        del sf, before, after
+        return out
+
+    def codes_by_id(self, view) -> tuple:
+        """The int8 point codes and their decode of the live rows, in
+        original-id order."""
+        live = view.point_ids >= 0
+        order = self.torch.argsort(view.point_ids[live])
+        return tuple(getattr(view, f)[live][order]
+                     for f in ("data", "data_scale", "data_zp"))
+
+    def mutable_tiered(self, label: str, sf, ys0) -> dict:
+        """The mutated index in a TieredPointStore at 40% of its cold
+        bytes: the append rows' blocks pinned and kept, a fixed-budget
+        search bit-equal to the resident search over ``view()``."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.core.tiered import TieredPointStore
+        view = sf.view()
+        cold = cold_bytes(view)
+        store = TieredPointStore.from_index(sf, resident_bytes=int(0.4 * cold),
+                                            block_rows=BLOCK_ROWS)
+        lo, hi = sf.append_row_range()
+        pinned = frozenset(range(lo // store._bn, -(-hi // store._bn)))
+        expect(not store.is_resident and store._pinned == pinned,
+               f"{label}: the store pinned {sorted(store._pinned)[:3]}..., "
+               f"not the append rows' blocks")
+        budget = tsearch.resolve_budget(None, view.n, K)
+        want = tsearch.knn_search_batch(sf, ys0, K, budget, device=self.dev)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        got = tsearch.knn_search_batch(store, ys0, K, budget,
+                                       device=self.dev)
+        self.sync()
+        out = {"ms": 1e3 * (time.perf_counter() - t0), "budget": budget,
+               "launches": self.launches(), "stats": dict(store.stats),
+               "pinned_blocks": len(pinned), "num_blocks": store.num_blocks}
+        self.expect_launches(f"{label} mutated tiered", out["launches"],
+                             TIERED_PATH, False)
+        for f in got._fields:
+            expect(bool(torch.equal(getattr(got, f), getattr(want, f))),
+                   f"{label} mutated tiered: {f} at budget {budget} differ "
+                   "from the resident search over view()")
+        expect(pinned <= set(store._cache),
+               f"{label} mutated tiered: a pinned block left the cache")
+        store.close()
+        say(f"mutable {label} tiered: {len(pinned)} append blocks pinned of "
+            f"{store.num_blocks}, bit-equal to resident at budget {budget} "
+            f"({out['ms']:.1f} ms, blocks admitted "
+            f"{out['stats']['blocks_admitted']} of "
+            f"{out['stats']['blocks_total']})")
+        return out
+
+    def check_audio_rebuilds(self, label: str, forest, data) -> dict:
+        """Phase 10 on Audio: two mutable copies of the index, 10% of the
+        ids deleted and 5% new rows inserted into each the same way, each
+        compacted by a rebuild: every table bit-equal across the two; the
+        rebuilt index's ids against brute force over its live rows."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import search as tsearch
+        from repro_torch.core.index import REPLICATED_FIELDS, point_fields
+        from repro_torch.core.segments import SegmentedForest
+        rng = np.random.default_rng(SEED)
+        n = forest.n
+        dead = rng.choice(n, n // 10, replace=False)
+        extra = data[rng.choice(n, n // 20, replace=False)] * np.float32(1.001)
+        t_phase = time.perf_counter()
+        out = {"deleted": int(dead.size), "inserted": int(extra.shape[0]),
+               "rebuild_s": []}
+        mains = []
+        for _ in range(2):
+            sf = SegmentedForest.from_forest(forest)
+            sf.delete(dead, auto_compact=False)
+            sf.insert(extra, auto_compact=False)
+            self.sync()
+            t0 = time.perf_counter()
+            sf.compact("rebuild", seed=SEED)
+            self.sync()
+            out["rebuild_s"].append(time.perf_counter() - t0)
+            mains.append(sf.main)
+        a, b = mains
+        out["differing_tables"] = [
+            f for f in point_fields(a) + REPLICATED_FIELDS
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+        expect(not out["differing_tables"],
+               f"{label}: two rebuilds of one mutated index differ in "
+               f"{out['differing_tables']}")
+        expect(a.n == n - dead.size + extra.shape[0],
+               f"{label}: the rebuild holds {a.n} rows")
+        ys = torch.as_tensor(extra[:SINGLE_QUERIES] * np.float32(0.999),
+                             device=self.dev)
+        res = tsearch.knn_batch(a, ys, K, device=self.dev)
+        points = a.rows_view()[torch.argsort(a.point_ids.long())]
+        # Original ids of the rebuild run 0 ... n + inserted - 1 with the
+        # deleted ones missing: brute force over the rows in id order.
+        live_ids = torch.sort(a.point_ids.long()).values
+        pos = torch.full((n + extra.shape[0],), -1, dtype=torch.long,
+                         device=live_ids.device)
+        pos[live_ids] = torch.arange(live_ids.numel(), device=pos.device)
+        out["brute_force"] = self.check_brute_force(
+            points, ys, pos[res.ids.long()], res.dists, forest.family_name)
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"mutable {label}: two rebuilds after deleting {dead.size} and "
+            f"inserting {extra.shape[0]} rows are bit-equal in every table "
+            f"({out['rebuild_s'][0]:.2f} s, {out['rebuild_s'][1]:.2f} s); "
+            "knn_batch on the rebuild matches brute force")
+        return out
+
+    def drive_blobs_mutable(self, forest, data, ys, want, budget: int,
+                            block_rows: int) -> dict:
+        """Phase 10 on the blob corpus: the delete-and-reinsert of its last
+        tenth, bit-equal to phase 5's resident search through the id map
+        before and after a merge, with the blocks the gate admits before
+        mutating, after, and after the merge."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        label = "mutable blob corpus"
+        t_phase = time.perf_counter()
+
+        def gate(index) -> dict:
+            res, st = tsearch.knn_search_batch_stats(
+                index, ys, K, budget, block_rows, device=self.dev)
+            return res._asdict(), {
+                "blocks_run": st["num_blocks_run"],
+                "num_blocks": st["num_blocks"],
+                "env_admitted_tiles": st["env_admitted_tiles"],
+                "tiles": st["num_blocks"] * ys.shape[0]}
+
+        _, before = gate(forest)
+        sf, cut, out = self.reinsert_tail(label, forest, data)
+        n = forest.n
+        want = want._asdict()
+        out["gate"] = {"before": before}
+        for key in ("mutated", "merged"):
+            if key == "merged":
+                self.sync()
+                t0 = time.perf_counter()
+                sf.compact("merge")
+                self.sync()
+                out["merge_s"] = time.perf_counter() - t0
+            self.sync()
+            self.reset_launches()
+            got, out["gate"][key] = gate(sf)
+            self.sync()
+            out[key + "_launches"] = self.launches()
+            self.expect_launches(f"{label} {key}", out[key + "_launches"],
+                                 RESIDENT_PATH, False)
+            got["ids"] = torch.where(got["ids"] >= n, got["ids"] - cut,
+                                     got["ids"])
+            self.expect_same_result(f"{label} {key} against phase 5 "
+                                    "through the id map", got, want)
+        out["seconds"] = time.perf_counter() - t_phase
+        g = out["gate"]
+        say(f"{label}: delete and reinsert of {cut} rows bit-equal to phase "
+            f"5 through the id map, before and after a merge "
+            f"({out['merge_s']:.2f} s); blocks run / total: before "
+            f"{g['before']['blocks_run']}/{g['before']['num_blocks']}, "
+            f"mutated {g['mutated']['blocks_run']}/"
+            f"{g['mutated']['num_blocks']}, merged "
+            f"{g['merged']['blocks_run']}/{g['merged']['num_blocks']}; "
+            f"(block, query) tiles admitted: before "
+            f"{g['before']['env_admitted_tiles']}, mutated "
+            f"{g['mutated']['env_admitted_tiles']}, merged "
+            f"{g['merged']['env_admitted_tiles']}")
+        del sf
+        return out
+
+    def knnlm_mutable(self, bundle, params, store, cfg, seq_len: int,
+                      rng) -> dict:
+        """Phase 10 on the kNN-LM datastore, after serving: ``grow`` by the
+        keys of ``MUTATION_SEQS`` more seeded sequences (one forward
+        batch through #10), ``evict`` ``EVICT_KEYS`` keys, then one hook
+        call: its ids equal brute force over the live keys, a new key
+        finds itself and its token leads the mix at lambda = 0.5, and a
+        second call gives the same bits.  The store served in phase 7 is
+        left as it was (the grow wraps its forest in a new datastore)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.serve import knnlm as tknnlm
+        label = "mutable kNN-LM"
+        t_phase = time.perf_counter()
+        corpus = rng.integers(1, cfg.vocab_size, (MUTATION_SEQS, seq_len))
+        mstore = tknnlm.Datastore(index=store.index,
+                                  next_tokens=store.next_tokens.copy(),
+                                  hidden_dim=store.hidden_dim,
+                                  block_rows=store.block_rows)
+        n0 = store.index.n
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        keys = tknnlm._forward_keys(bundle, params, corpus)
+        self.sync()
+        out = {"forward_ms": 1e3 * (time.perf_counter() - t0),
+               "forward_launches": self.launches(),
+               "forward_flash_kernels": self.flash_launches()}
+        self.expect_launches(f"{label} forward", out["forward_launches"],
+                             ("flash_attention",), False)
+        vals = corpus[:, 1:].reshape(-1).astype(np.int32)
+        t0 = time.perf_counter()
+        new_ids = mstore.grow(keys, vals)
+        self.sync()
+        out["grow_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["grown"] = int(new_ids.size)
+        expect(np.array_equal(new_ids, np.arange(n0, n0 + keys.shape[0])),
+               f"{label}: grow returned ids {new_ids[:3]}...")
+        evict = min(EVICT_KEYS, n0 // 8)
+        gone = np.random.default_rng(SEED).choice(n0, evict, replace=False)
+        t0 = time.perf_counter()
+        removed = mstore.evict(gone)
+        self.sync()
+        out["evict_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["evicted"] = removed
+        expect(removed == evict and mstore.version == 2,
+               f"{label}: evicted {removed} of {evict} keys")
+
+        # Four new keys queried exactly, four near new keys.
+        hidden = torch.cat([keys[:4], keys[4:8] * 1.01]).contiguous()
+        logits = torch.zeros((hidden.shape[0], cfg.vocab_size),
+                             dtype=torch.float32, device=self.dev)
+        hook = tknnlm.KNNLMHook(store=mstore, k=KNN_K, lam=0.5)
+        self.sync()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        mixed = hook(logits, hidden)
+        self.sync()
+        out["hook_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["hook_launches"] = self.launches()
+        self.expect_launches(f"{label} hook", out["hook_launches"],
+                             RESIDENT_PATH, False)
+        res = hook.last_result
+        ids = res.ids
+        expect(not bool(torch.isin(ids, torch.as_tensor(
+            gone, device=ids.device)).any()),
+               f"{label}: an evicted key surfaced")
+        view = mstore.index.view()
+        live = view.point_ids >= 0
+        live_ids = view.point_ids[live].long()
+        pos = torch.full((mstore.index.next_id,), -1, dtype=torch.long,
+                         device=live_ids.device)
+        pos[live_ids] = torch.arange(live_ids.numel(), device=pos.device)
+        out["brute_force"] = self.check_brute_force(
+            view.data[live], hidden, pos[ids.long()], res.dists,
+            "squared_euclidean", k=KNN_K)
+        del pos, live, live_ids, view
+        first = torch.as_tensor(new_ids[:4], device=ids.device)
+        expect(bool(torch.equal(ids[:4, 0].to(first.dtype), first)),
+               f"{label}: a new key queried exactly did not find itself")
+        lead = torch.argmax(mixed[:4], dim=-1).cpu().numpy()
+        expect(np.array_equal(lead, vals[:4]),
+               f"{label}: the mix led with {lead}, not the new keys' "
+               f"tokens {vals[:4]}")
+        again = hook(logits, hidden)
+        out["repeat_bit_equal"] = bool(torch.equal(again, mixed))
+        expect(out["repeat_bit_equal"],
+               f"{label}: two hook calls on the same inputs differ")
+        out["seconds"] = time.perf_counter() - t_phase
+        say(f"{label}: grow by {out['grown']} keys ({MUTATION_SEQS} "
+            f"sequences, forward {out['forward_ms']:.1f} ms, insert "
+            f"{out['grow_ms']:.1f} ms), evict {removed} keys "
+            f"({out['evict_ms']:.1f} ms); the next hook call "
+            f"({out['hook_ms']:.1f} ms) matches brute force over the live "
+            f"keys, new keys find themselves and lead the mix at "
+            f"lambda 0.5, a second call is bit-equal; launches "
+            f"{out['hook_launches']}")
+        del mstore, hook, keys
+        return out
+
     def run(self) -> dict:
         t_start = time.perf_counter()
         self.phase_card_and_build()
@@ -2856,6 +3405,11 @@ class Smoke:
         self.record["flash"] = self.phase_flash()
         self.record["knnlm"] = self.phase_knnlm()
         self.record["pccp"] = self.phase_pccp()
+        self.record["mutable_seconds"] = sum(
+            self.record[key]["mutable"]["seconds"]
+            for key in ("audio", "audio_int8", "deep", "deep_int8", "blobs",
+                        "knnlm"))
+        say(f"phase 10: {self.record['mutable_seconds']:.1f} s")
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
                                   + self.kernel_table(self.record["deep_int8"])
                                   + self.lm_kernel_table())

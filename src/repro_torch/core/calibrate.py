@@ -126,10 +126,13 @@ def held_out_queries(index, num_queries: int, seed: int,
     (Itakura-Saito, Burg, Shannon) inside its open domain and perturbs
     each coordinate by about ``jitter`` relative.  The rows come to the
     host and numpy's ``default_rng(seed)`` draws the sample, so the
-    queries do not depend on the index's device.
+    queries do not depend on the index's device.  A mutable index is
+    sampled through its ``view()``.
     """
-    rows = _host(index.rows_view())
-    live = np.flatnonzero(_host(index.point_ids) >= 0)
+    from .search import _as_forest
+    forest = _as_forest(index)
+    rows = _host(forest.rows_view())
+    live = np.flatnonzero(_host(forest.point_ids) >= 0)
     if live.size == 0:
         raise ValueError("cannot sample held-out queries: no live rows")
     rng = np.random.default_rng(seed)
@@ -148,9 +151,10 @@ def fit_calibration(index, *, k: int = 10,
 
     The oracle is the live-row linear scan (int8 rows decoded), so the
     measured recall is over exactly the point set the approximate search
-    searches.
+    searches.  A mutable index is measured through its ``view()``.
     """
-    from .search import _brute_force_live, knn_batch
+    from .search import _as_forest, _brute_force_live, knn_batch
+    index = _as_forest(index, k)
     grid = np.asarray(DEFAULT_P_GRID if p_grid is None else p_grid,
                       np.float64)
     if grid.ndim != 1 or grid.size < 2 or np.any(np.diff(grid) <= 0):

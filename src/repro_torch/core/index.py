@@ -228,6 +228,58 @@ def pad_points(forest: BallForest, multiple: int) -> BallForest:
     return out
 
 
+def tombstone_rows(forest: BallForest, dead) -> BallForest:
+    """Overwrite the rows where ``dead`` (n,) is True with the inert fill.
+
+    How the mutable index (core/segments.py) deletes: the row stays in
+    place, but its filter stats keep it out of every top-k and its corners
+    fail every Theorem-3 admission.  The envelopes are left as they are:
+    removing a row only tightens a block's true envelope, so the stored
+    one stays a valid, looser dominator.  Compaction refits them.
+    """
+    dead = torch.as_tensor(dead, dtype=torch.bool).to(forest.device)
+    fill = inert_fill(forest)
+
+    def patch(a, v):
+        d = dead.reshape((-1,) + (1,) * (a.ndim - 1))
+        return torch.where(d, torch.tensor(v, dtype=a.dtype,
+                                           device=a.device), a)
+
+    return dataclasses.replace(forest, **{
+        f: patch(getattr(forest, f), fill[f]) for f in point_fields(forest)})
+
+
+def concat_points(forests) -> BallForest:
+    """Concatenate the point-major tables of segments of one sealed index
+    (one family, partition, cluster count and storage tier; the first
+    segment's replicated tables are kept) into one searchable forest,
+    with its envelopes refit over the concatenated corners."""
+    forests = list(forests)
+    head = forests[0]
+    for f in forests[1:]:
+        if (f.family_name != head.family_name
+                or f.partition != head.partition
+                or f.num_clusters != head.num_clusters
+                or f.storage != head.storage):
+            raise ValueError("concat_points needs segments of one index")
+    if len(forests) == 1:
+        return head
+    out = dataclasses.replace(head, **{
+        f: torch.cat([getattr(seg, f) for seg in forests])
+        for f in point_fields(head)})
+    return refresh_envelopes(out)
+
+
+def slice_points(forest: BallForest, start: int, size: int) -> BallForest:
+    """The ``[start, start + size)`` rows of a forest as a forest of their
+    own: the point-major tables sliced, the replicated tables shared, the
+    envelopes refit over the slice."""
+    out = dataclasses.replace(forest, **{
+        f: getattr(forest, f)[start:start + size]
+        for f in point_fields(forest)})
+    return refresh_envelopes(out)
+
+
 def quantize_point_tables(forest: BallForest, data_codes: Tensor,
                           data_scale: Tensor, data_zp: Tensor) -> BallForest:
     """Swap a built fp32 forest's point-major tables for the int8 tier.

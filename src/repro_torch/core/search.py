@@ -225,6 +225,18 @@ def _qb_slack(index: BallForest, idx: Tensor, sqrt_delta: Tensor) -> Tensor:
     return qz.ub_slack(a_s, g_s, sqrt_delta)
 
 
+def _as_forest(index, k: int | None = None):
+    """A forest, or the mutable index (core/segments.py) as its cached
+    ``view()``.  ``k`` is held to the live count where the index has one
+    (a mutable index or a tiered store): tombstoned rows are in the view
+    but are never returned.  A tiered store passes through unchanged."""
+    live_n = getattr(index, "live_n", None)
+    if k is not None and live_n is not None and k > live_n:
+        raise ValueError(f"k={k} exceeds live point count {live_n}")
+    view = getattr(index, "view", None)
+    return view() if callable(view) else index
+
+
 def _on_index_device(index: BallForest, device) -> torch.device:
     dev = resolve_device(device)
     if index.device.type != dev.type or (
@@ -713,6 +725,7 @@ def knn_search_batch(index: BallForest, ys, k: int, budget: int | None,
         return index.search(ys, k, budget, block_rows=block_rows,
                             env_block_rows=env_block_rows,
                             validate=validate, device=device)
+    index = _as_forest(index, k)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     if validate:
@@ -761,6 +774,7 @@ def knn_search_batch_approx(index: BallForest, ys, k: int,
                             target_recall=target_recall,
                             block_rows=block_rows, validate=validate,
                             device=device)
+    index = _as_forest(index, k)
     if target_recall is not None:
         p_guarantee, _ = resolve_p_guarantee(index, target_recall)
     validate_p_guarantee(p_guarantee)
@@ -790,6 +804,7 @@ def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
             "knn_search_batch_stats runs the all-resident pipeline; a "
             "TieredPointStore reports its own telemetry via store.stats / "
             "store.cache_info(), or pass store.as_resident_forest()")
+    index = _as_forest(index, k)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     ys = _queries(ys, dev)
@@ -828,6 +843,7 @@ def knn_search_batch_reference(index: BallForest, ys, k: int,
             "knn_search_batch_reference materializes the full (n, q) mask "
             "on device — meaningless for an out-of-core store; pass "
             "store.as_resident_forest() to oracle against the same points")
+    index = _as_forest(index, k)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     validate_p_guarantee(p_guarantee)
@@ -926,6 +942,7 @@ def knn_search(index: BallForest, y, k: int, budget: int | None,
     query."""
     if getattr(index, "is_tiered_store", False):
         return _store_search_one(index, y, k, budget, validate, device)
+    index = _as_forest(index, k)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     y = _query(y, dev)
@@ -945,6 +962,7 @@ def knn_search_approx(index: BallForest, y, k: int, budget: int | None,
     if getattr(index, "is_tiered_store", False):
         return _store_search_one(index, y, k, budget, validate, device,
                                  p_guarantee=p_guarantee)
+    index = _as_forest(index, k)
     validate_p_guarantee(p_guarantee)
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
@@ -966,6 +984,7 @@ def knn(index: BallForest, y, k: int, budget: int | None = None,
     (capped at n) and the search runs again.  Always exact when
     ``approx_p`` is None; with ``approx_p`` the result carries the §8
     probability guarantee instead."""
+    index = _as_forest(index, k)
     dev = _on_index_device(index, device)
     y = _query(y, dev)
     validate_queries(index.family, y)
@@ -1009,6 +1028,7 @@ def knn_batch(index: BallForest, ys, k: int, budget: int | None = None,
     ``target_recall`` (not with ``approx_p``) picks it from the index's
     fitted recall curve (``core/calibrate.py``) first.
     """
+    index = _as_forest(index, k)
     if target_recall is not None:
         if approx_p is not None:
             raise ValueError("pass at most one of approx_p / target_recall")

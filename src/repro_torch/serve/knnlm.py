@@ -13,10 +13,16 @@ distribution is interpolated with the kNN distribution:
 ``logits_hook`` and runs the exact batched search (``knn_batch``: kernels
 #1, #3 and #7) once per sampling step.
 
-Not ported yet, each listed in ROADMAP queue 1: ``Datastore.grow`` /
-``evict`` (the mutable ``SegmentedForest``, item 6, raise here); the
-approximate hook (``approx_p``, ``target_recall``, item 5) and the
-retrieval-service route (``service``, item 9), absent here.
+``Datastore.grow`` / ``evict`` change the store online through the
+mutable index (core/segments.py): the first mutation wraps the forest in a
+``SegmentedForest``, and ids are never reused, so ``next_tokens`` only
+grows.  The hook adds the neighbours' weights into the vocabulary one
+neighbour column at a time, so the mixture repeats bit for bit on the
+card.
+
+Not ported yet (ROADMAP queue 1, serving): the approximate hook
+(``approx_p``, ``target_recall``), the retrieval-service route
+(``service``) and ``build_datastore(calibrate=)``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from ..core import search as bp_search
 from ..core.index import BallForest, build_index
+from ..core.segments import SegmentedForest
 from ..core.tiered import resolve_prefetch_depth, resolve_resident_bytes
 
 Tensor = torch.Tensor
@@ -38,15 +45,25 @@ FORWARD_BATCH = 8
 
 @dataclasses.dataclass
 class Datastore:
-    """kNN-LM key/value store over a BrePartition index; ``next_tokens``
-    is indexed by the keys' original point ids."""
+    """kNN-LM key/value store over a BrePartition index.
 
-    index: BallForest
-    next_tokens: np.ndarray     # (n,) int32 — token following each key
+    ``index`` is a BallForest, or after the first :meth:`grow` /
+    :meth:`evict` the mutable SegmentedForest.  ``next_tokens`` is indexed
+    by the keys' original point ids; ids are never reused (tombstones keep
+    theirs, compaction keeps them), so the table only grows.
+    """
+
+    index: BallForest | SegmentedForest
+    next_tokens: np.ndarray     # (next_id,) int32 — token following each key
     hidden_dim: int
+    version: int = 0            # moves on every mutation
     # Streaming block size for searches over this store (the port's
     # resolve_block_rows value: 4096 until the autotuner is ported).
     block_rows: int | None = None
+    # A mutation that crosses the index's stale-fraction threshold
+    # compacts inside grow / evict; False leaves compaction to the caller
+    # (index.compact()).
+    auto_compact: bool = True
     # Out-of-core residency (core/tiered.py): with a byte budget, lookups
     # run against a TieredPointStore over the index.  None keeps the store
     # resident on the index's device.
@@ -54,29 +71,61 @@ class Datastore:
     prefetch_depth: int | None = None
     _tiered: object = dataclasses.field(default=None, init=False,
                                         repr=False)
+    _tiered_version: int = dataclasses.field(default=-1, init=False,
+                                             repr=False)
 
     def search_index(self):
         """The object lookups search: the index itself, or — with a
-        ``resident_bytes`` budget — a TieredPointStore over it, made once."""
+        ``resident_bytes`` budget — a TieredPointStore over it, made again
+        (the old one closed) whenever :attr:`version` moves, since a store
+        freezes its snapshot."""
         if self.resident_bytes is None:
             return self.index
-        if self._tiered is None:
+        if self._tiered is None or self._tiered_version != self.version:
             from ..core.tiered import TieredPointStore
+            old, self._tiered = self._tiered, None
+            if old is not None:
+                old.close()
             self._tiered = TieredPointStore.from_index(
                 self.index, resident_bytes=self.resident_bytes,
                 prefetch_depth=self.prefetch_depth,
                 block_rows=self.block_rows)
+            self._tiered_version = self.version
         return self._tiered
 
-    def grow(self, keys, next_tokens):
-        raise NotImplementedError(
-            "Datastore.grow needs the mutable SegmentedForest, not ported "
-            "yet (ROADMAP queue 1 item 6)")
+    def _mutable(self) -> SegmentedForest:
+        if not isinstance(self.index, SegmentedForest):
+            self.index = SegmentedForest.from_forest(self.index)
+        return self.index
 
-    def evict(self, ids):
-        raise NotImplementedError(
-            "Datastore.evict needs the mutable SegmentedForest, not ported "
-            "yet (ROADMAP queue 1 item 6)")
+    def grow(self, keys, next_tokens) -> np.ndarray:
+        """Append (hidden, next-token) pairs; returns their ids.  One
+        nearest-centre pass against the sealed index; the keys are found
+        by the next hook call."""
+        if isinstance(keys, torch.Tensor):
+            keys = keys.detach().to(torch.float32)
+        else:
+            keys = np.asarray(keys, np.float32)
+        toks = np.asarray(next_tokens, np.int32)
+        if keys.ndim != 2 or keys.shape[1] != self.hidden_dim:
+            raise ValueError(f"expected (a, {self.hidden_dim}) keys, got "
+                             f"{tuple(keys.shape)}")
+        if toks.shape != (keys.shape[0],):
+            raise ValueError("one next-token per key required")
+        store = self._mutable()
+        if store.next_id != self.next_tokens.shape[0]:
+            raise ValueError("datastore ids out of sync with value table")
+        ids = store.insert(keys, auto_compact=self.auto_compact)
+        self.next_tokens = np.concatenate([self.next_tokens, toks])
+        self.version += 1
+        return ids
+
+    def evict(self, ids) -> int:
+        """Retire keys by tombstone; returns how many were live."""
+        removed = self._mutable().delete(ids, auto_compact=self.auto_compact)
+        if removed:
+            self.version += 1
+        return removed
 
 
 def _forward_keys(bundle, params, corpus: np.ndarray) -> Tensor:
@@ -132,6 +181,20 @@ def build_datastore(bundle, params, corpus_tokens: np.ndarray, *,
                      prefetch_depth=prefetch_depth)
 
 
+def knn_distribution(tokens: Tensor, w: Tensor, vocab: int) -> Tensor:
+    """(A, vocab) fp32: each row's neighbour weights ``w`` (A, k) added at
+    their tokens (A, k), column j = 0 ... k - 1 in turn, as the
+    reference's serial scatter adds them.  Within one column a row has a
+    single index, so no add races: one ``scatter_add_`` over all k columns
+    adds a repeated token's weights with atomics in no fixed order on the
+    card."""
+    p = torch.zeros((tokens.shape[0], vocab), dtype=torch.float32,
+                    device=tokens.device)
+    for j in range(tokens.shape[1]):
+        p.scatter_add_(1, tokens[:, j:j + 1], w[:, j:j + 1])
+    return p
+
+
 @dataclasses.dataclass
 class KNNLMHook:
     """``logits_hook`` for serve.engine.Engine: exact Bregman-kNN
@@ -157,12 +220,18 @@ class KNNLMHook:
     scan_fallbacks: int = 0
     budget_final: int = 0
     last_result: object = dataclasses.field(default=None, repr=False)
+    # next_tokens on the logits' device, uploaded again when the store's
+    # version moves.
     _next_dev: Tensor | None = dataclasses.field(default=None, init=False,
                                                  repr=False)
+    _next_version: int = dataclasses.field(default=-1, init=False,
+                                           repr=False)
 
     @torch.inference_mode()
     def __call__(self, logits: Tensor, hidden: Tensor | None) -> Tensor:
-        if hidden is None or self.store.index.n < self.k:
+        # Eviction can leave fewer than k live keys: serve the LM alone.
+        if hidden is None or getattr(self.store.index, "live_n",
+                                     self.store.index.n) < self.k:
             return logits
         index = self.store.index
         h = hidden.to(torch.float32)
@@ -188,17 +257,16 @@ class KNNLMHook:
             self.budget = max(current, min(fitted, cap))  # never shrink
         # An inexact row's neighbours are an arbitrary union prefix: it
         # serves the pure LM distribution instead of a biased mixture.
-        if self._next_dev is None:
+        if self._next_dev is None or self._next_version != self.store.version:
             self._next_dev = torch.as_tensor(self.store.next_tokens,
                                              dtype=torch.long,
                                              device=logits.device)
+            self._next_version = self.store.version
         ids = res.ids.to(logits.device).long()
         knn_tokens = self._next_dev[ids]                        # (A, k)
         w = torch.softmax(-res.dists.to(logits.device) / self.temperature,
                           dim=-1)                               # (A, k)
-        p_knn = torch.zeros(logits.shape, dtype=torch.float32,
-                            device=logits.device).scatter_add_(
-            1, knn_tokens, w)
+        p_knn = knn_distribution(knn_tokens, w, logits.shape[-1])
         p_lm = torch.softmax(logits.to(torch.float32), dim=-1)
         mix = (1.0 - self.lam) * p_lm + self.lam * p_knn
         mix = torch.where(res.exact.to(logits.device)[:, None], mix, p_lm)

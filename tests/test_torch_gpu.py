@@ -1244,3 +1244,101 @@ def test_build_on_the_card_repeats_bit_for_bit(cuda):
             for _ in range(2))
     for f in tidx.interchange_fields(a.storage):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The mutable index and the kNN-LM mixture on the card
+# ---------------------------------------------------------------------------
+
+def _mutated_on_the_card(cuda, family, quantize, seed=11):
+    """A mutable index built on the card, after an insert of 300 rows and
+    the deletion of 200 ids (150 sealed, 50 appended), with queries."""
+    from repro_torch.core.segments import build_segmented_index
+    gen = torch.Generator().manual_seed(seed)
+    data = _valid((3300, 24), family, gen).numpy()
+    sf = build_segmented_index(data[:3000], family, m=6, quantize=quantize,
+                               seed=0, device=cuda)
+    ids = sf.insert(data[3000:], auto_compact=False)
+    assert ids.tolist() == list(range(3000, 3300))
+    dead = np.concatenate([np.arange(0, 3000, 20), np.arange(3000, 3300, 6)])
+    assert sf.delete(dead, auto_compact=False) == dead.size
+    return sf, dead, np.ascontiguousarray(data[::250] * 1.01)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_mutated_index_on_the_card_matches_brute_force(cuda, quantize):
+    family = "burg"
+    sf, dead, queries = _mutated_on_the_card(cuda, family, quantize)
+    res = tsearch.knn_batch(sf, queries, 10, device=cuda)
+    assert bool(res.exact.all())
+    assert not bool(torch.isin(res.ids.cpu(), torch.from_numpy(dead)).any())
+    view = sf.view()
+    live = view.point_ids >= 0
+    bf_pos, bf_d = tsearch.brute_force_knn(view.rows_view()[live], queries,
+                                           10, family, device=cuda)
+    assert torch.equal(res.ids, view.point_ids[live][bf_pos])
+    torch.testing.assert_close(res.dists, bf_d, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_merge_on_the_card_is_bit_equal_to_before(cuda, quantize):
+    sf, _, queries = _mutated_on_the_card(cuda, "exponential", quantize)
+    budget = sf.live_n
+    before = tsearch.knn_search_batch(sf, queries, 10, budget, device=cuda)
+    view = sf.view()
+    live = view.point_ids >= 0
+    order = torch.argsort(view.point_ids[live])
+    codes = view.data[live][order]
+    assert sf.compact("merge") == "merge"
+    assert sf.n == sf.live_n == budget and sf.main.data.device.type == cuda.type
+    after = tsearch.knn_search_batch(sf, queries, 10, budget, device=cuda)
+    for f in after._fields:
+        assert torch.equal(getattr(after, f), getattr(before, f)), f
+    merged = sf.view()
+    assert torch.equal(merged.data[torch.argsort(merged.point_ids)], codes)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_two_rebuilds_on_the_card_are_bit_equal(cuda, quantize):
+    """``compact("rebuild")`` is a build: two mutable copies of one seeded
+    index, mutated alike, rebuild to the same tables."""
+    mains = []
+    for _ in range(2):
+        sf, _, queries = _mutated_on_the_card(cuda, "squared_euclidean",
+                                              quantize)
+        sf.compact("rebuild", seed=0)
+        mains.append(sf.main)
+    a, b = mains
+    for f in tidx.interchange_fields(a.storage):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_tiered_store_on_a_mutable_index_on_the_card(cuda):
+    sf, _, queries = _mutated_on_the_card(cuda, "squared_euclidean", False)
+    view = sf.view()
+    store = TieredPointStore.from_index(
+        sf, resident_bytes=int(0.4 * _cold_bytes(view)), block_rows=512)
+    lo, hi = sf.append_row_range()
+    pinned = frozenset(range(lo // 512, -(-hi // 512)))
+    assert not store.is_resident and store._pinned == pinned
+    want = tsearch.knn_search_batch(sf, queries, 10, 256, block_rows=512,
+                                    device=cuda)
+    got = store.search(queries, 10, 256, device=cuda)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert pinned <= set(store._cache)
+    store.close()
+
+
+def test_knn_mixture_repeats_on_the_card_and_equals_the_cpu(cuda):
+    """The hook's p_knn from given (tokens, w) with repeated tokens: two
+    builds on the card bit-equal, and bit-equal to the CPU's."""
+    from repro_torch.serve.knnlm import knn_distribution
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, 4, (64, 8), generator=gen)
+    w = torch.softmax(torch.randn((64, 8), generator=gen), dim=-1)
+    want = knn_distribution(tokens, w, 49152)
+    got = [knn_distribution(tokens.to(cuda), w.to(cuda), 49152)
+           for _ in range(2)]
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), want)

@@ -156,6 +156,28 @@ def test_the_fourth_slice_is_covered_and_defaults_to_the_card(no_card):
     assert build_model(cfg, device="cpu").device.type == "cpu"
 
 
+def test_the_mutable_index_is_covered_and_defaults_to_the_card(no_card):
+    """core/segments.py is in the import scan; building a mutable index
+    and searching it run on the card unless the caller asks for the CPU,
+    and an insert lands on the index's own device."""
+    from repro_torch.core.segments import build_segmented_index
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert "src/repro_torch/core/segments.py" in names
+    data, queries = _small()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_segmented_index(data, "burg", m=2)
+    for quantize in (False, True):
+        sf = build_segmented_index(data[:80], "burg", m=2, quantize=quantize,
+                                   device="cpu")
+        sf.insert(data[80:], auto_compact=False)
+        sf.delete([0], auto_compact=False)
+        assert sf.device.type == "cpu" and sf.view().data.device.type == "cpu"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsearch.knn_batch(sf, queries, 3)
+        assert bool(tsearch.knn_batch(sf, queries, 3, device="cpu")
+                    .exact.all())
+
+
 def test_search_runs_on_the_cpu_or_the_card_only():
     data, queries = _small()
     forest = tidx.build_index(data, "burg", m=2, device="cpu")
@@ -195,7 +217,11 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "single-query deep int8: knn == brute force",
                  "oracle blobs: knn_search_batch_reference == "
                  "knn_search_batch bit for bit",
-                 "calibration: phase 2's small index"):
+                 "calibration: phase 2's small index",
+                 "mutable deep int8: decide() would choose",
+                 "mutable audio fp32: two rebuilds",
+                 "mutable blob corpus: delete and reinsert",
+                 "mutable kNN-LM: grow by"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

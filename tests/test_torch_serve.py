@@ -218,11 +218,110 @@ def test_what_is_not_ported_raises(models):
     _, _, tb, tp = models
     corpus = np.random.default_rng(0).integers(1, VOCAB, (2, 16))
     store = tknnlm.build_datastore(tb, tp, corpus, m=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        store.grow(np.zeros((1, 64), np.float32), np.zeros(1, np.int32))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        store.evict([0])
+    # grow / evict are ported (tests/test_torch_segments.py and
+    # test_datastore_grow_evict_contract below); the approximate hook is not.
+    assert store.grow(np.zeros((1, 64), np.float32),
+                      np.zeros(1, np.int32)).tolist() == [store.index.n - 1]
+    assert store.evict([0]) == 1
     with pytest.raises(TypeError):
         tknnlm.KNNLMHook(store=store, approx_p=0.9)
     with pytest.raises(NotImplementedError, match="item 12"):
         tbuild_model(type("EncDecConfig", (), {})(), device="cpu")
+
+
+def test_hook_mixture_with_repeated_tokens_matches_jax(models):
+    """k = 8 neighbours whose next tokens repeat (three or more share one):
+    the port adds the weights a neighbour column at a time, as the
+    reference's serial scatter does; the mixed log-probs agree and the
+    mixture equals a float64 sum of the same weights."""
+    from repro.core.index import build_index as jax_build_index
+    rng = np.random.default_rng(4)
+    keys = rng.normal(size=(200, 16)).astype(np.float32)
+    toks = (np.arange(200) % 3).astype(np.int32)
+    jf = jax_build_index(keys, "squared_euclidean", m=4, num_clusters=8,
+                         seed=0)
+    jstore = jknnlm.Datastore(index=jf, next_tokens=toks, hidden_dim=16)
+    tstore = tknnlm.Datastore(index=to_port(jf), next_tokens=toks,
+                              hidden_dim=16)
+    logits = rng.normal(size=(4, 8)).astype(np.float32)
+    hidden = keys[:4] + np.float32(0.05)
+    jhook = jknnlm.KNNLMHook(store=jstore, k=8, lam=0.5, temperature=4.0)
+    thook = tknnlm.KNNLMHook(store=tstore, k=8, lam=0.5, temperature=4.0)
+    want = np.asarray(jhook(jnp.asarray(logits), jnp.asarray(hidden)))
+    got = thook(torch.from_numpy(logits), torch.from_numpy(hidden)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    knn_toks = toks[thook.last_result.ids.numpy()]
+    assert all(np.bincount(row).max() >= 3 for row in knn_toks)
+    w = torch.softmax(-thook.last_result.dists / 4.0, dim=-1)
+    p = tknnlm.knn_distribution(torch.from_numpy(knn_toks).long(), w, 8)
+    want64 = np.zeros((4, 8))
+    for r in range(4):
+        np.add.at(want64[r], knn_toks[r], w[r].double().numpy())
+    np.testing.assert_allclose(p.double().numpy(), want64, rtol=1e-6,
+                               atol=1e-7)
+    # Column by column equals the CPU's serial scatter over all k columns.
+    assert torch.equal(p, torch.zeros((4, 8)).scatter_add_(
+        1, torch.from_numpy(knn_toks).long(), w))
+
+
+def test_datastore_grow_evict_contract():
+    """tests/test_segments.py's Datastore contract on the port: grown keys
+    are found by the next hook call and lead the mix, evicted ones never
+    surface, bad shapes raise, and fewer than k live keys leave the
+    logits as they are."""
+    from repro_torch.core import index as tidx
+    from repro_torch.core.segments import SegmentedForest
+    rng = np.random.default_rng(8)
+    data = rng.normal(size=(220, 16)).astype(np.float32)
+    store = tknnlm.Datastore(
+        index=tidx.build_index(data[:200], "squared_euclidean", m=4,
+                               num_clusters=8, seed=0, device="cpu"),
+        next_tokens=np.arange(200, dtype=np.int32) % 32, hidden_dim=16)
+    hook = tknnlm.KNNLMHook(store=store, k=4, lam=0.5)
+    logits = torch.zeros((3, 32))
+    hook(logits, torch.from_numpy(data[:3]))
+    new_ids = store.grow(data[200:220], np.full(20, 7, np.int32))
+    assert isinstance(store.index, SegmentedForest)
+    assert store.next_tokens.shape == (220,) and store.version == 1
+    res = _knn(store.index, data[200:203], 1)
+    np.testing.assert_array_equal(res.ids.numpy().ravel(), new_ids[:3])
+    out = hook(logits, torch.from_numpy(data[200:203]))
+    assert out.shape == (3, 32) and int(torch.argmax(out[0])) == 7
+    assert hook._next_dev.shape == (220,)
+    assert store.evict(new_ids) == 20 and store.version == 2
+    res2 = _knn(store.index, data[200:203], 1)
+    assert not np.isin(res2.ids.numpy(), new_ids).any()
+    with pytest.raises(ValueError, match="one next-token per key"):
+        store.grow(data[:2], np.zeros(3, np.int32))
+    with pytest.raises(ValueError, match="expected"):
+        store.grow(np.ones((2, 18), np.float32), np.zeros(2, np.int32))
+    store.auto_compact = False
+    store.evict(np.arange(200 - hook.k + 1))
+    assert store.index.live_n < hook.k and store.index.n == 220
+    assert torch.equal(hook(logits, torch.from_numpy(data[:3])), logits)
+
+
+def test_tiered_datastore_snapshot_follows_the_version():
+    """With ``resident_bytes`` the store's tiered snapshot is made again
+    (the old one closed) when a mutation moves the version."""
+    from repro_torch.core import index as tidx
+    rng = np.random.default_rng(9)
+    data = rng.normal(size=(300, 16)).astype(np.float32)
+    store = tknnlm.Datastore(
+        index=tidx.build_index(data[:260], "squared_euclidean", m=4,
+                               num_clusters=8, seed=0, device="cpu"),
+        next_tokens=np.zeros(260, np.int32), hidden_dim=16,
+        block_rows=64, resident_bytes=4096)
+    first = store.search_index()
+    assert store.search_index() is first and not first.is_resident
+    ids = store.grow(data[260:], np.ones(40, np.int32))
+    second = store.search_index()
+    assert second is not first and first._executor is None
+    assert second._pinned
+    res = _knn(second, data[260:263], 1)
+    np.testing.assert_array_equal(res.ids.numpy().ravel(), ids[:3])
+
+
+def _knn(index, ys, k):
+    from repro_torch.core import search as tsearch
+    return tsearch.knn_batch(index, ys, k, device="cpu")
