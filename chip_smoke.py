@@ -267,6 +267,10 @@ class Smoke:
         # Phase 9's record, filled by the drives of phases 2-5.
         self.single: dict = {"oracle": {}, "calibration": {},
                              "seconds": 0.0}
+        # Phase 11's seconds, and phase 10's mutable Deep index, kept for
+        # phase 11's compaction-during-search check.
+        self.phase11_s = 0.0
+        self._mutable_sf = None
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -1291,6 +1295,9 @@ class Smoke:
                 label, forest, data, ys, q_batch,
                 {"ids": ids, "dists": dists, "exact": exact,
                  "num_candidates": ncand}, spec.measure, rec["search_ms"])
+            rec["phase11"] = self.phase11_deep(label, forest, ys, ids, dists,
+                                               quantize, self._mutable_sf)
+            self._mutable_sf = None
         else:
             rec["mutable"] = self.check_audio_rebuilds(label, forest, data)
         del forest
@@ -1888,6 +1895,7 @@ class Smoke:
                                  "ids": exact.ids, "budget": budget,
                                  "block_rows": block_rows,
                                  "family": family})
+        rec["phase11"] = self.phase11_blobs(forest, ys, exact, block_rows)
         return rec
 
     def reset_peak(self) -> None:
@@ -2173,12 +2181,32 @@ class Smoke:
         corpus = rng.integers(1, cfg.vocab_size, (num_seqs, seq_len))
         self.reset_launches()
         self.reset_peak()
+        # The recall curve is fitted in the build (phase 11's hook at
+        # target_recall inverts it); its seconds are taken apart.
+        from repro_torch.core import calibrate as tcal
+        fit, fit_s = tcal.fit_calibration, []
+
+        def timed_fit(*a, **kw):
+            self.sync()
+            t = time.perf_counter()
+            try:
+                return fit(*a, **kw)
+            finally:
+                self.sync()
+                fit_s.append(time.perf_counter() - t)
+
+        tcal.fit_calibration = timed_fit
         t0 = time.perf_counter()
-        store = build_datastore(bundle, params, corpus,
-                                family="squared_euclidean", m=None,
-                                seed=SEED)
+        try:
+            store = build_datastore(bundle, params, corpus,
+                                    family="squared_euclidean", m=None,
+                                    calibrate=True, calibrate_k=KNN_K,
+                                    seed=SEED)
+        finally:
+            tcal.fit_calibration = fit
         self.sync()
         rec["build_s"] = time.perf_counter() - t0
+        rec["calibration_fit_s"] = sum(fit_s)
         rec["build_peak_bytes"] = self.peak()
         rec["build_launches"] = self.launches()
         rec["build_flash_kernels"] = self.flash_launches()
@@ -2187,8 +2215,10 @@ class Smoke:
         index = store.index
         rec.update(keys=index.n, m=index.m, num_clusters=index.num_clusters,
                    key_bytes=index.data.numel() * 4)
+        # The forward runs #10; the recall curve's fit searches the keys
+        # (#1, #3, #7).
         self.expect_launches("datastore build", rec["build_launches"],
-                             ("flash_attention",), False)
+                             ("flash_attention",) + RESIDENT_PATH, False)
         if not self.rehearsal:
             expect(rec["build_launches"]["flash_attention"]
                    == cfg.num_layers * batches,
@@ -2210,6 +2240,8 @@ class Smoke:
         say(f"kNN-LM datastore: {index.n} keys x {cfg.d_model} fp32 "
             f"({rec['key_bytes']} B), M* = {index.m}, "
             f"{index.num_clusters} clusters; build {rec['build_s']:.2f} s "
+            f"(of which the recall curve's fit {rec['calibration_fit_s']:.2f}"
+            " s) "
             f"({batches} forward batches of {FORWARD_BATCH} x {seq_len}, "
             f"{rec['forward_ms_per_batch']:.1f} ms each), peak "
             f"{rec['build_peak_bytes']} B")
@@ -2359,6 +2391,8 @@ class Smoke:
         rec["hook_calls_ms"] = [c["ms"] for c in calls]
         rec["mutable"] = self.knnlm_mutable(bundle, params, store, cfg,
                                             seq_len, rng)
+        rec["phase11"] = self.phase11_knnlm(bundle, params, store, prompts,
+                                            outputs, ecfg, new)
         self._store = store
         del eng, bundle, params
         if not self.rehearsal:
@@ -3123,6 +3157,7 @@ class Smoke:
                f"; rebuild {out['rebuild_s']:.2f} s, same ids, dists "
                "bit-equal") + f"; peak {out['peak_bytes']} B; phase "
             f"{out['seconds']:.1f} s")
+        self._mutable_sf = sf           # phase 11's compaction check
         del sf, before, after
         return out
 
@@ -3392,8 +3427,623 @@ class Smoke:
         del mstore, hook, keys
         return out
 
+    # -- phase 11: the serving front end -------------------------------
+    @contextlib.contextmanager
+    def tuned(self):
+        """Phase 11 runs with the port's autotuner table; phases 1-10 run
+        without it (``run`` points ``TABLE_ENV`` at a missing file), so
+        their ``block_rows=None`` resolves to 4096 as in the runs before
+        the table existed."""
+        import os
+        from repro_torch.launch import autotune
+        saved = os.environ.pop(autotune.TABLE_ENV, None)
+        autotune._load_table_cached.cache_clear()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phase11_s += time.perf_counter() - t0
+            if saved is not None:
+                os.environ[autotune.TABLE_ENV] = saved
+            autotune._load_table_cached.cache_clear()
+
+    def expect_rows(self, label: str, resp, rows, want_ids, want_dists,
+                    quality: str = "exact") -> bool:
+        """A response's rows against the rows ``rows`` of a reference
+        result: every row labelled ``quality``, ids equal, dists bit-equal
+        on the card (within 1e-5 on the CPU, whose plain refine rounds by
+        the batch's shape).  Returns whether the dists' bits are equal."""
+        import numpy as np
+        expect(resp.quality == quality
+               and all(q == quality for q in resp.row_quality),
+               f"{label}: quality {resp.quality} {resp.row_quality} "
+               f"({resp.shed_reason}, {resp.error}), not {quality}")
+        ids = want_ids[rows].cpu().numpy()
+        dists = want_dists[rows].cpu().numpy()
+        expect(np.array_equal(resp.ids, ids),
+               f"{label}: ids differ from the reference rows")
+        bits = np.array_equal(resp.dists.view(np.uint32),
+                              dists.view(np.uint32))
+        expect(bits or (self.rehearsal and np.allclose(
+            resp.dists, dists, rtol=1e-5, atol=1e-5)),
+            f"{label}: dists differ from the reference rows")
+        return bits
+
+    def expect_events(self, label: str, plan, want: list) -> None:
+        import dataclasses
+        got = [dataclasses.astuple(e) for e in plan.events]
+        expect(got == want, f"{label}: fired {got}, the plan expects {want}")
+
+    def phase11_service(self, label: str, forest, ys, ids, dists,
+                        quantize: bool) -> dict:
+        """11a: Deep as a tenant of a deterministic service (VirtualClock,
+        ``ServiceConfig()`` defaults); 48 requests of 1, 2 and 4 queries
+        in turn from the 50, k = 10, deadline 60 s, drained by
+        ``run_until_drained``: every response exact and bit-equal to phase
+        4's rows, no launch failure, no breaker shed, the tier's #1/#3/#7
+        (int8 #2/#4/#8) launched at least once a microbatch launch."""
+        from repro_torch.serve import RetrievalService, ServiceConfig
+        from repro_torch.serve.faults import VirtualClock
+        svc = RetrievalService(ServiceConfig(), clock=VirtualClock())
+        self.sync()
+        t0 = time.perf_counter()
+        tenant = svc.register_tenant("deep", forest)
+        self.sync()
+        out = {"register_s": time.perf_counter() - t0,
+               "block_rows": tenant.block_rows}
+        expect(not tenant.degraded, f"{label}: the tenant was quarantined")
+        tickets, rows, cur = [], [], 0
+        for i in range(48):
+            size = (1, 2, 4)[i % 3]
+            sel = [(cur + j) % NUM_QUERIES for j in range(size)]
+            cur += size
+            rows.append(sel)
+            tickets.append(svc.submit("deep", ys[sel], K, deadline_s=60.0))
+        self.reset_launches()
+        self.reset_peak()
+        self.sync()
+        t0 = time.perf_counter()
+        svc.run_until_drained()
+        self.sync()
+        out["drain_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["peak_bytes"] = self.peak()
+        got, sfx = self.launches(), "_quant" if quantize else ""
+        out["kernel_launches"] = {k + sfx: got[k + sfx] for k in RESIDENT_PATH}
+        c = svc.counters
+        bits = all([self.expect_rows(f"{label} service request {i}",
+                                     t.response, sel, ids, dists)
+                    for i, (t, sel) in enumerate(zip(tickets, rows,
+                                                     strict=True))])
+        expect(c["launch_failures"] == 0 and c["breaker_sheds"] == 0
+               and c["exact"] == 48,
+               f"{label}: service counters {c}")
+        microbatches = c["launches"] - c["escalations"]
+        expect(self.rehearsal or all(
+            v >= c["launches"] for v in out["kernel_launches"].values()),
+            f"{label}: kernels {out['kernel_launches']} for "
+            f"{c['launches']} service launches")
+        out.update(counters=dict(c), launches=c["launches"],
+                   escalations=c["escalations"], microbatches=microbatches,
+                   rows=sum(len(r) for r in rows),
+                   mean_rows_per_microbatch=sum(len(r) for r in rows)
+                   / microbatches, dists_bit_equal=bits,
+                   buckets=sorted({t.response.meta["bucket"]
+                                   for t in tickets}))
+        say(f"service {label}: 48 requests exact, ids and dists "
+            f"{'bit-equal' if bits else 'within 1e-5'} to phase 4's rows; "
+            f"{microbatches} microbatches ({out['mean_rows_per_microbatch']:.1f}"
+            f" rows each, buckets {out['buckets']}), {c['launches']} launches "
+            f"({c['escalations']} escalations) in {out['drain_ms']:.1f} ms; "
+            f"kernels {out['kernel_launches']}; peak {out['peak_bytes']} B; "
+            "registration "
+            f"{out['register_s']:.3f} s (validation on the device), "
+            f"block_rows pinned {tenant.block_rows}")
+        return out
+
+    def phase11_faults(self, label: str, forest, ys, ids, dists, sf) -> dict:
+        """11b: seeded faults on the Deep fp32 tenant: a launch error
+        retried, a poisoned row shed alone (a poisoned request shed as
+        ``poisoned``), a latency spike that prices out the exact tier
+        (approx responses bit-equal to ``knn_search_batch_approx`` at p =
+        0.9), a larger one (partial, then an explicit shed), and on phase
+        10's mutable index a compaction between snapshot and launch
+        (bit-equal to searching the recorded snapshot)."""
+        import numpy as np
+        from repro_torch.core import search as tsearch
+        from repro_torch.serve import RetrievalService, ServiceConfig
+        from repro_torch.serve import faults as tf
+        out = {}
+        four = [0, 1, 2, 3]
+
+        def service(plan, index=forest, name="deep", **cfg):
+            svc = RetrievalService(ServiceConfig(**cfg),
+                                   clock=tf.VirtualClock(), faults=plan)
+            svc.register_tenant(name, index)
+            return svc
+
+        # A launch error on the first launch: backoff, retry, exact.
+        plan = tf.FaultPlan([tf.LaunchError(at_launches=0)], seed=4)
+        svc = service(plan)
+        r = svc.search_sync("deep", ys[four], K, deadline_s=60.0)
+        self.expect_rows(f"{label} launch error retried", r, four, ids,
+                         dists)
+        expect(svc.counters["launch_failures"] == 1
+               and svc.tenants["deep"].breaker.state == "closed",
+               f"{label} launch error: counters {svc.counters}")
+        self.expect_events(f"{label} launch error", plan, [
+            ("error", "launch", 0, "deep", "injected launch failure")])
+        out["launch_error"] = {"attempts": r.meta["attempts"],
+                               "tier_path": r.meta["tier_path"],
+                               "latency_s": r.latency_s}
+
+        # Poison: one row of a 4-row request, then a 1-row request.
+        plan = tf.FaultPlan([tf.PoisonQuery(at_submits=0, row=1),
+                             tf.PoisonQuery(at_submits=1, row=0)], seed=5)
+        svc = service(plan)
+        r = svc.search_sync("deep", ys[four], K, deadline_s=60.0)
+        expect(r.flagged_rows == [1] and r.row_quality[1] == "shed"
+               and (r.ids[1] == -1).all() and np.isinf(r.dists[1]).all()
+               and r.quality == "exact",
+               f"{label} poison: {r.quality} {r.row_quality} "
+               f"{r.flagged_rows}")
+        for i in (0, 2, 3):
+            expect(r.row_quality[i] == "exact"
+                   and np.array_equal(r.ids[i], ids[i].cpu().numpy()),
+                   f"{label} poison: batchmate {i} is not exact or differs")
+        r2 = svc.search_sync("deep", ys[[5]], K, deadline_s=60.0)
+        expect(r2.quality == "shed" and r2.shed_reason == "poisoned",
+               f"{label} poison: a poisoned request answered {r2.quality} "
+               f"({r2.shed_reason})")
+        self.expect_events(f"{label} poison", plan, [
+            ("poison", "submit", 0, "deep", "row=1 value=nan"),
+            ("poison", "submit", 1, "deep", "row=0 value=nan")])
+        out["poison"] = {"poisoned_rows": svc.counters["poisoned_rows"],
+                         "launches": svc.counters["launches"]}
+
+        # A latency spike teaches the cost model; a deadline between one
+        # and two estimates then enters at the approx tier.
+        plan = tf.FaultPlan([tf.LatencySpike(1.0, at_launches=0)], seed=1)
+        svc = service(plan)
+        svc.search_sync("deep", ys[four], K, deadline_s=60.0)
+        est = svc.tenants["deep"].cost.estimate()
+        sel = [4, 5, 6, 7]
+        r = svc.search_sync("deep", ys[sel], K, deadline_s=1.5 * est)
+        expect(r.meta["tier_path"][0] == "approx",
+               f"{label} spike: tiers {r.meta['tier_path']}")
+        want = tsearch.knn_search_batch_approx(
+            forest, ys[sel], K, r.meta["budget"], np.float32(0.9),
+            block_rows=svc.tenants["deep"].block_rows, device=self.dev)
+        approx_bits = self.expect_rows(f"{label} approx tier", r, list(
+            range(4)), want.ids, want.dists, quality="approx")
+        self.expect_events(f"{label} spike", plan, [
+            ("latency", "launch", 0, "deep", "+1.000s tier=exact")])
+        out["approx"] = {"estimate_s": est, "deadline_s": 1.5 * est,
+                         "tier_path": r.meta["tier_path"],
+                         "budget": r.meta["budget"],
+                         "dists_bit_equal": approx_bits}
+
+        # A larger spike: partial, then a shed without a launch.
+        plan = tf.FaultPlan([tf.LatencySpike(4.0, at_launches=0)], seed=2)
+        svc = service(plan)
+        svc.search_sync("deep", ys[four], K, deadline_s=60.0)
+        est = svc.tenants["deep"].cost.estimate()
+        r = svc.search_sync("deep", ys[sel], K, deadline_s=0.8 * est)
+        expect(r.meta["tier_path"] == ["partial"] and r.quality == "partial",
+               f"{label} larger spike: {r.quality} {r.meta['tier_path']}")
+        before = svc.counters["launches"]
+        est2 = svc.tenants["deep"].cost.estimate()
+        r2 = svc.search_sync("deep", ys[sel], K, deadline_s=0.3 * est2)
+        expect(r2.quality == "shed" and r2.shed_reason == "deadline"
+               and (r2.ids == -1).all()
+               and svc.counters["launches"] == before,
+               f"{label} larger spike: {r2.quality} {r2.shed_reason}")
+        self.expect_events(f"{label} larger spike", plan, [
+            ("latency", "launch", 0, "deep", "+4.000s tier=exact")])
+        out["partial_then_shed"] = {
+            "estimate_s": est, "partial_deadline_s": 0.8 * est,
+            "partial_rows": r.row_quality, "shed_deadline_s": 0.3 * est2}
+
+        # A compaction between the snapshot and the launch.
+        n0 = sf.live_n
+        plan = tf.FaultPlan([tf.CompactDuringSearch(at_launches=0,
+                                                    insert_rows=8)], seed=6)
+        svc = service(plan, index=sf, name="deep_mutable",
+                      record_snapshots=True)
+        self.sync()
+        t0 = time.perf_counter()
+        r = svc.search_sync("deep_mutable", ys[four], K, deadline_s=60.0)
+        self.sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        snap = r.meta["snapshot"]
+        expect(sf.live_n == n0 + 8 and snap.n == n0 and not sf.segments,
+               f"{label} compaction: live {sf.live_n}, snapshot {snap.n}")
+        want = tsearch.knn_search_batch(snap, ys[four], K, r.meta["budget"],
+                                        block_rows=svc.tenants[
+                                            "deep_mutable"].block_rows,
+                                        device=self.dev)
+        compact_bits = self.expect_rows(f"{label} compaction during search",
+                                        r, four, want.ids, want.dists)
+        self.expect_events(f"{label} compaction", plan, [
+            ("compact", "launch", 0, "deep_mutable",
+             "mode=merge insert_rows=8")])
+        out["compaction"] = {"ms": ms, "live_before": n0,
+                             "dists_bit_equal": compact_bits}
+        say(f"service {label} faults: a launch error retried (exact, "
+            f"bit-equal); a poisoned row shed alone, a poisoned request "
+            f"shed 'poisoned'; spike 1.0 s -> approx at deadline "
+            f"{out['approx']['deadline_s']:.3f} s (== knn_search_batch_approx "
+            f"p=0.9, bits {approx_bits}); spike 4.0 s -> partial, then shed; "
+            f"a merge between snapshot and launch ({ms:.1f} ms): == the "
+            f"snapshot's search (bits {compact_bits}); every plan fired "
+            "its expected events")
+        return out
+
+    def phase11_wall_clock(self, label: str, forest, ys, ids, dists) -> dict:
+        """11d: a SystemClock service, no faults: 128 requests of 1-8
+        queries (seeded), 16 submitted a step, deadline 2 s.  No launch
+        fails; every response labelled exact is bit-equal to phase 4's
+        rows; latency percentiles and the tier mix are recorded (the
+        ladder may degrade under real time)."""
+        import numpy as np
+        from repro_torch.serve import RetrievalService, ServiceConfig
+        svc = RetrievalService(ServiceConfig())
+        svc.register_tenant("deep", forest)
+        svc.warm("deep", shapes=[(32, K)])
+        rng = np.random.default_rng(SEED)
+        sizes = rng.integers(1, 9, size=128)
+        tickets, rows, cur = [], [], 0
+        t0 = time.perf_counter()
+        for i, size in enumerate(sizes):
+            sel = [(cur + j) % NUM_QUERIES for j in range(int(size))]
+            cur += int(size)
+            rows.append(sel)
+            tickets.append(svc.submit("deep", ys[sel], K, deadline_s=2.0))
+            if i % 16 == 15:
+                svc.step()
+        svc.run_until_drained()
+        wall = time.perf_counter() - t0
+        c = svc.counters
+        expect(c["launch_failures"] == 0,
+               f"{label} wall clock: {c['launch_failures']} launch failures")
+        bits = True
+        for i, (t, sel) in enumerate(zip(tickets, rows, strict=True)):
+            if t.response.quality == "exact":
+                bits &= self.expect_rows(f"{label} wall-clock request {i}",
+                                         t.response, sel, ids, dists)
+        lat = np.array([1e3 * t.response.latency_s for t in tickets])
+        mix = {q: c[q] for q in ("exact", "approx", "partial", "shed")}
+        shed_by = {r: c[k] for r, k in (("queue_full", "rejected_queue_full"),
+                                        ("deadline", "deadline_sheds"),
+                                        ("breaker", "breaker_sheds"))}
+        out = {"requests": len(tickets), "rows": int(sizes.sum()),
+               "shed_by": shed_by,
+               "wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
+               "p99_ms": float(np.percentile(lat, 99)),
+               "max_ms": float(lat.max()), "quality": mix,
+               "microbatches": c["launches"] - c["escalations"],
+               "launches": c["launches"], "escalations": c["escalations"],
+               "deadline_sheds": c["deadline_sheds"],
+               "estimate_s": svc.tenants["deep"].cost.estimate(),
+               "exact_dists_bit_equal": bits}
+        say(f"service {label} wall clock: {len(tickets)} requests "
+            f"({out['rows']} rows, 16 a step, deadline 2 s) in {wall:.2f} s: "
+            f"p50 {out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms; "
+            f"quality {mix} (shed by {shed_by}); {out['microbatches']} "
+            "microbatches (one a step()), "
+            f"{c['launches']} launches; cost estimate "
+            f"{1e3 * out['estimate_s']:.1f} ms; no launch failed, exact "
+            "responses equal phase 4's rows")
+        return out
+
+    def phase11_deep(self, label: str, forest, ys, ids, dists, quantize,
+                     sf) -> dict:
+        """Phase 11 on a Deep drive's index (before it is freed)."""
+        with self.tuned():
+            out = {"service": self.phase11_service(label, forest, ys, ids,
+                                                   dists, quantize)}
+            if not quantize:
+                out["faults"] = self.phase11_faults(label, forest, ys, ids,
+                                                    dists, sf)
+                out["wall_clock"] = self.phase11_wall_clock(label, forest,
+                                                            ys, ids, dists)
+        return out
+
+    def phase11_blobs(self, forest, ys, exact, block_rows: int) -> dict:
+        """11c and 11g on the blob corpus: the corpus as a tiered tenant at
+        40% of its cold bytes, warmed; 16 requests of 4 queries exact and
+        bit-equal to phase 5's resident search; a FetchStall within the
+        launch timeout rides as latency.  Then the resident search at the
+        tuned block size against 4096, both timed."""
+        import numpy as np
+        from repro_torch.core import search as tsearch
+        from repro_torch.launch import autotune
+        from repro_torch.serve import RetrievalService, ServiceConfig
+        from repro_torch.serve import faults as tf
+        out = {}
+        with self.tuned():
+            cold = cold_bytes(forest)
+            plan = tf.FaultPlan([tf.FetchStall(0.5, at_launches=0,
+                                               tenant="blobs")], seed=11)
+            svc = RetrievalService(ServiceConfig(), clock=tf.VirtualClock(),
+                                   faults=plan)
+            self.sync()
+            t0 = time.perf_counter()
+            tenant = svc.register_tenant("blobs", forest,
+                                         resident_bytes=int(0.4 * cold))
+            self.sync()
+            out["register_s"] = time.perf_counter() - t0
+            store = tenant.tiered
+            expect(store is not None and not store.is_resident,
+                   "service blobs: the tenant did not tier")
+            t0 = time.perf_counter()
+            warm = svc.warm("blobs", shapes=[(32, K)])
+            self.sync()
+            out["warm_s"] = time.perf_counter() - t0
+            out["warm"] = warm["tiered"]
+            store.reset_stats()
+            q = ys.shape[0]
+            tickets, rows = [], []
+            for i in range(16):
+                sel = [(4 * i + j) % q for j in range(4)]
+                rows.append(sel)
+                tickets.append(svc.submit("blobs", ys[sel], K,
+                                          deadline_s=60.0))
+            self.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            svc.run_until_drained()
+            self.sync()
+            out["drain_ms"] = 1e3 * (time.perf_counter() - t0)
+            out["kernel_launches"] = self.launches()
+            bits = all([self.expect_rows(f"service blobs request {i}",
+                                         t.response, sel, exact.ids,
+                                         exact.dists)
+                        for i, (t, sel) in enumerate(zip(tickets, rows,
+                                                         strict=True))])
+            stalled = [t.response.latency_s for t in tickets
+                       if t.response.latency_s >= 0.5]
+            expect(len(stalled) >= 1 and svc.counters["launch_failures"] == 0,
+                   "service blobs: the fetch stall did not ride as latency")
+            self.expect_events("service blobs fetch stall", plan, [
+                ("fetch_stall", "launch", 0, "blobs", "+0.500s tier=exact")])
+            expect(self.rehearsal or (
+                out["kernel_launches"]["bregman_prune_mask"] >= 1
+                and out["kernel_launches"]["bregman_refine_batch"]
+                >= svc.counters["launches"]),
+                f"service blobs: kernels {out['kernel_launches']}")
+            stats = dict(store.stats)
+            out.update(counters=dict(svc.counters), stats=stats,
+                       store_block_rows=store.block_rows,
+                       dists_bit_equal=bits, stalled=len(stalled))
+            store.close()
+            say(f"service blobs (tiered, {store.block_rows}-row blocks, 40% "
+                f"of {cold} cold bytes): 16 requests of 4 exact and "
+                f"{'bit-equal' if bits else 'within 1e-5'} to phase 5's "
+                f"resident search in {out['drain_ms']:.1f} ms (warm "
+                f"{out['warm_s']:.2f} s); blocks admitted "
+                f"{stats['blocks_admitted']} of {stats['blocks_total']}; a "
+                f"0.5 s fetch stall rode as latency on {len(stalled)} "
+                f"responses; kernels {out['kernel_launches']}")
+
+            # 11g: the tuned block size against 4096 where the gate prunes.
+            # The card's entry for the corpus's (n, q), and the same n's
+            # q = 8 entry beside it (the q = 32 entry may be 4096 itself).
+            n = forest.n
+            tuned = autotune.lookup_block_rows(1 << 20, q, storage="f32",
+                                               backend="cuda")
+            other = autotune.lookup_block_rows(1 << 20, 8, storage="f32",
+                                               backend="cuda")
+            expect(tuned is not None and other is not None,
+                   "autotune: no table entry for the blob corpus's shape")
+            sizes = sorted({tuned, other, BLOCK_ROWS})
+            budget = tsearch.resolve_budget(None, n, K)
+            res, times = {}, {}
+            for br in sizes + sizes[::-1]:
+                self.sync()
+                t0 = time.perf_counter()
+                res[br] = tsearch.knn_search_batch(forest, ys, K, budget, br,
+                                                   device=self.dev)
+                self.sync()
+                times.setdefault(br, []).append(
+                    1e3 * (time.perf_counter() - t0))
+            gate = {}
+            for br in sizes:
+                for f in res[BLOCK_ROWS]._fields:
+                    expect(bool(self.torch.equal(getattr(res[br], f),
+                                                 getattr(res[BLOCK_ROWS], f))),
+                           f"autotune: {f} at block_rows={br} differ from "
+                           f"{BLOCK_ROWS}")
+                _, st = tsearch.knn_search_batch_stats(forest, ys, K, budget,
+                                                       br, device=self.dev)
+                gate[str(br)] = {"blocks_run": st["num_blocks_run"],
+                                 "num_blocks": st["num_blocks"]}
+            out["tuned"] = {"block_rows": tuned, "q8_block_rows": other,
+                            "ms": {str(br): times[br] for br in sizes},
+                            "gate": gate}
+            say(f"autotune: blob corpus (q={q}) at the tuned block_rows="
+                f"{tuned} and the q=8 entry's {other}, against "
+                f"{BLOCK_ROWS}: bit-equal; ms in turns "
+                f"{out['tuned']['ms']}; gate {gate}")
+        return out
+
+    def phase11_knnlm(self, bundle, params, store, prompts, outputs, ecfg,
+                      new: int) -> dict:
+        """11e: the engine with the hook routed through a RetrievalService
+        gives phase 7's tokens; the hook at target_recall and approx_p
+        equals knn_batch at the same knob, dists bit-equal."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.serve import RetrievalService, ServiceConfig
+        from repro_torch.serve.engine import Engine, Request
+        from repro_torch.serve.knnlm import KNNLMHook
+        out = {}
+        with self.tuned():
+            svc = RetrievalService(ServiceConfig())
+            hook = KNNLMHook(store=store, k=KNN_K, service=svc,
+                             deadline_s=60.0)
+            eng = Engine(bundle, params, ecfg, logits_hook=hook)
+            for uid, prompt in enumerate(prompts):
+                eng.submit(Request(uid=uid, prompt=prompt,
+                                   max_new_tokens=new))
+            self.reset_launches()
+            self.sync()
+            t0 = time.perf_counter()
+            eng.run()
+            self.sync()
+            serve_s = time.perf_counter() - t0
+            got = {r.uid: r.output for r in eng.finished}
+            expect(got == outputs, "kNN-LM service route: the engine's "
+                   "tokens differ from phase 7's direct hook")
+            c = svc.counters
+            expect(c["launch_failures"] == 0 and c["shed"] == 0
+                   and c["exact"] == c["completed"],
+                   f"kNN-LM service route: counters {c}")
+            generated = sum(len(o) for o in got.values())
+            out["service_route"] = {
+                "serve_s": serve_s, "tokens_per_s": generated / serve_s,
+                "counters": dict(c), "launches": self.launches(),
+                "block_rows": svc.tenants[hook.service_tenant].block_rows,
+                "estimate_s": svc.tenants[hook.service_tenant]
+                .cost.estimate()}
+            say(f"kNN-LM service route: the engine's {generated} tokens "
+                f"equal phase 7's ({serve_s:.2f} s, "
+                f"{out['service_route']['tokens_per_s']:.1f} tokens/s); "
+                f"{c['completed']} hook lookups exact, {c['launches']} "
+                f"service launches ({c['escalations']} escalations)")
+            del eng
+            gen = torch.Generator(device=self.dev).manual_seed(SEED)
+            keys = store.index.data
+            pick = torch.randint(0, keys.shape[0], (SLOTS,), generator=gen,
+                                 device=self.dev)
+            h = keys[pick] + 0.01 * torch.randn(
+                (SLOTS, keys.shape[1]), generator=gen, device=self.dev)
+            logits = torch.zeros((SLOTS, bundle.cfg.vocab_size),
+                                 device=self.dev)
+            for knob in ({"target_recall": 0.9}, {"approx_p": 0.9}):
+                hk = KNNLMHook(store=store, k=KNN_K, **knob)
+                name = next(iter(knob))
+                want = tsearch.knn_batch(store.index, h, KNN_K,
+                                         device=self.dev, **knob)
+                calls = []
+                for _ in range(2):
+                    self.sync()
+                    t0 = time.perf_counter()
+                    hk(logits, h)
+                    self.sync()
+                    calls.append(1e3 * (time.perf_counter() - t0))
+                    res = hk.last_result
+                    expect(bool(torch.equal(res.ids, want.ids)),
+                           f"kNN-LM hook {knob}: ids differ from knn_batch")
+                    expect(bool(torch.equal(res.dists, want.dists))
+                           or (self.rehearsal and bool(torch.allclose(
+                               res.dists, want.dists, rtol=1e-5,
+                               atol=1e-5))),
+                           f"kNN-LM hook {knob}: dists differ from "
+                           "knn_batch")
+                out[name] = {"ms": calls, "budget": hk.budget_final,
+                             "escalations": hk.escalations,
+                             "exact_rows": int(res.exact.sum())}
+            cal = store.index.calibration
+            out["curve"] = [float(x) for x in cal.recall_grid]
+            out["p_at_0.9"] = cal.resolve(0.9)[0]
+            say(f"kNN-LM hook at target_recall=0.9 (p={out['p_at_0.9']}) and "
+                f"approx_p=0.9: two calls each equal knn_batch (ids, dists "
+                f"bit for bit); ms {out['target_recall']['ms']} / "
+                f"{out['approx_p']['ms']}; curve {out['curve']}")
+        return out
+
+    def phase11_launcher(self) -> dict:
+        """11f: ``repro_torch.launch.serve.main`` at full width (the
+        reduced config on the CPU): it exits 0 and the hook serves."""
+        import contextlib as _cl
+        import io
+        from repro_torch.launch import serve as tserve
+        args = ["--arch", "starcoder2-3b", "--requests", "8", "--slots",
+                "4", "--prompt-len", "16", "--new-tokens", "16", "--knnlm"]
+        if self.rehearsal:
+            args += ["--reduced", "--device", "cpu"]
+        with self.tuned():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with _cl.redirect_stdout(buf):
+                rc = tserve.main(args)
+            seconds = time.perf_counter() - t0
+            text = buf.getvalue()
+            served = re.search(r"kNN queries served: (\d+)", text)
+            rate = re.search(r"\(([0-9.]+) tok/s", text)
+            expect(rc == 0 and served and int(served.group(1)) > 0 and rate,
+                   f"serve launcher: rc {rc}, output {text!r}")
+            out = {"argv": args, "seconds": seconds,
+                   "tokens_per_s": float(rate.group(1)),
+                   "queries_served": int(served.group(1)),
+                   "output": text.strip().splitlines()}
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+        say(f"serve launcher ({' '.join(args)}): exit 0, "
+            f"{out['tokens_per_s']} tokens/s, {out['queries_served']} kNN "
+            f"queries served, {seconds:.1f} s")
+        return out
+
+    def phase11_autotune(self) -> dict:
+        """11g: the checked-in table loads, every entry ``cuda`` and
+        well-formed; Deep's and the hook's shapes hit it; one sweep cell
+        runs on the card with a positive memory probe."""
+        import json as _json
+        from repro_torch.launch import autotune
+        out = {}
+        with self.tuned():
+            payload = _json.loads(autotune.DEFAULT_TABLE_PATH.read_text())
+            entries = autotune.load_table()
+            expect(len(entries) > 0 and len(entries)
+                   == len(payload["entries"]), "autotune: the table is empty "
+                   "or holds malformed entries")
+            for e in entries:
+                expect(e.get("backend") == "cuda"
+                       and e.get("storage") in ("f32", "int8")
+                       and int(e["block_rows"]) >= 8
+                       and int(e["env_block_rows"]) % 256 == 0,
+                       f"autotune: entry {e} is not a well-formed cuda entry")
+            hits = {}
+            for name, (n, q) in {"deep": (1_000_000, NUM_QUERIES),
+                                 "hook": (65_472, KNN_K)}.items():
+                hits[name] = autotune.lookup_block_rows(
+                    n, q, storage="f32", backend="cuda")
+                expect(hits[name] is not None,
+                       f"autotune: no entry for {name}'s shape")
+            out.update(entries=len(entries), note=payload["note"], hits=hits)
+            n, d, m = (2048, 32, 4) if self.rehearsal else (1 << 16, 256, 39)
+            cfg = autotune.SweepConfig(
+                ns=(n,), qs=(8,), d=d, m=m, storages=("f32",),
+                block_rows_candidates=(2048, 4096), env_candidates=(1024,),
+                device=str(self.dev))
+            lines = []
+            t0 = time.perf_counter()
+            cell = autotune.sweep(cfg, log=lines.append)
+            out["sweep_s"] = time.perf_counter() - t0
+            expect(len(cell) == 1, f"autotune: the sweep cell gave {cell}")
+            temp = cell[0]["temp_bytes"]
+            expect((temp is None) if self.rehearsal else
+                   (isinstance(temp, int) and temp > 0),
+                   f"autotune: measure_memory gave {temp}")
+            out["sweep"] = {"entry": cell[0], "log": lines}
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+        say(f"autotune: the table's {len(entries)} entries are cuda and "
+            f"well-formed (note: {payload['note']}); Deep hits block_rows="
+            f"{hits['deep']}, the hook {hits['hook']}; a sweep cell "
+            f"(n={n}, q=8, f32, block_rows 2048/4096, env 1024) in "
+            f"{out['sweep_s']:.1f} s: {cell[0]['block_rows']} wins, "
+            f"{cell[0]['us_per_call']} us, peak {temp} B above the index")
+        return out
+
     def run(self) -> dict:
+        import os
+        from repro_torch.launch import autotune
         t_start = time.perf_counter()
+        # Phases 1-10 run without the autotuner table (block_rows=None is
+        # 4096 there, as before the table existed); phase 11 turns it on.
+        os.environ[autotune.TABLE_ENV] = str(ROOT / "build"
+                                             / "no_autotune_table.json")
         self.phase_card_and_build()
         self.phase_ragged()
         for name in ("audio", "deep"):
@@ -3404,12 +4054,16 @@ class Smoke:
         say(f"phase 9: {self.single['seconds']:.1f} s")
         self.record["flash"] = self.phase_flash()
         self.record["knnlm"] = self.phase_knnlm()
+        self.record["serve_launcher"] = self.phase11_launcher()
         self.record["pccp"] = self.phase_pccp()
         self.record["mutable_seconds"] = sum(
             self.record[key]["mutable"]["seconds"]
             for key in ("audio", "audio_int8", "deep", "deep_int8", "blobs",
                         "knnlm"))
         say(f"phase 10: {self.record['mutable_seconds']:.1f} s")
+        self.record["autotune"] = self.phase11_autotune()
+        self.record["phase11_seconds"] = self.phase11_s
+        say(f"phase 11: {self.phase11_s:.1f} s")
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
                                   + self.kernel_table(self.record["deep_int8"])
                                   + self.lm_kernel_table())

@@ -82,37 +82,54 @@ class BregmanFamily:
 def validate_rows(family, rows, *, mode: str = "raise", what: str = "row"):
     """Per-row domain gate: finite entries inside the family's OPEN domain.
 
-    ``rows`` is (d,) or (q, d), a tensor or an array; the check runs in
-    numpy on the host and returns a (q,) bool ``ok`` mask.  ``mode="raise"``
-    raises a ``ValueError`` naming the first offending row.
+    ``rows`` is (d,) or (q, d), a tensor or an array; the predicate is
+    :func:`valid_rows_mask`, computed where a tensor lies, and a (q,) bool
+    numpy ``ok`` mask comes back.  ``mode="raise"`` raises a
+    ``ValueError`` naming the first offending row.
     """
     fam = get_family(family) if isinstance(family, str) else family
     if mode not in ("raise", "mask"):
         raise ValueError(f"mode must be 'raise' or 'mask', got {mode!r}")
-    if isinstance(rows, torch.Tensor):
-        rows = rows.detach().cpu().numpy()
-    arr = np.asarray(rows)
-    if arr.ndim == 1:
-        arr = arr[None, :]
-    if arr.ndim != 2:
-        raise ValueError(f"expected (d,) or (q, d) {what}s, got {arr.shape}")
-    ok = np.isfinite(arr).all(axis=1)
-    lo, hi = fam.domain_low, fam.domain_high
-    with np.errstate(invalid="ignore"):
-        if np.isfinite(lo):
-            ok &= (arr > lo).all(axis=1)
-        if np.isfinite(hi):
-            ok &= (arr < hi).all(axis=1)
+    t = rows.detach() if isinstance(rows, torch.Tensor) \
+        else torch.from_numpy(np.array(rows))
+    if t.ndim == 1:
+        t = t[None, :]
+    if t.ndim != 2:
+        raise ValueError(f"expected (d,) or (q, d) {what}s, got "
+                         f"{tuple(t.shape)}")
+    ok = valid_rows_mask(fam, t).cpu().numpy()
     if mode == "raise" and not ok.all():
         bad = int(np.argmax(~ok))
+        row = t[bad].cpu().numpy()
+        lo, hi = fam.domain_low, fam.domain_high
         lo_s = f"{lo:g}" if np.isfinite(lo) else "-inf"
         hi_s = f"{hi:g}" if np.isfinite(hi) else "inf"
         raise ValueError(
             f"{what} {bad} is invalid for Bregman family {fam.name!r}: "
             f"entries must be finite and inside the open domain "
             f"({lo_s}, {hi_s}); got {what} values "
-            f"min={np.nanmin(arr[bad]):g} max={np.nanmax(arr[bad]):g} "
-            f"finite={bool(np.isfinite(arr[bad]).all())}")
+            f"min={np.nanmin(row):g} max={np.nanmax(row):g} "
+            f"finite={bool(np.isfinite(row).all())}")
+    return ok
+
+
+def valid_rows_mask(family, rows: Tensor) -> Tensor:
+    """The domain predicate computed where ``rows`` lie: a (q,) bool tensor
+    on the rows' device, true where every entry is finite and inside the
+    family's open domain.  Nothing is copied to the host, so a
+    registration check over an index on the card reads its rows there."""
+    fam = get_family(family) if isinstance(family, str) else family
+    if rows.ndim == 1:
+        rows = rows[None, :]
+    if rows.ndim != 2:
+        raise ValueError(f"expected (d,) or (q, d) rows, got "
+                         f"{tuple(rows.shape)}")
+    ok = torch.isfinite(rows).all(dim=1)
+    lo, hi = fam.domain_low, fam.domain_high
+    if math.isfinite(lo):
+        ok &= (rows > lo).all(dim=1)
+    if math.isfinite(hi):
+        ok &= (rows < hi).all(dim=1)
     return ok
 
 

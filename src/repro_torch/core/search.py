@@ -93,17 +93,25 @@ MAX_BUDGET_DOUBLINGS = 8
 GROUP_OUTPUT_BYTES = 1 << 27
 
 
-def resolve_block_rows(block_rows: int | None, n: int) -> int:
+def resolve_block_rows(block_rows: int | None, n: int, *,
+                       q: int | None = None, storage: str | None = None,
+                       device=None) -> int:
     """Validate the ``block_rows`` knob against an index of n rows.
 
-    ``None`` means :data:`DEFAULT_BLOCK_ROWS` (the port has no autotuner
-    table yet).  Values beyond ``n`` are legal (one block); non-integers
-    and values below 8 raise.  An empty index raises on every path.
+    ``None`` consults the port's autotuner table
+    (``launch/autotune.py``) for this shape, keyed by the backend of
+    ``device`` (the card when ``device`` is None and one is present),
+    and falls back to :data:`DEFAULT_BLOCK_ROWS` on a miss.  ``q`` and
+    ``storage`` sharpen the lookup.  Values beyond ``n`` are legal (one
+    block); non-integers and values below 8 raise.  An empty index raises
+    on every path.
     """
     if n < 1:
         raise ValueError(f"cannot search an empty index (n={n})")
     if block_rows is None:
-        return DEFAULT_BLOCK_ROWS
+        from ..launch.autotune import lookup_block_rows
+        tuned = lookup_block_rows(n, q, storage=storage, device=device)
+        return tuned if tuned is not None else DEFAULT_BLOCK_ROWS
     if isinstance(block_rows, bool) or not isinstance(block_rows, int):
         raise ValueError(f"block_rows must be an int, got {block_rows!r}")
     if block_rows < 8:
@@ -731,7 +739,8 @@ def knn_search_batch(index: BallForest, ys, k: int, budget: int | None,
     if validate:
         validate_queries(index.family, ys)
     ys = _queries(ys, dev)
-    br = resolve_block_rows(block_rows, index.n)
+    br = resolve_block_rows(block_rows, index.n, q=ys.shape[0],
+                            storage=index.storage, device=dev)
     return _knn_search_batch_core(index, ys, k, budget, br,
                                   env_block_rows=resolve_env_block_rows(
                                       env_block_rows))
@@ -783,7 +792,8 @@ def knn_search_batch_approx(index: BallForest, ys, k: int,
     if validate:
         validate_queries(index.family, ys)
     ys = _queries(ys, dev)
-    br = resolve_block_rows(block_rows, index.n)
+    br = resolve_block_rows(block_rows, index.n, q=ys.shape[0],
+                            storage=index.storage, device=dev)
     return _knn_search_batch_core(index, ys, k, budget, br,
                                   p_guarantee=float(p_guarantee))
 
@@ -808,7 +818,8 @@ def knn_search_batch_stats(index: BallForest, ys, k: int, budget: int | None,
     dev = _on_index_device(index, device)
     budget = resolve_budget(budget, index.n, k)
     ys = _queries(ys, dev)
-    br = resolve_block_rows(block_rows, index.n)
+    br = resolve_block_rows(block_rows, index.n, q=ys.shape[0],
+                            storage=index.storage, device=dev)
     res, env_admitted, blocks_run, tau = _knn_search_batch_core(
         index, ys, k, budget, br, with_stats=True)
     bn, nb = _block_layout(index.n, br)
@@ -848,7 +859,8 @@ def knn_search_batch_reference(index: BallForest, ys, k: int,
     budget = resolve_budget(budget, index.n, k)
     validate_p_guarantee(p_guarantee)
     ys = _queries(ys, dev)
-    br = resolve_block_rows(block_rows, index.n)
+    br = resolve_block_rows(block_rows, index.n, q=ys.shape[0],
+                            storage=index.storage, device=dev)
     return _knn_search_batch_core(
         index, ys, k, budget, br, streaming=False,
         p_guarantee=None if p_guarantee is None else float(p_guarantee))

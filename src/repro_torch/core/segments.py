@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import quantize as qz
-from .bregman import BregmanFamily, validate_rows
+from .bregman import BregmanFamily, valid_rows_mask, validate_rows
 from .clustering import _assign, cluster_stats
 from .index import (BallForest, build_index, concat_points, point_fields,
                     refresh_envelopes, tombstone_rows)
@@ -268,13 +268,14 @@ class SegmentedForest:
     def find_invalid(self) -> np.ndarray:
         """Original ids of live rows outside the family's domain (NaN, inf
         or an open-domain violation), checked over ``rows_view()``, the
-        rows the refine reads."""
+        rows the refine reads, on the index's device (only the (n,) mask
+        reaches the host)."""
         bad: list[np.ndarray] = []
         for b, ids, mask in zip([self.main] + self.segments, self.ids_host,
                                 self.live, strict=True):
             if not mask.any():
                 continue
-            ok = validate_rows(self.family, b.rows_view(), mode="mask")
+            ok = valid_rows_mask(self.family, b.rows_view()).cpu().numpy()
             bad_rows = mask & ~ok
             if bad_rows.any():
                 bad.append(ids[bad_rows])

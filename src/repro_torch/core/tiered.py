@@ -227,7 +227,9 @@ class TieredPointStore:
         self.resident_bytes = resolve_resident_bytes(resident_bytes)
         self.prefetch_depth = resolve_prefetch_depth(prefetch_depth)
         n = snapshot.n
-        self.block_rows = resolve_block_rows(block_rows, n)
+        self.block_rows = resolve_block_rows(block_rows, n,
+                                             storage=snapshot.storage,
+                                             device=snapshot.device)
         self.fetch_timeout_s = fetch_timeout_s
         self.device = snapshot.device
         self._transfer = self._copy_to_device if transfer is None \
@@ -321,7 +323,9 @@ class TieredPointStore:
             rng = getattr(index, "append_row_range", None)
             if callable(rng):
                 pinned = rng()
-        block_rows = resolve_block_rows(block_rows, snapshot.n)
+        block_rows = resolve_block_rows(block_rows, snapshot.n,
+                                        storage=snapshot.storage,
+                                        device=snapshot.device)
         return cls(snapshot, resident_bytes=resident_bytes,
                    prefetch_depth=prefetch_depth, block_rows=block_rows,
                    pinned_row_range=pinned, transfer=transfer,
@@ -569,7 +573,8 @@ class TieredPointStore:
         dev = _search._on_index_device(self, device)
         budget = resolve_budget(budget, self.n, k)
         if block_rows is not None:
-            br = resolve_block_rows(block_rows, self.n)
+            br = resolve_block_rows(block_rows, self.n, storage=self.storage,
+                                    device=self.device)
             if br != self.block_rows:
                 raise ValueError(
                     f"block_rows={br} conflicts with the store's pinned "

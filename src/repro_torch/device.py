@@ -17,3 +17,10 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be a cuda or cpu device, got {device!r}")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so a host
+    clock read after it times the device, not the enqueue."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -9,9 +9,14 @@ distribution is interpolated with the kNN distribution:
 
 ``build_datastore`` runs the teacher-forced forward over a corpus (kernel
 #10 in every layer) and indexes the (hidden, next token) pairs with
-``build_index``; ``KNNLMHook`` plugs into serve/engine.py's
-``logits_hook`` and runs the exact batched search (``knn_batch``: kernels
-#1, #3 and #7) once per sampling step.
+``build_index`` (``calibrate=True`` fits the recall curve the hook's
+``target_recall`` inverts); ``KNNLMHook`` plugs into serve/engine.py's
+``logits_hook`` and runs the batched search (``knn_batch``: kernels #1,
+#3 and #7) once per sampling step: exact, or the §8 approximate search
+at ``approx_p`` or ``target_recall``.  With ``service`` set, every lookup
+goes through a :class:`~repro_torch.serve.retrieval.RetrievalService`
+(admission, deadlines, the degradation ladder): rows the service
+answered exact or approx are mixed, the rest serve the pure LM.
 
 ``Datastore.grow`` / ``evict`` change the store online through the
 mutable index (core/segments.py): the first mutation wraps the forest in a
@@ -19,10 +24,6 @@ mutable index (core/segments.py): the first mutation wraps the forest in a
 grows.  The hook adds the neighbours' weights into the vocabulary one
 neighbour column at a time, so the mixture repeats bit for bit on the
 card.
-
-Not ported yet (ROADMAP queue 1, serving): the approximate hook
-(``approx_p``, ``target_recall``), the retrieval-service route
-(``service``) and ``build_datastore(calibrate=)``.
 """
 
 from __future__ import annotations
@@ -57,8 +58,9 @@ class Datastore:
     next_tokens: np.ndarray     # (next_id,) int32 — token following each key
     hidden_dim: int
     version: int = 0            # moves on every mutation
-    # Streaming block size for searches over this store (the port's
-    # resolve_block_rows value: 4096 until the autotuner is ported).
+    # Streaming block size for searches over this store, pinned at build
+    # time from the autotuner table (launch/autotune.py; the default
+    # 4096 on a miss).  Hooks read it as their default.
     block_rows: int | None = None
     # A mutation that crosses the index's stale-fraction threshold
     # compacts inside grow / evict; False leaves compaction to the caller
@@ -73,6 +75,11 @@ class Datastore:
                                         repr=False)
     _tiered_version: int = dataclasses.field(default=-1, init=False,
                                              repr=False)
+
+    @property
+    def storage(self) -> str:
+        """Key-table storage tier ("f32" | "int8", see build_datastore)."""
+        return self.index.storage
 
     def search_index(self):
         """The object lookups search: the index itself, or — with a
@@ -150,6 +157,7 @@ def build_datastore(bundle, params, corpus_tokens: np.ndarray, *,
                     family: str = "squared_euclidean",
                     m: int | None = None, quantize: bool = False,
                     block_rows: int | None = None,
+                    calibrate: bool = False, calibrate_k: int = 8,
                     resident_bytes: int | None = None,
                     prefetch_depth: int | None = None,
                     seed: int = 0) -> Datastore:
@@ -161,7 +169,12 @@ def build_datastore(bundle, params, corpus_tokens: np.ndarray, *,
     one fp32 table.  The index is built on the bundle's device with
     ``build_index`` (``m=None``: Theorem-4 M*, PCCP over numpy float64
     correlations as in the reference; ``quantize=True``: the int8 tier).
-    ``block_rows=None`` takes ``resolve_block_rows``'s value.
+    ``calibrate=True`` fits the recall-calibration curve over held-out
+    jittered keys at build time (core/calibrate.py), enabling
+    ``KNNLMHook(target_recall=...)``; ``calibrate_k`` should match the
+    hook's ``k``.  ``block_rows=None`` pins the autotuned block size for
+    this store (the lookup keyed on n, a decode tick's 8 rows, the
+    storage tier and the device), 4096 on a table miss.
     """
     resident_bytes = resolve_resident_bytes(resident_bytes)
     prefetch_depth = resolve_prefetch_depth(prefetch_depth)
@@ -171,12 +184,14 @@ def build_datastore(bundle, params, corpus_tokens: np.ndarray, *,
                          f"{corpus.shape}")
     keys = _forward_keys(bundle, params, corpus)
     vals = corpus[:, 1:].reshape(-1).astype(np.int32)
-    index = build_index(keys, family, m=m, quantize=quantize, seed=seed,
-                        device=bundle.device)
+    index = build_index(keys, family, m=m, quantize=quantize,
+                        calibrate=calibrate, calibrate_k=calibrate_k,
+                        seed=seed, device=bundle.device)
     return Datastore(index=index, next_tokens=vals,
                      hidden_dim=int(keys.shape[-1]),
-                     block_rows=bp_search.resolve_block_rows(block_rows,
-                                                             index.n),
+                     block_rows=bp_search.resolve_block_rows(
+                         block_rows, index.n, q=8, storage=index.storage,
+                         device=index.device),
                      resident_bytes=resident_bytes,
                      prefetch_depth=prefetch_depth)
 
@@ -197,22 +212,39 @@ def knn_distribution(tokens: Tensor, w: Tensor, vocab: int) -> Tensor:
 
 @dataclasses.dataclass
 class KNNLMHook:
-    """``logits_hook`` for serve.engine.Engine: exact Bregman-kNN
-    interpolation.
+    """``logits_hook`` for serve.engine.Engine: Bregman-kNN interpolation.
 
     The engine passes the sampled slots' rows (logits (A, V), hidden
     (A, D)); the hook retrieves each row's k nearest datastore keys with
     one ``knn_batch`` call and mixes the neighbours' next-token
     distribution into the LM distribution.  ``last_result`` keeps the last
-    call's ``SearchResult`` (ids are the keys' original ids).
+    call's ``SearchResult`` (ids are the keys' original ids), or on the
+    service route its ``RetrievalResponse``.
     """
 
     store: Datastore
     k: int = 8
     lam: float = 0.25
     temperature: float = 1.0
+    approx_p: float | None = None   # paper §8 approximate mode (raw knob)
+    # Calibrated alternative to approx_p: retrieve at a MEASURED recall
+    # level by inverting the datastore's calibration curve (fit it with
+    # build_datastore(calibrate=True)).  Mutually exclusive with approx_p;
+    # an uncalibrated store falls back to p = target_recall with a
+    # one-time warning (core/calibrate.py).
+    target_recall: float | None = None
     budget: int | None = None       # pinned refine budget, grows only
     block_rows: int | None = None   # streaming block size (None -> store's)
+    # Optional robustness front end (serve/retrieval.py).  When set, every
+    # lookup routes through the service's admission gate and degradation
+    # ladder under ``deadline_s``: the store is (re-)registered as tenant
+    # ``service_tenant`` whenever ``store.version`` moves, and rows the
+    # service degraded past approx (partial / shed) serve the pure LM
+    # distribution: a slow or faulty datastore costs retrieval quality,
+    # never decode liveness.
+    service: object = None          # RetrievalService | None
+    service_tenant: str = "knnlm"
+    deadline_s: float | None = None
     queries_served: int = 0
     # Budget-retry telemetry: escalations taken, full-scan fallbacks, and
     # the budget the most recent search ran with.
@@ -226,6 +258,37 @@ class KNNLMHook:
                                                  repr=False)
     _next_version: int = dataclasses.field(default=-1, init=False,
                                            repr=False)
+    _svc_version: int = dataclasses.field(default=-1, init=False,
+                                          repr=False)
+
+    def _service_lookup(self, h: Tensor):
+        """Route one lookup through the retrieval service.
+
+        Returns ``(ids, dists, use_rows)`` as host arrays, or None for
+        "serve the pure LM".  ``use_rows`` keeps exact and approx rows;
+        partial and shed rows serve the LM distribution (a truncated
+        neighbour set would bias the mixture, the same policy as the
+        inexact-row gate of the direct route).
+        """
+        svc = self.service
+        name = self.service_tenant
+        if name not in svc.tenants or self._svc_version != self.store.version:
+            # (Re-)register on every store mutation: the service revalidates
+            # the live rows and refreshes its tenant record.  approx_p is
+            # the tenant's raw §8 knob; target_recall rides each request and
+            # inverts the store's calibration curve service-side.
+            svc.register_tenant(name, self.store.index,
+                                p_guarantee=self.approx_p,
+                                resident_bytes=self.store.resident_bytes,
+                                prefetch_depth=self.store.prefetch_depth)
+            self._svc_version = self.store.version
+        resp = svc.search_sync(name, h, self.k, deadline_s=self.deadline_s,
+                               target_recall=self.target_recall)
+        self.last_result = resp
+        use = np.array([q in ("exact", "approx") for q in resp.row_quality])
+        if not use.any():
+            return None
+        return resp.ids, resp.dists, use
 
     @torch.inference_mode()
     def __call__(self, logits: Tensor, hidden: Tensor | None) -> Tensor:
@@ -235,39 +298,52 @@ class KNNLMHook:
             return logits
         index = self.store.index
         h = hidden.to(torch.float32)
-        res, stats = bp_search.knn_batch(
-            self.store.search_index(), h, self.k, budget=self.budget,
-            block_rows=(self.block_rows or self.store.block_rows),
-            return_stats=True, device=index.device)
-        self.last_result = res
-        self.queries_served += int(h.shape[0])
-        self.escalations += stats.escalations
-        self.scan_fallbacks += int(stats.escalated_to_scan)
-        self.budget_final = stats.budget_final
-        # Grow-only budget pin: only when this step's unions outgrew the
-        # effective budget, sized by fitted_budget and capped at 8x the
-        # default so one pathological row cannot inflate every later
-        # refine to the whole store.
-        default = bp_search.resolve_budget(None, index.n, self.k)
-        needed = int(res.num_candidates.max())
-        current = self.budget or default
-        if needed > current:
-            cap = bp_search.fitted_budget(index, self.k, 8 * default)
-            fitted = bp_search.fitted_budget(index, self.k, needed)
-            self.budget = max(current, min(fitted, cap))  # never shrink
-        # An inexact row's neighbours are an arbitrary union prefix: it
-        # serves the pure LM distribution instead of a biased mixture.
+        dev = logits.device
+        if self.service is not None:
+            out = self._service_lookup(h)
+            self.queries_served += int(h.shape[0])
+            if out is None:
+                return logits
+            ids, dists, use = out
+            ids = torch.as_tensor(np.maximum(ids, 0), device=dev).long()
+            dists = torch.as_tensor(np.where(use[:, None], dists, 0.0)
+                                    .astype(np.float32), device=dev)
+            use = torch.as_tensor(use, device=dev)
+        else:
+            res, stats = bp_search.knn_batch(
+                self.store.search_index(), h, self.k, budget=self.budget,
+                approx_p=self.approx_p, target_recall=self.target_recall,
+                block_rows=(self.block_rows or self.store.block_rows),
+                return_stats=True, device=index.device)
+            self.last_result = res
+            self.queries_served += int(h.shape[0])
+            self.escalations += stats.escalations
+            self.scan_fallbacks += int(stats.escalated_to_scan)
+            self.budget_final = stats.budget_final
+            # Grow-only budget pin: only when this step's unions outgrew
+            # the effective budget, sized by fitted_budget and capped at 8x
+            # the default so one pathological row cannot inflate every
+            # later refine to the whole store.
+            default = bp_search.resolve_budget(None, index.n, self.k)
+            needed = int(res.num_candidates.max())
+            current = self.budget or default
+            if needed > current:
+                cap = bp_search.fitted_budget(index, self.k, 8 * default)
+                fitted = bp_search.fitted_budget(index, self.k, needed)
+                self.budget = max(current, min(fitted, cap))  # never shrink
+            # An inexact row's neighbours are an arbitrary union prefix: it
+            # serves the pure LM distribution instead of a biased mixture.
+            ids = res.ids.to(dev).long()
+            dists = res.dists.to(dev)
+            use = res.exact.to(dev)
         if self._next_dev is None or self._next_version != self.store.version:
             self._next_dev = torch.as_tensor(self.store.next_tokens,
-                                             dtype=torch.long,
-                                             device=logits.device)
+                                             dtype=torch.long, device=dev)
             self._next_version = self.store.version
-        ids = res.ids.to(logits.device).long()
         knn_tokens = self._next_dev[ids]                        # (A, k)
-        w = torch.softmax(-res.dists.to(logits.device) / self.temperature,
-                          dim=-1)                               # (A, k)
+        w = torch.softmax(-dists / self.temperature, dim=-1)    # (A, k)
         p_knn = knn_distribution(knn_tokens, w, logits.shape[-1])
         p_lm = torch.softmax(logits.to(torch.float32), dim=-1)
         mix = (1.0 - self.lam) * p_lm + self.lam * p_knn
-        mix = torch.where(res.exact.to(logits.device)[:, None], mix, p_lm)
+        mix = torch.where(use[:, None], mix, p_lm)
         return torch.log(torch.clamp(mix, min=1e-30))

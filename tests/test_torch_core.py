@@ -289,3 +289,29 @@ def test_make_vectors_matches_reference_under_the_same_seed(name,
     np.testing.assert_array_equal(
         tpipe.make_queries(spec, num=7, scale=scale, data_seed=3, data=t),
         t[np.random.default_rng(1).choice(t.shape[0], 7, replace=False)])
+
+
+@pytest.mark.parametrize("d", [1, 3, 16, 192, 256, 3072])
+def test_query_constants_do_not_depend_on_the_batch(d):
+    """On the CPU a query's ``c_y`` has the same bits alone, in a batch of
+    14 or of 32, and agrees with the float64 sum and the reference's;
+    ``bounds.fixed_order_sum`` (the card's order) is the float64 sum's
+    too."""
+    from repro.core.bregman import get_family as jget
+    from repro_torch.core.bregman import get_family as tget
+    y = np.abs(np.random.default_rng(d).normal(size=(32, d))).astype(
+        np.float32) + np.float32(0.05)
+    fam = tget("shannon")
+    whole = tbounds.query_refine_constants(torch.from_numpy(y), fam)["c_y"]
+    for q in (1, 14):
+        part = tbounds.query_refine_constants(torch.from_numpy(y[:q]),
+                                              fam)["c_y"]
+        assert torch.equal(part, whole[:q])
+    want = (y.astype(np.float64) * np.log(y) - (y * np.log(y) - y)).sum(-1)
+    np.testing.assert_allclose(whole.double().numpy(), want, rtol=2e-6)
+    jc = _np(jbounds.query_refine_constants(jnp.asarray(y), jget("shannon")))
+    np.testing.assert_allclose(whole.numpy(), jc["c_y"], rtol=1e-6,
+                               atol=1e-5)
+    x = torch.from_numpy(y).double()
+    np.testing.assert_allclose(tbounds.fixed_order_sum(x).numpy(),
+                               x.sum(-1).numpy(), rtol=1e-12)

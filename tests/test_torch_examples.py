@@ -1,0 +1,58 @@
+"""The port's examples and its serving launcher run on the CPU at a tiny
+size and say what they should (``--device cpu``; on the card they run at
+their default device)."""
+
+import runpy
+from pathlib import Path
+
+import pytest
+
+from repro_torch.launch import serve as tserve
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def _example(name: str):
+    return runpy.run_path(str(EXAMPLES / name), run_name="example")["main"]
+
+
+def test_torch_quickstart(capsys):
+    _example("torch_quickstart.py")(["--device", "cpu", "--scale", "0.01"])
+    out = capsys.readouterr().out
+    assert out.count("matches brute force: True") == 2
+    assert "approx p=0.8" in out
+
+
+def test_torch_knn_serving(capsys):
+    _example("torch_knn_serving.py")(["--device", "cpu", "--scale", "0.002"])
+    out = capsys.readouterr().out
+    assert "matches brute force: True" in out
+    assert "matches knn_batch: True" in out
+    assert "k > live_n: quality=shed reason=bad_k" in out
+    assert "(must shed): quality=shed" in out
+
+
+def test_torch_knnlm_decode(capsys):
+    _example("torch_knnlm_decode.py")(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "kNN queries served: 72" in out
+    assert "tokens equal the direct hook's: True" in out
+    assert "{'target_recall': 0.9} served 8 queries" in out
+
+
+@pytest.mark.parametrize("extra", [[], ["--knnlm-approx-p", "0.9"]])
+def test_serve_launcher_on_the_cpu(capsys, extra):
+    rc = tserve.main(["--arch", "starcoder2-3b", "--reduced", "--device",
+                      "cpu", "--requests", "3", "--slots", "2",
+                      "--prompt-len", "8", "--new-tokens", "4", "--knnlm",
+                      *extra])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "3 requests, 12 tokens" in out
+    assert "kNN queries served: 12" in out
+
+
+def test_serve_launcher_refuses_an_arch_not_ported():
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tserve.main(["--arch", "qwen2.5-32b", "--reduced", "--device",
+                     "cpu"])

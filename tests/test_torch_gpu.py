@@ -1342,3 +1342,141 @@ def test_knn_mixture_repeats_on_the_card_and_equals_the_cpu(cuda):
            for _ in range(2)]
     assert torch.equal(got[0], got[1])
     assert torch.equal(got[0].cpu(), want)
+
+
+def _service_run(index, queries, faults_mod, ret_mod, make_plan):
+    """A VirtualClock service over ``index`` (tenant "t"): a plain pass, a
+    poisoned row, a retried launch error, a priced-out exact tier; the
+    responses, counters and fired events."""
+    plan = make_plan()
+    svc = ret_mod.RetrievalService(ret_mod.ServiceConfig(),
+                                   clock=faults_mod.VirtualClock(),
+                                   faults=plan)
+    svc.register_tenant("t", index)
+    out = [svc.search_sync("t", queries, 5) for _ in range(3)]
+    tickets = [svc.submit("t", queries[i:i + 1], 5) for i in range(3)]
+    svc.run_until_drained()
+    out += [t.response for t in tickets]
+    out.append(svc.search_sync("t", queries, 5, target_recall=0.9))
+    svc.tenants["t"].cost.observe(0.3)
+    out.append(svc.search_sync("t", queries, 5, deadline_s=0.4))
+    svc.tenants["t"].cost.observe(10.0)
+    out.append(svc.search_sync("t", queries, 5, deadline_s=0.2))
+    return out, svc, plan
+
+
+def test_service_on_the_card_equals_the_service_on_the_cpu(cuda):
+    """The retrieval service with the same fault plan over the same forest
+    on the card and on the CPU: equal labels, ids, tier paths, counters
+    and events; dists within 1e-5; the card's search kernels launched."""
+    from repro_torch.serve import faults, retrieval
+    gen = np.random.default_rng(0)
+    data = (gen.random((400, 16)) + 0.1).astype(np.float32)
+    queries = (gen.random((4, 16)) + 0.1).astype(np.float32)
+    forest = tidx.build_index(data, "shannon", m=4, num_clusters=8, seed=0,
+                              device="cpu")
+    on_card = tidx.forest_from_numpy(
+        tidx.forest_to_numpy(forest), family_name="shannon",
+        partition_idx=forest.partition.idx,
+        partition_mask=forest.partition.mask, d=16,
+        num_clusters=forest.num_clusters, device="cuda")
+
+    def plan():
+        return faults.FaultPlan(
+            [faults.PoisonQuery(at_submits=1, row=2),
+             faults.LaunchError(at_launches=2)], seed=3)
+    before = (bregman_ub.launches, bregman_fused.launches,
+              bregman_dist.launches)
+    got, gsvc, gplan = _service_run(on_card, queries, faults, retrieval, plan)
+    after = (bregman_ub.launches, bregman_fused.launches,
+             bregman_dist.launches)
+    want, wsvc, wplan = _service_run(forest, queries, faults, retrieval, plan)
+    # One refine (#7) a search launch; the filter (#1) and the fused
+    # prune (#3) at least once.
+    assert after[2] - before[2] == gsvc.counters["launches"]
+    assert after[0] > before[0] and after[1] > before[1]
+    assert gsvc.counters == wsvc.counters
+    assert gsvc.counters["launch_failures"] == 1
+    assert gplan.events == wplan.events
+    qualities = []
+    for a, b in zip(got, want, strict=True):
+        assert (a.quality, a.row_quality, a.shed_reason,
+                a.meta.get("tier_path"), a.flagged_rows) == (
+            b.quality, b.row_quality, b.shed_reason,
+            b.meta.get("tier_path"), b.flagged_rows)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-5, atol=1e-5)
+        qualities.append(a.quality)
+    assert {"exact", "approx", "shed"} <= set(qualities)
+
+
+def test_hook_service_route_on_the_card_equals_the_cpu(cuda):
+    """The kNN-LM hook through a RetrievalService on the card and on the
+    CPU over the same keys: equal neighbours, the mixed log-probs within
+    1e-5, and the card's route equal to its direct hook."""
+    from repro_torch.serve.knnlm import Datastore, KNNLMHook
+    from repro_torch.serve.retrieval import RetrievalService, ServiceConfig
+    gen = np.random.default_rng(4)
+    keys = gen.normal(size=(500, 32)).astype(np.float32)
+    toks = gen.integers(0, 64, 500).astype(np.int32)
+    logits = gen.normal(size=(3, 64)).astype(np.float32)
+    hidden = keys[:3] + np.float32(0.01)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        forest = tidx.build_index(keys, "squared_euclidean", m=4,
+                                  num_clusters=8, seed=0, device="cpu")
+        if dev == "cuda":
+            forest = tidx.forest_from_numpy(
+                tidx.forest_to_numpy(forest),
+                family_name="squared_euclidean",
+                partition_idx=forest.partition.idx,
+                partition_mask=forest.partition.mask, d=32,
+                num_clusters=forest.num_clusters, device="cuda")
+        store = Datastore(index=forest, next_tokens=toks, hidden_dim=32,
+                          block_rows=4096)
+        routed = KNNLMHook(store=store, k=8, lam=0.5,
+                           service=RetrievalService(ServiceConfig()),
+                           deadline_s=60.0)
+        direct = KNNLMHook(store=store, k=8, lam=0.5)
+        lt = torch.from_numpy(logits).to(dev)
+        ht = torch.from_numpy(hidden).to(dev)
+        out[dev] = (routed(lt, ht).cpu(), direct(lt, ht).cpu(),
+                    routed.last_result)
+    card, cpu = out["cuda"], out["cpu"]
+    assert card[2].quality == cpu[2].quality == "exact"
+    np.testing.assert_array_equal(card[2].ids, cpu[2].ids)
+    assert torch.allclose(card[0], cpu[0], rtol=1e-5, atol=1e-5)
+    assert torch.allclose(card[0], card[1], rtol=1e-6, atol=1e-6)
+
+
+def test_registration_mask_on_the_card_equals_validate_rows(cuda):
+    from repro_torch.core.bregman import valid_rows_mask, validate_rows
+    gen = np.random.default_rng(5)
+    rows = (gen.random((300, 8)) + 0.1).astype(np.float32)
+    rows[3, 1], rows[9, 0], rows[20, 7], rows[40] = np.nan, -1.0, 0.0, np.inf
+    for fam in family_names():
+        got = valid_rows_mask(fam, torch.from_numpy(rows).to(cuda))
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      validate_rows(fam, rows, mode="mask"))
+
+
+@pytest.mark.parametrize("d", [192, 256, 3072])
+def test_query_constants_on_the_card_do_not_depend_on_the_batch(cuda, d):
+    """A query's ``c_y`` on the card: the same bits in batches of 1, 14
+    and 32 (``bounds.fixed_order_sum``), so the refine gives a query's
+    rows the same bits in any microbatch; the CPU's within a reordered
+    sum's rounding."""
+    gen = torch.Generator().manual_seed(d)
+    for family in ("exponential", "shannon", "squared_euclidean"):
+        y = _valid((32, d), family, gen)
+        fam = get_family(family)
+        whole = query_refine_constants(y.to(cuda), fam)["c_y"]
+        for q in (1, 14):
+            part = query_refine_constants(y[:q].to(cuda), fam)["c_y"]
+            assert torch.equal(part, whole[:q]), (family, q)
+        # A reordered fp32 sum of d terms: within d * eps32 * sum |terms|.
+        tol = d * EPS32 * ((y * fam.phi_prime(y)).abs().sum(-1)
+                           + fam.phi(y).abs().sum(-1))
+        diff = (whole.cpu() - query_refine_constants(y, fam)["c_y"]).abs()
+        assert bool((diff <= tol).all()), family

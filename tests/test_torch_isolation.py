@@ -20,7 +20,7 @@ from repro_torch.core.tiered import TieredPointStore
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + sorted((REPO / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path: Path) -> list:
@@ -178,6 +178,39 @@ def test_the_mutable_index_is_covered_and_defaults_to_the_card(no_card):
                     .exact.all())
 
 
+def test_the_serving_slice_is_covered_and_defaults_to_the_card(no_card):
+    """The autotuner, the fault harness, the retrieval service, the serving
+    launcher and the three torch examples are in the import scan; the
+    launcher, the examples and the datastore build run on the card unless
+    the caller asks for the CPU, and a service runs each tenant on its
+    index's device."""
+    import runpy
+
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serve import RetrievalService
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/launch/autotune.py",
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/serve/faults.py",
+            "src/repro_torch/serve/retrieval.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_knn_serving.py",
+            "examples/torch_knnlm_decode.py"} <= names
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", "starcoder2-3b", "--reduced"])
+    for example in ("torch_quickstart.py", "torch_knn_serving.py",
+                    "torch_knnlm_decode.py"):
+        main = runpy.run_path(str(REPO / "examples" / example),
+                              run_name="example")["main"]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main([])
+    data, queries = _small()
+    forest = tidx.build_index(data, "burg", m=2, device="cpu")
+    svc = RetrievalService()
+    assert svc.register_tenant("t", forest).device.type == "cpu"
+    assert svc.search_sync("t", queries, 3).quality == "exact"
+
+
 def test_search_runs_on_the_cpu_or_the_card_only():
     data, queries = _small()
     forest = tidx.build_index(data, "burg", m=2, device="cpu")
@@ -186,7 +219,10 @@ def test_search_runs_on_the_cpu_or_the_card_only():
 
 
 def _run_smoke(cwd: Path, *args):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    # One intra-op thread: the rehearsal's ops are tiny, and beside the
+    # other test workers torch's default pool spins against them, which
+    # ran the rehearsal past the 600 s limit below.
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "chip_smoke.py", *args], cwd=cwd,
                           env=env, capture_output=True, text=True,
                           timeout=600)
@@ -221,7 +257,19 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "mutable deep int8: decide() would choose",
                  "mutable audio fp32: two rebuilds",
                  "mutable blob corpus: delete and reinsert",
-                 "mutable kNN-LM: grow by"):
+                 "mutable kNN-LM: grow by",
+                 "service deep fp32: 48 requests exact",
+                 "service deep int8: 48 requests exact",
+                 "service deep fp32 faults: a launch error retried",
+                 "every plan fired its expected events",
+                 "service deep fp32 wall clock: 128 requests",
+                 "service blobs (tiered",
+                 "autotune: blob corpus",
+                 "kNN-LM service route: the engine's",
+                 "kNN-LM hook at target_recall=0.9",
+                 "serve launcher (--arch starcoder2-3b",
+                 "autotune: the table's",
+                 "phase 11:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

@@ -219,12 +219,15 @@ def test_what_is_not_ported_raises(models):
     corpus = np.random.default_rng(0).integers(1, VOCAB, (2, 16))
     store = tknnlm.build_datastore(tb, tp, corpus, m=2)
     # grow / evict are ported (tests/test_torch_segments.py and
-    # test_datastore_grow_evict_contract below); the approximate hook is not.
+    # test_datastore_grow_evict_contract below), and so is the approximate
+    # hook (test_hook_approx_and_target_recall_match_jax); the
+    # encoder-decoder models are not.
     assert store.grow(np.zeros((1, 64), np.float32),
                       np.zeros(1, np.int32)).tolist() == [store.index.n - 1]
     assert store.evict([0]) == 1
-    with pytest.raises(TypeError):
-        tknnlm.KNNLMHook(store=store, approx_p=0.9)
+    hook = tknnlm.KNNLMHook(store=store, k=2, approx_p=0.9)
+    out = hook(torch.zeros((1, VOCAB)), torch.ones((1, 64)))
+    assert out.shape == (1, VOCAB) and hook.queries_served == 1
     with pytest.raises(NotImplementedError, match="item 12"):
         tbuild_model(type("EncDecConfig", (), {})(), device="cpu")
 
@@ -325,3 +328,138 @@ def test_tiered_datastore_snapshot_follows_the_version():
 def _knn(index, ys, k):
     from repro_torch.core import search as tsearch
     return tsearch.knn_batch(index, ys, k, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def calibrated_store(models):
+    """The reference's datastore built with ``calibrate=True`` and its
+    port counterpart over the same forest (curve carried across)."""
+    from repro_torch.core import calibrate as tcal
+    jb, jp, _, _ = models
+    corpus = np.random.default_rng(5).integers(1, VOCAB, (4, 24))
+    jstore = jknnlm.build_datastore(jb, jp, corpus, m=4, calibrate=True,
+                                    calibrate_k=4)
+    forest = dataclasses.replace(
+        to_port(jstore.index),
+        calibration=tcal.as_calibration(jstore.index.calibration))
+    tstore = tknnlm.Datastore(index=forest,
+                              next_tokens=np.asarray(jstore.next_tokens),
+                              hidden_dim=jstore.hidden_dim, block_rows=4096)
+    return jstore, tstore, corpus
+
+
+@pytest.mark.parametrize("knob", [{"approx_p": 0.9}, {"approx_p": 0.5},
+                                  {"target_recall": 0.9},
+                                  {"target_recall": 0.99}],
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_hook_approx_and_target_recall_match_jax(calibrated_store, knob):
+    """The §8 hook (``approx_p``, or ``target_recall`` through the store's
+    curve) against the reference's hook: ids equal the reference's
+    ``knn_batch`` at the same knob, mixed log-probs agree."""
+    jstore, tstore, _ = calibrated_store
+    rng = np.random.default_rng(6)
+    logits = rng.normal(size=(3, VOCAB)).astype(np.float32) * 3
+    hidden = rng.normal(size=(3, 64)).astype(np.float32)
+    jhook = jknnlm.KNNLMHook(store=jstore, k=4, lam=0.5, **knob)
+    thook = tknnlm.KNNLMHook(store=tstore, k=4, lam=0.5, **knob)
+    want = np.asarray(jhook(jnp.asarray(logits), jnp.asarray(hidden)))
+    got = thook(torch.from_numpy(logits), torch.from_numpy(hidden)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    res = jsearch.knn_batch(jstore.index, jnp.asarray(hidden), 4, **knob)
+    np.testing.assert_array_equal(thook.last_result.ids.numpy(),
+                                  np.asarray(res.ids))
+    np.testing.assert_allclose(thook.last_result.dists.numpy(),
+                               np.asarray(res.dists), rtol=1e-5, atol=1e-5)
+    assert (thook.budget_final, thook.escalations) == (
+        jhook.budget_final, jhook.escalations)
+
+
+def test_build_datastore_calibrate_matches_jax(models, calibrated_store):
+    """``build_datastore(calibrate=True)`` fits the curve at build time:
+    the port's own store's curve equals the reference's (same grid, k and
+    query count; recalls equal), and ``storage`` names the tier."""
+    _, _, tb, tp = models
+    jstore, _, corpus = calibrated_store
+    tstore = tknnlm.build_datastore(tb, tp, corpus, m=4, calibrate=True,
+                                    calibrate_k=4)
+    got, want = tstore.index.calibration, jstore.index.calibration
+    assert got is not None and tstore.storage == jstore.storage == "f32"
+    assert (got.k, got.num_queries, got.seed) == (want.k, want.num_queries,
+                                                  want.seed)
+    np.testing.assert_array_equal(got.p_grid, np.asarray(want.p_grid))
+    np.testing.assert_array_equal(got.recall_grid,
+                                  np.asarray(want.recall_grid))
+    assert tknnlm.build_datastore(tb, tp, corpus[:2], m=4).index \
+        .calibration is None
+
+
+def test_knnlm_hook_routes_through_service(calibrated_store):
+    """tests/test_serve.py's service route on the port: routed lookups
+    equal the direct hook's (and the reference's routed hook's) when
+    exact; a shedding service leaves the logits as they are."""
+    from repro.serve.retrieval import RetrievalService as JService
+    from repro.serve.retrieval import ServiceConfig as JConfig
+
+    from repro_torch.serve.retrieval import RetrievalService, ServiceConfig
+    jstore, tstore, _ = calibrated_store
+    rng = np.random.default_rng(1)
+    logits = np.zeros((2, VOCAB), np.float32)
+    hidden = rng.normal(size=(2, 64)).astype(np.float32)
+    tl, th = torch.from_numpy(logits), torch.from_numpy(hidden)
+
+    direct = tknnlm.KNNLMHook(store=tstore, k=4, lam=0.5)
+    svc = RetrievalService(ServiceConfig())
+    routed = tknnlm.KNNLMHook(store=tstore, k=4, lam=0.5, service=svc,
+                              deadline_s=60.0)
+    jrouted = jknnlm.KNNLMHook(store=jstore, k=4, lam=0.5,
+                               service=JService(JConfig()), deadline_s=60.0)
+    got = routed(tl, th).numpy()
+    np.testing.assert_allclose(got, direct(tl, th).numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        got, np.asarray(jrouted(jnp.asarray(logits), jnp.asarray(hidden))),
+        rtol=1e-5, atol=1e-5)
+    assert svc.counters["exact"] >= 1
+    assert routed.service_tenant in svc.tenants
+    assert routed.last_result.quality == "exact"
+    np.testing.assert_array_equal(routed.last_result.ids,
+                                  direct.last_result.ids.numpy())
+    assert svc.counters == jrouted.service.counters
+
+    # A mutation moves the version: the next call registers again.
+    tenant = svc.tenants[routed.service_tenant]
+    tstore.version += 1
+    routed(tl, th)
+    assert svc.tenants[routed.service_tenant] is not tenant
+
+    # Hopeless deadline: the service sheds, the hook serves pure LM.
+    svc.tenants[routed.service_tenant].cost.observe(10.0)
+    routed.deadline_s = 0.001
+    out = routed(tl, th)
+    assert torch.equal(out, tl)
+    assert svc.counters["shed"] >= 1
+    assert routed.queries_served == 6
+
+
+def test_service_route_mixes_only_exact_and_approx_rows(calibrated_store):
+    """A poisoned hidden row is shed by the service; it serves the pure LM
+    (log-softmax of its logits) while its batchmates are mixed, and its
+    -1 ids are clamped before the value table is read."""
+    from repro_torch.serve.faults import FaultPlan, PoisonQuery, VirtualClock
+    from repro_torch.serve.retrieval import RetrievalService, ServiceConfig
+    _, tstore, _ = calibrated_store
+    rng = np.random.default_rng(2)
+    logits = torch.from_numpy(rng.normal(size=(3, VOCAB)).astype(np.float32))
+    hidden = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    plan = FaultPlan([PoisonQuery(at_submits=0, row=1)], seed=0)
+    svc = RetrievalService(ServiceConfig(), clock=VirtualClock(), faults=plan)
+    routed = tknnlm.KNNLMHook(store=tstore, k=4, lam=0.5, service=svc,
+                              deadline_s=60.0)
+    direct = tknnlm.KNNLMHook(store=tstore, k=4, lam=0.5)
+    got = routed(logits, hidden)
+    want = direct(logits, hidden)
+    assert routed.last_result.row_quality == ["exact", "shed", "exact"]
+    assert torch.allclose(got[[0, 2]], want[[0, 2]], rtol=1e-5, atol=1e-6)
+    lm = torch.log_softmax(logits[1], dim=-1)
+    assert torch.allclose(got[1], lm, rtol=1e-5, atol=1e-5)
