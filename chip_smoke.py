@@ -127,7 +127,29 @@ Phases:
    over the live keys, a new key finds itself and its token leads the
    mix at lambda 0.5, and a second call is bit-equal.  Inserts,
    deletes, ``view()``, ``decide()``, merge and rebuild are timed.
-11. The last line is ``{"ok": true, "device": {...}}``.
+11. The serving front end (``serve/retrieval.py``) on those indexes:
+   a) Deep as a tenant in both tiers, b) seeded faults, c) the blob
+   corpus as a tiered tenant, d) a wall-clock run, e) the kNN-LM hook
+   through a service, f) the serving launcher at full width, g) the
+   autotuner's table and a sweep cell.
+12. The distributed search (``dist/knn.py``) at world size 1 over NCCL
+   (a group on an in-process store, ``NCCL_SOCKET_IFNAME=lo`` set in
+   this process's environment; started and ended around each step, so
+   none outlives it into another phase), each step in its drive: a) Deep in both tiers,
+   ``shard_index`` (the forest's own tensors) and ``distributed_knn`` on
+   phase 4's 50 queries bit-equal to ``knn_search_batch`` at phase 4's
+   final budget; from n/16 the ladder ends exact with phase 4's ids,
+   #1/#3/#7 (int8 #2/#4/#8) launched once a shard-attempt, host ms
+   beside phase 4's; b) at ``approx_p`` 0.9 bit-equal to
+   ``knn_search_batch_approx``; c) phase 10's mutated Deep index after
+   its deletes, sharded, bit-equal to ``knn_batch`` at budget live_n, no
+   deleted id; d) 11a's 48 Deep fp32 requests through a ``mesh=`` tenant,
+   equal to 11a's responses; e) ``linear_scan``, ``BBTree`` (both
+   bounds) and ``VAFile`` on the host over Audio's first 16,384 rows,
+   their ids against brute force on the card (phase 3's near-tie rule),
+   build s and ms a query beside a card index over the same rows.
+
+The last line is ``{"ok": true, "device": {...}}``.
 
 The line before the last holds the kernel table as JSON, the line before
 that the nvidia-smi name and power limit.  The full record goes to
@@ -188,6 +210,9 @@ RECALL_TARGETS = (0.9, 0.99)
 MUTATION_BATCHES = 10
 MUTATION_SEQS = 8
 EVICT_KEYS = 4096
+# Phase 12's baselines: the rows of Audio's seeded data they run on (its
+# first rows), so the host's tree builds stay within a minute.
+BASELINE_ROWS = 16384
 # The indexes phase 9 runs the oracle and the calibration on.
 ORACLE_LABELS = ("blobs", "audio int8")
 # The reference's rule (tests/test_calibration.py): measured recall at a
@@ -271,6 +296,11 @@ class Smoke:
         # phase 11's compaction-during-search check.
         self.phase11_s = 0.0
         self._mutable_sf = None
+        # Phase 12's world-size-1 mesh (started and ended around each of
+        # its steps), its record and 11a's responses, which 12d repeats.
+        self._mesh = None
+        self.phase12: dict = {"seconds": 0.0}
+        self._service_rows: dict = {}
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -1298,8 +1328,13 @@ class Smoke:
             rec["phase11"] = self.phase11_deep(label, forest, ys, ids, dists,
                                                quantize, self._mutable_sf)
             self._mutable_sf = None
+            rec["phase12"] = self.phase12_deep(label, forest, ys, q_batch,
+                                               rec, ids, dists)
         else:
             rec["mutable"] = self.check_audio_rebuilds(label, forest, data)
+            if not quantize:
+                rec["baselines"] = self.phase12_baselines(
+                    label, data, queries, spec.measure, rec)
         del forest
         if not self.rehearsal:
             torch.cuda.empty_cache()
@@ -1916,6 +1951,13 @@ class Smoke:
             return None
         gc.collect()
         return self.torch.cuda.memory_allocated()
+
+    def alloc_retries(self):
+        """The caching allocator's count of allocations it retried after
+        freeing cached blocks (None on the CPU)."""
+        if self.rehearsal:
+            return None
+        return self.torch.cuda.memory_stats().get("num_alloc_retries", 0)
 
     def peak_above(self):
         """Peak device bytes since :meth:`reset_peak` beyond those
@@ -3083,6 +3125,8 @@ class Smoke:
                 f"{label} after deletes: knn dists of query {j} differ")
             bits &= bool(torch.equal(one.dists, got["dists"][j]))
         out["knn_dists_bit_equal"] = bits
+        out["distributed"] = self.phase12_mutable(label, sf, ys, q_batch,
+                                                  doomed)
         say(f"mutable {label}: delete {out['delete_tail_ms']:.1f} ms for "
             f"{cut} ids, {len(out['insert_ms'])} inserts of "
             f"{out['insert_rows'][0]} rows "
@@ -3475,19 +3519,23 @@ class Smoke:
         expect(got == want, f"{label}: fired {got}, the plan expects {want}")
 
     def phase11_service(self, label: str, forest, ys, ids, dists,
-                        quantize: bool) -> dict:
+                        quantize: bool, mesh=None) -> dict:
         """11a: Deep as a tenant of a deterministic service (VirtualClock,
         ``ServiceConfig()`` defaults); 48 requests of 1, 2 and 4 queries
         in turn from the 50, k = 10, deadline 60 s, drained by
         ``run_until_drained``: every response exact and bit-equal to phase
         4's rows, no launch failure, no breaker shed, the tier's #1/#3/#7
-        (int8 #2/#4/#8) launched at least once a microbatch launch."""
+        (int8 #2/#4/#8) launched at least once a microbatch launch.  With
+        ``mesh`` (12d) the tenant is registered sharded over it and its
+        responses must also equal 11a's."""
         from repro_torch.serve import RetrievalService, ServiceConfig
         from repro_torch.serve.faults import VirtualClock
         svc = RetrievalService(ServiceConfig(), clock=VirtualClock())
         self.sync()
         t0 = time.perf_counter()
-        tenant = svc.register_tenant("deep", forest)
+        tenant = svc.register_tenant("deep", forest, mesh=mesh)
+        expect((mesh is None) == (tenant.sharded is None),
+               f"{label}: the tenant's sharding does not follow mesh=")
         self.sync()
         out = {"register_s": time.perf_counter() - t0,
                "block_rows": tenant.block_rows}
@@ -3501,12 +3549,17 @@ class Smoke:
             tickets.append(svc.submit("deep", ys[sel], K, deadline_s=60.0))
         self.reset_launches()
         self.reset_peak()
+        retries = self.alloc_retries()
         self.sync()
         t0 = time.perf_counter()
         svc.run_until_drained()
         self.sync()
         out["drain_ms"] = 1e3 * (time.perf_counter() - t0)
         out["peak_bytes"] = self.peak()
+        if retries is not None:
+            # Allocations the caching allocator retried after freeing its
+            # cache: its slow path, which a first large gather can take.
+            out["alloc_retries"] = self.alloc_retries() - retries
         got, sfx = self.launches(), "_quant" if quantize else ""
         out["kernel_launches"] = {k + sfx: got[k + sfx] for k in RESIDENT_PATH}
         c = svc.counters
@@ -3529,7 +3582,20 @@ class Smoke:
                    / microbatches, dists_bit_equal=bits,
                    buckets=sorted({t.response.meta["bucket"]
                                    for t in tickets}))
-        say(f"service {label}: 48 requests exact, ids and dists "
+        responses = [(t.response.ids, t.response.dists) for t in tickets]
+        if mesh is None:
+            self._service_rows[label] = responses
+        else:
+            import numpy as np
+            want = self._service_rows[label]
+            out["equals_11a"] = all(
+                np.array_equal(a[0], b[0]) and np.array_equal(
+                    a[1].view(np.uint32), b[1].view(np.uint32))
+                for a, b in zip(responses, want, strict=True))
+            expect(out["equals_11a"], f"{label}: the sharded tenant's "
+                   "responses differ from 11a's")
+        say(f"{'distributed service' if mesh is not None else 'service'} "
+            f"{label}: 48 requests exact, ids and dists "
             f"{'bit-equal' if bits else 'within 1e-5'} to phase 4's rows; "
             f"{microbatches} microbatches ({out['mean_rows_per_microbatch']:.1f}"
             f" rows each, buckets {out['buckets']}), {c['launches']} launches "
@@ -4036,6 +4102,297 @@ class Smoke:
             f"{cell[0]['us_per_call']} us, peak {temp} B above the index")
         return out
 
+    # -- phase 12: the distributed search and the baselines --------------
+    @contextlib.contextmanager
+    def phase12_group(self):
+        """A world-size-1 ("data",) mesh for one step of phase 12, its group
+        ended after the step, so nothing of it stays into the phases
+        after: NCCL on the card, its bootstrap on the loopback interface
+        (``NCCL_SOCKET_IFNAME=lo``, set in this process's environment),
+        gloo in the CPU rehearsal.  If NCCL cannot start the run fails;
+        nothing falls back to gloo."""
+        import os
+        import torch.distributed as dist
+        from repro_torch.dist.sharding import make_mesh
+        if not self.rehearsal:
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        expect(not dist.is_initialized(),
+               "phase 12: a process group is already running")
+        t0 = time.perf_counter()
+        self._mesh = make_mesh((1,), ("data",), device=self.dev.type)
+        backend = dist.get_backend()
+        expect(backend == ("gloo" if self.rehearsal else "nccl"),
+               f"phase 12: the group's backend is {backend}")
+        self.phase12.setdefault("group_s", []).append(
+            time.perf_counter() - t0)
+        self.phase12.update(backend=backend, nccl_socket_ifname=os.environ.get(
+            "NCCL_SOCKET_IFNAME"))
+        try:
+            yield self._mesh
+        finally:
+            self.phase12_end()
+
+    def phase12_end(self) -> None:
+        import torch.distributed as dist
+        if self._mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+        self._mesh = None
+
+    def expect_bits(self, label: str, got, want) -> None:
+        for f in want._fields:
+            expect(bool(self.torch.equal(getattr(got, f), getattr(want, f))),
+                   f"{label}: {f} differs")
+
+    def phase12_deep(self, label: str, forest, ys, q_batch: int, rec: dict,
+                     ids, dists) -> dict:
+        """12a and 12b on a Deep drive's index, 12d on fp32's: the index
+        sharded at world size 1 (its own tensors, no copy); at phase 4's
+        final budget ``distributed_knn`` bit-equal to ``knn_search_batch``
+        on each of phase 4's batches, exact and at ``approx_p`` 0.9
+        (``knn_search_batch_approx``); from n/16 the ladder ends exact
+        with phase 4's ids, the tier's filter, fused prune and refine
+        launched once a shard-attempt (counts set to 0 just before, read
+        just after) and timed; fp32: 11a's requests through a ``mesh=``
+        tenant.  The step's group is started and ended around it."""
+        t_phase = time.perf_counter()
+        with self.phase12_group() as mesh:
+            out = self.phase12_search(label, forest, ys, q_batch, rec, ids,
+                                      dists, mesh)
+        out["seconds"] = time.perf_counter() - t_phase
+        self.phase12["seconds"] += out["seconds"]
+        return out
+
+    def phase12_search(self, label: str, forest, ys, q_batch: int,
+                       rec: dict, ids, dists, mesh) -> dict:
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.dist import knn as dk
+        quantize = forest.storage == "int8"
+        sfx = "_quant" if quantize else ""
+        self.sync()
+        self.reset_peak()
+        t0 = time.perf_counter()
+        sharded = dk.shard_index(forest, mesh, device=self.dev.type)
+        self.sync()
+        out = {"shard_s": time.perf_counter() - t0,
+               "shard_is_the_forest": all(
+                   getattr(sharded.forest, f).data_ptr()
+                   == getattr(forest, f).data_ptr()
+                   for f in ("data", "alpha", "alpha_min_pt"))}
+        expect(out["shard_is_the_forest"],
+               f"{label}: the world-size-1 shard copied the tables")
+        fam = forest.family_name
+        budget = rec["budget_final"]
+        batches = range(0, NUM_QUERIES, q_batch)
+        for p in (None, SINGLE_P):
+            for s in batches:
+                yb = ys[s:s + q_batch]
+                got = dk.distributed_knn(sharded, yb, family=fam, k=K,
+                                         budget=budget, approx_p=p,
+                                         max_doublings=0,
+                                         device=self.dev.type)
+                want = (tsearch.knn_search_batch(forest, yb, K, budget,
+                                                 device=self.dev)
+                        if p is None else tsearch.knn_search_batch_approx(
+                            forest, yb, K, budget, p, device=self.dev))
+                self.expect_bits(f"{label} distributed (p={p}) at budget "
+                                 f"{budget}, queries {s}..", got, want)
+        out["fixed_budget"] = budget
+        out["fixed_peak_bytes"] = self.peak()
+        say(f"distributed {label}: world 1 over {self.phase12['backend']}, "
+            f"at budget {budget} bit-equal to knn_search_batch on phase 4's "
+            f"{NUM_QUERIES} queries (batches of {q_batch}); peak "
+            f"{out['fixed_peak_bytes']} B")
+        say(f"distributed {label} approx: at p = {SINGLE_P} bit-equal to "
+            "knn_search_batch_approx")
+
+        attempts: list = []
+
+        def ladder(hook=None):
+            outs = [dk.distributed_knn(sharded, ys[s:s + q_batch],
+                                       family=fam, k=K, budget=None,
+                                       launch_hook=hook,
+                                       device=self.dev.type)
+                    for s in batches]
+            self.sync()
+            return outs
+
+        self.reset_launches()
+        self.reset_peak()
+        outs = ladder(attempts.append)
+        out["launches"] = self.launches()
+        out["attempts"] = len(attempts)
+        out["ladder_peak_bytes"] = self.peak()
+        out["ladder_peak_above_bytes"] = self.peak_above()
+        self.expect_launches(f"{label} distributed", out["launches"],
+                             RESIDENT_PATH, quantize)
+        for kname in RESIDENT_PATH:
+            got_n = out["launches"][kname + sfx]
+            expect(self.rehearsal or got_n == len(attempts),
+                   f"{label} distributed: {kname + sfx} launched {got_n} "
+                   f"times in {len(attempts)} shard-attempts")
+        got_ids = torch.cat([o.ids for o in outs])
+        got_d = torch.cat([o.dists for o in outs])
+        expect(all(bool(o.exact.all()) for o in outs),
+               f"{label} distributed: the ladder ended inexact")
+        expect(bool(torch.equal(got_ids, ids)),
+               f"{label} distributed: the ladder's ids differ from phase 4's")
+        out["ladder_dists_bit_equal"] = bool(torch.equal(got_d, dists))
+        del outs, got_ids, got_d
+        # Phase 4's search over the same batches, for its working memory
+        # now: the shard holds the index's own tables, so the ladder's
+        # must not exceed it beyond its (q, k) exchanges.
+        def single():
+            outs = [tsearch.knn_batch(forest, ys[s:s + q_batch], K,
+                                      device=self.dev) for s in batches]
+            self.sync()
+            return outs
+
+        self.reset_peak()
+        single()
+        out["phase4_peak_above_bytes"] = self.peak_above()
+        expect(self.rehearsal or out["ladder_peak_above_bytes"]
+               <= out["phase4_peak_above_bytes"] + (64 << 20),
+               f"{label} distributed: working memory "
+               f"{out['ladder_peak_above_bytes']} B against the single "
+               f"host's {out['phase4_peak_above_bytes']} B")
+        # Host ms in turns with phase 4's search, both ended by a sync.
+        out["search_ms"] = self.host_ms(ladder, 3)
+        out["single_search_ms"] = self.host_ms(single, 3)
+        out["search_ms_again"] = self.host_ms(ladder, 3)
+        out["phase4_search_ms"] = rec["search_ms"]
+        say(f"distributed {label}: from n/16 the ladder ends exact with "
+            f"phase 4's ids (dists bit-equal: "
+            f"{out['ladder_dists_bit_equal']}) in {len(attempts)} "
+            f"shard-attempts, launches "
+            f"{ {k: v for k, v in out['launches'].items() if v} }; "
+            f"{out['search_ms']:.1f} and {out['search_ms_again']:.1f} ms "
+            f"per {NUM_QUERIES} queries, phase 4's search "
+            f"{out['single_search_ms']:.1f} between them ("
+            f"{rec['search_ms']:.1f} in phase 4); peak "
+            f"{out['ladder_peak_bytes']} B, "
+            f"{out['ladder_peak_above_bytes']} B above the index against "
+            f"{out['phase4_peak_above_bytes']} B for phase 4's search")
+        del sharded
+        if not quantize:
+            out["service"] = self.phase11_service(label, forest, ys, ids,
+                                                  dists, quantize, mesh=mesh)
+        return out
+
+    def phase12_mutable(self, label: str, sf, ys, q_batch: int,
+                        doomed) -> dict:
+        """12c on phase 10's mutated Deep index after its deletes:
+        ``shard_index`` of the SegmentedForest (its live count carried)
+        bit-equal to ``knn_batch`` at budget live_n, no deleted id."""
+        torch = self.torch
+        from repro_torch.core import search as tsearch
+        from repro_torch.dist import knn as dk
+        t_phase = time.perf_counter()
+        budget = sf.live_n
+        gone = torch.as_tensor(doomed, device=self.dev)
+        self.reset_peak()
+        with self.phase12_group() as mesh:
+            sharded = dk.shard_index(sf, mesh, device=self.dev.type)
+            expect(sharded.global_live_n == sf.live_n,
+                   f"{label}: the shard's live count is not the index's")
+            for s in range(0, NUM_QUERIES, q_batch):
+                yb = ys[s:s + q_batch]
+                got = dk.distributed_knn(sharded, yb, family=sf.family_name,
+                                         k=K, budget=budget,
+                                         device=self.dev.type)
+                self.expect_bits(
+                    f"{label} mutable distributed, queries {s}..", got,
+                    tsearch.knn_batch(sf, yb, K, budget=budget,
+                                      device=self.dev))
+                expect(not bool(torch.isin(got.ids, gone).any()),
+                       f"{label} mutable distributed: a deleted id surfaced")
+            del sharded, got
+        out = {"budget": budget, "peak_bytes": self.peak(),
+               "seconds": time.perf_counter() - t_phase}
+        self.phase12["seconds"] += out["seconds"]
+        say(f"distributed mutable {label}: shard_index(SegmentedForest) "
+            f"(live {sf.live_n} of {sf.n} rows) bit-equal to knn_batch at "
+            f"budget {budget}, no deleted id; {out['seconds']:.1f} s, peak "
+            f"{out['peak_bytes']} B")
+        return out
+
+    def phase12_baselines(self, label: str, data, queries, family: str,
+                          rec: dict) -> dict:
+        """12e: the paper's baselines on the host (numpy, by design) over
+        a seeded prefix of Audio's rows, the first SINGLE_QUERIES queries:
+        ``linear_scan``, ``BBTree`` with both bounds, ``VAFile``; their
+        ids against brute force on the card (phase 3's near-tie rule),
+        build s and ms a query, beside a card index over the same rows."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import baselines as bl
+        from repro_torch.core import index as tidx
+        from repro_torch.core import search as tsearch
+        t_phase = time.perf_counter()
+        rows = np.ascontiguousarray(data[:BASELINE_ROWS])
+        yq = np.ascontiguousarray(queries[:SINGLE_QUERIES])
+        ys = torch.as_tensor(yq, device=self.dev)
+        x = torch.as_tensor(rows, device=self.dev)
+        out = {"rows": int(rows.shape[0]), "of_rows": int(data.shape[0]),
+               "queries": int(yq.shape[0]), "methods": {}}
+        self.sync()
+        t0 = time.perf_counter()
+        forest = tidx.build_index(rows, family, m=None, pccp=True,
+                                  device=self.dev)
+        self.sync()
+        card = {"build_s": time.perf_counter() - t0}
+        res = tsearch.knn_batch(forest, ys, K, device=self.dev)
+        card["ms_per_query"] = self.host_ms(
+            lambda: tsearch.knn_batch(forest, ys, K, device=self.dev),
+            3) / yq.shape[0]
+        card.update(self.check_brute_force(x, ys, res.ids, res.dists,
+                                           family))
+        card["brute_force_ms_per_query"] = (card.pop("brute_force_ms")
+                                            / yq.shape[0])
+        out["card_index"] = card
+        del forest
+        makers = {
+            "linear_scan": None,
+            "bbtree_geodesic": lambda: bl.BBTree(rows, family, leaf_size=32),
+            "bbtree_tuple": lambda: bl.BBTree(rows, family, leaf_size=32,
+                                              bound="tuple"),
+            "vafile": lambda: bl.VAFile(rows, family, bits=4),
+        }
+        for name, make in makers.items():
+            t0 = time.perf_counter()
+            obj = make() if make is not None else None
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            found = [bl.linear_scan(rows, y, K, family) if obj is None
+                     else obj.knn(y, K) for y in yq]
+            ms = 1e3 * (time.perf_counter() - t0) / yq.shape[0]
+            ids = torch.as_tensor(np.stack([f[0] for f in found]),
+                                  device=self.dev)
+            dists = torch.as_tensor(np.stack([f[1] for f in found]).astype(
+                np.float32), device=self.dev)
+            m = {"build_s": build_s, "ms_per_query": ms,
+                 "distance_evals": [int(f[2]["distance_evals"])
+                                    for f in found],
+                 "bytes_moved": [float(f[2]["bytes_moved"]) for f in found]}
+            if obj is not None and hasattr(obj, "nodes_built"):
+                m["nodes_built"] = obj.nodes_built
+            m.update(self.check_brute_force(x, ys, ids, dists, family))
+            m.pop("brute_force_ms")
+            out["methods"][name] = m
+        out["seconds"] = time.perf_counter() - t_phase
+        self.phase12["seconds"] += out["seconds"]
+        say(f"baselines {label}: {out['rows']} of {out['of_rows']} rows (the "
+            f"dataset's first rows), {out['queries']} queries, k = {K}: ids "
+            "match brute force on the card; card index build "
+            f"{card['build_s']:.2f} s, {card['ms_per_query']:.3f} ms a query "
+            f"(brute force {card['brute_force_ms_per_query']:.3f}); "
+            + "; ".join(f"{k} build {v['build_s']:.2f} s, "
+                        f"{v['ms_per_query']:.1f} ms a query, "
+                        f"{v['bf_position_mismatches']} near-tie swaps"
+                        for k, v in out["methods"].items())
+            + f"; {out['seconds']:.1f} s")
+        return out
+
     def run(self) -> dict:
         import os
         from repro_torch.launch import autotune
@@ -4064,6 +4421,14 @@ class Smoke:
         self.record["autotune"] = self.phase11_autotune()
         self.record["phase11_seconds"] = self.phase11_s
         say(f"phase 11: {self.phase11_s:.1f} s")
+        self.record["phase12"] = self.phase12
+        say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
+            f"world-size-1 {self.phase12.get('backend')} group started in "
+            + ", ".join(f"{t:.3f}" for t in self.phase12.get("group_s", []))
+            + " s"
+            + ("" if self.rehearsal else " (NCCL_SOCKET_IFNAME="
+               f"{self.phase12.get('nccl_socket_ifname')} in this process's "
+               "environment)"))
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
                                   + self.kernel_table(self.record["deep_int8"])
                                   + self.lm_kernel_table())
@@ -4170,6 +4535,10 @@ class Smoke:
                        q1_launches=single["launches"][name + sfx])
             if "library_ms" in k1:
                 row["q1_library_ms"] = k1["library_ms"]
+        # Their launches on the distributed search's ladder (phase 12a).
+        for row in (ub_row, fp_row, refine_row):
+            row["launches_distributed"] = rec["phase12"]["launches"][
+                row["name"]]
         return [ub_row, fp_row, refine_row, prune_row]
 
 
@@ -4500,6 +4869,8 @@ def main(argv=None) -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
         return 1
+    finally:
+        smoke.phase12_end()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=str))

@@ -1,7 +1,9 @@
 """kNN serving on the PyTorch port through the fault-tolerant retrieval
 service (serve/retrieval.py): deadlines, admission control and the
-degradation ladder over BrePartition search on one card.  Sharded tenants
-(``mesh=``) wait for the port of dist/knn.py.
+degradation ladder over BrePartition search on one card — plus the
+distributed launch path: the same index as a tenant sharded over the
+ranks of the process group (``mesh=``, dist/knn.py; one rank when the
+example starts the group itself, NCCL on the card, gloo on the CPU).
 
     PYTHONPATH=src python examples/torch_knn_serving.py [--device cpu] [--scale 0.01]
 """
@@ -9,10 +11,13 @@ degradation ladder over BrePartition search on one card.  Sharded tenants
 import argparse
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.core import search
 from repro_torch.core.index import build_index
 from repro_torch.data.pipeline import PAPER_DATASETS, make_queries, make_vectors
+from repro_torch.dist.sharding import ensure_process_group
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.serve import RetrievalService, ServiceConfig
 
 
@@ -78,6 +83,22 @@ def main(argv=None):
           f"tier mix=exact:{svc.counters['exact']} "
           f"approx:{svc.counters['approx']} "
           f"partial:{svc.counters['partial']} shed:{svc.counters['shed']}")
+
+    # The same index sharded over the process group's ranks: its exact
+    # responses match the single-device search.
+    started = ensure_process_group(args.device)
+    try:
+        sharded = svc.register_tenant(
+            "demo_sharded", index, mesh=make_host_mesh(device=args.device))
+        r = svc.search_sync("demo_sharded", queries, k, deadline_s=60.0)
+        match = r.quality == "exact" and np.array_equal(
+            np.sort(r.ids, -1), np.sort(ref.ids.cpu().numpy(), -1))
+        print(f"sharded tenant: {sharded.sharded.num_shards} shard(s) over "
+              f"{dist.get_backend()}, quality={r.quality}")
+        print(f"matches single-device BrePartition: {match}")
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -301,15 +301,24 @@ def _cdf_shrink(samples: Tensor, mu: Tensor, kappa: Tensor,
 
 def _approx_bounds(index: BallForest, qs: dict, idx: Tensor, qb: Tensor,
                    p_guarantee: float) -> Tensor:
-    """The §8 shrink of the searching bounds: each subspace's Cauchy term
-    ``sqrt_gamma(kth) * sqrt_delta`` is scaled by :func:`_cdf_shrink`'s c,
-    the rest (``kappa_i``, the int8 slack included) is kept."""
-    sqrt_term = _tuple_rows(index, idx[:, -1])["sqrt_gamma"] \
-        * qs["sqrt_delta"]                                          # (q, M)
+    """The §8 shrink of the searching bounds from the filter's (q, k)
+    top-k rows ``idx``: :func:`_shrink_bounds` at the k-th row."""
+    return _shrink_bounds(index.beta_samples,
+                          _tuple_rows(index, idx[:, -1])["sqrt_gamma"],
+                          qs["sqrt_delta"], qb, p_guarantee)
+
+
+def _shrink_bounds(beta_samples: Tensor, kth_sqrt_gamma: Tensor,
+                   sqrt_delta: Tensor, qb: Tensor,
+                   p_guarantee: float) -> Tensor:
+    """Each subspace's Cauchy term ``sqrt_gamma(kth) * sqrt_delta`` of the
+    bounds ``qb`` (q, M) is scaled by :func:`_cdf_shrink`'s c, the rest
+    (``kappa_i``, the int8 slack included) is kept."""
+    sqrt_term = kth_sqrt_gamma * sqrt_delta                         # (q, M)
     kappa_i = qb - sqrt_term
     p = torch.tensor(float(p_guarantee), dtype=torch.float32,
                      device=qb.device)
-    c = _cdf_shrink(index.beta_samples, torch.sum(sqrt_term, -1),
+    c = _cdf_shrink(beta_samples, torch.sum(sqrt_term, -1),
                     torch.sum(kappa_i, -1), p)
     return kappa_i + c[:, None] * sqrt_term
 
@@ -475,16 +484,22 @@ def _env_tables(index: BallForest, eb: int) -> tuple[Tensor, Tensor]:
             env_g.reshape(-1, f, m).amax(dim=1))
 
 
-def _block_env_span(n: int, bn: int, nb: int, eb: int,
-                    dev) -> tuple[Tensor, Tensor]:
+def _block_env_span(n: int, bn: int, nb: int, eb: int, dev,
+                    row_offset: int | None = None) -> tuple[Tensor, Tensor]:
     """(first, last) envelope row of each block's rows, (nb,) each; the
-    last block's span ends at row n - 1."""
+    last block's span ends at row n - 1.  ``row_offset`` places the n rows
+    at that row of a larger layout whose envelope tables the index holds
+    (a shard of dist/knn.py over the replicated global tables); None is
+    offset 0."""
     starts = torch.arange(nb, device=dev) * bn
-    return starts // eb, (torch.clamp(starts + bn, max=n) - 1) // eb
+    ends = torch.clamp(starts + bn, max=n) - 1
+    if row_offset is not None:
+        starts, ends = starts + row_offset, ends + row_offset
+    return starts // eb, ends // eb
 
 
 def _envelope_gate(index: BallForest, qs: dict, qb: Tensor, bn: int,
-                   nb: int, eb: int) -> Tensor:
+                   nb: int, eb: int, row_offset: int | None = None) -> Tensor:
     """The hoisted envelope gate: (nb, q) bool, True where some envelope
     row that block b spans admits query j.
 
@@ -493,7 +508,8 @@ def _envelope_gate(index: BallForest, qs: dict, qb: Tensor, bn: int,
     envelope rows.  An envelope dominates every row it covers, so a block
     no query admits holds no candidate.  It reads the hot envelope tables
     only: the resident prune and the tiered store's Stage A both call it,
-    so they admit the same blocks.
+    so they admit the same blocks.  ``row_offset``: see
+    :func:`_block_env_span`.
     """
     n = index.n
     dev = index.device
@@ -505,12 +521,13 @@ def _envelope_gate(index: BallForest, qs: dict, qb: Tensor, bn: int,
     row_admit = torch.any(lb_env <= qbT[None], dim=1)                # (ne, q)
     ecs = torch.cat([torch.zeros((1, q), dtype=torch.long, device=dev),
                      torch.cumsum(row_admit, dim=0)])
-    e0s, e_his = _block_env_span(n, bn, nb, eb, dev)
+    e0s, e_his = _block_env_span(n, bn, nb, eb, dev, row_offset)
     return (ecs[e_his + 1] - ecs[e0s]) > 0                           # (nb, q)
 
 
 def _envelope_gate_windowed(index: BallForest, qs: dict, qb: Tensor,
-                            bn: int, nb: int, eb: int) -> Tensor:
+                            bn: int, nb: int, eb: int,
+                            row_offset: int | None = None) -> Tensor:
     """The reference's per-block windowed gate, vectorized over blocks:
     each block gathers the ``win`` envelope rows from its first one, masks
     the rows past its span inert, and ORs the Theorem-3 test over them.
@@ -519,7 +536,7 @@ def _envelope_gate_windowed(index: BallForest, qs: dict, qb: Tensor,
     dev = index.device
     env_a, env_g = _env_tables(index, eb)
     win = -(-bn // eb) + 1
-    e0s, e_his = _block_env_span(index.n, bn, nb, eb, dev)
+    e0s, e_his = _block_env_span(index.n, bn, nb, eb, dev, row_offset)
     rows = e0s[:, None] + torch.arange(win, device=dev)[None, :]    # (nb, win)
     in_span = rows <= e_his[:, None]
     rows = torch.clamp(rows, max=env_a.shape[0] - 1)
@@ -534,7 +551,8 @@ def _envelope_gate_windowed(index: BallForest, qs: dict, qb: Tensor,
 def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
                           budget: int, block_rows: int,
                           env_block_rows: int | None = None,
-                          with_tau: bool = False, fused: bool = True):
+                          with_tau: bool = False, fused: bool = True,
+                          row_offset: int | None = None):
     """Envelope-gated prune + compact over the filter's row blocks.
 
     1. **Envelope gate** — :func:`_envelope_gate` (``fused=False``: the
@@ -552,6 +570,9 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
        the budget slots; slot order = index order, so any grouping fills
        the slots a per-block loop fills.
 
+    ``row_offset`` maps the index's rows onto the GLOBAL envelope tables
+    it carries: dist/knn.py keeps them replicated and passes each shard's
+    first row, ``rank * local_n``; single-host callers leave it None.
     Returns ``(sel (q, budget), valid (q, budget), num_candidates (q,),
     env_admitted (q,), blocks_run, tau (q,))``; ``tau`` is the per-query
     min UB over admitted rows when ``with_tau`` on the fused path (else
@@ -563,7 +584,7 @@ def _stream_prune_compact(index: BallForest, qs: dict, qb: Tensor,
     bn, nb = _block_layout(n, block_rows)
     eb = resolve_env_block_rows(env_block_rows)
     gate = _envelope_gate if fused else _envelope_gate_windowed
-    env_admit_all = gate(index, qs, qb, bn, nb, eb)                   # (nb, q)
+    env_admit_all = gate(index, qs, qb, bn, nb, eb, row_offset)       # (nb, q)
     run = torch.nonzero(env_admit_all.any(dim=1)).flatten()
     run_blocks = run.tolist()
 

@@ -49,8 +49,11 @@ containment.  Robustness is the CONTRACT here, not a best effort:
   breaker before they melt the queue.  Every launch is ended by a sync of
   the tenant's device before its time is read, so the cost model, the
   timeout and the ladder see device time, not the time to enqueue.
-  Distributed tenants (``mesh=``) wait for the port of ``dist/knn.py``
-  (ROADMAP queue 1 item 6) and raise at registration.
+  Distributed tenants (``mesh=``) wire ``dist.knn.distributed_knn``'s
+  per-launch timeout and hook for the same behavior per internal retry.
+  The service coordinates nothing across ranks: its tiers, breaker and
+  admission follow each rank's own clock, so its sharded tenants are
+  safe only on a mesh of one rank.
 
 * **Consistency under mutation.**  Each microbatch searches a SNAPSHOT
   (``view()``) taken before its first launch, so background
@@ -83,6 +86,8 @@ from ..core import tiered as tiered_store
 from ..core.bregman import valid_rows_mask, validate_rows
 from ..core.segments import SegmentedForest
 from ..device import synchronize
+from ..dist import knn as dist_knn
+from ..dist.knn import LaunchTimeout
 from ..launch import autotune
 
 from .faults import FaultPlan, SystemClock, jittered_backoff
@@ -94,17 +99,6 @@ QUALITY_SHED = "shed"
 _QORDER = {QUALITY_EXACT: 0, QUALITY_APPROX: 1, QUALITY_PARTIAL: 2,
            QUALITY_SHED: 3}
 _LADDER = (QUALITY_EXACT, QUALITY_APPROX, QUALITY_PARTIAL)
-
-
-class LaunchTimeout(RuntimeError):
-    """A launch that completed but blocked past its timeout; ``result``
-    carries the completed result (the reference's ``dist.knn`` raises it
-    per internal retry; nothing in the port raises it until that module
-    is ported, and ``_launch`` keeps its handling)."""
-
-    def __init__(self, msg: str, result=None):
-        super().__init__(msg)
-        self.result = result
 
 
 def resolve_deadline_s(deadline_s, default_s: float) -> float:
@@ -260,6 +254,9 @@ class Tenant:
     # frozen at registration, used as the launch snapshot in place of
     # _as_forest(index).  None = fully device-resident.
     tiered: object = None
+    # A point-major shard over a mesh (dist/knn.py), frozen at
+    # registration; its launches run distributed_knn.  None = one device.
+    sharded: object = None
 
     @property
     def live_n(self) -> int:
@@ -267,7 +264,10 @@ class Tenant:
 
     @property
     def device(self) -> torch.device:
-        """Where the tenant's searches run: its index's device."""
+        """Where the tenant's searches run: its shard's device, else its
+        index's."""
+        if self.sharded is not None:
+            return self.sharded.forest.device
         return self.index.device
 
 
@@ -354,7 +354,7 @@ class RetrievalService:
 
     # -- tenants ------------------------------------------------------------
 
-    def register_tenant(self, name: str, index, *, mesh=None,
+    def register_tenant(self, name: str, index, *, mesh=None, axis="data",
                         p_guarantee: float | None = None,
                         calibrate: bool = False,
                         calibrate_k: int = 10,
@@ -375,10 +375,17 @@ class RetrievalService:
         when the index does not already carry one (the preferred place is
         ``build_index(calibrate=True)`` — this is the catch-up path for
         indexes built before calibration existed).  The fit runs AFTER
-        quarantine (measured over the clean live set).
+        quarantine (measured over the clean live set) and BEFORE sharding
+        (the sharded snapshot carries the curve).
 
-        ``mesh`` (a sharded tenant) waits for the port of ``dist/knn.py``
-        (ROADMAP queue 1 item 6) and raises ``NotImplementedError``.
+        ``mesh`` (a ``DeviceMesh``, dist/sharding.py) shards the
+        (validated) index point-major over its ``axis`` dim for
+        ``distributed_knn`` launches, on the mesh's device type; the
+        sharded snapshot is FROZEN at registration — re-register after
+        mutating to reshard.  Only a mesh of one rank is safe: each
+        rank's service would choose its tiers and launches by its own
+        clock, and ranks that launch differently wait on each other's
+        collectives (``distributed_knn`` itself keeps its ranks in step).
 
         ``resident_bytes`` tiers the tenant out-of-core (core/tiered.py):
         cold point blocks live in host RAM behind that device-cache
@@ -394,10 +401,6 @@ class RetrievalService:
             raise ValueError(
                 "resident_bytes and mesh are mutually exclusive: a sharded "
                 "tenant's residency is the shard layout")
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded tenants (mesh=) need dist/knn.py, which is not "
-                "ported yet (ROADMAP queue 1 item 6)")
         fam = index.family
         quarantined = np.empty((0,), np.int32)
         if self.config.validate_index:
@@ -410,6 +413,10 @@ class RetrievalService:
                 quarantined = index.quarantine()
         if calibrate:
             index = breg_cal.ensure_calibration(index, k=calibrate_k)
+        sharded = None
+        if mesh is not None:
+            sharded = dist_knn.shard_index(index, mesh, axis,
+                                           device=mesh.device_type)
         # Pin the tuned block size now: the table lookup keys on the live
         # row count, the service's largest query bucket (the steady-state
         # heavy-traffic shape), the storage tier and the index's device.
@@ -436,7 +443,7 @@ class RetrievalService:
             p_guarantee=(self.config.default_p_guarantee
                          if p_guarantee is None else float(p_guarantee)),
             degraded=quarantined.size > 0, quarantined=quarantined,
-            block_rows=block_rows, tiered=tiered)
+            block_rows=block_rows, tiered=tiered, sharded=sharded)
         self.tenants[name] = tenant
         return tenant
 
@@ -481,6 +488,14 @@ class RetrievalService:
             ys = torch.ones((bucket, snapshot.d), dtype=torch.float32,
                             device=dev)
             budget = bp.default_budget(snapshot, k)
+            if t.sharded is not None:
+                # Sharded tenants launch distributed_knn, so warm that.
+                for ap in (None, np.float32(t.p_guarantee)):
+                    dist_knn.distributed_knn(
+                        t.sharded, ys, family=t.family_name, k=k,
+                        budget=budget, block_rows=t.block_rows,
+                        approx_p=ap, device=dev)
+                continue
             bp.knn_search_batch(snapshot, ys, k, budget,
                                 block_rows=t.block_rows, validate=False,
                                 device=dev)
@@ -844,6 +859,23 @@ class RetrievalService:
 
         def stop_retry() -> bool:
             return (self.clock.now() + tenant.cost.estimate()) > deadline
+
+        if tenant.sharded is not None:
+            budget = bp.default_budget(snapshot, k)
+            if tier == QUALITY_PARTIAL:
+                budget = bp.fitted_budget(snapshot, k, 2 * k)
+            res = self._launch(
+                tenant, tier,
+                lambda: dist_knn.distributed_knn(
+                    tenant.sharded, ys,
+                    family=tenant.family_name, k=k, budget=budget,
+                    block_rows=tenant.block_rows,
+                    approx_p=(p if approx else None),
+                    stop_retry=stop_retry,
+                    launch_hook=tenant.cost.observe,
+                    launch_timeout_s=self.config.launch_timeout_s,
+                    clock=self.clock.now, device=dev))
+            return res, approx, budget
 
         if tier == QUALITY_PARTIAL:
             budget = bp.fitted_budget(snapshot, k, 2 * k)

@@ -28,6 +28,7 @@ def test_torch_knn_serving(capsys):
     out = capsys.readouterr().out
     assert "matches brute force: True" in out
     assert "matches knn_batch: True" in out
+    assert "matches single-device BrePartition: True" in out
     assert "k > live_n: quality=shed reason=bad_k" in out
     assert "(must shed): quality=shed" in out
 

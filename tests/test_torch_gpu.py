@@ -1480,3 +1480,78 @@ def test_query_constants_on_the_card_do_not_depend_on_the_batch(cuda, d):
                            + fam.phi(y).abs().sum(-1))
         diff = (whole.cpu() - query_refine_constants(y, fam)["c_y"]).abs()
         assert bool((diff <= tol).all()), family
+
+
+@pytest.fixture
+def nccl_mesh(cuda, monkeypatch):
+    """A world-size-1 NCCL group on an in-process store and its ("data",)
+    mesh, ended after the test; NCCL's bootstrap on the loopback."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import make_mesh
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    assert not dist.is_initialized()
+    mesh = make_mesh((1,), ("data",), device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_distributed_knn_over_nccl_equals_the_search(nccl_mesh, quantize):
+    """World size 1 over NCCL on the card: ``distributed_knn`` bit-equal to
+    ``knn_search_batch`` (exact, at p = 0.9, and after the ladder from a
+    budget of k), the shard's tables the forest's own tensors, and the
+    tier's filter, fused prune and refine launched once an attempt."""
+    from repro_torch.dist import knn as dk
+    gen = torch.Generator().manual_seed(4)
+    data = _valid((3000, 24), "exponential", gen).numpy()
+    forest = tidx.build_index(data, "exponential", m=6, quantize=quantize,
+                              device="cuda")
+    ys = torch.as_tensor(data[:12] * 1.01, device="cuda")
+    sharded = dk.shard_index(forest, nccl_mesh)
+    assert sharded.forest.data.data_ptr() == forest.data.data_ptr()
+    for p in (None, 0.9):
+        before = _counts(quantize)
+        got = dk.distributed_knn(sharded, ys, family="exponential", k=10,
+                                 budget=3000, block_rows=512, approx_p=p,
+                                 max_doublings=0)
+        assert tuple(a - b for a, b in zip(_counts(quantize), before,
+                                           strict=True)) == (1, 1, 1)
+        want = (tsearch.knn_search_batch(forest, ys, 10, 3000,
+                                         block_rows=512) if p is None else
+                tsearch.knn_search_batch_approx(forest, ys, 10, 3000, p,
+                                                block_rows=512))
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (p, f)
+    laddered = dk.distributed_knn(sharded, ys, family="exponential", k=10,
+                                  budget=10, block_rows=512)
+    exact = tsearch.knn_search_batch(forest, ys, 10, 3000, block_rows=512)
+    assert bool(laddered.exact.all())
+    assert torch.equal(laddered.ids, exact.ids)
+    assert torch.equal(laddered.dists, exact.dists)
+
+
+def test_sharded_tenant_on_the_card_equals_the_resident_tenant(nccl_mesh):
+    """A ``mesh=`` tenant over NCCL answers with the resident tenant's
+    labels and bits, and its launches run the card's kernels."""
+    from repro_torch.serve import faults, retrieval
+    gen = np.random.default_rng(0)
+    data = (gen.random((400, 16)) + 0.1).astype(np.float32)
+    queries = (gen.random((4, 16)) + 0.1).astype(np.float32)
+    forest = tidx.build_index(data, "shannon", m=4, num_clusters=8, seed=0,
+                              device="cuda")
+    svc = retrieval.RetrievalService(clock=faults.VirtualClock())
+    svc.register_tenant("t", forest)
+    tenant = svc.register_tenant("s", forest, mesh=nccl_mesh)
+    assert tenant.device.type == "cuda"
+    svc.warm("s", shapes=[(4, 5)])
+    for kw in ({}, {"target_recall": 0.9}):
+        want = svc.search_sync("t", queries, 5, **kw)
+        before = _counts(False)
+        got = svc.search_sync("s", queries, 5, **kw)
+        assert all(a > b for a, b in zip(_counts(False), before,
+                                         strict=True))
+        assert got.quality == want.quality
+        np.testing.assert_array_equal(got.ids, want.ids)
+        np.testing.assert_array_equal(got.dists, want.dists)
+    assert svc.counters["launch_failures"] == 0

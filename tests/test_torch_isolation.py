@@ -211,6 +211,66 @@ def test_the_serving_slice_is_covered_and_defaults_to_the_card(no_card):
     assert svc.search_sync("t", queries, 3).quality == "exact"
 
 
+def test_the_distributed_slice_is_covered_and_defaults_to_the_card(no_card):
+    """dist/ and launch/mesh.py are in the import scan; make_mesh, the
+    host and production meshes, query_subview, shard_index and
+    distributed_knn run on the card unless the caller asks for the CPU,
+    and the CPU's group is gloo."""
+    import torch.distributed as dist
+    from repro_torch.dist import knn as dk
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch import mesh as lmesh
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/dist/__init__.py",
+            "src/repro_torch/dist/sharding.py",
+            "src/repro_torch/dist/knn.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/core/baselines.py"} <= names
+    assert not dist.is_initialized()
+    for call in (lambda: make_mesh((1,), ("data",)),
+                 lambda: lmesh.make_host_mesh(),
+                 lambda: lmesh.make_production_mesh()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not dist.is_initialized()
+    data, queries = _small()
+    forest = tidx.build_index(data, "burg", m=2, device="cpu")
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    try:
+        assert dist.get_backend() == "gloo" and lmesh.mesh_chips(mesh) == 1
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dk.shard_index(forest, mesh)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dk.query_subview(forest.partition, queries)
+        sharded = dk.shard_index(forest, mesh, device="cpu")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dk.distributed_knn(sharded, queries, family="burg", k=3,
+                               budget=None)
+        res = dk.distributed_knn(sharded, queries, family="burg", k=3,
+                                 budget=None, device="cpu")
+        assert bool(res.exact.all())
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_baselines_are_host_code_by_design(no_card):
+    """core/baselines.py is the one entry point with no device: the paper's
+    comparison points run in numpy on the host, "not the accelerated
+    path" (reference core/baselines.py:11-12), with or without a card."""
+    from repro_torch.core import baselines
+    src = (REPO / "src" / "repro" / "core" / "baselines.py").read_text()
+    assert "not the accelerated path" in src.splitlines()[11]
+    data, _ = _small()
+    for tree in (baselines.BBTree(data, "burg", leaf_size=16),
+                 baselines.BBTree(data, "burg", leaf_size=16,
+                                  bound="tuple")):
+        ids, dists, _ = tree.knn(data[0], 3)
+        assert isinstance(ids, np.ndarray) and ids[0] == 0
+    ids, _, _ = baselines.VAFile(data, "burg").knn(data[1], 3)
+    assert ids[0] == 1
+    assert baselines.linear_scan(data, data[2], 3, "burg")[0][0] == 2
+
+
 def test_search_runs_on_the_cpu_or_the_card_only():
     data, queries = _small()
     forest = tidx.build_index(data, "burg", m=2, device="cpu")
@@ -269,7 +329,14 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "kNN-LM hook at target_recall=0.9",
                  "serve launcher (--arch starcoder2-3b",
                  "autotune: the table's",
-                 "phase 11:"):
+                 "phase 11:",
+                 "distributed deep fp32: world 1 over gloo",
+                 "distributed deep int8: world 1 over gloo",
+                 "distributed deep fp32 approx",
+                 "distributed mutable deep fp32",
+                 "distributed service deep fp32: 48 requests",
+                 "baselines audio",
+                 "phase 12:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

@@ -26,6 +26,7 @@ from repro.core.bregman import get_family as jget_family
 from repro.core.bregman import validate_rows as jvalidate_rows
 from repro.core.index import build_index as jbuild_index
 from repro.core.segments import SegmentedForest as JSegmentedForest
+from repro.dist.sharding import make_mesh as jmake_mesh
 from repro.serve import faults as jfaults
 from repro.serve import retrieval as jret
 
@@ -34,6 +35,8 @@ from repro_torch.core import search as tbp
 from repro_torch.core.bregman import get_family as tget_family
 from repro_torch.core.bregman import valid_rows_mask, validate_rows
 from repro_torch.core.segments import SegmentedForest as TSegmentedForest
+from repro_torch.dist import knn as tdk
+from repro_torch.dist.sharding import make_mesh as tmake_mesh
 from repro_torch.serve import faults as tfaults
 from repro_torch.serve import retrieval as tret
 
@@ -671,17 +674,117 @@ def test_fetch_stall_noop_on_resident_tenant():
     both(run)
 
 
-def test_mesh_and_resident_bytes_are_mutually_exclusive():
-    for side in (JAX, PORT):
+@pytest.fixture(scope="module")
+def meshes():
+    """Each package's one-rank mesh: the JAX package's 1x1 mesh, the
+    port's over gloo on an in-process HashStore (the group ends with the
+    module, so no other test sees it)."""
+    assert not torch.distributed.is_initialized()
+    out = {"jax": jmake_mesh((1,), ("data",)),
+           "port": tmake_mesh((1,), ("data",), device="cpu")}
+    yield out
+    torch.distributed.destroy_process_group()
+
+
+def test_mesh_and_resident_bytes_are_mutually_exclusive(meshes):
+    """mesh= and resident_bytes= together are refused; a mesh= tenant
+    registers, is sharded and answers exactly, as the reference's does."""
+    def run(side):
+        mesh = meshes[side.name]
         svc, _ = make_service(side, make_index(side))
         with pytest.raises(ValueError, match="resident_bytes"):
-            svc.register_tenant("x", make_index(side, seed=3), mesh=(1, 1),
+            svc.register_tenant("x", make_index(side, seed=3), mesh=mesh,
                                 resident_bytes=20_000)
-    # The reference shards such a tenant; the port waits for dist/knn.py.
-    svc, _ = make_service(PORT, make_index(PORT))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        svc.register_tenant("x", make_index(PORT, seed=3), mesh=(1, 1))
-    assert "x" not in svc.tenants
+        assert "x" not in svc.tenants
+        index = make_index(side, seed=3)
+        tenant = svc.register_tenant("x", index, mesh=mesh)
+        assert tenant.sharded is not None and tenant.tiered is None
+        assert tenant.sharded.global_live_n == N
+        r = svc.search_sync("x", QUERIES, K)
+        assert r.quality == "exact"
+        np.testing.assert_array_equal(
+            r.ids, host(oracle(side, index, QUERIES).ids))
+        return [r], svc, None
+    both(run)
+
+
+def test_sharded_tenant_serves_every_tier_like_the_resident_one(meshes):
+    """A mesh= tenant's exact, approximate and partial responses: the
+    reference's labels and ids, and on the port the resident tenant's
+    bits (a one-rank shard runs the single-host search's math)."""
+    def run(side):
+        index = make_index(side, mutable=True)
+        svc, _ = make_service(side, index, register=False)
+        svc.register_tenant("t", index)
+        svc.register_tenant("s", index, mesh=meshes[side.name])
+        warmed = svc.warm("s", shapes=[(4, K)])
+        assert warmed["programs"] == [(4, K)]
+        out = []
+        for kw in ({}, {"target_recall": 0.9}):
+            resident = svc.search_sync("t", QUERIES, K, **kw)
+            sharded = svc.search_sync("s", QUERIES, K, **kw)
+            assert sharded.quality == resident.quality
+            np.testing.assert_array_equal(sharded.ids, resident.ids)
+            if side is PORT:
+                np.testing.assert_array_equal(sharded.dists, resident.dists)
+            out.append(sharded)
+        plan = side.faults.FaultPlan(
+            [side.faults.ShardStall(2.0, at_launches=[0], tenant="s")],
+            seed=3)
+        svc.faults = plan
+        svc.tenants["s"].cost.observe(2.0)
+        out.append(svc.search_sync("s", QUERIES, K, deadline_s=1.5))
+        assert out[-1].meta["tier_path"] == ["partial"]
+        assert plan.fired("shard_stall")
+        return out, svc, plan
+    both(run)
+
+
+class TickingClock(tfaults.VirtualClock):
+    """A virtual clock that moves on by ``tick`` seconds at every read,
+    so every launch takes time."""
+
+    def __init__(self, tick: float):
+        super().__init__()
+        self.tick = tick
+
+    def now(self) -> float:
+        t = super().now()
+        self.sleep(self.tick)
+        return t
+
+
+def test_slow_sharded_launch_raises_launch_timeout_and_degrades(meshes):
+    """distributed_knn raises LaunchTimeout past launch_timeout_s, with
+    the completed result and its time on it; the service uses the result,
+    counts the timeout as a breaker failure and, after three, sheds the
+    tenant's traffic."""
+    index = make_index(PORT)
+    sharded = tdk.shard_index(index, meshes["port"], device="cpu")
+    want = tdk.distributed_knn(sharded, QUERIES, family="shannon", k=K,
+                               budget=N, device="cpu")
+    reads = iter([10.0, 12.5])
+    with pytest.raises(tdk.LaunchTimeout) as info:
+        tdk.distributed_knn(sharded, QUERIES, family="shannon", k=K,
+                            budget=N, launch_timeout_s=1.0,
+                            clock=lambda: next(reads), device="cpu")
+    assert isinstance(info.value, TimeoutError)
+    assert info.value.elapsed_s == 2.5
+    for f in want._fields:
+        assert torch.equal(getattr(info.value.result, f), getattr(want, f))
+
+    clock = TickingClock(0.1)
+    svc = tret.RetrievalService(
+        tret.ServiceConfig(launch_timeout_s=0.05, default_deadline_s=100.0),
+        clock=clock)
+    svc.register_tenant("s", index, mesh=meshes["port"])
+    answered = [svc.search_sync("s", QUERIES, K) for _ in range(3)]
+    assert all(r.quality != "shed" for r in answered)
+    assert svc.counters["launch_timeouts"] == 3
+    assert svc.counters["launch_failures"] == 0
+    assert svc.tenants["s"].breaker.state == "open"
+    shed = svc.search_sync("s", QUERIES, K)
+    assert shed.quality == "shed" and shed.shed_reason == "breaker_open"
 
 
 # ---------------------------------------------------------------------------
