@@ -65,7 +65,12 @@ Phases:
    version on fp32 upcasts to about the output's rounding, beside a
    planted fault's reading (a dropped kv tile of the kernel under test:
    32 keys in fp32, 64 in bf16); bf16 timed beside
-   SDPA and its bound.
+   SDPA and its bound.  Then at recurrentgemma-2b's heads (10 q heads, 1
+   kv head, D = 256: the bf16 kernel's one-warpgroup blocks): its corpus
+   batch (8 x 1024), its serving prefill (8 x 512) and 4096 keys at its
+   window of 2048, each in fp32 and bf16 against the plain version and
+   on fp32 upcasts, with the planted fault, both dtypes timed beside SDPA
+   (none at the window) and the bound.
 7. kNN-LM on starcoder2-3b at full width (30 layers, random weights from a
    seeded generator on the card): ``build_datastore`` over a seeded
    64 x 1024-token corpus (65,472 keys of 3072 fp32, squared Euclidean,
@@ -148,6 +153,24 @@ Phases:
    bounds) and ``VAFile`` on the host over Audio's first 16,384 rows,
    their ids against brute force on the card (phase 3's near-tie rule),
    build s and ms a query beside a card index over the same rows.
+13. The recurrent families at full width, with seeded random weights and
+   the hook: recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention
+   of 10 q heads and 1 kv head at D = 256, window 2048) builds a
+   datastore over phase 7's 64 x 1024 corpus (65,472 keys of 2560 fp32)
+   and serves phase 7's 16 prompts of 512 tokens in 8 slots, 32 greedy
+   tokens each; #10 must launch once an attention layer for every
+   forward batch and prefill, each its bf16 kernel, and the hook's
+   search #1, #3 and #7; phase 7's checks (tokens against an offline
+   greedy loop, the hook's last tick against brute force, the fp32
+   first-token logits through #10 against the plain attention beside a
+   dropped kv tile); 8 requests of 8 tokens admitted into slots that 8
+   others used must start from a fresh engine's recurrent states bit
+   for bit and give its tokens, where an engine that keeps the old
+   states must not (the engine zeroes an admitted slot's state); phase 8's
+   checks of #9 on its keys.  Then rwkv6-1.6b (24 RWKV layers, no
+   attention) the same way over 16 x 1024 corpus tokens, with #10 at 0.
+   Build s and peak bytes, ms a forward batch, prefill ms, decode and
+   hook ms a tick and tokens/s are recorded.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -195,7 +218,14 @@ CORPUS_SEQS, CORPUS_LEN = 64, 1024
 NUM_REQUESTS, SLOTS, PROMPT_LEN, MAX_SEQ, NEW_TOKENS = 16, 8, 512, 1024, 32
 KNN_K = 8
 LOGITS_BATCH = 2
+# Phase 13's rwkv6-1.6b datastore: sequences of CORPUS_LEN tokens (a
+# quarter of phase 7's corpus; its time mix runs about five times longer a
+# token than recurrentgemma-2b's forward).
+RWKV_CORPUS_SEQS = 16
 PROFILE_TOKENS = 8
+# Phase 13's reused-slot check: prompts short enough that a recurrent state
+# left by the slot's last request would still show after the prefill.
+REUSE_PROMPT_LEN, REUSE_NEW_TOKENS = 8, 4
 # A subspace count at which pccp_order reads the correlations (phase 8).
 PCCP_PROBE_M = 32
 # Phase 9: the queries of a single-query check, the guarantee of its
@@ -230,6 +260,12 @@ BLOCK_LIST_CASES = [(5000, 37, 14, 1024, [0, 2, 4]),
                     (2000, 300, 50, 256, [0, 7]),
                     (2000, 33, 65, 384, [0, 2, 5]),
                     (5000, 37, 13, 1024, [4])]
+# #10 at recurrentgemma-2b's heads (phase 6): its corpus forward batch, its
+# serving prefill, and one sequence past its window of 2048 keys:
+# (b, h, kh, sq, skv, d, window).
+D256_SHAPES = {"rg_corpus_batch": (8, 10, 1, 1024, 1024, 256, None),
+               "rg_prefill_512": (8, 10, 1, 512, 512, 256, None),
+               "rg_window_4096": (1, 10, 1, 4096, 4096, 256, 2048)}
 # tests/test_kernels.py::test_flash_attention's cases:
 # (b, h, kh, sq, skv, d, causal, window).
 FLASH_CASES = [
@@ -2099,7 +2135,7 @@ class Smoke:
                    f"at {shape}: max |diff| {float(diff.max())}")
             width = FLASH_KV_TILE[str(dtype)[6:]]
             fault = attention_dropping(torch, q, k, v, causal,
-                                       middle_tile(skv, width))
+                                       middle_tile(skv, width), window)
             fault_over = float(((fault - want).abs() / limit).max())
             expect(fault_over > 1,
                    f"a dropped kv tile passes the tolerance at {shape} "
@@ -2117,12 +2153,23 @@ class Smoke:
         out["ms"] = self.time_calls([run_kernel], reps)
         out["plain_ms"] = self.time_calls([run_plain], reps)
         fn = torch.nn.functional.scaled_dot_product_attention
+        if window is None and sq == skv:
+            mask = None
+        else:       # end-aligned queries and the window, as a bool mask
+            qi = torch.arange(sq, device=self.dev)[:, None] + (skv - sq)
+            ki = torch.arange(skv, device=self.dev)[None, :]
+            mask = (qi >= ki) if causal else torch.ones_like(qi >= ki)
+            if window is not None:
+                mask &= (qi - ki) < window
         out["library_ms"] = self.time_calls(
-            [lambda: fn(q, k, v, is_causal=causal, enable_gqa=kh != h)],
-            reps) if window is None and sq == skv else None
-        flops = 4.0 * b * h * sq * skv * d * (0.5 if causal else 1.0)
+            [lambda: fn(q, k, v, attn_mask=mask,
+                        is_causal=causal and mask is None,
+                        enable_gqa=kh != h)], reps)
+        del mask
+        pairs, keys = attended(sq, skv, causal, window)
+        flops = 4.0 * b * h * pairs * d
         elem = 2 if dtype == torch.bfloat16 else 4
-        nbytes = elem * (2 * b * h * sq * d + 2 * b * kh * skv * d)
+        nbytes = elem * (2 * b * h * sq * d + 2 * b * kh * keys * d)
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
         out["bound"] = bound(nbytes, flops, peak)
         out["tflops"] = (flops / (out["ms"] * 1e-3) / 1e12
@@ -2134,7 +2181,10 @@ class Smoke:
         test_flash_attention in fp32 and bf16, then at the model's shapes in
         bf16: prefill at S = 2048 (B = 2), the corpus forward batch of
         the kNN-LM phase (B = 8, S = 1024) and its serving prefill (SLOTS
-        prompts of PROMPT_LEN), timed."""
+        prompts of PROMPT_LEN), timed; then at recurrentgemma-2b's heads
+        (10 q heads, 1 kv head, D = 256) in fp32 and bf16, both timed: its
+        corpus batch, its serving prefill and a 4096-key sequence at its
+        window of 2048 (phase 13's shapes never reach the window)."""
         torch = self.torch
         from repro_torch.serve.knnlm import FORWARD_BATCH
         rec = {"cases": []}
@@ -2175,6 +2225,25 @@ class Smoke:
                 f"({r32['max_err_over_tol']:.3g}; dropped tile "
                 f"{r32['planted_fault_over_tol']:.3g}); against the bf16 "
                 f"plain version {r['plain_max_abs_err']:.3g}")
+        rec["d256"] = {}
+        for name, (b, h, kh, sq, skv, d, window) in D256_SHAPES.items():
+            if self.rehearsal:
+                b, sq, skv = 1, sq // 16, skv // 16
+                window = window and window // 16
+            for dtype in (torch.float32, torch.bfloat16):
+                r = self.compare_flash(b, h, kh, sq, skv, d, True, window,
+                                       dtype, seed=len(name),
+                                       model_shape=True, time_it=True)
+                rec["d256"][f"{name}_{str(dtype)[6:]}"] = r
+                say(f"flash_attention D=256 {name} {r['shape']}: kernel "
+                    f"{r['ms']} ms ({r['tflops']} TFLOP/s), plain "
+                    f"{r['plain_ms']} ms, SDPA {r['library_ms']} ms, bound "
+                    f"{r['bound']}; against the fp32 plain version max "
+                    f"|diff| {r['max_abs_err']:.3g} "
+                    f"({r['max_err_over_tol']:.3g} of the tolerance; a "
+                    f"dropped kv tile {r['planted_fault_over_tol']:.3g} of "
+                    f"it); against the plain version in its own dtype "
+                    f"{r['plain_max_abs_err']:.3g}")
         if not self.rehearsal:
             torch.cuda.empty_cache()
         return rec
@@ -2186,11 +2255,8 @@ class Smoke:
         hook over a datastore built from a seeded 64 x 1024 corpus (the
         reduced config and a small corpus in a CPU rehearsal)."""
         torch = self.torch
-        import dataclasses
-
         import numpy as np
         from repro_torch import configs
-        from repro_torch.kernels import flash_attention as tflash
         from repro_torch.models.registry import build_model
         from repro_torch.serve.engine import Engine, EngineConfig, Request
         from repro_torch.serve.knnlm import (FORWARD_BATCH, KNNLMHook,
@@ -2292,66 +2358,13 @@ class Smoke:
         prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
                    for _ in range(NUM_REQUESTS)]
         hook = KNNLMHook(store=store, k=KNN_K)
-        calls = []
-
-        def timed_hook(logits, hidden):
-            self.sync()
-            t = time.perf_counter()
-            out = hook(logits, hidden)
-            self.sync()
-            res = hook.last_result
-            calls.append({"ms": 1e3 * (time.perf_counter() - t),
-                          "rows": int(hidden.shape[0]),
-                          "candidates": res.num_candidates.tolist(),
-                          "hidden": hidden.clone()})
-            return out
-
         ecfg = EngineConfig(slots=SLOTS, max_seq=max_seq,
                             prefill_len=prompt_len)
-        eng = Engine(bundle, params, ecfg, logits_hook=timed_hook)
-        for uid, prompt in enumerate(prompts):
-            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
-        self.reset_launches()
-        self.reset_peak()
-        prefill_ms, decode_ms, hook_ms = [], [], []
-        t_serve = time.perf_counter()
-        while True:
-            self.sync()
-            t0 = time.perf_counter()
-            before = len(calls)
-            eng._admit()
-            self.sync()
-            t1 = time.perf_counter()
-            if len(calls) > before:
-                prefill_ms.append(1e3 * (t1 - t0))
-            before = len(calls)
-            stepped = eng.step()
-            self.sync()
-            t2 = time.perf_counter()
-            if not stepped and not eng.queue:
-                break
-            if stepped:
-                tick_hook = sum(c["ms"] for c in calls[before:])
-                hook_ms.append(tick_hook)
-                decode_ms.append(1e3 * (t2 - t1) - tick_hook)
-        serve_s = time.perf_counter() - t_serve
-        rec["serve_launches"] = self.launches()
-        rec["serve_flash_kernels"] = self.flash_launches()
-        rec["serve_peak_bytes"] = self.peak()
-        outputs = {r.uid: r.output for r in eng.finished}
-        generated = sum(len(o) for o in outputs.values())
-        rec.update(
-            serve_s=serve_s, generated_tokens=generated,
-            tokens_per_s=generated / serve_s, ticks=eng.ticks,
-            prefills=len(prefill_ms), prefill_ms=prefill_ms,
-            decode_ms_per_tick=statistics.median(decode_ms),
-            hook_ms_per_tick=statistics.median(hook_ms),
-            hook_calls=len(calls),
-            mean_candidates=float(np.mean([c for call in calls
-                                           for c in call["candidates"]])),
-            hook_escalations=hook.escalations,
-            hook_scan_fallbacks=hook.scan_fallbacks,
-            hook_budget=hook.budget_final)
+        eng, outputs, calls = self.serve_timed(bundle, params, hook, prompts,
+                                               ecfg, new, rec)
+        prefill_ms = rec["prefill_ms"]
+        generated = rec["generated_tokens"]
+        serve_s = rec["serve_s"]
         expect(len(outputs) == NUM_REQUESTS
                and all(len(o) == new for o in outputs.values()),
                "kNN-LM: not every request got its tokens")
@@ -2374,7 +2387,7 @@ class Smoke:
             f"{rec['tokens_per_s']:.1f} tokens/s; prefill ms {prefill_ms}; "
             f"decode {rec['decode_ms_per_tick']:.2f} ms and hook "
             f"{rec['hook_ms_per_tick']:.2f} ms per tick (medians of "
-            f"{len(decode_ms)}); mean candidates per query "
+            f"{rec['ticks']}); mean candidates per query "
             f"{rec['mean_candidates']:.1f} of {index.n}; hook escalations "
             f"{hook.escalations}, budget {hook.budget_final}; launches "
             f"{rec['serve_launches']} (#10 by kernel: build "
@@ -2441,6 +2454,76 @@ class Smoke:
             torch.cuda.empty_cache()
         return rec
 
+    def serve_timed(self, bundle, params, hook, prompts, ecfg, new,
+                    rec: dict) -> tuple:
+        """Serve ``prompts`` (uids in order, ``new`` tokens each) through an
+        engine with ``hook``, the launch counts and the peak set to 0 just
+        before: host ms of each admission that prefilled, and of the decode
+        and the hook a tick, each ended by a sync.  Fills ``rec`` and
+        returns (engine, {uid: tokens}, the hook's calls, each with its
+        hidden rows)."""
+        import numpy as np
+        from repro_torch.serve.engine import Engine, Request
+        calls = []
+
+        def timed_hook(logits, hidden):
+            self.sync()
+            t = time.perf_counter()
+            out = hook(logits, hidden)
+            self.sync()
+            res = hook.last_result
+            calls.append({"ms": 1e3 * (time.perf_counter() - t),
+                          "rows": int(hidden.shape[0]),
+                          "candidates": res.num_candidates.tolist(),
+                          "hidden": hidden.clone()})
+            return out
+
+        eng = Engine(bundle, params, ecfg, logits_hook=timed_hook)
+        for uid, prompt in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=new))
+        self.reset_launches()
+        self.reset_peak()
+        prefill_ms, decode_ms, hook_ms = [], [], []
+        t_serve = time.perf_counter()
+        while True:
+            self.sync()
+            t0 = time.perf_counter()
+            before = len(calls)
+            eng._admit()
+            self.sync()
+            t1 = time.perf_counter()
+            if len(calls) > before:
+                prefill_ms.append(1e3 * (t1 - t0))
+            before = len(calls)
+            stepped = eng.step()
+            self.sync()
+            t2 = time.perf_counter()
+            if not stepped and not eng.queue:
+                break
+            if stepped:
+                tick_hook = sum(c["ms"] for c in calls[before:])
+                hook_ms.append(tick_hook)
+                decode_ms.append(1e3 * (t2 - t1) - tick_hook)
+        serve_s = time.perf_counter() - t_serve
+        rec["serve_launches"] = self.launches()
+        rec["serve_flash_kernels"] = self.flash_launches()
+        rec["serve_peak_bytes"] = self.peak()
+        outputs = {r.uid: r.output for r in eng.finished}
+        generated = sum(len(o) for o in outputs.values())
+        rec.update(
+            serve_s=serve_s, generated_tokens=generated,
+            tokens_per_s=generated / serve_s, ticks=eng.ticks,
+            prefills=len(prefill_ms), prefill_ms=prefill_ms,
+            decode_ms_per_tick=statistics.median(decode_ms),
+            hook_ms_per_tick=statistics.median(hook_ms),
+            hook_calls=len(calls),
+            mean_candidates=float(np.mean([c for call in calls
+                                           for c in call["candidates"]])),
+            hook_escalations=hook.escalations,
+            hook_scan_fallbacks=hook.scan_fallbacks,
+            hook_budget=hook.budget_final)
+        return eng, outputs, calls
+
     def offline_greedy(self, bundle, params, prompts, uids, new, max_seq,
                        hook) -> dict:
         """Prefill one batch of equal-length prompts into fresh caches, then
@@ -2488,12 +2571,15 @@ class Smoke:
         b, s = toks.shape
         pos = torch.arange(s, device=self.dev)[None].expand(b, s)
 
-        drop = middle_tile(s, FLASH_KV_TILE["float32"])
+        # A window narrower than the tile (the reduced configs') keeps half
+        # its keys, so no row loses them all.
+        tile = FLASH_KV_TILE["float32"]
+        drop = middle_tile(s, min(tile, (cfg.window or tile) // 2 or 1))
 
         def dropping(q, k, v, *, causal=True, window=None, scale=None):
-            assert window is None and scale is None
-            return attention_dropping(torch, q, k, v, causal,
-                                      drop).to(q.dtype)
+            assert scale is None
+            return attention_dropping(torch, q, k, v, causal, drop,
+                                      window).to(q.dtype)
 
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt),
@@ -2544,8 +2630,248 @@ class Smoke:
             times.append(1e3 * (time.perf_counter() - t0))
         return statistics.median(times)
 
+    # -- phase 13: the recurrent families --------------------------------
+    def phase_recurrent(self) -> dict:
+        """recurrentgemma-2b (RG-LRU and local attention through #10 at
+        D = 256) over phase 7's corpus size, then rwkv6-1.6b (no attention
+        layer) over RWKV_CORPUS_SEQS sequences, each at full width serving
+        phase 7's traffic with the hook; #9 on recurrentgemma's keys (phase
+        8's checks)."""
+        rec = {"seconds": 0.0}
+        t0 = time.perf_counter()
+        rec["recurrentgemma"] = self.recurrent_drive("recurrentgemma-2b",
+                                                     CORPUS_SEQS)
+        rec["pccp"] = self.phase_pccp(rec["recurrentgemma"].pop("store"))
+        rec["rwkv6"] = self.recurrent_drive("rwkv6-1.6b", RWKV_CORPUS_SEQS)
+        rec["rwkv6"].pop("store")
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 13: {rec['seconds']:.1f} s")
+        return rec
+
+    def recurrent_drive(self, arch: str, num_seqs: int) -> dict:
+        """One recurrent model at full width (the reduced config and a small
+        corpus in a CPU rehearsal) with seeded random weights: the datastore
+        build, then NUM_REQUESTS exact-length prompts through SLOTS slots
+        with the hook (phase 7's checks: the engine's tokens against an
+        offline greedy loop with the hook, the hook's last tick against
+        brute force, the fp32 first-token logits through #10 against the
+        plain attention where the model has attention), and requests
+        admitted into used slots against a fresh engine
+        (``check_reused_slots``).  Keeps the store in the record for phase
+        8's checks."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.models.registry import build_model
+        from repro_torch.serve.engine import EngineConfig, Request
+        from repro_torch.serve.knnlm import (FORWARD_BATCH, KNNLMHook,
+                                             build_datastore)
+        if self.rehearsal:
+            cfg = configs.get_reduced(arch)
+            num_seqs, seq_len, prompt_len, max_seq, new = 8, 32, 16, 40, 4
+        else:
+            cfg = configs.get_config(arch)
+            seq_len, prompt_len, max_seq, new = (CORPUS_LEN, PROMPT_LEN,
+                                                 MAX_SEQ, NEW_TOKENS)
+        kinds = cfg.layer_kinds()
+        attn_layers = sum(k in ("attn", "local_attn") for k in kinds)
+        rec = {"arch": arch, "layers": cfg.num_layers,
+               "d_model": cfg.d_model, "kinds": {k: kinds.count(k)
+                                                 for k in set(kinds)},
+               "head_dim": cfg.head_dim if attn_layers else None,
+               "corpus": [num_seqs, seq_len], "requests": NUM_REQUESTS,
+               "prompt_len": prompt_len, "slots": SLOTS, "max_seq": max_seq,
+               "max_new_tokens": new, "k": KNN_K}
+        t_drive = time.perf_counter()
+        rng = np.random.default_rng(SEED)
+        self.sync()
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=self.dev)
+        params = bundle.init(SEED)
+        self.sync()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["params"] = bundle.count_params
+        label = cfg.name
+        say(f"{label}: {cfg.num_layers} layers {rec['kinds']}, d_model "
+            f"{cfg.d_model}, {bundle.count_params} parameters (fp32, cast "
+            f"to {str(cfg.compute_dtype)[6:]} at each use) in "
+            f"{rec['init_s']:.2f} s")
+
+        corpus = rng.integers(1, cfg.vocab_size, (num_seqs, seq_len))
+        self.reset_launches()
+        self.reset_peak()
+        t0 = time.perf_counter()
+        store = build_datastore(bundle, params, corpus,
+                                family="squared_euclidean", m=None,
+                                seed=SEED)
+        self.sync()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["build_peak_bytes"] = self.peak()
+        rec["build_launches"] = self.launches()
+        rec["build_flash_kernels"] = self.flash_launches()
+        batches = -(-num_seqs // FORWARD_BATCH)
+        index = store.index
+        rec.update(forward_batches=batches, keys=index.n, m=index.m,
+                   num_clusters=index.num_clusters,
+                   key_bytes=index.data.numel() * 4)
+        self.expect_launches(f"{label} datastore build",
+                             rec["build_launches"],
+                             ("flash_attention",) if attn_layers else (),
+                             False)
+        if not self.rehearsal:
+            expect(rec["build_launches"]["flash_attention"]
+                   == attn_layers * batches
+                   == rec["build_flash_kernels"]["bf16_wgmma"],
+                   f"{label} datastore build: #10 ran "
+                   f"{rec['build_flash_kernels']}, not {attn_layers} layers "
+                   f"x {batches} batches on the bf16 kernel")
+        toks = torch.as_tensor(corpus[:FORWARD_BATCH], device=self.dev)
+        pos = torch.arange(seq_len, device=self.dev)[None].expand(
+            toks.shape[0], seq_len)
+        self.reset_peak()
+        rec["forward_ms_per_batch"] = self.host_ms(
+            lambda: bundle.forward_train(params, {"tokens": toks,
+                                                  "positions": pos}),
+            reps=2)
+        rec["forward_peak_bytes"] = self.peak()
+        say(f"{label} datastore: {index.n} keys x {cfg.d_model} fp32 "
+            f"({rec['key_bytes']} B), M* = {index.m}, {index.num_clusters} "
+            f"clusters; build {rec['build_s']:.2f} s ({batches} forward "
+            f"batches of {FORWARD_BATCH} x {seq_len}, "
+            f"{rec['forward_ms_per_batch']:.1f} ms each, peak of a forward "
+            f"{rec['forward_peak_bytes']} B), build peak "
+            f"{rec['build_peak_bytes']} B; #10 launches by kernel "
+            f"{rec['build_flash_kernels']}")
+
+        prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+                   for _ in range(NUM_REQUESTS)]
+        hook = KNNLMHook(store=store, k=KNN_K)
+        ecfg = EngineConfig(slots=SLOTS, max_seq=max_seq,
+                            prefill_len=prompt_len)
+        eng, outputs, calls = self.serve_timed(bundle, params, hook, prompts,
+                                               ecfg, new, rec)
+        expect(len(outputs) == NUM_REQUESTS
+               and all(len(o) == new for o in outputs.values())
+               and all(0 <= t < cfg.vocab_size for o in outputs.values()
+                       for t in o),
+               f"{label}: not every request got its tokens in the vocab")
+        self.expect_launches(f"{label} serving", rec["serve_launches"],
+                             (("flash_attention",) if attn_layers else ())
+                             + RESIDENT_PATH, False)
+        if not self.rehearsal:
+            expect(rec["serve_launches"]["flash_attention"]
+                   == attn_layers * rec["prefills"]
+                   == rec["serve_flash_kernels"]["bf16_wgmma"],
+                   f"{label} serving: #10 ran {rec['serve_flash_kernels']}, "
+                   f"not {attn_layers} layers x {rec['prefills']} prefills "
+                   "on the bf16 kernel")
+        say(f"{label} serving: {NUM_REQUESTS} requests x {new} tokens, "
+            f"{SLOTS} slots, prompts {prompt_len}: {rec['serve_s']:.2f} s, "
+            f"{rec['tokens_per_s']:.1f} tokens/s; prefill ms "
+            f"{rec['prefill_ms']}; decode {rec['decode_ms_per_tick']:.2f} ms "
+            f"and hook {rec['hook_ms_per_tick']:.2f} ms per tick (medians "
+            f"of {rec['ticks']}); hook escalations {hook.escalations}; "
+            f"launches {rec['serve_launches']} (#10 by kernel "
+            f"{rec['serve_flash_kernels']}); peak {rec['serve_peak_bytes']} "
+            "B")
+
+        last = calls[-1]
+        keys = index.data[torch.argsort(index.point_ids.long())]
+        rec["brute_force"] = self.check_brute_force(
+            keys, last["hidden"].float(), hook.last_result.ids,
+            hook.last_result.dists, "squared_euclidean", k=KNN_K)
+        del keys, calls
+        say(f"{label}: the hook's ids on the last tick match brute force "
+            f"over the datastore ({rec['brute_force']})")
+
+        check_hook = KNNLMHook(store=store, k=KNN_K)
+        offline = {}
+        for w0 in range(0, NUM_REQUESTS, SLOTS):
+            uids = list(range(w0, min(w0 + SLOTS, NUM_REQUESTS)))
+            offline.update(self.offline_greedy(
+                bundle, params, [prompts[u] for u in uids], uids, new,
+                max_seq, check_hook))
+        expect(offline == outputs, f"{label}: the engine's tokens differ "
+               "from the offline greedy loop")
+        say(f"{label}: the engine's {rec['generated_tokens']} tokens equal "
+            "the offline greedy prefill + decode loop (the second wave in "
+            "slots the first used)")
+
+        rec["reused_slots"] = self.check_reused_slots(
+            bundle, params, check_hook, prompts, label)
+
+        if attn_layers:
+            rec["logits_check"] = self.logits_through_plain(
+                cfg, params, prompts[:LOGITS_BATCH])
+            say(f"{label}: first-token logits through #10 against the "
+                "plain attention " + json.dumps(rec["logits_check"]))
+        rec["seconds"] = time.perf_counter() - t_drive
+        rec["store"] = store
+        del eng, bundle, params, hook, check_hook
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        return rec
+
+    def check_reused_slots(self, bundle, params, hook, prompts,
+                           label: str) -> dict:
+        """SLOTS requests admitted into slots that SLOTS others used leave
+        the recurrent states a fresh engine gives them, bit for bit, and
+        decode its tokens.  The prompts are REUSE_PROMPT_LEN tokens long,
+        short enough that a leaked state still shows after the prefill (a
+        512-token prefill decays RWKV's old state to nothing in fp32); an
+        engine whose admission keeps the old states must differ."""
+        from repro_torch.serve.engine import (Engine, EngineConfig, Request,
+                                              _cache_leaves)
+        short, new = REUSE_PROMPT_LEN, REUSE_NEW_TOKENS
+        ecfg = EngineConfig(slots=SLOTS, max_seq=short + new,
+                            prefill_len=short)
+        first = [prompts[u][:short] for u in range(SLOTS)]
+        second = [prompts[SLOTS + u][:short] for u in range(SLOTS)]
+        used, leaky, fresh = (Engine(bundle, params, ecfg, logits_hook=hook)
+                              for _ in range(3))
+        leaky._zero_states = lambda rows: None        # the reference's way
+        for eng in (used, leaky):
+            for uid, prompt in enumerate(first):
+                eng.submit(Request(uid=uid, prompt=prompt,
+                                   max_new_tokens=new))
+            eng.run()
+        for eng in (used, leaky, fresh):
+            for uid, prompt in enumerate(second):
+                eng.submit(Request(uid=SLOTS + uid, prompt=prompt,
+                                   max_new_tokens=new))
+            eng._admit()
+        used_s, leaky_s, fresh_s = (_cache_leaves(e.caches,
+                                                  recurrent_only=True)
+                                    for e in (used, leaky, fresh))
+        self.sync()
+        equal = all(self.torch.equal(a, b)
+                    for a, b in zip(used_s, fresh_s, strict=True))
+        leak = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(leaky_s, fresh_s, strict=True))
+        tokens = [{r.uid: r.output for r in e.run() if r.uid >= SLOTS}
+                  for e in (used, leaky, fresh)]
+        expect(equal, f"{label}: requests admitted into used slots start "
+               "from other recurrent states than on a fresh engine")
+        expect(leak > 0, f"{label}: an admission that keeps the old "
+               "recurrent states leaves the fresh engine's states")
+        expect(tokens[0] == tokens[2],
+               f"{label}: requests re-admitted into used slots give other "
+               "tokens than on fresh slots")
+        out = {"prompt_len": short, "max_new_tokens": new,
+               "state_tensors": len(used_s), "states_bit_equal": equal,
+               "leaked_max_abs_diff": leak,
+               "leak_changes_tokens": tokens[1] != tokens[2]}
+        moved = (" and changes the tokens" if out["leak_changes_tokens"]
+                 else "")
+        say(f"{label}: {SLOTS} requests re-admitted into used slots start "
+            f"from a fresh engine's {len(used_s)} recurrent state tensors bit "
+            f"for bit and give its {new} tokens ({short}-token prompts; "
+            f"keeping the old states moves them by up to {leak:.3g}{moved})")
+        del used, leaky, fresh
+        return out
+
     # -- phase 8: kernel #9 --------------------------------------------
-    def phase_pccp(self) -> dict:
+    def phase_pccp(self, store=None) -> dict:
         """#9 on the datastore's keys: the path that runs it (the PCCP
         partition of the keys from the kernel's correlations,
         ``build_pccp_partition(..., corr=ops.pccp_correlation(keys))`` at
@@ -2559,7 +2885,7 @@ class Smoke:
                                                 pccp_order)
         from repro_torch.kernels import ops
         from repro_torch.kernels import pccp_corr as tpccp
-        store = self._store
+        store = store if store is not None else self._store
         keys = store.index.data[torch.argsort(store.index.point_ids.long())]
         n, d = keys.shape
         m = store.index.m
@@ -4421,6 +4747,7 @@ class Smoke:
         self.record["autotune"] = self.phase11_autotune()
         self.record["phase11_seconds"] = self.phase11_s
         say(f"phase 11: {self.phase11_s:.1f} s")
+        self.record["recurrent"] = self.phase_recurrent()
         self.record["phase12"] = self.phase12
         say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
             f"world-size-1 {self.phase12.get('backend')} group started in "
@@ -4544,26 +4871,50 @@ class Smoke:
 
     def lm_kernel_table(self) -> list:
         """The kernel JSON rows of #10 (its bf16 tensor-core kernel at the
-        kNN-LM corpus batch's shape, its launches those of the build and
-        the serving run, also by kernel, with the HGMMA count of the built
-        library) and #9 (on the datastore's keys, its launches the PCCP
-        partition's)."""
+        kNN-LM corpus batch's shape and at recurrentgemma-2b's D = 256, its
+        launches those of the builds and the serving runs of phases 7 and
+        13, also by path and by kernel, with the HGMMA count of the built
+        library) and #9 (on the datastore's keys, and on recurrentgemma's,
+        its launches the PCCP partitions')."""
         src = "src/repro_torch/kernels/csrc/"
         fl, kn, pc = (self.record["flash"]["corpus_batch"],
                       self.record["knnlm"], self.record["pccp"])
-        flash_launches = (kn["build_launches"]["flash_attention"]
-                          + kn["serve_launches"]["flash_attention"])
-        by_kernel = {name: kn["build_flash_kernels"][name]
-                     + kn["serve_flash_kernels"][name]
+        rc = self.record["recurrent"]
+        # Each path's launches, its counts set to 0 just before it: phase
+        # 7's build and serving (D = 128), phase 13's (D = 256 on
+        # recurrentgemma-2b; rwkv6-1.6b has no attention layer).
+        paths = {"knnlm": kn, "recurrentgemma": rc["recurrentgemma"],
+                 "rwkv6": rc["rwkv6"]}
+        by_path = {name: r["build_launches"]["flash_attention"]
+                   + r["serve_launches"]["flash_attention"]
+                   for name, r in paths.items()}
+        by_kernel = {name: sum(r["build_flash_kernels"][name]
+                               + r["serve_flash_kernels"][name]
+                               for r in paths.values())
                      for name in kn["build_flash_kernels"]}
+        # #10 at D = 256, at recurrentgemma-2b's corpus batch (phase 6).
+        d256 = {}
+        for dt in ("bfloat16", "float32"):
+            r = self.record["flash"]["d256"][f"rg_corpus_batch_{dt}"]
+            tag = "d256" if dt == "bfloat16" else "d256_fp32"
+            d256.update({f"{tag}_shape": r["shape"], f"{tag}_ms": r["ms"],
+                         f"{tag}_plain_ms": r["plain_ms"],
+                         f"{tag}_bound_ms": r["bound"][0],
+                         f"{tag}_bound_by": r["bound"][1],
+                         f"{tag}_library_ms": r["library_ms"],
+                         f"{tag}_max_abs_err": r["max_abs_err"],
+                         f"{tag}_max_err_over_tol": r["max_err_over_tol"]})
+        rp = rc["pccp"]
         sass = self.record.get("sass")
         hgmma = None if sass is None else sass["hgmma"]
         return [
             {"name": "flash_attention", "route": "cuda",
              "source": src + "flash_attention_wgmma.cu",
              "replaces": "src/repro/kernels/flash_attention.py:102",
-             "launches": flash_launches,
+             "launches": sum(by_path.values()),
+             "launches_by_path": by_path,
              "launches_by_kernel": by_kernel,
+             "launches_d256": by_path["recurrentgemma"], **d256,
              "hgmma_sass": (None if hgmma is None else
                             sum(c for f, c in hgmma.items()
                                 if "flash_tc_kernel" in f)),
@@ -4580,7 +4931,14 @@ class Smoke:
              "max_err_over_tol": pc["max_err_over_tol"],
              "ms": pc["ms"], "plain_ms": pc["plain_ms"],
              "bound_ms": pc["bound"][0], "bound_by": pc["bound"][1],
-             "library_ms": pc["library_ms"]},
+             "library_ms": pc["library_ms"],
+             # On recurrentgemma-2b's keys (phase 13).
+             "launches_recurrent": rp["launches"]["pccp_correlation"],
+             "d2560_shape": [rp["n"], rp["d"]], "d2560_ms": rp["ms"],
+             "d2560_plain_ms": rp["plain_ms"],
+             "d2560_bound_ms": rp["bound"][0],
+             "d2560_library_ms": rp["library_ms"],
+             "d2560_max_err_over_tol": rp["max_err_over_tol"]},
         ]
 
 
@@ -4605,10 +4963,12 @@ def middle_tile(skv: int, tile: int) -> range:
     return range(start, start + width)
 
 
-def attention_dropping(torch, q, k, v, causal: bool, drop: range):
-    """fp32 GQA attention, queries end-aligned, with the keys at positions
-    ``drop`` masked out: what a kernel that skipped that kv tile would
-    give.  q (B, H, Sq, D); k/v (B, KH, Skv, D)."""
+def attention_dropping(torch, q, k, v, causal: bool, drop: range,
+                       window: int | None = None):
+    """fp32 GQA attention, queries end-aligned, within an optional sliding
+    ``window``, with the keys at positions ``drop`` masked out: what a
+    kernel that skipped that kv tile would give.  q (B, H, Sq, D); k/v (B,
+    KH, Skv, D)."""
     sq, d = q.shape[2], q.shape[3]
     skv, rep = k.shape[2], q.shape[1] // k.shape[1]
     k = k.float().repeat_interleave(rep, 1)
@@ -4618,6 +4978,8 @@ def attention_dropping(torch, q, k, v, causal: bool, drop: range):
     kpos = torch.arange(skv, device=q.device)[None, :]
     keep = ((kpos < drop.start) | (kpos >= drop.stop)) & (
         kpos <= qpos if causal else True)
+    if window is not None:
+        keep &= qpos - kpos < window
     s = s.masked_fill(~keep, float("-inf"))
     return torch.softmax(s, -1) @ v
 
@@ -4723,6 +5085,22 @@ def err_over_tol(diff, tol) -> float:
     if not diff.numel():
         return 0.0
     return float((diff / tol).masked_fill(diff == 0, 0.0).max())
+
+
+def attended(sq: int, skv: int, causal: bool, window) -> tuple:
+    """(query-key pairs a head attends, keys any query attends) for
+    ``sq`` queries end-aligned to ``skv`` keys: query i (at key position
+    i + skv - sq) sees keys j <= its position if causal and position - j
+    < window; the work #10 must do, whatever tiles it skips."""
+    pairs, first = 0, skv
+    for i in range(sq):
+        pos = i + skv - sq
+        hi = min(pos + 1, skv) if causal else skv
+        lo = max(0, pos - window + 1) if window is not None else 0
+        if hi > lo:
+            pairs += hi - lo
+            first = min(first, lo)
+    return pairs, skv - first
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S

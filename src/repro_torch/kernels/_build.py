@@ -82,8 +82,8 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile the kernels unless the stamped hash matches; returns the
-    library's path.  Records the seconds and ``-Xptxas -v`` lines in
-    :data:`build_info`."""
+    library's path.  Records the seconds and ``-Xptxas -v`` lines (with
+    each function's stack frame and spills) in :data:`build_info`."""
     lib_path = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
@@ -115,7 +115,7 @@ def build() -> Path:
     build_info.update(
         seconds=time.perf_counter() - t0, rebuilt=True,
         ptxas=[ln.strip() for log in logs for ln in log.splitlines()
-               if "ptxas info" in ln])
+               if "ptxas info" in ln or "spill" in ln])
     return lib_path
 
 

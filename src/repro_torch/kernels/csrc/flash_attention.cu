@@ -31,7 +31,8 @@
 // at the fp32 cores' 67 TFLOP/s.  Each thread holds a 4 x 2 tile of s and a
 // 4 x (D/16) tile of acc and reads q, k, v from shared memory (rows padded
 // by one word against bank conflicts), so shared-memory bandwidth, not the
-// FMA rate, sets its pace.  The model runs it only where it computes in
+// FMA rate, sets its pace.  At D = 256 the tiles take 140,800 bytes of
+// shared memory (the opt-in of `launch`) and acc 64 registers a thread.  The model runs it only where it computes in
 // fp32: the first-token logits check of chip_smoke.py and the CPU-parity
 // configurations.
 #include <cstdint>
@@ -272,6 +273,7 @@ extern "C" int brk_flash_attention(const void* q, const void* k,
     case 32: return launch<32>(a, b, s);
     case 64: return launch<64>(a, b, s);
     case 128: return launch<128>(a, b, s);
+    case 256: return launch<256>(a, b, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -15,11 +15,17 @@
 //
 // Bound on the H100: operations.  The kNN-LM corpus batch (B = 8, H = 24,
 // KH = 2, S = 1024, D = 128, causal) is 51.5 GFLOP of bf16 products
-// against 0.1 GB of q, k, v and out: 0.052 ms at 989 TFLOP/s.  The design:
+// against 0.1 GB of q, k, v and out: 0.052 ms at 989 TFLOP/s;
+// recurrentgemma-2b's (H = 10, KH = 1, D = 256) 43 GFLOP: 0.043 ms.  The
+// design:
 //
 // - A block owns (b, h, a 128-row q tile): two consumer warpgroups of 64
 //   rows (wgmma's M) and one producer warp.  The grid runs the latest q
-//   tiles, the longest under the causal mask, first.
+//   tiles, the longest under the causal mask, first.  At D = 256 a block
+//   has one consumer warpgroup and a 64-row q tile: a thread's fp32 O
+//   accumulator is then 128 registers (64 rows x 256 columns over 128
+//   threads), the S tile 32 and P's two halves 32, which fit the 255 a
+//   thread of a 160-thread block and not the 224 of a 288-thread one.
 // - The producer issues TMA loads: the q tile once, then 64-key k and v
 //   tiles into a 2-stage ring on mbarriers.  The tensor maps describe the
 //   strided 4-D view (D, S, H, B), so the model's (B, S, H, D) tensors are
@@ -34,7 +40,9 @@
 //   loaded, and a warpgroup skips a loaded tile that none of its rows
 //   reaches.
 // - O += P V is wgmma with P in registers (the S accumulator's layout is
-//   the A operand's) and V from shared memory (transposed B).  P goes in
+//   the A operand's) and V from shared memory (transposed B); at D = 256
+//   as two m64n128 products, on O's two column halves (registers 0-63 and
+//   64-127 of the m64n256 layout) and V's panel pairs.  P goes in
 //   as two bf16 halves, P_hi = bf16(P) and P_lo = bf16(P - P_hi), into one
 //   accumulator: a single bf16 rounding of P would move the output by
 //   tens of its own rounding (tests/test_torch_flash_design.py), the
@@ -49,17 +57,18 @@
 
 namespace {
 
-constexpr int BQ = 128;               // query rows a block
 constexpr int BKV = 64;               // keys a kv tile
 constexpr int PANEL = 64;             // bf16 columns of one swizzled panel
 constexpr int ROW_BYTES = 128;        // one panel row
 constexpr int STAGES = 2;
-constexpr int CONSUMERS = 256;        // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;
 constexpr float NEG_INF = -1e30f;
 
 template <int D>
 struct Cfg {
+  static constexpr int WGS = D == 256 ? 1 : 2;       // consumer warpgroups
+  static constexpr int BQ = 64 * WGS;                // query rows a block
+  static constexpr int CONSUMERS = 128 * WGS;
+  static constexpr int THREADS = CONSUMERS + 32;     // + the producer warp
   static constexpr int DP = D < PANEL ? PANEL : D;   // staged columns
   static constexpr int NP = DP / PANEL;              // panels
   static constexpr int KSTEPS = (D + 15) / 16;       // k16 steps of q . k
@@ -224,13 +233,24 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t*
 }
 
 
+// O += P V for one k16 step; `vt` is the step's first key row in the V
+// tile (NP panels of BKV rows, BKV * ROW_BYTES apart).
+__device__ __forceinline__ uint64_t v_desc(const uint8_t* vt) {
+  return sw128_desc(vt, BKV * ROW_BYTES, 1024);
+}
 __device__ __forceinline__ void pv_mma(float (&o)[32], const uint32_t* a,
-                                       uint64_t db) {
-  wgmma_rs_m64n64(o, a, db);
+                                       const uint8_t* vt) {
+  wgmma_rs_m64n64(o, a, v_desc(vt));
 }
 __device__ __forceinline__ void pv_mma(float (&o)[64], const uint32_t* a,
-                                       uint64_t db) {
-  wgmma_rs_m64n128(o, a, db);
+                                       const uint8_t* vt) {
+  wgmma_rs_m64n128(o, a, v_desc(vt));
+}
+__device__ __forceinline__ void pv_mma(float (&o)[128], const uint32_t* a,
+                                       const uint8_t* vt) {
+  wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(o), a, v_desc(vt));
+  wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                   v_desc(vt + 2 * BKV * ROW_BYTES));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -238,7 +258,7 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -255,6 +275,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  constexpr int BQ = C::BQ;
+  constexpr int CONSUMERS = C::CONSUMERS;
   const int q0 = (p.q_tiles - 1 - static_cast<int>(blockIdx.z)) * BQ;
   const int hk = h / (p.h / p.kh);
   const int off = p.skv - p.sq;                // end alignment of the queries
@@ -398,12 +420,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        pv_mma(o, p_hi + 4 * kk,
-               sw128_desc(vt + kk * 16 * ROW_BYTES, BKV * ROW_BYTES, 1024));
+        pv_mma(o, p_hi + 4 * kk, vt + kk * 16 * ROW_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
-        pv_mma(o, p_lo + 4 * kk,
-               sw128_desc(vt + kk * 16 * ROW_BYTES, BKV * ROW_BYTES, 1024));
+        pv_mma(o, p_lo + 4 * kk, vt + kk * 16 * ROW_BYTES);
       wg_commit();
       wg_wait_all();
       fence_regs(o);
@@ -481,11 +501,19 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int d,
 
 constexpr int MAX_DEVICES = 64;
 
+// The q map (boxes of the block's BQ rows), the grid's q tiles, then the
+// launch.
 template <int D>
-int launch(const CUtensorMap& tq, const CUtensorMap& tk,
-           const CUtensorMap& tv, const Params& p, int b, int device,
-           cudaStream_t stream) {
-  const int bytes = Cfg<D>::SMEM;
+int launch(EncodeTiled encode, const void* q, const int64_t* strides,
+           const CUtensorMap& tk, const CUtensorMap& tv, Params p, int b,
+           int device, cudaStream_t stream) {
+  using C = Cfg<D>;
+  p.q_tiles = (p.sq + C::BQ - 1) / C::BQ;
+  if (p.q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq;
+  if (!make_map(&tq, encode, q, D, p.sq, p.h, b, strides, C::BQ))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = C::SMEM;
   // The shared-memory opt-in, once a device (the call costs host time).
   static bool opted_in[MAX_DEVICES] = {};
   if (!opted_in[device]) {
@@ -496,7 +524,7 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk,
     opted_in[device] = true;
   }
   const dim3 grid(p.h, b, p.q_tiles);
-  flash_tc_kernel<D><<<grid, THREADS, bytes, stream>>>(tq, tk, tv, p);
+  flash_tc_kernel<D><<<grid, C::THREADS, bytes, stream>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -519,13 +547,10 @@ extern "C" int brk_flash_attention_bf16(const void* q, const void* k,
   if (b <= 0 || sq <= 0) return 0;
   if (h <= 0 || kh <= 0 || h % kh != 0 || skv <= 0 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int q_tiles = (sq + BQ - 1) / BQ;
-  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, encode, q, d, sq, h, b, strides, BQ) ||
-      !make_map(&tk, encode, k, d, skv, kh, b, strides + 3, BKV) ||
+  CUtensorMap tk, tv;
+  if (!make_map(&tk, encode, k, d, skv, kh, b, strides + 3, BKV) ||
       !make_map(&tv, encode, v, d, skv, kh, b, strides + 6, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -538,13 +563,13 @@ extern "C" int brk_flash_attention_bf16(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  p.q_tiles = q_tiles;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(tq, tk, tv, p, b, device, s);
-    case 32: return launch<32>(tq, tk, tv, p, b, device, s);
-    case 64: return launch<64>(tq, tk, tv, p, b, device, s);
-    case 128: return launch<128>(tq, tk, tv, p, b, device, s);
+    case 16: return launch<16>(encode, q, strides, tk, tv, p, b, device, s);
+    case 32: return launch<32>(encode, q, strides, tk, tv, p, b, device, s);
+    case 64: return launch<64>(encode, q, strides, tk, tv, p, b, device, s);
+    case 128: return launch<128>(encode, q, strides, tk, tv, p, b, device, s);
+    case 256: return launch<256>(encode, q, strides, tk, tv, p, b, device, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

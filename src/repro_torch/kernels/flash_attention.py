@@ -10,7 +10,8 @@ the H100.  The kernel follows ``q.dtype``:
 - bf16 (the model's compute type): ``csrc/flash_attention_wgmma.cu`` on
   the tensor cores, ``wgmma`` products fed by TMA loads of the strided
   (D, S, H, B) view, P as two bf16 halves so the output keeps the fp32
-  kernel's error.  TMA needs 16-byte-aligned base pointers and strides
+  kernel's error; 128-row q blocks of two warpgroups, 64-row blocks of
+  one at D = 256 (recurrentgemma-2b's heads).  TMA needs 16-byte-aligned base pointers and strides
   that are multiples of 8 elements; the wrapper refuses other tensors.
 - fp32: ``csrc/flash_attention.cu`` on the fp32 cores (a tensor-core
   product of fp32 operands would need TF32).
@@ -33,7 +34,7 @@ launches = 0
 launches_simt = 0
 launches_wgmma = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 # TMA's alignment of base pointers and strides, in bytes.
 _TMA_ALIGN = 16

@@ -4,6 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --reduced --requests 8 --knnlm [--device cpu]
 
+``--arch`` takes starcoder2-3b, recurrentgemma-2b or rwkv6-1.6b (the
+recurrent archs take the exact-length prompts the launcher draws).
+
 Weights are random, drawn from a seeded generator on the device; the
 datastore is the model's own hidden states over a seeded corpus.
 """

@@ -22,7 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
-from .layers import apply_rope, init_normal, rms_norm
+from .layers import apply_rope, rms_norm
 
 Tensor = torch.Tensor
 
@@ -54,14 +54,6 @@ def attention_spec(d: int, heads: int, kv_heads: int, head_dim: int,
         spec["q_norm"] = ((head_dim,), "ones")
         spec["k_norm"] = ((head_dim,), "ones")
     return spec
-
-
-def init_attention(spec: dict, generator: torch.Generator) -> dict:
-    dev = generator.device
-    make = {"normal": lambda s: init_normal(s, generator),
-            "zeros": lambda s: torch.zeros(s, device=dev),
-            "ones": lambda s: torch.ones(s, device=dev)}
-    return {name: make[init](shape) for name, (shape, init) in spec.items()}
 
 
 def _project(x: Tensor, w: Tensor) -> Tensor:

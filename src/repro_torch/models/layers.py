@@ -29,6 +29,36 @@ def init_normal(shape: tuple, generator: torch.Generator,
                        device=generator.device) * scale
 
 
+def init_spec(spec: dict, generator: torch.Generator) -> dict:
+    """Parameters of a spec dict, name -> (shape, init) or (shape, init,
+    scale), drawn in the dict's order on the generator's device: "zeros",
+    "ones", and any other init normal x ``scale`` (None: the fan-in rule).
+    The reference's ``Spec.materialize`` treats every init but zeros and
+    ones as a normal draw, its "uniform_lambda" included."""
+    dev = generator.device
+    out = {}
+    for name, (shape, init, *scale) in spec.items():
+        if init == "zeros":
+            out[name] = torch.zeros(shape, device=dev)
+        elif init == "ones":
+            out[name] = torch.ones(shape, device=dev)
+        else:
+            out[name] = init_normal(shape, generator,
+                                    scale[0] if scale else None)
+    return out
+
+
+def spec_size(spec: dict) -> int:
+    """Parameters in a spec dict."""
+    total = 0
+    for shape, *_ in spec.values():
+        n = 1
+        for s in shape:
+            n *= s
+        total += n
+    return total
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

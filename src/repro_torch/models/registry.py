@@ -3,7 +3,9 @@
     bundle.init(seed)                              -> params
     bundle.forward_train(params, batch)            -> (hidden, aux_loss)
     bundle.logits(params, hidden)                  -> fp32 logits
-    bundle.init_cache(batch_size, s_max)           -> caches
+    bundle.init_cache(batch_size, s_max)           -> caches (per layer:
+                      {"mixer": KVCache or state dict, "ffn": state dict
+                      or None})
     bundle.prefill(params, batch, caches, lens)    -> (hidden, caches)
     bundle.decode_step(params, tok, pos, caches, lens)
                                                    -> (logits, hidden, caches)
@@ -69,5 +71,5 @@ def build_model(cfg, device="cuda") -> ModelBundle:
     if type(cfg).__name__ == "EncDecConfig":
         raise NotImplementedError(
             "encoder-decoder models are not ported yet (ROADMAP queue 1 "
-            "item 12)")
+            "item 7)")
     raise TypeError(f"unknown config type {type(cfg)}")

@@ -1,24 +1,27 @@
-"""Decoder-only LM, dense attention stacks (port of
-``repro.models.transformer``).
+"""Decoder-only LM: dense attention, hybrid (RG-LRU) and RWKV stacks (port
+of ``repro.models.transformer``).
 
 A layer is
 
-    x = x + mixer(norm1(x))     mixer in {attn, local_attn}
-    x = x + ffn(norm2(x))       ffn   in {plain MLP, gated MLP}
+    x = x + mixer(norm1(x))     mixer in {attn, local_attn, rglru, rwkv}
+    x = x + ffn(norm2(x))       ffn   in {plain MLP, gated MLP, rwkv_channel}
 
 with the per-layer kind taken from ``cfg.block_pattern`` cycled over depth.
-MoE, RG-LRU and RWKV blocks are not ported yet (ROADMAP queue 1 item 12)
-and raise ``NotImplementedError``.
+MoE, learned positions and M-RoPE are not ported yet (ROADMAP queue 1
+item 7) and raise ``NotImplementedError``.
 
 * ``forward_train`` — the teacher-forced forward (no loss, no gradient).
-* ``prefill`` — the same forward, writing the KV caches; returns every
+* ``prefill`` — the same forward, writing the caches; returns every
   position's hidden state (the engine samples at each slot's last prompt
   position).
 * ``decode_step`` — one token against the caches.
 
 Layers run in a Python loop (a ``scan_layers`` config included); each
 layer's parameters are a dict, and the caches a list of per-layer dicts
-whose tensors every call updates in place.  Weights are kept as given
+{"mixer": ..., "ffn": ...}: a ``KVCache`` that every call updates in
+place, or a recurrent state dict ({"h", "conv"} for RG-LRU, {"shift",
+"wkv"} for RWKV's time mix, {"shift"} for its channel mix) that every
+call replaces.  Weights are kept as given
 (fp32 from :func:`init_params`) and cast to ``compute_dtype`` at every use,
 as the reference casts them: the same values a held bf16 copy would give,
 at the cost of the cast's traffic and no second copy.
@@ -34,13 +37,18 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import rglru as rglru_mod
+from . import rwkv as rwkv_mod
 from .attention import KVCache
 from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
-                     init_norm, init_normal, padded_vocab, unembed_logits)
+                     init_norm, init_normal, init_spec, padded_vocab,
+                     spec_size, unembed_logits)
 
 Tensor = torch.Tensor
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 12)"
+_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 7)"
+_MIXERS = ("attn", "local_attn", "rglru", "rwkv")
+_FFNS = ("plain", "gated", "rwkv_channel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,7 +63,7 @@ class LMConfig:
     vocab_size: int
     # layer pattern, cycled over depth
     block_pattern: tuple[str, ...] = ("attn",)
-    ffn_kind: str = "gated"              # gated | plain
+    ffn_kind: str = "gated"              # gated | plain | rwkv_channel
     act: str = "silu"
     norm: str = "rmsnorm"
     # attention details
@@ -65,6 +73,11 @@ class LMConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     window: int | None = None            # sliding window for local_attn
+    # recurrent widths
+    lru_width: int = 0
+    conv_width: int = 4
+    rwkv_head_dim: int = 64
+    rwkv_chunk: int = 128
     # embeddings / head
     tie_embeddings: bool = True
     pos_embedding: str = "rope"          # rope | none
@@ -82,9 +95,9 @@ class LMConfig:
 def check_supported(cfg: LMConfig) -> None:
     """Raise for the block kinds and options the port does not run."""
     for kind in set(cfg.layer_kinds()):
-        if kind not in ("attn", "local_attn"):
+        if kind not in _MIXERS:
             raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
-    if cfg.ffn_kind not in ("plain", "gated"):
+    if cfg.ffn_kind not in _FFNS:
         raise NotImplementedError(
             f"ffn_kind {cfg.ffn_kind!r} is {_NOT_PORTED}")
     if cfg.pos_embedding not in ("rope", "none"):
@@ -96,24 +109,39 @@ def check_supported(cfg: LMConfig) -> None:
 # Parameters
 # ---------------------------------------------------------------------------
 
-def _init_layer(cfg: LMConfig, generator: torch.Generator) -> dict:
-    dev = generator.device
-    spec = attn_mod.attention_spec(
+def _mixer_spec(cfg: LMConfig, kind: str) -> dict:
+    """The mixer's parameters, name -> (shape, init[, scale])."""
+    if kind == "rglru":
+        return rglru_mod.rglru_spec(cfg.d_model, cfg.lru_width,
+                                    cfg.conv_width)
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_time_spec(cfg.d_model, cfg.rwkv_head_dim)
+    return attn_mod.attention_spec(
         cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, out_bias=cfg.out_bias)
-    return {"norm1": init_norm(cfg.d_model, cfg.norm, dev),
-            "mixer": attn_mod.init_attention(spec, generator),
-            "norm2": init_norm(cfg.d_model, cfg.norm, dev),
-            "ffn": init_mlp(cfg.d_model, cfg.d_ff, cfg.ffn_kind == "gated",
-                            cfg.mlp_bias, generator)}
+
+
+def _init_layer(cfg: LMConfig, kind: str, generator: torch.Generator
+                ) -> dict:
+    dev = generator.device
+    mixer = init_spec(_mixer_spec(cfg, kind), generator)
+    if cfg.ffn_kind == "rwkv_channel":
+        ffn = init_spec(rwkv_mod.rwkv_channel_spec(cfg.d_model, cfg.d_ff),
+                        generator)
+    else:
+        ffn = init_mlp(cfg.d_model, cfg.d_ff, cfg.ffn_kind == "gated",
+                       cfg.mlp_bias, generator)
+    return {"norm1": init_norm(cfg.d_model, cfg.norm, dev), "mixer": mixer,
+            "norm2": init_norm(cfg.d_model, cfg.norm, dev), "ffn": ffn}
 
 
 @torch.inference_mode()
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     """Random fp32 parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``: normal x 1/sqrt(fan_in) with fan_in the first
-    dim of each per-layer shape (the reference ``Spec``'s rule; the
-    embedding table at scale 1), norm scales 1, biases 0.  The bits are not
+    dim of each per-layer shape (the reference ``Spec``'s rule), or x the
+    spec's own scale where it gives one (the embedding table 1, RG-LRU's
+    conv 0.3, RWKV's LoRAs 0.01); norm scales 1, biases 0.  The bits are not
     ``jax.random``'s."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -123,7 +151,8 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
               "final_norm": init_norm(cfg.d_model, cfg.norm, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_normal((vp, cfg.d_model), gen, scale=1.0)
-    params["layers"] = [_init_layer(cfg, gen) for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_layer(cfg, kind, gen)
+                        for kind in cfg.layer_kinds()]
     return params
 
 
@@ -163,18 +192,18 @@ def params_from_numpy(cfg: LMConfig, tree: dict, device="cuda") -> dict:
 def count_params(cfg: LMConfig) -> int:
     """Parameters of :func:`init_params`'s tree."""
     d, f = cfg.d_model, cfg.d_ff
-    spec = attn_mod.attention_spec(
-        d, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-        qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, out_bias=cfg.out_bias)
     norm = d * (1 if cfg.norm == "rmsnorm" else 2)
-    mlp = d * f * (3 if cfg.ffn_kind == "gated" else 2)
-    if cfg.mlp_bias:
-        mlp += f + d
-    layer = (2 * norm + mlp
-             + sum(int(np.prod(shape)) for shape, _ in spec.values()))
+    if cfg.ffn_kind == "rwkv_channel":
+        ffn = spec_size(rwkv_mod.rwkv_channel_spec(d, f))
+    else:
+        ffn = d * f * (3 if cfg.ffn_kind == "gated" else 2)
+        if cfg.mlp_bias:
+            ffn += f + d
+    layers = sum(2 * norm + ffn + spec_size(_mixer_spec(cfg, kind))
+                 for kind in cfg.layer_kinds())
     tables = padded_vocab(cfg.vocab_size) * d * (
         1 if cfg.tie_embeddings else 2)
-    return tables + norm + cfg.num_layers * layer
+    return tables + norm + layers
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +213,11 @@ def count_params(cfg: LMConfig) -> int:
 def _apply_mixer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
                  positions: Tensor, cache, lengths):
     """Returns (y, cache).  cache None: training (no cache)."""
+    if kind == "rglru":
+        return rglru_mod.apply_rglru_block(p, x, cache)
+    if kind == "rwkv":
+        return rwkv_mod.apply_rwkv_time(p, x, cfg.rwkv_head_dim, cache,
+                                        chunk=cfg.rwkv_chunk)
     window = cfg.window if kind == "local_attn" else None
     q, k, v = attn_mod.qkv_project(
         p, x, positions=positions, rope_theta=cfg.rope_theta,
@@ -225,16 +259,23 @@ def _cache_write(cache: KVCache, k: Tensor, v: Tensor, lengths: Tensor,
 
 def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
                  positions, cache, lengths):
-    """cache: {"mixer": KVCache, "ffn": None} or None."""
+    """cache: {"mixer": KVCache or state dict, "ffn": state dict or None}
+    or None."""
     h, new_mx = _apply_mixer(cfg, kind, p["mixer"],
                              apply_norm(p["norm1"], x, cfg.norm),
                              positions=positions,
                              cache=None if cache is None else cache["mixer"],
                              lengths=lengths)
     x = x + h
-    x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x, cfg.norm),
-                      cfg.act)
-    return x, None if cache is None else {"mixer": new_mx, "ffn": None}
+    new_ffn = None
+    hn = apply_norm(p["norm2"], x, cfg.norm)
+    if cfg.ffn_kind == "rwkv_channel":
+        h, new_ffn = rwkv_mod.apply_rwkv_channel(
+            p["ffn"], hn, None if cache is None else cache["ffn"])
+    else:
+        h = apply_mlp(p["ffn"], hn, cfg.act)
+    x = x + h
+    return x, None if cache is None else {"mixer": new_mx, "ffn": new_ffn}
 
 
 def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor) -> Tensor:
@@ -271,19 +312,36 @@ def logits_fn(cfg: LMConfig, params: dict, hidden: Tensor) -> Tensor:
     return unembed_logits(hidden, table)[..., : cfg.vocab_size]
 
 
+def _one_layer_cache(cfg: LMConfig, kind: str, batch: int, s_max: int,
+                     dev: torch.device) -> dict:
+    dt = cfg.compute_dtype
+    if kind == "rwkv":
+        st = rwkv_mod.rwkv_state_zeros(batch, cfg.d_model, cfg.rwkv_head_dim,
+                                       dt, dev)
+        return {"mixer": st["time"], "ffn": st["channel"]}
+    if kind == "rglru":
+        mx = rglru_mod.rglru_state_zeros(batch, cfg.lru_width,
+                                         cfg.conv_width, dt, dev)
+    else:
+        size = min(s_max, cfg.window) if kind == "local_attn" else s_max
+        mx = KVCache.zeros(batch, size, cfg.num_kv_heads, cfg.head_dim, dt,
+                           dev)
+    ffn = ({"shift": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                 device=dev)}
+           if cfg.ffn_kind == "rwkv_channel" else None)
+    return {"mixer": mx, "ffn": ffn}
+
+
 @torch.inference_mode()
 def init_cache(cfg: LMConfig, batch: int, s_max: int, device="cuda"):
-    """Per-layer KV caches in ``compute_dtype``: (batch, s_max) slots, or
-    min(s_max, window) for a local-attention layer (a ring buffer)."""
+    """Per-layer caches in ``compute_dtype``: KV caches of (batch, s_max)
+    slots, or min(s_max, window) for a local-attention layer (a ring
+    buffer); zero recurrent states (RG-LRU's ``h`` and RWKV's ``wkv`` in
+    fp32)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    caches = []
-    for kind in cfg.layer_kinds():
-        size = min(s_max, cfg.window) if kind == "local_attn" else s_max
-        caches.append({"mixer": KVCache.zeros(
-            batch, size, cfg.num_kv_heads, cfg.head_dim, cfg.compute_dtype,
-            dev), "ffn": None})
-    return caches
+    return [_one_layer_cache(cfg, kind, batch, s_max, dev)
+            for kind in cfg.layer_kinds()]
 
 
 @torch.inference_mode()

@@ -6,12 +6,23 @@ counter.  New requests prefill into free slots; every engine tick runs ONE
 decode step for all slots (continuous batching with a fixed batch shape).
 
 Padding policy: prompts are RIGHT-padded to ``prefill_len``.  Attention
-caches tolerate trailing garbage (decode masks ``ki < length``).
+caches tolerate trailing garbage (decode masks ``ki < length``); recurrent
+states (RG-LRU / RWKV) would integrate the padding, so recurrent archs
+require exact-length prompts (``submit`` raises otherwise).
 
-Slot isolation: the batched prefill writes every slot's cache region in
-place, so the engine copies the rows of the slots it does not admit before
-the prefill and writes them back after (the reference selects between the
-old and the new cache per slot): active sequences are never perturbed.
+Slot isolation: the batched prefill writes every slot's cache region, so
+the engine copies the rows of the slots it does not admit, every tensor of
+every layer's cache (KV caches and recurrent states, the FFN's token shift
+included), before the prefill and writes them back after (the reference
+selects between the old and the new cache per slot): active sequences are
+never perturbed.
+
+Documented difference from the reference: the engine zeroes the admitted
+slots' recurrent states before the prefill.  The reference passes a
+slot's old caches into the batched prefill, and its recurrent mixers take
+them as their initial state, so a request admitted into a reused slot
+starts from the previous request's final state (and decodes other
+tokens than on a fresh slot).  On fresh slots the two agree.
 
 Logits hooks: ``logits_hook(logits (A, V), hidden (A, D))`` is invoked
 once per sampling step with the rows of the slots being sampled — every
@@ -38,6 +49,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..models.attention import KVCache
+
 Tensor = torch.Tensor
 
 
@@ -60,6 +73,26 @@ class EngineConfig:
     temperature: float = 1.0
 
 
+def _is_recurrent(bundle) -> bool:
+    kinds = getattr(bundle.cfg, "layer_kinds", lambda: ("attn",))()
+    return any(k in ("rglru", "rwkv") for k in kinds)
+
+
+def _cache_leaves(caches, recurrent_only: bool = False) -> list:
+    """The tensors of every layer's cache, in a fixed order: a KV cache's
+    k and v (unless ``recurrent_only``), then each recurrent state dict's
+    tensors, the mixer's before the FFN's."""
+    out = []
+    for layer in caches:
+        for part in (layer["mixer"], layer["ffn"]):
+            if isinstance(part, KVCache):
+                if not recurrent_only:
+                    out.extend(part)
+            elif part is not None:
+                out.extend(part.values())
+    return out
+
+
 class Engine:
     """Host-side slot manager around the bundle's prefill and decode."""
 
@@ -76,10 +109,16 @@ class Engine:
         self.queue: list[Request] = []
         self.finished: list[Request] = []
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._recurrent = _is_recurrent(bundle)
         self.ticks = 0
 
     # -- request lifecycle ----------------------------------------------------
     def submit(self, req: Request):
+        if self._recurrent and len(req.prompt) != self.cfg.prefill_len:
+            raise ValueError(
+                "recurrent archs need exact-length prompts "
+                f"({len(req.prompt)} != prefill_len={self.cfg.prefill_len}); "
+                "see engine docstring")
         if len(req.prompt) > self.cfg.prefill_len:
             raise ValueError("prompt longer than prefill_len")
         self.queue.append(req)
@@ -88,13 +127,18 @@ class Engine:
         return torch.as_tensor(a, device=self.device)
 
     def _cache_rows(self, rows: Tensor) -> list:
-        return [(c["mixer"].k[rows].clone(), c["mixer"].v[rows].clone())
-                for c in self.caches]
+        return [t[rows].clone() for t in _cache_leaves(self.caches)]
 
     def _restore_rows(self, rows: Tensor, saved: list) -> None:
-        for c, (k, v) in zip(self.caches, saved, strict=True):
-            c["mixer"].k[rows] = k
-            c["mixer"].v[rows] = v
+        for t, rows_saved in zip(_cache_leaves(self.caches), saved,
+                                 strict=True):
+            t[rows] = rows_saved
+
+    def _zero_states(self, rows: Tensor) -> None:
+        """Zero the recurrent states of the slots in ``rows`` (the
+        documented difference from the reference, module docstring)."""
+        for t in _cache_leaves(self.caches, recurrent_only=True):
+            t[rows] = 0
 
     @torch.inference_mode()
     def _admit(self):
@@ -118,6 +162,8 @@ class Engine:
         # non-admitted slots keep their previous cache (slot isolation)
         keep = self._tensor(np.flatnonzero(~admitted))
         saved = self._cache_rows(keep) if keep.numel() else None
+        if self._recurrent:
+            self._zero_states(self._tensor(np.array(slots)))
         hidden, self.caches = self.bundle.prefill(
             self.params, batch, self.caches,
             self._tensor(np.zeros((b,), np.int32)))

@@ -53,7 +53,20 @@ def test_serve_launcher_on_the_cpu(capsys, extra):
     assert "kNN queries served: 12" in out
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-1.6b"])
+def test_serve_launcher_serves_the_recurrent_archs(capsys, arch):
+    """The recurrent families through the launcher: exact-length prompts
+    (the launcher's), the hook on every sampled token."""
+    rc = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--requests", "3", "--slots", "2", "--prompt-len", "8",
+                      "--new-tokens", "4", "--knnlm"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "3 requests, 12 tokens" in out
+    assert "kNN queries served: 12" in out
+
+
 def test_serve_launcher_refuses_an_arch_not_ported():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tserve.main(["--arch", "qwen2.5-32b", "--reduced", "--device",
                      "cpu"])

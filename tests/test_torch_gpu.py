@@ -901,7 +901,8 @@ def test_store_on_the_card_keeps_no_cold_field_outside_its_cache(cuda):
 
 # tests/test_kernels.py::test_flash_attention's seven cases, then the
 # model's shapes: starcoder2-3b's GQA 12:1 at head_dim 128, a ragged Sq,
-# and the reduced config's head_dim 16 with a window.
+# the reduced config's head_dim 16 with a window, and recurrentgemma-2b's
+# MQA at head_dim 256 (with a window, and non-causal with Sq < Skv).
 FLASH_CASES = [
     (2, 4, 4, 64, 64, 32, True, None),
     (1, 8, 2, 64, 64, 32, True, None),
@@ -914,6 +915,9 @@ FLASH_CASES = [
     (1, 24, 2, 77, 300, 128, True, 100),
     (3, 4, 2, 130, 130, 16, True, 5),
     (1, 8, 8, 70, 70, 64, False, 33),
+    (2, 10, 1, 200, 200, 256, True, None),
+    (1, 10, 1, 300, 300, 256, True, 100),
+    (1, 4, 1, 77, 130, 256, False, None),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -950,9 +954,10 @@ def test_flash_attention_matches_its_plain_version(cuda, b, h, kh, sq, skv,
 
 
 # bf16 at the tensor-core kernel's edges (csrc/flash_attention_wgmma.cu:
-# 128-row q blocks of two 64-row warpgroups, 64-key kv tiles): D 64 and
-# 128, Sq in {1, 77, 200} and Skv in {77, 200, 1000} (no multiple of a
-# tile), GQA 12:1, a window of 100, non-causal (Sq > Skv too).
+# 128-row q blocks of two 64-row warpgroups, 64 rows of one at D = 256,
+# 64-key kv tiles): D 64, 128 and 256, Sq in {1, 77, 200} and Skv in {77,
+# 200, 1000} (no multiple of a tile), GQA 12:1, MQA, a window of 100,
+# non-causal (Sq > Skv too).
 TC_CASES = [
     (1, 24, 2, 1, 77, 128, True, None),
     (2, 24, 2, 77, 77, 128, True, None),
@@ -965,6 +970,10 @@ TC_CASES = [
     (2, 8, 8, 77, 200, 64, True, 100),
     (1, 12, 1, 200, 1000, 64, False, 100),
     (1, 4, 2, 1, 200, 64, True, None),
+    (1, 10, 1, 1, 77, 256, True, None),
+    (2, 10, 1, 77, 77, 256, True, None),
+    (1, 10, 1, 200, 1000, 256, True, 100),
+    (1, 10, 1, 200, 77, 256, False, None),
 ]
 
 

@@ -211,6 +211,42 @@ def test_the_serving_slice_is_covered_and_defaults_to_the_card(no_card):
     assert svc.search_sync("t", queries, 3).quality == "exact"
 
 
+def test_the_recurrent_slice_is_covered_and_defaults_to_the_card(no_card):
+    """The recurrent mixers and their configs are in the import scan; the
+    state constructors, init_cache and build_model run on the card unless
+    the caller asks for the CPU."""
+    from repro_torch import configs
+    from repro_torch.models import rglru, rwkv
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.registry import build_model
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/rglru.py",
+            "src/repro_torch/models/rwkv.py",
+            "src/repro_torch/configs/recurrentgemma_2b.py",
+            "src/repro_torch/configs/rwkv6_1_6b.py"} <= names
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rglru.rglru_state_zeros(1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rwkv.rwkv_state_zeros(1, 8, 4)
+    assert rglru.rglru_state_zeros(1, 8, device="cpu")["h"].device.type \
+        == "cpu"
+    assert rwkv.rwkv_state_zeros(1, 8, 4, device="cpu")["time"]["wkv"] \
+        .device.type == "cpu"
+    for arch in ("recurrentgemma-2b", "rwkv6-1.6b"):
+        cfg = configs.get_reduced(arch)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttf.init_cache(cfg, 1, 8)
+        bundle = build_model(cfg, device="cpu")
+        leaves = [t for layer in bundle.init_cache(1, 8)
+                  for part in (layer["mixer"], layer["ffn"])
+                  if part is not None
+                  for t in (part if isinstance(part, tuple)
+                            else part.values())]
+        assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
 def test_the_distributed_slice_is_covered_and_defaults_to_the_card(no_card):
     """dist/ and launch/mesh.py are in the import scan; make_mesh, the
     host and production meshes, query_subview, shard_index and
@@ -336,7 +372,15 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "distributed mutable deep fp32",
                  "distributed service deep fp32: 48 requests",
                  "baselines audio",
-                 "phase 12:"):
+                 "phase 12:",
+                 "flash_attention D=256 rg_window_4096",
+                 "recurrentgemma-2b: the engine's",
+                 "recurrentgemma-2b: the hook's ids on the last tick match",
+                 "recurrentgemma-2b: 8 requests re-admitted into used slots",
+                 "recurrentgemma-2b: first-token logits through #10",
+                 "rwkv6-1.6b: the engine's",
+                 "rwkv6-1.6b: 8 requests re-admitted into used slots",
+                 "phase 13:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

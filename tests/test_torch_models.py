@@ -41,13 +41,15 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
+from repro_torch.models.registry import build_model
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 ATTN_TOL = {"fp32": 2e-5, "bf16": 2e-2}
 MODEL_TOL_FP32 = dict(rtol=1e-4, atol=1e-4)
 
-# test_kernels.py::test_flash_attention's seven cases.
+# test_kernels.py::test_flash_attention's seven cases, then
+# recurrentgemma-2b's MQA at head dim 256 with a window.
 FLASH_CASES = [
     (2, 4, 4, 64, 64, 32, True, None),      # MHA causal
     (1, 8, 2, 64, 64, 32, True, None),      # GQA 4:1
@@ -56,6 +58,7 @@ FLASH_CASES = [
     (1, 4, 2, 64, 64, 32, True, 16),        # sliding window
     (2, 4, 2, 1, 96, 32, True, None),       # decode: 1 new token vs cache
     (1, 2, 2, 48, 48, 32, True, None),      # non-pow2 seq (padding path)
+    (1, 2, 1, 40, 40, 256, True, 16),       # recurrentgemma: MQA, D 256
 ]
 
 
@@ -295,14 +298,24 @@ def test_full_config_and_unported_kinds():
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.compute_dtype == torch.bfloat16
     assert ttf.count_params(cfg) == jtf.count_params(jcfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tconfigs.get_config("qwen3-32b")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         ttf.init_params(dataclasses.replace(cfg, ffn_kind="moe"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttf.init_cache(dataclasses.replace(cfg, block_pattern=("rglru",)),
+    # RG-LRU and RWKV blocks are ported; MoE, learned positions and the
+    # encoder-decoder models still raise.
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ttf.init_cache(dataclasses.replace(cfg, ffn_kind="moe"),
                        1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ttf.init_cache(dataclasses.replace(cfg, pos_embedding="learned"),
+                       1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        build_model(type("EncDecConfig", (), {})(), device="cpu")
+    assert len(ttf.init_cache(dataclasses.replace(
+        cfg, block_pattern=("rglru",), lru_width=8, num_layers=2), 1, 8,
+        device="cpu")) == 2
 
 
 def test_port_init_follows_the_spec_rule():
