@@ -70,7 +70,9 @@ Phases:
    batch (8 x 1024), its serving prefill (8 x 512) and 4096 keys at its
    window of 2048, each in fp32 and bf16 against the plain version and
    on fp32 upcasts, with the planted fault, both dtypes timed beside SDPA
-   (none at the window) and the bound.
+   (none at the window) and the bound.  Then at qwen3-moe-30b-a3b's
+   corpus batch (8 x 1024, 32 q heads over 4 kv heads, D = 128), the same
+   way, timed beside SDPA and the bound.
 7. kNN-LM on starcoder2-3b at full width (30 layers, random weights from a
    seeded generator on the card): ``build_datastore`` over a seeded
    64 x 1024-token corpus (65,472 keys of 3072 fp32, squared Euclidean,
@@ -171,6 +173,32 @@ Phases:
    attention) the same way over 16 x 1024 corpus tokens, with #10 at 0.
    Build s and peak bytes, ms a forward batch, prefill ms, decode and
    hook ms a tick and tokens/s are recorded.
+14. The MoE FFN (``models/moe.py``) and the dense configs at full width,
+   seeded weights: qwen3-moe-30b-a3b (d_model 2048, 32/4 heads of 128,
+   128 experts top-8 of moe_d_ff 768, vocab 151936) with its depth cut
+   to 16 of 48 layers (fp32 weights: 42.4 GB) builds a datastore over
+   phase 7's 64 x 1024 corpus (65,472 keys of 2048 fp32) and serves
+   phase 7's 16 prompts of 512 tokens in 8 slots, 32 greedy tokens each,
+   with the hook; #10 must launch once an attention layer for every
+   forward batch and prefill, each its bf16 kernel, and the hook's
+   search #1, #3 and #7; phase 7's checks (tokens against an offline
+   greedy loop of the engine's batches, so every dispatch group holds
+   the same tokens; the hook's last tick against brute force; the fp32
+   first-token logits through #10 against the plain attention beside a
+   dropped kv tile, the experts chosen in both runs compared first); one
+   MoE layer in fp32 on the card against the same layer on the CPU over
+   a prefill's hidden states (the same experts, the same tokens dropped,
+   outputs within 1e-5 of the largest); phase 8's checks of #9 on its
+   keys.  A route that differs between two runs is excused only at a
+   near tie (the token's K-th and (K+1)-th router probabilities within
+   ``ROUTE_NEAR_TIE``); the logits are then held against the plain
+   attention run with the kernel run's experts.  Then
+   llama4-scout-17b-a16e, qwen2.5-32b, qwen3-32b and phi3-medium-14b at
+   full width and depth 2: the parameter count, one fp32 prefill through
+   #10 against the plain attention under the same 1e-5 rule (#10 at GQA
+   ratios 5, 5, 8 and 4), and the card's memory back where it was before
+   the next config.  Build s and peak bytes, ms a forward batch, prefill
+   ms, decode and hook ms a tick and tokens/s are recorded.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -226,6 +254,17 @@ PROFILE_TOKENS = 8
 # Phase 13's reused-slot check: prompts short enough that a recurrent state
 # left by the slot's last request would still show after the prefill.
 REUSE_PROMPT_LEN, REUSE_NEW_TOKENS = 8, 4
+# Phase 14: qwen3-moe-30b-a3b's depth, cut so its fp32 weights (10.6e9
+# parameters, 42.4 GB) fit the card with the datastore beside them; the
+# configs checked at full width and depth 2.
+MOE_LAYERS = 16
+DEPTH2_ARCHS = ("llama4-scout-17b-a16e", "qwen2.5-32b", "qwen3-32b",
+                "phi3-medium-14b")
+# A token whose experts differ between two runs of the same layer is
+# excused only where its K-th and (K+1)-th router probabilities lie within
+# this of each other: the two runs' fp32 sums in another order move a
+# probability by about 1e-7 (PERF.md §2).
+ROUTE_NEAR_TIE = 1e-5
 # A subspace count at which pccp_order reads the correlations (phase 8).
 PCCP_PROBE_M = 32
 # Phase 9: the queries of a single-query check, the guarantee of its
@@ -1441,7 +1480,7 @@ class Smoke:
         cap = tsearch.GROUP_OUTPUT_BYTES
 
         def run(c: int, check: bool):
-            with capped(tsearch, "GROUP_OUTPUT_BYTES", c):
+            with swapped(tsearch, "GROUP_OUTPUT_BYTES", c):
                 out = {}
                 if check:
                     self.reset_launches()
@@ -1568,7 +1607,7 @@ class Smoke:
         cap = tsearch.GROUP_OUTPUT_BYTES
 
         def run(c: int):
-            with capped(tsearch, "GROUP_OUTPUT_BYTES", c):
+            with swapped(tsearch, "GROUP_OUTPUT_BYTES", c):
                 self.reset_launches()
                 self.sync()
                 t0 = time.perf_counter()
@@ -1729,7 +1768,7 @@ class Smoke:
                         * getattr(forest, f).element_size() for f in fields)
 
         def run(c: int, keep: bool = False) -> dict:
-            with capped(tiered, "WINDOW_BYTES", c):
+            with swapped(tiered, "WINDOW_BYTES", c):
                 store = TieredPointStore.from_index(
                     forest, resident_bytes=int(0.4 * cold_bytes(forest)),
                     block_rows=BLOCK_ROWS)
@@ -2180,8 +2219,9 @@ class Smoke:
         """#10 on the seven cases of tests/test_kernels.py::
         test_flash_attention in fp32 and bf16, then at the model's shapes in
         bf16: prefill at S = 2048 (B = 2), the corpus forward batch of
-        the kNN-LM phase (B = 8, S = 1024) and its serving prefill (SLOTS
-        prompts of PROMPT_LEN), timed; then at recurrentgemma-2b's heads
+        the kNN-LM phase (B = 8, S = 1024), its serving prefill (SLOTS
+        prompts of PROMPT_LEN) and qwen3-moe-30b-a3b's corpus batch (32
+        q heads over 4 kv heads), timed; then at recurrentgemma-2b's heads
         (10 q heads, 1 kv head, D = 256) in fp32 and bf16, both timed: its
         corpus batch, its serving prefill and a 4096-key sequence at its
         window of 2048 (phase 13's shapes never reach the window)."""
@@ -2200,13 +2240,16 @@ class Smoke:
         if self.rehearsal:
             shapes = {"prefill_2048": (1, 4, 2, 64, 64, 16),
                       "corpus_batch": (2, 4, 2, 32, 32, 16),
-                      "prefill_512": (2, 4, 2, 16, 16, 16)}
+                      "prefill_512": (2, 4, 2, 16, 16, 16),
+                      "moe_corpus_batch": (2, 8, 1, 32, 32, 16)}
         else:
             shapes = {"prefill_2048": (2, 24, 2, 2048, 2048, 128),
                       "corpus_batch": (FORWARD_BATCH, 24, 2, CORPUS_LEN,
                                        CORPUS_LEN, 128),
                       "prefill_512": (SLOTS, 24, 2, PROMPT_LEN, PROMPT_LEN,
-                                      128)}
+                                      128),
+                      "moe_corpus_batch": (FORWARD_BATCH, 32, 4, CORPUS_LEN,
+                                           CORPUS_LEN, 128)}
         for name, (b, h, kh, sq, skv, d) in shapes.items():
             r32 = self.compare_flash(b, h, kh, sq, skv, d, True, None,
                                      torch.float32, seed=len(name),
@@ -2559,17 +2602,25 @@ class Smoke:
         30 layers; and a planted fault read against that limit: the plain
         attention with one 32-key kv tile of the fp32 kernel in the middle
         dropped in every layer) and in bf16 (reported: the plain version
-        rounds bf16 logits and probabilities, the kernel does not)."""
+        rounds bf16 logits and probabilities, the kernel does not).
+
+        An MoE model's experts are compared first (``compare_routes``):
+        the first layer whose experts differ may differ only at near ties
+        (``ROUTE_NEAR_TIE``), and the 1e-5 rule then holds against the
+        plain attention run with the kernel run's experts in every layer
+        (run, and held, whether or not a route differed)."""
         torch, ref = self.torch, self.ref
         import dataclasses
 
         import numpy as np
         from repro_torch.kernels import ops
+        from repro_torch.models import moe
         from repro_torch.models.registry import build_model
         out = {}
         toks = torch.as_tensor(np.stack(prompts), device=self.dev)
         b, s = toks.shape
         pos = torch.arange(s, device=self.dev)[None].expand(b, s)
+        is_moe = cfg.ffn_kind == "moe"
 
         # A window narrower than the tile (the reduced configs') keeps half
         # its keys, so no row loses them all.
@@ -2581,41 +2632,58 @@ class Smoke:
             return attention_dropping(torch, q, k, v, causal, drop,
                                       window).to(q.dtype)
 
+        def first_logits(bundle, attention, forced=None):
+            with swapped(ops, "flash_attention", attention), \
+                    routes_logged(torch, moe, forced) as log:
+                hidden, _ = bundle.prefill(
+                    params, {"tokens": toks, "positions": pos},
+                    bundle.init_cache(b, s),
+                    torch.zeros((b,), dtype=torch.int32, device=self.dev))
+            return bundle.logits(params, hidden[:, -1]), log
+
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             bundle = build_model(dataclasses.replace(cfg, compute_dtype=dt),
                                  device=self.dev)
-            logits = []
-            swaps = ((None, ref.flash_attention, dropping) if name == "fp32"
-                     else (None, ref.flash_attention))
-            for swap in swaps:
-                kernel = ops.flash_attention
-                if swap is not None:
-                    ops.flash_attention = swap
-                try:
-                    hidden, _ = bundle.prefill(
-                        params, {"tokens": toks, "positions": pos},
-                        bundle.init_cache(b, s),
-                        torch.zeros((b,), dtype=torch.int32,
-                                    device=self.dev))
-                finally:
-                    ops.flash_attention = kernel
-                logits.append(bundle.logits(params, hidden[:, -1]))
-            diff = float((logits[0] - logits[1]).abs().max())
-            scale = float(logits[1].abs().max())
+            (got, got_routes), (want, want_routes) = (
+                first_logits(bundle, attention)
+                for attention in (ops.flash_attention, ref.flash_attention))
+            diff = float((got - want).abs().max())
+            scale = float(want.abs().max())
             out[name] = {"max_abs_diff": diff, "max_abs_logit": scale,
                          "argmax_equal": bool(torch.equal(
-                             logits[0].argmax(-1), logits[1].argmax(-1)))}
-            if name == "fp32":
+                             got.argmax(-1), want.argmax(-1)))}
+            if is_moe:
+                out[name]["routes"] = compare_routes(torch, got_routes,
+                                                     want_routes)
+            if name != "fp32":
+                continue
+            limit = 1e-5 * scale
+            fault = float((first_logits(bundle, dropping)[0]
+                           - want).abs().max())
+            out[name].update(diff_over_tol=diff / limit,
+                             planted_fault_over_tol=fault / limit)
+            expect(fault > limit,
+                   f"a dropped kv tile in every layer moves the fp32 "
+                   f"logits by only {fault} (max |logit| {scale})")
+            if is_moe:
+                routes = out[name]["routes"]
+                expect(routes["first_flip_near_ties"],
+                       f"{cfg.name}: #10 and the plain attention choose other "
+                       f"experts away from a near tie: {routes}")
+                forced, _ = first_logits(bundle, ref.flash_attention,
+                                         [r["ids"] for r in got_routes])
+                diff = float((got - forced).abs().max())
+                scale = float(forced.abs().max())
                 limit = 1e-5 * scale
-                fault = float((logits[2] - logits[1]).abs().max())
-                out[name].update(diff_over_tol=diff / limit,
-                                 planted_fault_over_tol=fault / limit)
-                expect(diff <= limit,
-                       f"fp32 first-token logits through #10 differ from the "
-                       f"plain attention's by {diff} (max |logit| {scale})")
-                expect(fault > limit,
-                       f"a dropped kv tile in every layer moves the fp32 "
-                       f"logits by only {fault} (max |logit| {scale})")
+                out[name].update(forced_max_abs_diff=diff,
+                                 forced_diff_over_tol=diff / limit)
+                expect(routes["flipped_tokens"] > 0
+                       or torch.equal(forced, want),
+                       f"{cfg.name}: the plain attention with its own experts "
+                       "forced gives other logits than without")
+            expect(diff <= limit,
+                   f"fp32 first-token logits through #10 differ from the "
+                   f"plain attention's by {diff} (max |logit| {scale})")
         return out
 
     def host_ms(self, fn, reps: int) -> float:
@@ -2639,43 +2707,46 @@ class Smoke:
         8's checks)."""
         rec = {"seconds": 0.0}
         t0 = time.perf_counter()
-        rec["recurrentgemma"] = self.recurrent_drive("recurrentgemma-2b",
-                                                     CORPUS_SEQS)
+        rec["recurrentgemma"] = self.model_drive("recurrentgemma-2b",
+                                                 CORPUS_SEQS)
         rec["pccp"] = self.phase_pccp(rec["recurrentgemma"].pop("store"))
-        rec["rwkv6"] = self.recurrent_drive("rwkv6-1.6b", RWKV_CORPUS_SEQS)
+        rec["rwkv6"] = self.model_drive("rwkv6-1.6b", RWKV_CORPUS_SEQS)
         rec["rwkv6"].pop("store")
         rec["seconds"] = time.perf_counter() - t0
         say(f"phase 13: {rec['seconds']:.1f} s")
         return rec
 
-    def recurrent_drive(self, arch: str, num_seqs: int) -> dict:
-        """One recurrent model at full width (the reduced config and a small
-        corpus in a CPU rehearsal) with seeded random weights: the datastore
-        build, then NUM_REQUESTS exact-length prompts through SLOTS slots
-        with the hook (phase 7's checks: the engine's tokens against an
-        offline greedy loop with the hook, the hook's last tick against
-        brute force, the fp32 first-token logits through #10 against the
-        plain attention where the model has attention), and requests
-        admitted into used slots against a fresh engine
-        (``check_reused_slots``).  Keeps the store in the record for phase
-        8's checks."""
+    def model_drive(self, arch: str, num_seqs: int, **overrides) -> dict:
+        """One model at full width (its config with ``overrides``; the
+        reduced config and a small corpus in a CPU rehearsal) with seeded
+        random weights: the datastore build, then NUM_REQUESTS prompts of
+        PROMPT_LEN through SLOTS slots with the hook (phase 7's checks: the
+        engine's tokens against an offline greedy loop with the hook, the
+        hook's last tick against brute force, the fp32 first-token logits
+        through #10 against the plain attention where the model has
+        attention); a recurrent model's requests admitted into used slots
+        against a fresh engine (``check_reused_slots``); an MoE model's
+        layer on the card against the CPU (``check_moe_layer``).  Keeps
+        the store in the record for phase 8's checks."""
         torch = self.torch
         import numpy as np
         from repro_torch import configs
         from repro_torch.models.registry import build_model
-        from repro_torch.serve.engine import EngineConfig, Request
+        from repro_torch.serve.engine import Engine, EngineConfig, Request
         from repro_torch.serve.knnlm import (FORWARD_BATCH, KNNLMHook,
                                              build_datastore)
         if self.rehearsal:
             cfg = configs.get_reduced(arch)
             num_seqs, seq_len, prompt_len, max_seq, new = 8, 32, 16, 40, 4
         else:
-            cfg = configs.get_config(arch)
+            cfg = configs.get_config(arch, **overrides)
             seq_len, prompt_len, max_seq, new = (CORPUS_LEN, PROMPT_LEN,
                                                  MAX_SEQ, NEW_TOKENS)
         kinds = cfg.layer_kinds()
         attn_layers = sum(k in ("attn", "local_attn") for k in kinds)
+        recurrent = any(k in ("rglru", "rwkv") for k in kinds)
         rec = {"arch": arch, "layers": cfg.num_layers,
+               "published_layers": configs.get_config(arch).num_layers,
                "d_model": cfg.d_model, "kinds": {k: kinds.count(k)
                                                  for k in set(kinds)},
                "head_dim": cfg.head_dim if attn_layers else None,
@@ -2691,10 +2762,12 @@ class Smoke:
         self.sync()
         rec["init_s"] = time.perf_counter() - t0
         rec["params"] = bundle.count_params
+        rec["weight_bytes"] = 4 * bundle.count_params
         label = cfg.name
-        say(f"{label}: {cfg.num_layers} layers {rec['kinds']}, d_model "
-            f"{cfg.d_model}, {bundle.count_params} parameters (fp32, cast "
-            f"to {str(cfg.compute_dtype)[6:]} at each use) in "
+        say(f"{label}: {cfg.num_layers} of {rec['published_layers']} layers "
+            f"{rec['kinds']}, d_model {cfg.d_model}, ffn {cfg.ffn_kind}, "
+            f"{bundle.count_params} parameters (fp32, cast to "
+            f"{str(cfg.compute_dtype)[6:]} at each use) in "
             f"{rec['init_s']:.2f} s")
 
         corpus = rng.integers(1, cfg.vocab_size, (num_seqs, seq_len))
@@ -2797,14 +2870,35 @@ class Smoke:
             "the offline greedy prefill + decode loop (the second wave in "
             "slots the first used)")
 
-        rec["reused_slots"] = self.check_reused_slots(
-            bundle, params, check_hook, prompts, label)
+        if recurrent:
+            rec["reused_slots"] = self.check_reused_slots(
+                bundle, params, check_hook, prompts, label)
+        if cfg.ffn_kind == "moe":
+            rec["moe_layer"] = self.check_moe_layer(bundle, params, prompts,
+                                                    label)
 
         if attn_layers:
             rec["logits_check"] = self.logits_through_plain(
                 cfg, params, prompts[:LOGITS_BATCH])
             say(f"{label}: first-token logits through #10 against the "
                 "plain attention " + json.dumps(rec["logits_check"]))
+
+        # Device time by kernel over a shorter serving run (phase 7's).
+        def short_run():
+            e = Engine(bundle, params, ecfg, logits_hook=hook)
+            for uid in range(SLOTS):
+                e.submit(Request(uid=uid, prompt=prompts[uid],
+                                 max_new_tokens=PROFILE_TOKENS))
+            e.run()
+            self.sync()
+
+        rec["profile"] = self.profile(short_run,
+                                      self.host_ms(short_run, reps=1))
+        rec["profile"]["what"] = (f"{SLOTS} requests x {PROFILE_TOKENS} "
+                                  "tokens, one admission")
+        say(f"{label}: device busy {rec['profile']['busy_share']} of a "
+            f"{SLOTS}-request, {PROFILE_TOKENS}-token serving run; top "
+            "kernels " + json.dumps(rec["profile"].get("top", [])[:5]))
         rec["seconds"] = time.perf_counter() - t_drive
         rec["store"] = store
         del eng, bundle, params, hook, check_hook
@@ -2869,6 +2963,175 @@ class Smoke:
             f"keeping the old states moves them by up to {leak:.3g}{moved})")
         del used, leaky, fresh
         return out
+
+    def check_moe_layer(self, bundle, params, prompts, label: str) -> dict:
+        """Layer 0's MoE FFN at full width in fp32 on the card against the
+        same layer on the CPU, on its own input in a prefill of SLOTS
+        prompts (the engine's admission batch: groups of one prompt each),
+        cast to fp32.  Held: the same experts for every token, a flip
+        excused only at a near tie (ROUTE_NEAR_TIE; its group then left out
+        of what follows); the same assignments dropped; the outputs within
+        1e-5 of the largest |output| (sums in another order on the two
+        devices)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.models import moe
+        cfg = bundle.cfg
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(np.stack(prompts[:SLOTS]), device=self.dev)
+        b, s = toks.shape
+        pos = torch.arange(s, device=self.dev)[None].expand(b, s)
+        inputs, apply_moe = [], moe.apply_moe
+
+        def first_input(p, x, *args, **kwargs):
+            if not inputs:
+                inputs.append(x.float())
+            return apply_moe(p, x, *args, **kwargs)
+
+        with swapped(moe, "apply_moe", first_input):
+            bundle.prefill(
+                params, {"tokens": toks, "positions": pos},
+                bundle.init_cache(b, s),
+                torch.zeros((b,), dtype=torch.int32, device=self.dev))
+        x = inputs.pop()
+        ffn = params["layers"][0]["ffn"]
+        runs = {}
+        for where, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+            p = {k: v.to(dev) for k, v in ffn.items() if k != "shared"}
+            shared = ({k: v.to(dev) for k, v in ffn["shared"].items()}
+                      if "shared" in ffn else None)
+            with routes_logged(torch, moe) as log:
+                y, aux = moe.apply_moe(p, x.to(dev), cfg.moe, act=cfg.act,
+                                       shared_mlp=shared)
+            self.sync()
+            runs[where] = {"y": y.cpu(), "aux": float(aux),
+                           **{k: v.cpu() for k, v in log[0].items()}}
+            del p, shared, y
+        card, cpu = runs["card"], runs["cpu"]
+        routes = compare_routes(torch, [card], [cpu])
+        expect(routes["first_flip_near_ties"],
+               f"{label}: the card's MoE layer chooses other experts than "
+               f"the CPU's away from a near tie: {routes}")
+        ids_c, order_c = torch.sort(card["ids"], -1)
+        ids_h, order_h = torch.sort(cpu["ids"], -1)
+        flipped = (ids_c != ids_h).any(-1)                  # (G, S)
+        same = ~flipped.any(-1)                             # groups
+        keep_c = card["keep"].gather(-1, order_c)[same]
+        keep_h = cpu["keep"].gather(-1, order_h)[same]
+        expect(torch.equal(keep_c, keep_h),
+               f"{label}: the card's MoE layer drops other assignments than "
+               "the CPU's")
+        g = same.shape[0]
+        y_c = card["y"].reshape(g, -1, x.shape[-1])[same]
+        y_h = cpu["y"].reshape(g, -1, x.shape[-1])[same]
+        diff = float((y_c - y_h).abs().max())
+        scale = float(y_h.abs().max())
+        out = {"tokens": b * s, "groups": g,
+               "capacity": moe._capacity(cfg.moe, cfg.moe.group_tokens),
+               "groups_compared": int(same.sum()),
+               "assignments_dropped": int((~cpu["keep"]).sum()),
+               "zero_weight": int((cpu["w"] == 0).sum()),
+               "assignments": cpu["keep"].numel(), "routes": routes,
+               "max_abs_diff": diff, "max_abs_out": scale,
+               "diff_over_tol": diff / (1e-5 * scale),
+               "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+               "seconds": time.perf_counter() - t0}
+        expect(diff <= 1e-5 * scale,
+               f"{label}: the card's MoE layer differs from the CPU's by "
+               f"{diff} (max |out| {scale})")
+        say(f"{label}: MoE layer 0 in fp32 on the card equals the CPU's over "
+            f"{b * s} tokens in {g} groups (capacity {out['capacity']}): the "
+            f"same experts ({routes['flipped_tokens']} tokens flipped at near "
+            f"ties, smallest top-{cfg.moe.top_k} gap {routes['min_gap']:.3g})"
+            f", the same {out['assignments_dropped']} of "
+            f"{out['assignments']} assignments dropped ({out['zero_weight']} "
+            "of them at weight 0), max |diff| "
+            f"{diff:.3g} ({out['diff_over_tol']:.3g} of 1e-5 x max |out|)")
+        return out
+
+    # -- phase 14: the MoE FFN and the dense configs ----------------------
+    def phase_moe(self) -> dict:
+        """qwen3-moe-30b-a3b at full width, MOE_LAYERS of its 48 layers,
+        over phase 7's corpus and traffic (``model_drive``), #9 on its keys
+        (phase 8's checks), then each of DEPTH2_ARCHS at full width and
+        depth 2 (``depth2_check``)."""
+        rec = {"seconds": 0.0}
+        t0 = time.perf_counter()
+        rec["qwen3_moe"] = self.model_drive("qwen3-moe-30b-a3b", CORPUS_SEQS,
+                                            num_layers=MOE_LAYERS)
+        rec["pccp"] = self.phase_pccp(rec["qwen3_moe"].pop("store"))
+        rec["depth2"] = {arch: self.depth2_check(arch)
+                         for arch in DEPTH2_ARCHS}
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 14: {rec['seconds']:.1f} s")
+        return rec
+
+    def depth2_check(self, arch: str) -> dict:
+        """One config at full width, its depth cut to 2 layers (the reduced
+        config in a CPU rehearsal), seeded weights on the card: the tree's
+        size against ``count_params``, #10 on both kernels at the config's
+        heads (one fp32 and one bf16 prefill of LOGITS_BATCH prompts, one
+        launch a layer each) under ``logits_through_plain``'s 1e-5 rule,
+        and the card's memory back to where it was once the model is
+        freed."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch import configs
+        from repro_torch.models.registry import build_model
+        cfg = (configs.get_reduced(arch) if self.rehearsal
+               else configs.get_config(arch, num_layers=2))
+        prompt_len = 16 if self.rehearsal else PROMPT_LEN
+        t0 = time.perf_counter()
+        before = self.left_on_card()
+        bundle = build_model(cfg, device=self.dev)
+        params = bundle.init(SEED)
+
+        def size(tree):
+            if isinstance(tree, dict):
+                return sum(size(v) for v in tree.values())
+            if isinstance(tree, list):
+                return sum(size(v) for v in tree)
+            return tree.numel()
+
+        rec = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+               "heads": [cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+               "ffn": cfg.ffn_kind, "params": bundle.count_params,
+               "tree_params": size(params)}
+        expect(rec["tree_params"] == rec["params"],
+               f"{arch}: {rec['tree_params']} parameters drawn, count_params "
+               f"says {rec['params']}")
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(1, cfg.vocab_size, prompt_len)
+                   for _ in range(LOGITS_BATCH)]
+        self.reset_launches()
+        self.reset_peak()
+        rec["logits_check"] = self.logits_through_plain(cfg, params, prompts)
+        rec["flash_kernels"] = self.flash_launches()
+        rec["peak_bytes"] = self.peak()
+        if not self.rehearsal:
+            expect(rec["flash_kernels"] == {"fp32_simt": cfg.num_layers,
+                                            "bf16_wgmma": cfg.num_layers},
+                   f"{arch}: #10 ran {rec['flash_kernels']}, not once a layer "
+                   "on each kernel")
+        del bundle, params
+        gc.collect()
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        rec["left_on_card_bytes"] = [before, self.left_on_card()]
+        expect(rec["left_on_card_bytes"][1] == before,
+               f"{arch}: {rec['left_on_card_bytes']} B on the card before and "
+               "after the check")
+        rec["seconds"] = time.perf_counter() - t0
+        fp = rec["logits_check"]["fp32"]
+        say(f"{arch}: {cfg.num_layers} layers at full width (d_model "
+            f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, ffn "
+            f"{cfg.ffn_kind}), {rec['params']} parameters; first-token "
+            "logits through #10 against the plain attention "
+            + json.dumps(rec["logits_check"]) + f"; #10 launches "
+            f"{rec['flash_kernels']}; peak {rec['peak_bytes']} B; memory "
+            f"freed ({rec['left_on_card_bytes']}); {rec['seconds']:.1f} s "
+            f"(fp32 {fp['diff_over_tol']:.3g} of the limit)")
+        return rec
 
     # -- phase 8: kernel #9 --------------------------------------------
     def phase_pccp(self, store=None) -> dict:
@@ -4748,6 +5011,7 @@ class Smoke:
         self.record["phase11_seconds"] = self.phase11_s
         say(f"phase 11: {self.phase11_s:.1f} s")
         self.record["recurrent"] = self.phase_recurrent()
+        self.record["moe"] = self.phase_moe()
         self.record["phase12"] = self.phase12
         say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
             f"world-size-1 {self.phase12.get('backend')} group started in "
@@ -4872,19 +5136,21 @@ class Smoke:
     def lm_kernel_table(self) -> list:
         """The kernel JSON rows of #10 (its bf16 tensor-core kernel at the
         kNN-LM corpus batch's shape and at recurrentgemma-2b's D = 256, its
-        launches those of the builds and the serving runs of phases 7 and
-        13, also by path and by kernel, with the HGMMA count of the built
-        library) and #9 (on the datastore's keys, and on recurrentgemma's,
-        its launches the PCCP partitions')."""
+        launches those of the builds and the serving runs of phases 7, 13
+        and 14, also by path and by kernel, with the HGMMA count of the
+        built library; beside it, at qwen3-moe-30b-a3b's corpus batch) and
+        #9 (on the datastore's keys, and on recurrentgemma's and
+        qwen3-moe-30b-a3b's, its launches the PCCP partitions')."""
         src = "src/repro_torch/kernels/csrc/"
         fl, kn, pc = (self.record["flash"]["corpus_batch"],
                       self.record["knnlm"], self.record["pccp"])
-        rc = self.record["recurrent"]
+        rc, mo = self.record["recurrent"], self.record["moe"]
         # Each path's launches, its counts set to 0 just before it: phase
         # 7's build and serving (D = 128), phase 13's (D = 256 on
-        # recurrentgemma-2b; rwkv6-1.6b has no attention layer).
+        # recurrentgemma-2b; rwkv6-1.6b has no attention layer), phase
+        # 14's (D = 128, 32 q heads over 4 kv heads).
         paths = {"knnlm": kn, "recurrentgemma": rc["recurrentgemma"],
-                 "rwkv6": rc["rwkv6"]}
+                 "rwkv6": rc["rwkv6"], "qwen3_moe": mo["qwen3_moe"]}
         by_path = {name: r["build_launches"]["flash_attention"]
                    + r["serve_launches"]["flash_attention"]
                    for name, r in paths.items()}
@@ -4904,7 +5170,16 @@ class Smoke:
                          f"{tag}_library_ms": r["library_ms"],
                          f"{tag}_max_abs_err": r["max_abs_err"],
                          f"{tag}_max_err_over_tol": r["max_err_over_tol"]})
-        rp = rc["pccp"]
+        # #10 at qwen3-moe-30b-a3b's corpus batch (phase 6), GQA ratio 8.
+        r = self.record["flash"]["moe_corpus_batch"]
+        d256.update(gqa8_shape=r["shape"], gqa8_ms=r["ms"],
+                    gqa8_plain_ms=r["plain_ms"], gqa8_bound_ms=r["bound"][0],
+                    gqa8_bound_by=r["bound"][1],
+                    gqa8_library_ms=r["library_ms"],
+                    gqa8_max_abs_err=r["max_abs_err"],
+                    gqa8_max_err_over_tol=r["max_err_over_tol"],
+                    launches_gqa8=by_path["qwen3_moe"])
+        rp, mp = rc["pccp"], mo["pccp"]
         sass = self.record.get("sass")
         hgmma = None if sass is None else sass["hgmma"]
         return [
@@ -4938,20 +5213,95 @@ class Smoke:
              "d2560_plain_ms": rp["plain_ms"],
              "d2560_bound_ms": rp["bound"][0],
              "d2560_library_ms": rp["library_ms"],
-             "d2560_max_err_over_tol": rp["max_err_over_tol"]},
+             "d2560_max_err_over_tol": rp["max_err_over_tol"],
+             # On qwen3-moe-30b-a3b's keys (phase 14).
+             "launches_moe": mp["launches"]["pccp_correlation"],
+             "d2048_shape": [mp["n"], mp["d"]], "d2048_ms": mp["ms"],
+             "d2048_plain_ms": mp["plain_ms"],
+             "d2048_bound_ms": mp["bound"][0],
+             "d2048_library_ms": mp["library_ms"],
+             "d2048_max_err_over_tol": mp["max_err_over_tol"]},
         ]
 
 
 @contextlib.contextmanager
-def capped(module, name: str, value: int):
-    """The module constant ``name`` (a byte cap) set to ``value`` within
-    the block, restored after it."""
+def swapped(module, name: str, value):
+    """The module attribute ``name`` (a byte cap, a function) set to
+    ``value`` within the block, restored after it."""
     saved = getattr(module, name)
     setattr(module, name, value)
     try:
         yield
     finally:
         setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def routes_logged(torch, moe, forced=None):
+    """Every ``moe.route`` call within the block, logged in order: the
+    experts chosen (G, S, K) and their weights, each token's gap between
+    its K-th and (K+1)-th router probability, and ``moe.assign_slots``'
+    kept mask.  With
+    ``forced`` (one id tensor a call, in order) each call takes those
+    experts in place of its own top-k, weighted by its own probabilities
+    (renormalized as ``route`` does) and ordered by them as ``route``
+    orders its own: a replay of another run's routes, bit-equal to the
+    call's own where the sets agree.
+    The block yields the log; a model without MoE leaves it empty."""
+    log, calls = [], None if forced is None else iter(forced)
+    route, assign = moe.route, moe.assign_slots
+
+    def logged_route(logits, cfg):
+        w, ids, aux = route(logits, cfg)
+        probs = torch.softmax(logits.float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        k = cfg.top_k
+        gap = (top[..., k - 1] - top[..., k] if top.shape[-1] > k
+               else top[..., k - 1])
+        if calls is not None:
+            ids = torch.sort(next(calls).to(logits.device), -1).values
+            w, order = torch.sort(probs.gather(-1, ids), dim=-1,
+                                  descending=True, stable=True)
+            ids = ids.gather(-1, order)
+            if cfg.router_softmax_order == "topk_then_softmax":
+                w = w / torch.sum(w, dim=-1, keepdim=True)
+        log.append({"ids": ids, "w": w, "gap": gap})
+        return w, ids, aux
+
+    def logged_assign(top_w, top_i, cfg):
+        slot, keep = assign(top_w, top_i, cfg)
+        log[-1]["keep"] = keep
+        return slot, keep
+
+    moe.route, moe.assign_slots = logged_route, logged_assign
+    try:
+        yield log
+    finally:
+        moe.route, moe.assign_slots = route, assign
+
+
+def compare_routes(torch, got: list, want: list) -> dict:
+    """Two runs' route logs, call by call (a layer a call): the tokens whose
+    expert sets differ, the first call with such a token, and whether every
+    such token of that call sits at a near tie in ``want`` (its K-th and
+    (K+1)-th probabilities within ROUTE_NEAR_TIE).  Later calls' flips
+    follow from the first's (the flipped token's output, its group's
+    drops), so only the first call's gaps decide."""
+    flipped, first, gaps, near = 0, None, [], True
+    for call, (g, w) in enumerate(zip(got, want, strict=True)):
+        differs = (torch.sort(g["ids"], -1).values
+                   != torch.sort(w["ids"], -1).values).any(-1)
+        count = int(differs.sum())
+        flipped += count
+        if count and first is None:
+            first = call
+            gaps = w["gap"][differs].tolist()
+            near = max(gaps) <= ROUTE_NEAR_TIE
+    return {"calls": len(got), "flipped_tokens": flipped,
+            "first_flip_call": first, "first_flip_gaps": gaps[:16],
+            "first_flip_near_ties": near,
+            "min_gap": min((float(w["gap"].min()) for w in want),
+                           default=None)}
 
 
 def middle_tile(skv: int, tile: int) -> range:

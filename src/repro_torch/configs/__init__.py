@@ -2,19 +2,23 @@
 
 ``get_config(arch_id)`` -> the model config with its published numbers;
 ``get_reduced(arch_id)`` -> a CPU-test-sized config of the same family.
-starcoder2-3b, recurrentgemma-2b and rwkv6-1.6b are ported; the other ids
-raise.
+The decoder-only ids are ported; whisper-tiny (encoder-decoder) and
+qwen2-vl-72b (M-RoPE) raise.
 """
 
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"starcoder2-3b": "starcoder2_3b",
+_MODULES = {"qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+            "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+            "qwen2.5-32b": "qwen2_5_32b",
+            "qwen3-32b": "qwen3_32b",
+            "starcoder2-3b": "starcoder2_3b",
+            "phi3-medium-14b": "phi3_medium_14b",
             "recurrentgemma-2b": "recurrentgemma_2b",
             "rwkv6-1.6b": "rwkv6_1_6b"}
-_NOT_PORTED = ("whisper-tiny", "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
-               "qwen2.5-32b", "qwen3-32b", "phi3-medium-14b", "qwen2-vl-72b")
+_NOT_PORTED = ("whisper-tiny", "qwen2-vl-72b")
 
 ARCH_IDS = tuple(_MODULES) + _NOT_PORTED
 

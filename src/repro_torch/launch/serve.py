@@ -4,7 +4,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --reduced --requests 8 --knnlm [--device cpu]
 
-``--arch`` takes starcoder2-3b, recurrentgemma-2b or rwkv6-1.6b (the
+``--arch`` takes every decoder-only config: starcoder2-3b, the dense and
+MoE configs (qwen3-moe-30b-a3b, llama4-scout-17b-a16e, qwen2.5-32b,
+qwen3-32b, phi3-medium-14b), recurrentgemma-2b and rwkv6-1.6b (the
 recurrent archs take the exact-length prompts the launcher draws).
 
 Weights are random, drawn from a seeded generator on the device; the

@@ -1,16 +1,18 @@
-"""Decoder-only LM: dense attention, hybrid (RG-LRU) and RWKV stacks (port
-of ``repro.models.transformer``).
+"""Decoder-only LM: dense, MoE, hybrid (RG-LRU) and RWKV stacks (port of
+``repro.models.transformer``).
 
 A layer is
 
     x = x + mixer(norm1(x))     mixer in {attn, local_attn, rglru, rwkv}
-    x = x + ffn(norm2(x))       ffn   in {plain MLP, gated MLP, rwkv_channel}
+    x = x + ffn(norm2(x))       ffn   in {plain MLP, gated MLP, MoE,
+                                          rwkv_channel}
 
 with the per-layer kind taken from ``cfg.block_pattern`` cycled over depth.
-MoE, learned positions and M-RoPE are not ported yet (ROADMAP queue 1
-item 7) and raise ``NotImplementedError``.
+Learned positions and M-RoPE are not ported yet (ROADMAP queue 1 item 7)
+and raise ``NotImplementedError``.
 
-* ``forward_train`` — the teacher-forced forward (no loss, no gradient).
+* ``forward_train`` — the teacher-forced forward (no loss, no gradient);
+  returns the MoE layers' summed aux loss beside the hidden states.
 * ``prefill`` — the same forward, writing the caches; returns every
   position's hidden state (the engine samples at each slot's last prompt
   position).
@@ -37,6 +39,7 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv as rwkv_mod
 from .attention import KVCache
@@ -48,7 +51,7 @@ Tensor = torch.Tensor
 
 _NOT_PORTED = "not ported yet (ROADMAP queue 1 item 7)"
 _MIXERS = ("attn", "local_attn", "rglru", "rwkv")
-_FFNS = ("plain", "gated", "rwkv_channel")
+_FFNS = ("plain", "gated", "moe", "rwkv_channel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +66,7 @@ class LMConfig:
     vocab_size: int
     # layer pattern, cycled over depth
     block_pattern: tuple[str, ...] = ("attn",)
-    ffn_kind: str = "gated"              # gated | plain | rwkv_channel
+    ffn_kind: str = "gated"              # gated | plain | moe | rwkv_channel
     act: str = "silu"
     norm: str = "rmsnorm"
     # attention details
@@ -73,6 +76,10 @@ class LMConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     window: int | None = None            # sliding window for local_attn
+    # MoE
+    moe: moe_mod.MoEConfig | None = None
+    moe_d_ff: int = 0
+    shared_expert_ff: int = 0
     # recurrent widths
     lru_width: int = 0
     conv_width: int = 4
@@ -100,6 +107,8 @@ def check_supported(cfg: LMConfig) -> None:
     if cfg.ffn_kind not in _FFNS:
         raise NotImplementedError(
             f"ffn_kind {cfg.ffn_kind!r} is {_NOT_PORTED}")
+    if cfg.ffn_kind == "moe" and cfg.moe is None:
+        raise ValueError("ffn_kind='moe' needs an MoEConfig (cfg.moe)")
     if cfg.pos_embedding not in ("rope", "none"):
         raise NotImplementedError(
             f"pos_embedding {cfg.pos_embedding!r} is {_NOT_PORTED}")
@@ -128,6 +137,12 @@ def _init_layer(cfg: LMConfig, kind: str, generator: torch.Generator
     if cfg.ffn_kind == "rwkv_channel":
         ffn = init_spec(rwkv_mod.rwkv_channel_spec(cfg.d_model, cfg.d_ff),
                         generator)
+    elif cfg.ffn_kind == "moe":
+        ffn = init_spec(moe_mod.moe_spec(cfg.d_model, cfg.moe_d_ff,
+                                         cfg.moe.num_experts), generator)
+        if cfg.shared_expert_ff:
+            ffn["shared"] = init_mlp(cfg.d_model, cfg.shared_expert_ff,
+                                     True, False, generator)
     else:
         ffn = init_mlp(cfg.d_model, cfg.d_ff, cfg.ffn_kind == "gated",
                        cfg.mlp_bias, generator)
@@ -139,7 +154,8 @@ def _init_layer(cfg: LMConfig, kind: str, generator: torch.Generator
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     """Random fp32 parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``: normal x 1/sqrt(fan_in) with fan_in the first
-    dim of each per-layer shape (the reference ``Spec``'s rule), or x the
+    dim of each per-layer shape (the reference ``Spec``'s rule; an expert
+    stack's fan-in is each expert's own first dim), or x the
     spec's own scale where it gives one (the embedding table 1, RG-LRU's
     conv 0.3, RWKV's LoRAs 0.01); norm scales 1, biases 0.  The bits are not
     ``jax.random``'s."""
@@ -195,6 +211,10 @@ def count_params(cfg: LMConfig) -> int:
     norm = d * (1 if cfg.norm == "rmsnorm" else 2)
     if cfg.ffn_kind == "rwkv_channel":
         ffn = spec_size(rwkv_mod.rwkv_channel_spec(d, f))
+    elif cfg.ffn_kind == "moe":
+        ffn = (spec_size(moe_mod.moe_spec(d, cfg.moe_d_ff,
+                                          cfg.moe.num_experts))
+               + 3 * d * cfg.shared_expert_ff)
     else:
         ffn = d * f * (3 if cfg.ffn_kind == "gated" else 2)
         if cfg.mlp_bias:
@@ -204,6 +224,15 @@ def count_params(cfg: LMConfig) -> int:
     tables = padded_vocab(cfg.vocab_size) * d * (
         1 if cfg.tie_embeddings else 2)
     return tables + norm + layers
+
+
+def active_params(cfg: LMConfig) -> int:
+    """Parameters touched per token (MoE: the top-k experts only)."""
+    total = count_params(cfg)
+    if cfg.ffn_kind != "moe":
+        return total
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    return total - cfg.num_layers * (e - k) * cfg.d_model * cfg.moe_d_ff * 3
 
 
 # ---------------------------------------------------------------------------
@@ -259,23 +288,27 @@ def _cache_write(cache: KVCache, k: Tensor, v: Tensor, lengths: Tensor,
 
 def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
                  positions, cache, lengths):
-    """cache: {"mixer": KVCache or state dict, "ffn": state dict or None}
-    or None."""
+    """Returns (x, aux loss, cache).  cache: {"mixer": KVCache or state
+    dict, "ffn": state dict or None} or None."""
     h, new_mx = _apply_mixer(cfg, kind, p["mixer"],
                              apply_norm(p["norm1"], x, cfg.norm),
                              positions=positions,
                              cache=None if cache is None else cache["mixer"],
                              lengths=lengths)
     x = x + h
-    new_ffn = None
+    new_ffn, aux = None, 0.0
     hn = apply_norm(p["norm2"], x, cfg.norm)
     if cfg.ffn_kind == "rwkv_channel":
         h, new_ffn = rwkv_mod.apply_rwkv_channel(
             p["ffn"], hn, None if cache is None else cache["ffn"])
+    elif cfg.ffn_kind == "moe":
+        h, aux = moe_mod.apply_moe(p["ffn"], hn, cfg.moe, act=cfg.act,
+                                   shared_mlp=p["ffn"].get("shared"))
     else:
         h = apply_mlp(p["ffn"], hn, cfg.act)
     x = x + h
-    return x, None if cache is None else {"mixer": new_mx, "ffn": new_ffn}
+    return x, aux, (None if cache is None
+                    else {"mixer": new_mx, "ffn": new_ffn})
 
 
 def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor) -> Tensor:
@@ -294,15 +327,18 @@ def _positions(positions, like: Tensor) -> Tensor:
 @torch.inference_mode()
 def forward_train(cfg: LMConfig, params: dict, tokens: Tensor,
                   positions: Tensor):
-    """(B, S) tokens -> (hidden (B, S, D), aux_loss 0.0).  Forward only."""
+    """(B, S) tokens -> (hidden (B, S, D), aux loss: the MoE layers' sum,
+    0.0 without MoE).  Forward only."""
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     positions = _positions(positions, tokens)
     x = embed_inputs(cfg, params, tokens)
+    aux = 0.0
     for kind, lp in zip(cfg.layer_kinds(), params["layers"], strict=True):
-        x, _ = _apply_layer(cfg, kind, lp, x, positions=positions,
-                            cache=None, lengths=None)
-    return apply_norm(params["final_norm"], x, cfg.norm), 0.0
+        x, a, _ = _apply_layer(cfg, kind, lp, x, positions=positions,
+                               cache=None, lengths=None)
+        aux = aux + a
+    return apply_norm(params["final_norm"], x, cfg.norm), aux
 
 
 @torch.inference_mode()
@@ -360,8 +396,8 @@ def prefill(cfg: LMConfig, params: dict, tokens: Tensor, positions: Tensor,
     new_caches = []
     for kind, lp, cache in zip(cfg.layer_kinds(), params["layers"], caches,
                                strict=True):
-        x, nc = _apply_layer(cfg, kind, lp, x, positions=positions,
-                             cache=cache, lengths=lengths)
+        x, _, nc = _apply_layer(cfg, kind, lp, x, positions=positions,
+                                cache=cache, lengths=lengths)
         new_caches.append(nc)
     return apply_norm(params["final_norm"], x, cfg.norm), new_caches
 

@@ -66,7 +66,21 @@ def test_serve_launcher_serves_the_recurrent_archs(capsys, arch):
     assert "kNN queries served: 12" in out
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "llama4-scout-17b-a16e"])
+def test_serve_launcher_serves_the_moe_archs(capsys, arch):
+    """The MoE configs through the launcher, the hook on every sampled
+    token."""
+    rc = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--requests", "3", "--slots", "2", "--prompt-len", "8",
+                      "--new-tokens", "4", "--knnlm"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "3 requests, 12 tokens" in out
+    assert "kNN queries served: 12" in out
+
+
 def test_serve_launcher_refuses_an_arch_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tserve.main(["--arch", "qwen2.5-32b", "--reduced", "--device",
-                     "cpu"])
+    for arch in ("whisper-tiny", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])

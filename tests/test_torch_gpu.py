@@ -901,8 +901,11 @@ def test_store_on_the_card_keeps_no_cold_field_outside_its_cache(cuda):
 
 # tests/test_kernels.py::test_flash_attention's seven cases, then the
 # model's shapes: starcoder2-3b's GQA 12:1 at head_dim 128, a ragged Sq,
-# the reduced config's head_dim 16 with a window, and recurrentgemma-2b's
-# MQA at head_dim 256 (with a window, and non-causal with Sq < Skv).
+# the reduced config's head_dim 16 with a window, recurrentgemma-2b's
+# MQA at head_dim 256 (with a window, and non-causal with Sq < Skv), and
+# the GQA ratios of the MoE and dense configs: 8 (qwen3-moe-30b-a3b 32/4,
+# qwen3-32b 64/8), 5 (llama4-scout-17b-a16e and qwen2.5-32b, 40/8) and 4
+# (phi3-medium-14b, 40/10).
 FLASH_CASES = [
     (2, 4, 4, 64, 64, 32, True, None),
     (1, 8, 2, 64, 64, 32, True, None),
@@ -918,6 +921,10 @@ FLASH_CASES = [
     (2, 10, 1, 200, 200, 256, True, None),
     (1, 10, 1, 300, 300, 256, True, 100),
     (1, 4, 1, 77, 130, 256, False, None),
+    (1, 32, 4, 130, 130, 128, True, None),
+    (2, 40, 8, 130, 130, 128, True, None),
+    (1, 40, 8, 77, 200, 128, True, 100),
+    (1, 40, 10, 200, 200, 128, True, None),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -956,8 +963,8 @@ def test_flash_attention_matches_its_plain_version(cuda, b, h, kh, sq, skv,
 # bf16 at the tensor-core kernel's edges (csrc/flash_attention_wgmma.cu:
 # 128-row q blocks of two 64-row warpgroups, 64 rows of one at D = 256,
 # 64-key kv tiles): D 64, 128 and 256, Sq in {1, 77, 200} and Skv in {77,
-# 200, 1000} (no multiple of a tile), GQA 12:1, MQA, a window of 100,
-# non-causal (Sq > Skv too).
+# 200, 1000} (no multiple of a tile), GQA 12:1, 8:1, 5:1 and 4:1, MQA, a
+# window of 100, non-causal (Sq > Skv too).
 TC_CASES = [
     (1, 24, 2, 1, 77, 128, True, None),
     (2, 24, 2, 77, 77, 128, True, None),
@@ -974,6 +981,11 @@ TC_CASES = [
     (2, 10, 1, 77, 77, 256, True, None),
     (1, 10, 1, 200, 1000, 256, True, 100),
     (1, 10, 1, 200, 77, 256, False, None),
+    (2, 32, 4, 200, 200, 128, True, None),
+    (1, 64, 8, 77, 1000, 128, True, None),
+    (1, 40, 8, 200, 1000, 128, True, None),
+    (2, 40, 8, 77, 77, 128, True, 100),
+    (1, 40, 10, 200, 200, 128, True, None),
 ]
 
 
@@ -1564,3 +1576,60 @@ def test_sharded_tenant_on_the_card_equals_the_resident_tenant(nccl_mesh):
         np.testing.assert_array_equal(got.ids, want.ids)
         np.testing.assert_array_equal(got.dists, want.dists)
     assert svc.counters["launch_failures"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The MoE FFN on the card (models/moe.py: plain torch, no kernel of its own)
+# ---------------------------------------------------------------------------
+
+def test_moe_routing_on_the_card_equals_the_cpu(cuda):
+    """Top-8 of 128 on the card: ties go to the lower expert (a stable
+    descending sort), and the ids, weights and slots equal the CPU's on the
+    same fp32 logits, drops included (a decode tick of 8 tokens has one
+    slot an expert)."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(num_experts=128, top_k=8)
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((3, 8, 128), generator=gen) * 2
+    logits[0, 0, :] = -5.0
+    logits[0, 0, [3, 90, 7, 100, 8, 9, 10, 11, 12]] = 1.0   # a 9-way tie
+    logits[:, :, 5] += 3.0                   # one crowded expert: drops
+    out = {}
+    for dev in ("cpu", cuda):
+        w, i, aux = moe.route(logits.to(dev), cfg)
+        slot, keep = moe.assign_slots(w, i, cfg)
+        out[str(dev)] = [t.cpu() for t in (w, i, aux, slot, keep)]
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert card[1][0, 0].tolist() == [3, 7, 8, 9, 10, 11, 12, 90]
+    assert torch.equal(card[1], cpu[1])
+    assert torch.equal(card[3], cpu[3]) and torch.equal(card[4], cpu[4])
+    assert int((~card[4]).sum()) > 0
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(card[2], cpu[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_repeats_and_equals_the_cpu(cuda, dtype):
+    """A 64-expert top-8 layer with a shared expert over two groups of 512
+    tokens at capacity factor 1.25 (tokens drop): two calls on the card
+    give the same bits (no atomics), and the card's output equals the
+    CPU's within 1e-5 of its largest entry in fp32 (the same routes;
+    sums in another order) and within 2^-6 of it in bf16 (two bf16 steps
+    at that scale: a product rounds once on both sides, after sums in
+    another order)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_mlp, init_spec
+    cfg = moe.MoEConfig(num_experts=64, top_k=8)
+    gen = torch.Generator().manual_seed(1)
+    p = init_spec(moe.moe_spec(256, 96, 64), gen)
+    shared = init_mlp(256, 128, True, False, gen)
+    x = torch.randn((2, 512, 256), generator=gen).to(dtype)
+    want, _ = moe.apply_moe(p, x, cfg, shared_mlp=shared)
+    to = {k: v.to(cuda) for k, v in p.items()}
+    sh = {k: v.to(cuda) for k, v in shared.items()}
+    got, aux = moe.apply_moe(to, x.to(cuda), cfg, shared_mlp=sh)
+    again, _ = moe.apply_moe(to, x.to(cuda), cfg, shared_mlp=sh)
+    assert torch.equal(got, again) and got.dtype == dtype
+    scale = float(want.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -6 * scale
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol

@@ -247,6 +247,37 @@ def test_the_recurrent_slice_is_covered_and_defaults_to_the_card(no_card):
         assert leaves and all(t.device.type == "cpu" for t in leaves)
 
 
+def test_the_moe_slice_is_covered_and_defaults_to_the_card(no_card):
+    """models/moe.py and the five MoE and dense configs are in the import
+    scan; build_model, init_params and init_cache of each run on the card
+    unless the caller asks for the CPU, and the MoE layer runs on its
+    input's device."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.registry import build_model
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    archs = ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "qwen2.5-32b",
+             "qwen3-32b", "phi3-medium-14b")
+    assert {"src/repro_torch/models/moe.py"} | {
+        f"src/repro_torch/configs/{a.replace('-', '_').replace('.', '_')}"
+        ".py" for a in archs} <= names
+    for arch in archs:
+        cfg = configs.get_reduced(arch)
+        for call in (lambda: build_model(cfg), lambda: ttf.init_params(cfg),
+                     lambda: ttf.init_cache(cfg, 1, 8)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+    cfg = configs.get_reduced("llama4-scout-17b-a16e")
+    params = build_model(cfg, device="cpu").init(0)
+    ffn = params["layers"][0]["ffn"]
+    assert ffn["w_in"].device.type == "cpu"
+    y, aux = moe.apply_moe({k: v for k, v in ffn.items() if k != "shared"},
+                           torch.ones((1, 4, cfg.d_model)), cfg.moe,
+                           shared_mlp=ffn["shared"])
+    assert y.device.type == "cpu" and aux.device.type == "cpu"
+
+
 def test_the_distributed_slice_is_covered_and_defaults_to_the_card(no_card):
     """dist/ and launch/mesh.py are in the import scan; make_mesh, the
     host and production meshes, query_subview, shard_index and
@@ -380,7 +411,17 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "recurrentgemma-2b: first-token logits through #10",
                  "rwkv6-1.6b: the engine's",
                  "rwkv6-1.6b: 8 requests re-admitted into used slots",
-                 "phase 13:"):
+                 "phase 13:",
+                 "flash_attention moe_corpus_batch",
+                 "qwen3-moe-30b-a3b: the engine's",
+                 "qwen3-moe-30b-a3b: the hook's ids on the last tick match",
+                 "qwen3-moe-30b-a3b: MoE layer 0 in fp32 on the card equals",
+                 "qwen3-moe-30b-a3b: first-token logits through #10",
+                 "llama4-scout-17b-a16e: 2 layers at full width",
+                 "qwen2.5-32b: 2 layers at full width",
+                 "qwen3-32b: 2 layers at full width",
+                 "phi3-medium-14b: 2 layers at full width",
+                 "phase 14:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

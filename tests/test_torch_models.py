@@ -298,16 +298,16 @@ def test_full_config_and_unported_kinds():
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.compute_dtype == torch.bfloat16
     assert ttf.count_params(cfg) == jtf.count_params(jcfg)
+    # whisper-tiny (encoder-decoder) and qwen2-vl-72b (M-RoPE) are not
+    # ported; RG-LRU, RWKV and MoE blocks are (tests/test_torch_moe.py).
+    for arch in ("whisper-tiny", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tconfigs.get_config(arch)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            tconfigs.get_reduced(arch)
     with pytest.raises(NotImplementedError, match="item 7"):
-        tconfigs.get_config("qwen3-32b")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttf.init_params(dataclasses.replace(cfg, ffn_kind="moe"),
+        ttf.init_params(dataclasses.replace(cfg, pos_embedding="learned"),
                         device="cpu")
-    # RG-LRU and RWKV blocks are ported; MoE, learned positions and the
-    # encoder-decoder models still raise.
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttf.init_cache(dataclasses.replace(cfg, ffn_kind="moe"),
-                       1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         ttf.init_cache(dataclasses.replace(cfg, pos_embedding="learned"),
                        1, 8, device="cpu")
@@ -316,6 +316,8 @@ def test_full_config_and_unported_kinds():
     assert len(ttf.init_cache(dataclasses.replace(
         cfg, block_pattern=("rglru",), lru_width=8, num_layers=2), 1, 8,
         device="cpu")) == 2
+    moe = tconfigs.get_reduced("qwen3-moe-30b-a3b")
+    assert len(ttf.init_cache(moe, 1, 8, device="cpu")) == moe.num_layers
 
 
 def test_port_init_follows_the_spec_rule():
@@ -338,3 +340,13 @@ def test_port_init_follows_the_spec_rule():
              + sum(t.numel() for lp in p["layers"] for sub in lp.values()
                    for t in sub.values()))
     assert total == ttf.count_params(cfg)
+    # An expert stack (E, d, f) takes each expert's own fan-in: d for w_in
+    # and w_gate, f for w_out (the reference's Spec reads E, ROADMAP §3).
+    moe = dataclasses.replace(tconfigs.get_reduced("qwen3-moe-30b-a3b"),
+                              d_model=128, moe_d_ff=32)
+    ffn = ttf.init_params(moe, seed=3, device="cpu")["layers"][0]["ffn"]
+    assert ffn["w_in"].shape == (8, 128, 32)
+    for name, fan_in in (("w_in", 128), ("w_gate", 128), ("w_out", 32)):
+        assert abs(float(ffn[name].std()) - fan_in ** -0.5) \
+            < 0.02 * fan_in ** -0.5, name
+    assert abs(float(ffn["router"].std()) - 128 ** -0.5) < 0.01
