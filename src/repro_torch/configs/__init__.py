@@ -2,8 +2,9 @@
 
 ``get_config(arch_id)`` -> the model config with its published numbers;
 ``get_reduced(arch_id)`` -> a CPU-test-sized config of the same family.
-The decoder-only ids are ported; whisper-tiny (encoder-decoder) and
-qwen2-vl-72b (M-RoPE) raise.
+All ten ids are ported: whisper-tiny is the encoder-decoder
+(``models/encdec.py``), the rest decoder-only (``models/transformer.py``),
+qwen2-vl-72b with M-RoPE and its patch stub.
 """
 
 from __future__ import annotations
@@ -17,16 +18,14 @@ _MODULES = {"qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
             "starcoder2-3b": "starcoder2_3b",
             "phi3-medium-14b": "phi3_medium_14b",
             "recurrentgemma-2b": "recurrentgemma_2b",
-            "rwkv6-1.6b": "rwkv6_1_6b"}
-_NOT_PORTED = ("whisper-tiny", "qwen2-vl-72b")
+            "rwkv6-1.6b": "rwkv6_1_6b",
+            "whisper-tiny": "whisper_tiny",
+            "qwen2-vl-72b": "qwen2_vl_72b"}
 
-ARCH_IDS = tuple(_MODULES) + _NOT_PORTED
+ARCH_IDS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"config {arch_id!r} is not ported yet (ROADMAP queue 1 item 7)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS)}")
     return importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")

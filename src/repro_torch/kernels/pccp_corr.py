@@ -11,7 +11,8 @@ mirrored).
 
 The host decides the launch (:func:`schedule`): the list of upper tiles,
 and a split of n into chunks so that tiles × chunks blocks fill whole waves
-of the blocks the card holds at once.  Each block writes a partial tile to
+of the blocks the card holds at once, no chunk longer than
+``MAX_CHUNK_ROWS`` where ``MAX_SPLITS`` allows.  Each block writes a partial tile to
 a (splits, d, d) scratch buffer and a second kernel sums the partials in
 chunk order, so the result is deterministic and symmetric bit for bit.
 """
@@ -31,6 +32,13 @@ TILE = 128          # output tile edge (csrc/pccp_corr.cu)
 ROW_STEP = 16       # rows a pipeline step; a chunk is a multiple of it
 MAX_SPLITS = 8      # scratch of at most 8 partial Grams
 MIN_CHUNK_ROWS = 1024   # fewer rows a block would not amortise its tile
+# The longest chain of rows one block sums in fp32.  A block adds its rows
+# one after another, so the rounding of a long chain drifts in one
+# direction where many rows repeat: at 65,472 keys of 8192 (a quarter of
+# them one repeated row) one chain of all n rows strayed 1.37 times the
+# limit chip_smoke.py holds it to from the float64 Gram on an H100,
+# cuBLAS 0.47.
+MAX_CHUNK_ROWS = 16384
 
 _slots: dict[int, int] = {}
 
@@ -64,9 +72,11 @@ def split_count(tiles: int, n: int, slots: int) -> int:
     its rows, so the launch takes about ceil(tiles·S / slots) waves of
     ``chunk_rows(n, S)`` rows: the S in 1..MAX_SPLITS that minimises that
     product, each chunk at least MIN_CHUNK_ROWS rows (S = 1 always
-    allowed), the smallest S on a tie."""
-    best, best_cost = 1, None
-    for s in range(1, MAX_SPLITS + 1):
+    allowed) and at most MAX_CHUNK_ROWS where MAX_SPLITS chunks reach
+    it, the smallest S on a tie."""
+    least = min(MAX_SPLITS, -(-max(n, 1) // MAX_CHUNK_ROWS))
+    best, best_cost = least, None
+    for s in range(least, MAX_SPLITS + 1):
         rows = chunk_rows(n, s)
         if s > 1 and rows < MIN_CHUNK_ROWS:
             break

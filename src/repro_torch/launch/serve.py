@@ -4,10 +4,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \\
         --reduced --requests 8 --knnlm [--device cpu]
 
-``--arch`` takes every decoder-only config: starcoder2-3b, the dense and
-MoE configs (qwen3-moe-30b-a3b, llama4-scout-17b-a16e, qwen2.5-32b,
-qwen3-32b, phi3-medium-14b), recurrentgemma-2b and rwkv6-1.6b (the
-recurrent archs take the exact-length prompts the launcher draws).
+``--arch`` takes all ten configs: starcoder2-3b, the dense and MoE configs
+(qwen3-moe-30b-a3b, llama4-scout-17b-a16e, qwen2.5-32b, qwen3-32b,
+phi3-medium-14b), recurrentgemma-2b and rwkv6-1.6b (the recurrent archs
+take the exact-length prompts the launcher draws), whisper-tiny (the
+encoder-decoder, its frames stubbed as zeros) and qwen2-vl-72b (M-RoPE,
+its patch embeddings stubbed as zeros: prompts of at least
+``num_patch_tokens`` tokens).
 
 Weights are random, drawn from a seeded generator on the device; the
 datastore is the model's own hidden states over a seeded corpus.
@@ -41,6 +44,10 @@ def main(argv=None) -> int:
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
+    patches = getattr(cfg, "num_patch_tokens", 0)
+    if args.prompt_len < patches:
+        ap.error(f"--prompt-len {args.prompt_len} is shorter than "
+                 f"{args.arch}'s {patches} patch embeddings")
     bundle = build_model(cfg, device=args.device)
     params = bundle.init(0)
     vocab = cfg.vocab_size

@@ -9,7 +9,9 @@ dispatches between a dense and a chunked jnp version instead (its docstring
 names the Pallas kernel, its code never calls it); the kernel takes every
 shape, so the port has one path.  ``decode_attend`` stays plain torch, as
 in the reference: one query a slot against the cache, with each slot's own
-valid length, which the kernel has no operand for.  The reference's
+valid length, which the kernel has no operand for; so does
+``sdpa_dense``, the encoder-decoder's cross attention, which the reference
+computes with its own ``sdpa_dense``.  The reference's
 sharding constraints are dropped: the port runs on one device.
 """
 
@@ -63,8 +65,9 @@ def _project(x: Tensor, w: Tensor) -> Tensor:
 
 
 def qkv_project(p: dict, x: Tensor, *, positions: Tensor, rope_theta: float,
-                use_rope: bool = True):
-    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KH,hd), with bias/qk-norm/rope."""
+                mrope_section=None, use_rope: bool = True):
+    """x (B,S,D) -> q (B,S,H,hd), k/v (B,S,KH,hd), with bias/qk-norm/rope
+    (M-RoPE where ``mrope_section`` is given)."""
     dt = x.dtype
     q, k, v = _project(x, p["wq"]), _project(x, p["wk"]), _project(x, p["wv"])
     if "bq" in p:
@@ -75,8 +78,8 @@ def qkv_project(p: dict, x: Tensor, *, positions: Tensor, rope_theta: float,
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if use_rope:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        q = apply_rope(q, positions, rope_theta, mrope_section)
+        k = apply_rope(k, positions, rope_theta, mrope_section)
     return q, k, v
 
 
@@ -101,6 +104,27 @@ def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                                      v.transpose(1, 2), causal=causal,
                                      window=window)
     return out.transpose(1, 2)
+
+
+def sdpa_dense(q: Tensor, k: Tensor, v: Tensor, *,
+               causal: bool = False) -> Tensor:
+    """The reference's full-logits attention, kept plain where the
+    reference computes it outside any kernel (the encoder-decoder's cross
+    attention).  q (B,Sq,H,D), k/v (B,Skv,KH,D) -> (B,Sq,H,D): fp32 logits,
+    a softmax, the probabilities cast to q's dtype for the product with v;
+    a causal mask aligns query i with key i."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          k.to(torch.float32)) * (d ** -0.5)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = torch.where(qi >= ki, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(q.dtype))
+    return out.reshape(b, sq, h, d)
 
 
 # ---------------------------------------------------------------------------

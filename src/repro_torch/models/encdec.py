@@ -1,0 +1,287 @@
+"""Encoder-decoder transformer: the Whisper backbone with its audio frontend
+stubbed (port of ``repro.models.encdec``).
+
+The encoder takes precomputed frame embeddings (B, F, d_model) in place of
+the conv1d frontend, adds a fixed sinusoid and runs non-causal
+self-attention layers; the decoder adds learned positions to its token
+embeddings and runs causal self-attention, cross attention over the
+encoder's output, and a plain GeLU MLP.  LayerNorm throughout, MHA (kv
+heads = heads), no RoPE.
+
+Self-attention in the encoder and in the decoder's prefill goes through
+``attention.sdpa`` (kernel #10; looked up on the module at every call);
+the decoder's decode step attends its cache with the plain
+``decode_attend``, and cross attention is the plain ``sdpa_dense``, as
+the reference computes it outside any kernel.  Each decoder layer's cache
+is {"self": KVCache (B, s_max, KH, D), "cross": KVCache (B, F, KH, D)}:
+the prefill writes both in place, the cross cache from the encoder's
+output, and a decode step reads the cross cache as it stands.  Weights
+are fp32, cast to ``compute_dtype`` at every use (models/transformer.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..device import resolve_device
+from . import attention as attn_mod
+from .attention import KVCache
+from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
+                     init_norm, init_normal, init_spec, padded_vocab,
+                     sinusoidal_positions, spec_size, unembed_logits)
+from .transformer import _to_tensors
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    name: str
+    encoder_layers: int
+    decoder_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    num_frames: int = 1500            # encoder sequence length (stub output)
+    act: str = "gelu"
+    norm: str = "layernorm"
+    max_position: int = 1 << 16       # rows of the decoder's position table
+    compute_dtype: Any = torch.bfloat16
+
+    @property
+    def num_layers(self) -> int:
+        return self.encoder_layers + self.decoder_layers
+
+
+def _attn_spec(cfg: EncDecConfig) -> dict:
+    return attn_mod.attention_spec(cfg.d_model, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.head_dim,
+                                   qkv_bias=True, out_bias=True)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def init_params(cfg: EncDecConfig, seed: int = 0, device="cuda") -> dict:
+    """Random fp32 parameters from a ``torch.Generator`` seeded with
+    ``seed`` on ``device``, by the reference's specs: normal x
+    1/sqrt(fan_in), the embedding table x 1, the decoder's position table
+    x 0.02; norm scales 1, biases 0.  The bits are not ``jax.random``'s."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = cfg.d_model
+
+    def mlp():
+        return init_mlp(d, cfg.d_ff, False, True, gen)
+
+    def enc_layer():
+        return {"norm1": init_norm(d, cfg.norm, dev),
+                "attn": init_spec(_attn_spec(cfg), gen),
+                "norm2": init_norm(d, cfg.norm, dev), "mlp": mlp()}
+
+    def dec_layer():
+        return {"norm1": init_norm(d, cfg.norm, dev),
+                "self_attn": init_spec(_attn_spec(cfg), gen),
+                "norm_x": init_norm(d, cfg.norm, dev),
+                "cross_attn": init_spec(_attn_spec(cfg), gen),
+                "norm2": init_norm(d, cfg.norm, dev), "mlp": mlp()}
+
+    return {
+        "embed": init_normal((padded_vocab(cfg.vocab_size), d), gen,
+                             scale=1.0),
+        "dec_pos": init_normal((cfg.max_position, d), gen, scale=0.02),
+        "encoder": [enc_layer() for _ in range(cfg.encoder_layers)],
+        "enc_final_norm": init_norm(d, cfg.norm, dev),
+        "decoder": [dec_layer() for _ in range(cfg.decoder_layers)],
+        "dec_final_norm": init_norm(d, cfg.norm, dev),
+    }
+
+
+def params_from_numpy(cfg: EncDecConfig, tree: dict, device="cuda") -> dict:
+    """The reference's parameters (its pytree with numpy leaves) as the
+    port's dicts on ``device``."""
+    out = _to_tensors(tree, resolve_device(device))
+    for part, n in (("encoder", cfg.encoder_layers),
+                    ("decoder", cfg.decoder_layers)):
+        if len(out[part]) != n:
+            raise ValueError(f"{len(out[part])} {part} layers given for a "
+                             f"config of {n}")
+    return out
+
+
+def count_params(cfg: EncDecConfig) -> int:
+    """Parameters of :func:`init_params`'s tree."""
+    d, f = cfg.d_model, cfg.d_ff
+    norm = d * (1 if cfg.norm == "rmsnorm" else 2)
+    attn = spec_size(_attn_spec(cfg))
+    mlp = 2 * d * f + f + d
+    enc = cfg.encoder_layers * (2 * norm + attn + mlp)
+    dec = cfg.decoder_layers * (3 * norm + 2 * attn + mlp)
+    tables = (padded_vocab(cfg.vocab_size) + cfg.max_position) * d
+    return tables + enc + dec + 2 * norm
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+def _self_attention(p: dict, x: Tensor, causal: bool,
+                    cache: KVCache | None = None, lengths=None,
+                    decode: bool = False):
+    """Returns (y, cache).  ``decode``: one token against the cache (plain
+    ``decode_attend``); else ``sdpa`` over x, and the cache, where given,
+    written at ``lengths``."""
+    q, k, v = attn_mod.qkv_project(p, x, positions=None, rope_theta=1e4,
+                                   use_rope=False)
+    if decode:
+        cache = attn_mod.cache_update(cache, k, v, lengths)
+        out = attn_mod.decode_attend(q, cache, lengths + 1)
+    else:
+        out = attn_mod.sdpa(q, k, v, causal=causal)
+        if cache is not None:
+            cache = attn_mod.cache_update(cache, k, v, lengths)
+    return attn_mod.out_project(p, out), cache
+
+
+def _cross_attention(p: dict, x: Tensor, enc_out: Tensor | None = None,
+                     cache: KVCache | None = None):
+    """Cross attention, its keys and values from ``enc_out`` (written into
+    ``cache`` in place where one is given) or, without ``enc_out``, from
+    the cache as it stands.  Returns (y, cache)."""
+    dt = x.dtype
+    q = attn_mod._project(x, p["wq"]) + p["bq"].to(dt)
+    if enc_out is not None:
+        k = attn_mod._project(enc_out, p["wk"]) + p["bk"].to(dt)
+        v = attn_mod._project(enc_out, p["wv"]) + p["bv"].to(dt)
+        if cache is not None:
+            cache.k.copy_(k)
+            cache.v.copy_(v)
+    else:
+        k, v = cache.k.to(dt), cache.v.to(dt)
+    out = attn_mod.sdpa_dense(q, k, v, causal=False)
+    return attn_mod.out_project(p, out), cache
+
+
+def _decoder_layer(cfg: EncDecConfig, lp: dict, x: Tensor, enc_out,
+                   self_cache, cross_cache, lengths, decode: bool = False):
+    h, self_cache = _self_attention(lp["self_attn"],
+                                    apply_norm(lp["norm1"], x, cfg.norm),
+                                    causal=True, cache=self_cache,
+                                    lengths=lengths, decode=decode)
+    x = x + h
+    h, cross_cache = _cross_attention(lp["cross_attn"],
+                                      apply_norm(lp["norm_x"], x, cfg.norm),
+                                      enc_out=enc_out, cache=cross_cache)
+    x = x + h
+    x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
+                      cfg.act)
+    return x, self_cache, cross_cache
+
+
+@torch.inference_mode()
+def encode(cfg: EncDecConfig, params: dict, frames: Tensor) -> Tensor:
+    """frames (B, F, d_model), the stubbed frontend's output -> (B, F, D):
+    frames and the sinusoid each cast to ``compute_dtype`` and added, then
+    the non-causal layers and the final norm."""
+    dt = cfg.compute_dtype
+    frames = torch.as_tensor(frames, device=params["embed"].device)
+    x = frames.to(dt) + sinusoidal_positions(
+        frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
+    for lp in params["encoder"]:
+        h, _ = _self_attention(lp["attn"],
+                               apply_norm(lp["norm1"], x, cfg.norm),
+                               causal=False)
+        x = x + h
+        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
+                          cfg.act)
+    return apply_norm(params["enc_final_norm"], x, cfg.norm)
+
+
+def _embed(cfg: EncDecConfig, params: dict, tokens, positions) -> Tensor:
+    """Token embeddings plus the learned positions (component 0 of (B, S,
+    3) positions), in ``compute_dtype``, on the parameters' device."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    pos = torch.as_tensor(positions, device=dev)
+    if pos.ndim == 3:
+        pos = pos[..., 0]
+    dt = cfg.compute_dtype
+    return (embed_lookup(params["embed"], tokens, dt)
+            + params["dec_pos"][pos.long()].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# Full passes
+# ---------------------------------------------------------------------------
+
+@torch.inference_mode()
+def forward_train(cfg: EncDecConfig, params: dict, tokens: Tensor,
+                  positions: Tensor, frames: Tensor):
+    """The teacher-forced decoder over the encoded frames -> (hidden (B, S,
+    D), 0.0).  Forward only."""
+    enc_out = encode(cfg, params, frames)
+    x = _embed(cfg, params, tokens, positions)
+    for lp in params["decoder"]:
+        x, _, _ = _decoder_layer(cfg, lp, x, enc_out, None, None, None)
+    return apply_norm(params["dec_final_norm"], x, cfg.norm), 0.0
+
+
+@torch.inference_mode()
+def logits_fn(cfg: EncDecConfig, params: dict, hidden: Tensor) -> Tensor:
+    """fp32 logits over the real vocab, through the (tied) embedding."""
+    return unembed_logits(hidden, params["embed"])[..., : cfg.vocab_size]
+
+
+@torch.inference_mode()
+def init_cache(cfg: EncDecConfig, batch: int, s_max: int, device="cuda"):
+    """Per decoder layer {"self": KVCache (batch, s_max), "cross": KVCache
+    (batch, num_frames)}, zeros in ``compute_dtype``."""
+    dev = resolve_device(device)
+    dt = cfg.compute_dtype
+    return [{"self": KVCache.zeros(batch, s_max, cfg.num_kv_heads,
+                                   cfg.head_dim, dt, dev),
+             "cross": KVCache.zeros(batch, cfg.num_frames, cfg.num_kv_heads,
+                                    cfg.head_dim, dt, dev)}
+            for _ in range(cfg.decoder_layers)]
+
+
+@torch.inference_mode()
+def prefill(cfg: EncDecConfig, params: dict, tokens: Tensor,
+            positions: Tensor, caches, lengths: Tensor, frames: Tensor):
+    """Encode, then the teacher-forced decoder, writing each layer's self
+    cache at ``lengths`` (B,) and its cross cache from the encoder's output
+    (both in place).  Returns (hidden (B, S, D), caches)."""
+    enc_out = encode(cfg, params, frames)
+    x = _embed(cfg, params, tokens, positions)
+    lengths = torch.as_tensor(lengths, device=x.device)
+    new_caches = []
+    for lp, cache in zip(params["decoder"], caches, strict=True):
+        x, new_self, new_cross = _decoder_layer(
+            cfg, lp, x, enc_out, cache["self"], cache["cross"], lengths)
+        new_caches.append({"self": new_self, "cross": new_cross})
+    return apply_norm(params["dec_final_norm"], x, cfg.norm), new_caches
+
+
+@torch.inference_mode()
+def decode_step(cfg: EncDecConfig, params: dict, token: Tensor,
+                positions: Tensor, caches, lengths: Tensor):
+    """One decode step.  token (B, 1); lengths (B,) = self-cache fill
+    before the step.  Returns (logits (B, V) fp32, hidden (B, D), caches)."""
+    x = _embed(cfg, params, token, positions)
+    lengths = torch.as_tensor(lengths, device=x.device)
+    new_caches = []
+    for lp, cache in zip(params["decoder"], caches, strict=True):
+        x, new_self, new_cross = _decoder_layer(
+            cfg, lp, x, None, cache["self"], cache["cross"], lengths,
+            decode=True)
+        new_caches.append({"self": new_self, "cross": new_cross})
+    hidden = apply_norm(params["dec_final_norm"], x, cfg.norm)[:, 0]
+    return logits_fn(cfg, params, hidden), hidden, new_caches

@@ -129,17 +129,49 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4) -> Tensor:
-    """Rotary embedding, half-split (not interleaved).  x (B, S, H, D),
-    positions (B, S) int.  sin and cos are cast to x's dtype before they
-    multiply, as in the reference."""
-    half = x.shape[-1] // 2
-    inv = rope_frequencies(x.shape[-1], theta, x.device)          # (half,)
-    angle = positions.to(torch.float32)[..., None] * inv           # (B,S,half)
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
+               mrope_section: tuple[int, ...] | None = None) -> Tensor:
+    """Rotary embedding, half-split (not interleaved), optionally
+    multimodal (M-RoPE, Qwen2-VL §3.1).  x (B, S, H, D); positions (B, S)
+    int, or (B, S, 3) for M-RoPE (temporal, height, width components; a
+    (B, S, 3) tensor under plain RoPE takes component 0).  M-RoPE splits
+    the D/2 frequency channels into three sections, section ``i`` rotating
+    by positions[..., i]; (B, S) positions give every section the same
+    component, so M-RoPE on text equals 1-D RoPE bit for bit.  sin and cos
+    are cast to x's dtype before they multiply, as in the reference."""
+    b, s, _, d = x.shape
+    half = d // 2
+    inv = rope_frequencies(d, theta, x.device)                    # (half,)
+    if mrope_section is not None:
+        if sum(mrope_section) != half:
+            raise ValueError(f"mrope_section {mrope_section} must sum to "
+                             f"half the head dim, {half}")
+        if positions.ndim == 2:
+            positions = positions[..., None].expand(b, s, 3)
+        comp = torch.repeat_interleave(
+            torch.arange(3, device=x.device),
+            torch.as_tensor(mrope_section, device=x.device))     # (half,)
+        pos = positions.to(torch.float32)[..., comp]             # (B,S,half)
+    else:
+        if positions.ndim == 3:
+            positions = positions[..., 0]
+        pos = positions.to(torch.float32)[..., None]             # (B,S,1)
+    angle = pos * inv                                            # (B,S,half)
     sin = torch.sin(angle)[:, :, None, :].to(x.dtype)
     cos = torch.cos(angle)[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
+    """Whisper's fixed sinusoid table (seq, d) in fp32: sin then cos of
+    position x 10000^(-i / max(d/2 - 1, 1)), the reference's exponent."""
+    half = d // 2
+    inv = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
+                                          device=device) / max(half - 1, 1)))
+    ang = torch.arange(seq, dtype=torch.float32, device=device)[:, None] \
+        * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

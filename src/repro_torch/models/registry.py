@@ -1,17 +1,23 @@
-"""Uniform model interface (port of ``repro.models.registry``).
+"""Uniform model interface over the decoder-only and the encoder-decoder
+stacks (port of ``repro.models.registry``).
 
     bundle.init(seed)                              -> params
     bundle.forward_train(params, batch)            -> (hidden, aux_loss)
     bundle.logits(params, hidden)                  -> fp32 logits
     bundle.init_cache(batch_size, s_max)           -> caches (per layer:
                       {"mixer": KVCache or state dict, "ffn": state dict
-                      or None})
+                      or None}; enc-dec {"self": KVCache, "cross": KVCache})
     bundle.prefill(params, batch, caches, lens)    -> (hidden, caches)
     bundle.decode_step(params, tok, pos, caches, lens)
                                                    -> (logits, hidden, caches)
 
-``batch`` is a dict with tokens (B, S) and positions (B, S).  A bundle
-holds the device its parameters and caches live on.
+``batch`` is a dict with tokens (B, S) and positions (B, S), or (B, S, 3)
+under M-RoPE, plus the modality stubs' extras the bundle declares in
+``extra_inputs`` (name -> (shape function of (B, S), dtype)): ``frames``
+(B, num_frames, d_model) for the encoder-decoder, ``patch_embeds`` (B,
+num_patch_tokens, d_model) for a VLM.  ``model_inputs`` builds such a
+batch as the engine and the datastore feed it.  A bundle holds the device
+its parameters and caches live on.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..device import resolve_device
-from . import transformer
+from . import encdec, transformer
+from .encdec import EncDecConfig
 from .transformer import LMConfig
 
 
@@ -35,18 +42,26 @@ class ModelBundle(NamedTuple):
     prefill: Callable
     decode_step: Callable
     count_params: int
+    extra_inputs: dict  # name -> (shape_fn(B, S) -> shape, dtype)
 
 
 def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
     transformer.check_supported(cfg)
+    extras = {}
+    if cfg.num_patch_tokens:
+        extras["patch_embeds"] = (
+            lambda b, s: (b, cfg.num_patch_tokens, cfg.d_model),
+            torch.float32)
 
     def forward_train(params, batch):
         return transformer.forward_train(cfg, params, batch["tokens"],
-                                         batch["positions"])
+                                         batch["positions"],
+                                         batch.get("patch_embeds"))
 
     def prefill(params, batch, caches, lengths):
         return transformer.prefill(cfg, params, batch["tokens"],
-                                   batch["positions"], caches, lengths)
+                                   batch["positions"], caches, lengths,
+                                   batch.get("patch_embeds"))
 
     return ModelBundle(
         cfg=cfg,
@@ -59,17 +74,68 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
         decode_step=lambda params, tok, pos, caches, lens:
             transformer.decode_step(cfg, params, tok, pos, caches, lens),
         count_params=transformer.count_params(cfg),
+        extra_inputs=extras,
+    )
+
+
+def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
+    extras = {"frames": (lambda b, s: (b, cfg.num_frames, cfg.d_model),
+                         torch.float32)}
+
+    def forward_train(params, batch):
+        return encdec.forward_train(cfg, params, batch["tokens"],
+                                    batch["positions"], batch["frames"])
+
+    def prefill(params, batch, caches, lengths):
+        return encdec.prefill(cfg, params, batch["tokens"],
+                              batch["positions"], caches, lengths,
+                              batch["frames"])
+
+    return ModelBundle(
+        cfg=cfg,
+        device=dev,
+        init=lambda seed=0: encdec.init_params(cfg, seed, dev),
+        forward_train=forward_train,
+        logits=lambda params, h: encdec.logits_fn(cfg, params, h),
+        init_cache=lambda b, s: encdec.init_cache(cfg, b, s, dev),
+        prefill=prefill,
+        decode_step=lambda params, tok, pos, caches, lens:
+            encdec.decode_step(cfg, params, tok, pos, caches, lens),
+        count_params=encdec.count_params(cfg),
+        extra_inputs=extras,
     )
 
 
 def build_model(cfg, device="cuda") -> ModelBundle:
-    """The bundle of a decoder-only config, on ``device`` (the card unless
-    the caller asks for the CPU)."""
+    """The bundle of a decoder-only or an encoder-decoder config, on
+    ``device`` (the card unless the caller asks for the CPU)."""
     dev = resolve_device(device)
+    if isinstance(cfg, EncDecConfig):
+        return _encdec_bundle(cfg, dev)
     if isinstance(cfg, LMConfig):
         return _lm_bundle(cfg, dev)
-    if type(cfg).__name__ == "EncDecConfig":
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP queue 1 "
-            "item 7)")
     raise TypeError(f"unknown config type {type(cfg)}")
+
+
+def model_positions(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """(B, S) positions as the model takes them: repeated into three equal
+    components (B, S, 3) for an M-RoPE config, as the reference's engine
+    and datastore give them."""
+    if getattr(cfg, "mrope_section", None):
+        return positions[..., None].expand(*positions.shape, 3)
+    return positions
+
+
+def model_inputs(bundle: ModelBundle, tokens: torch.Tensor,
+                 positions: torch.Tensor) -> dict:
+    """The batch dict of (B, S) ``tokens`` and ``positions``: the positions
+    through ``model_positions`` and each of the bundle's extra inputs as
+    zeros on its device (the modality stubs' inputs, as the reference's
+    engine and datastore feed them)."""
+    b, s = tokens.shape
+    batch = {"tokens": tokens,
+             "positions": model_positions(bundle.cfg, positions)}
+    for name, (shape_fn, dtype) in bundle.extra_inputs.items():
+        batch[name] = torch.zeros(shape_fn(b, s), dtype=dtype,
+                                  device=bundle.device)
+    return batch

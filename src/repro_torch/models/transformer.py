@@ -8,8 +8,11 @@ A layer is
                                           rwkv_channel}
 
 with the per-layer kind taken from ``cfg.block_pattern`` cycled over depth.
-Learned positions and M-RoPE are not ported yet (ROADMAP queue 1 item 7)
-and raise ``NotImplementedError``.
+Positions enter as RoPE (M-RoPE with ``mrope_section``: (B, S, 3)
+positions), as a learned table added to the embeddings, or not at all.  A
+VLM config (``num_patch_tokens`` > 0) takes ``patch_embeds`` (B, P, D) in
+place of the first P tokens' embeddings in ``forward_train`` and
+``prefill``: the stub of its vision frontend, as in the reference.
 
 * ``forward_train`` — the teacher-forced forward (no loss, no gradient);
   returns the MoE layers' summed aux loss beside the hidden states.
@@ -49,9 +52,9 @@ from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
 
 Tensor = torch.Tensor
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1 item 7)"
 _MIXERS = ("attn", "local_attn", "rglru", "rwkv")
 _FFNS = ("plain", "gated", "moe", "rwkv_channel")
+_POSITIONS = ("rope", "learned", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +78,7 @@ class LMConfig:
     mlp_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 1e6
+    mrope_section: tuple[int, ...] | None = None
     window: int | None = None            # sliding window for local_attn
     # MoE
     moe: moe_mod.MoEConfig | None = None
@@ -87,7 +91,10 @@ class LMConfig:
     rwkv_chunk: int = 128
     # embeddings / head
     tie_embeddings: bool = True
-    pos_embedding: str = "rope"          # rope | none
+    pos_embedding: str = "rope"          # rope | learned | none
+    max_position: int = 1 << 20          # rows of the learned table
+    # multimodal stub
+    num_patch_tokens: int = 0            # vlm: first P positions are patches
     # execution: the reference stacks a homogeneous scan_layers config's
     # parameters (L, ...); the port loops over layers either way and
     # imports the stacked layout (params_from_numpy).
@@ -100,18 +107,17 @@ class LMConfig:
 
 
 def check_supported(cfg: LMConfig) -> None:
-    """Raise for the block kinds and options the port does not run."""
+    """Raise ``ValueError`` for a block kind or option that does not
+    exist (the reference raises on them too)."""
     for kind in set(cfg.layer_kinds()):
         if kind not in _MIXERS:
-            raise NotImplementedError(f"block kind {kind!r} is {_NOT_PORTED}")
+            raise ValueError(f"unknown block kind {kind!r}")
     if cfg.ffn_kind not in _FFNS:
-        raise NotImplementedError(
-            f"ffn_kind {cfg.ffn_kind!r} is {_NOT_PORTED}")
+        raise ValueError(f"unknown ffn_kind {cfg.ffn_kind!r}")
     if cfg.ffn_kind == "moe" and cfg.moe is None:
         raise ValueError("ffn_kind='moe' needs an MoEConfig (cfg.moe)")
-    if cfg.pos_embedding not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos_embedding {cfg.pos_embedding!r} is {_NOT_PORTED}")
+    if cfg.pos_embedding not in _POSITIONS:
+        raise ValueError(f"unknown pos_embedding {cfg.pos_embedding!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -157,8 +163,8 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     dim of each per-layer shape (the reference ``Spec``'s rule; an expert
     stack's fan-in is each expert's own first dim), or x the
     spec's own scale where it gives one (the embedding table 1, RG-LRU's
-    conv 0.3, RWKV's LoRAs 0.01); norm scales 1, biases 0.  The bits are not
-    ``jax.random``'s."""
+    conv 0.3, RWKV's LoRAs 0.01, the learned position table 0.02); norm
+    scales 1, biases 0.  The bits are not ``jax.random``'s."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -167,6 +173,9 @@ def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
               "final_norm": init_norm(cfg.d_model, cfg.norm, dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = init_normal((vp, cfg.d_model), gen, scale=1.0)
+    if cfg.pos_embedding == "learned":
+        params["pos_embed"] = init_normal((cfg.max_position, cfg.d_model),
+                                          gen, scale=0.02)
     params["layers"] = [_init_layer(cfg, kind, gen)
                         for kind in cfg.layer_kinds()]
     return params
@@ -223,6 +232,8 @@ def count_params(cfg: LMConfig) -> int:
                  for kind in cfg.layer_kinds())
     tables = padded_vocab(cfg.vocab_size) * d * (
         1 if cfg.tie_embeddings else 2)
+    if cfg.pos_embedding == "learned":
+        tables += cfg.max_position * d
     return tables + norm + layers
 
 
@@ -250,6 +261,7 @@ def _apply_mixer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
     window = cfg.window if kind == "local_attn" else None
     q, k, v = attn_mod.qkv_project(
         p, x, positions=positions, rope_theta=cfg.rope_theta,
+        mrope_section=cfg.mrope_section,
         use_rope=cfg.pos_embedding == "rope")
     if cache is None:                                       # training
         out = attn_mod.sdpa(q, k, v, causal=True, window=window)
@@ -311,9 +323,27 @@ def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
                     else {"mixer": new_mx, "ffn": new_ffn})
 
 
-def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor) -> Tensor:
-    """Token embeddings in ``compute_dtype`` (RoPE enters in attention)."""
-    return embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor,
+                 positions: Tensor, patch_embeds: Tensor | None = None
+                 ) -> Tensor:
+    """Token embeddings in ``compute_dtype``; a VLM's first P positions
+    take ``patch_embeds`` (B, P, D) instead (the reference's stub); a
+    learned position table's rows added (component 0 of (B, S, 3)
+    positions).  RoPE enters in attention.  A sequence shorter than the
+    patches raises ``ValueError``, where the reference's write of the
+    patches fails."""
+    dt = cfg.compute_dtype
+    x = embed_lookup(params["embed"], tokens, dt)
+    if cfg.num_patch_tokens and patch_embeds is not None:
+        p = patch_embeds.shape[1]
+        if p > tokens.shape[1]:
+            raise ValueError(f"{p} patch embeddings for a sequence of "
+                             f"{tokens.shape[1]} tokens")
+        x[:, :p] = torch.as_tensor(patch_embeds, device=x.device).to(dt)
+    if cfg.pos_embedding == "learned":
+        pos = positions if positions.ndim == 2 else positions[..., 0]
+        x = x + params["pos_embed"][pos.long()].to(dt)
+    return x
 
 
 def _positions(positions, like: Tensor) -> Tensor:
@@ -326,13 +356,13 @@ def _positions(positions, like: Tensor) -> Tensor:
 
 @torch.inference_mode()
 def forward_train(cfg: LMConfig, params: dict, tokens: Tensor,
-                  positions: Tensor):
+                  positions: Tensor, patch_embeds: Tensor | None = None):
     """(B, S) tokens -> (hidden (B, S, D), aux loss: the MoE layers' sum,
     0.0 without MoE).  Forward only."""
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     positions = _positions(positions, tokens)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, positions, patch_embeds)
     aux = 0.0
     for kind, lp in zip(cfg.layer_kinds(), params["layers"], strict=True):
         x, a, _ = _apply_layer(cfg, kind, lp, x, positions=positions,
@@ -382,7 +412,7 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int, device="cuda"):
 
 @torch.inference_mode()
 def prefill(cfg: LMConfig, params: dict, tokens: Tensor, positions: Tensor,
-            caches, lengths: Tensor):
+            caches, lengths: Tensor, patch_embeds: Tensor | None = None):
     """Teacher-forced forward that also writes the caches (in place).
 
     Returns (hidden (B, S, D), caches).  ``lengths``: (B,) valid cache
@@ -392,7 +422,7 @@ def prefill(cfg: LMConfig, params: dict, tokens: Tensor, positions: Tensor,
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     positions = _positions(positions, tokens)
     lengths = torch.as_tensor(lengths, device=tokens.device)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, positions, patch_embeds)
     new_caches = []
     for kind, lp, cache in zip(cfg.layer_kinds(), params["layers"], caches,
                                strict=True):
@@ -405,9 +435,10 @@ def prefill(cfg: LMConfig, params: dict, tokens: Tensor, positions: Tensor,
 @torch.inference_mode()
 def decode_step(cfg: LMConfig, params: dict, token: Tensor,
                 positions: Tensor, caches, lengths: Tensor):
-    """One decode step.  token (B, 1); lengths (B,) = cache fill before the
-    step.  Returns (logits (B, V) fp32, hidden (B, D), caches); the hidden
-    state feeds the kNN-LM datastore lookup (serve/knnlm.py)."""
+    """One decode step.  token (B, 1); positions (B, 1), or (B, 1, 3) under
+    M-RoPE; lengths (B,) = cache fill before the step.  Returns (logits
+    (B, V) fp32, hidden (B, D), caches); the hidden state feeds the kNN-LM
+    datastore lookup (serve/knnlm.py)."""
     hidden, new_caches = prefill(cfg, params, token, positions, caches,
                                  lengths)
     hidden = hidden[:, 0]

@@ -13,9 +13,14 @@ require exact-length prompts (``submit`` raises otherwise).
 Slot isolation: the batched prefill writes every slot's cache region, so
 the engine copies the rows of the slots it does not admit, every tensor of
 every layer's cache (KV caches and recurrent states, the FFN's token shift
-included), before the prefill and writes them back after (the reference
-selects between the old and the new cache per slot): active sequences are
-never perturbed.
+included; an encoder-decoder's self and cross caches), before the prefill
+and writes them back after (the reference selects between the old and the
+new cache per slot): active sequences are never perturbed.
+
+Model inputs: an M-RoPE model gets its positions repeated into three equal
+components, and the prefill gets each of the bundle's ``extra_inputs``
+(an encoder-decoder's frames, a VLM's patch embeddings) as zeros, as in
+the reference (``models.registry.model_inputs``).
 
 Documented difference from the reference: the engine zeroes the admitted
 slots' recurrent states before the prefill.  The reference passes a
@@ -50,6 +55,7 @@ import numpy as np
 import torch
 
 from ..models.attention import KVCache
+from ..models.registry import model_inputs, model_positions
 
 Tensor = torch.Tensor
 
@@ -81,10 +87,13 @@ def _is_recurrent(bundle) -> bool:
 def _cache_leaves(caches, recurrent_only: bool = False) -> list:
     """The tensors of every layer's cache, in a fixed order: a KV cache's
     k and v (unless ``recurrent_only``), then each recurrent state dict's
-    tensors, the mixer's before the FFN's."""
+    tensors, the mixer's before the FFN's; an encoder-decoder layer's self
+    cache before its cross cache."""
     out = []
     for layer in caches:
-        for part in (layer["mixer"], layer["ffn"]):
+        parts = ((layer["self"], layer["cross"]) if "cross" in layer
+                 else (layer["mixer"], layer["ffn"]))
+        for part in parts:
             if isinstance(part, KVCache):
                 if not recurrent_only:
                     out.extend(part)
@@ -126,6 +135,11 @@ class Engine:
     def _tensor(self, a: np.ndarray) -> Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _positions(self, pos: np.ndarray) -> Tensor:
+        """(B, S) positions as the model takes them (M-RoPE: three equal
+        components)."""
+        return model_positions(self.bundle.cfg, self._tensor(pos))
+
     def _cache_rows(self, rows: Tensor) -> list:
         return [t[rows].clone() for t in _cache_leaves(self.caches)]
 
@@ -157,8 +171,8 @@ class Engine:
             admitted[s] = True
             self.slot_req[s] = r
         pos = np.arange(pl, dtype=np.int32)[None, :].repeat(b, 0)
-        batch = {"tokens": self._tensor(tokens),
-                 "positions": self._tensor(pos)}
+        batch = model_inputs(self.bundle, self._tensor(tokens),
+                             self._tensor(pos))
         # non-admitted slots keep their previous cache (slot isolation)
         keep = self._tensor(np.flatnonzero(~admitted))
         saved = self._cache_rows(keep) if keep.numel() else None
@@ -224,7 +238,7 @@ class Engine:
             last[i, 0] = self.slot_req[i].output[-1]
         logits, hidden, self.caches = self.bundle.decode_step(
             self.params, self._tensor(last),
-            self._tensor(self.lengths[:, None].copy()), self.caches,
+            self._positions(self.lengths[:, None].copy()), self.caches,
             self._tensor(self.lengths.copy()))
         # Free slots decode garbage rows (the batch is slot-shaped); drop
         # them before sampling so hooks only ever see live sequences.

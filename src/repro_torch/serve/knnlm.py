@@ -37,6 +37,7 @@ from ..core import search as bp_search
 from ..core.index import BallForest, build_index
 from ..core.segments import SegmentedForest
 from ..core.tiered import resolve_prefetch_depth, resolve_resident_bytes
+from ..models.registry import model_inputs
 
 Tensor = torch.Tensor
 
@@ -137,7 +138,9 @@ class Datastore:
 
 def _forward_keys(bundle, params, corpus: np.ndarray) -> Tensor:
     """Hidden states at every position but the last, (num*(s-1), d) fp32,
-    the forward run over ``FORWARD_BATCH`` sequences at a time."""
+    the forward run over ``FORWARD_BATCH`` sequences at a time, with
+    M-RoPE positions and zero extra inputs where the model takes them
+    (``models.registry.model_inputs``), as the reference's build does."""
     num, s = corpus.shape
     keys = []
     with torch.inference_mode():
@@ -145,9 +148,8 @@ def _forward_keys(bundle, params, corpus: np.ndarray) -> Tensor:
             toks = torch.as_tensor(corpus[b0:b0 + FORWARD_BATCH],
                                    dtype=torch.int32, device=bundle.device)
             pos = torch.arange(s, dtype=torch.int32, device=bundle.device)
-            hidden, _ = bundle.forward_train(
-                params, {"tokens": toks,
-                         "positions": pos[None].expand(toks.shape[0], s)})
+            hidden, _ = bundle.forward_train(params, model_inputs(
+                bundle, toks, pos[None].expand(toks.shape[0], s)))
             keys.append(hidden[:, :-1].to(torch.float32)
                         .reshape(-1, hidden.shape[-1]))
     return torch.cat(keys)

@@ -80,7 +80,18 @@ def test_serve_launcher_serves_the_moe_archs(capsys, arch):
     assert "kNN queries served: 12" in out
 
 
-def test_serve_launcher_refuses_an_arch_not_ported():
+def test_serve_launcher_refuses_an_arch_not_ported(capsys):
+    """All ten configs are ported: whisper-tiny (zero frames) and
+    qwen2-vl-72b (M-RoPE, zero patch embeddings) serve with the hook on
+    every sampled token; only an id that names no config is refused."""
     for arch in ("whisper-tiny", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tserve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+        rc = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                          "--requests", "3", "--slots", "2", "--prompt-len",
+                          "8", "--new-tokens", "4", "--knnlm"])
+        out = capsys.readouterr().out
+        assert rc == 0, arch
+        assert "3 requests, 12 tokens" in out, arch
+        assert "kNN queries served: 12" in out, arch
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "whisper-large", "--reduced", "--device",
+                     "cpu"])

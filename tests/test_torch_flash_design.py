@@ -18,8 +18,9 @@ it is held:
   that limit at the model's head dim.
 
 Kernel #9's host-side schedule (``kernels/pccp_corr.py``): every tile on or
-above the diagonal is launched once, every row of n falls in one chunk, and
-the split fills the card's waves.
+above the diagonal is launched once, every row of n falls in one chunk, no
+chunk is longer than ``MAX_CHUNK_ROWS``, and the split fills the card's
+waves.
 """
 
 import math
@@ -164,6 +165,24 @@ def test_gram_schedule_covers_every_upper_tile_and_row_once(d, n, slots):
     for c in range(splits):
         covered[c * rows:min(n, (c + 1) * rows)] += 1
     assert bool((covered == 1).all())
+
+
+@pytest.mark.parametrize("d", [384, 2048, 3072, 8192])
+@pytest.mark.parametrize("slots", [132, 264])
+def test_gram_chunks_are_at_most_the_longest_chain(d, slots):
+    """65,472 rows (the datastore's keys) never go to one block as a single
+    fp32 chain longer than MAX_CHUNK_ROWS, at any width; among the splits
+    that keep that, the schedule's fills the waves best."""
+    n = 65_472
+    tiles, splits, rows = pccp_corr.schedule(n, d, slots)
+    assert rows <= pccp_corr.MAX_CHUNK_ROWS
+    allowed = [s for s in range(1, pccp_corr.MAX_SPLITS + 1)
+               if pccp_corr.chunk_rows(n, s) <= pccp_corr.MAX_CHUNK_ROWS]
+
+    def waves_rows(s):
+        return math.ceil(len(tiles) * s / slots) * pccp_corr.chunk_rows(n, s)
+
+    assert splits == min(allowed, key=lambda s: (waves_rows(s), s))
 
 
 @pytest.mark.parametrize("d", [1, 100, 129, 3072])

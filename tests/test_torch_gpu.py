@@ -925,6 +925,8 @@ FLASH_CASES = [
     (2, 40, 8, 130, 130, 128, True, None),
     (1, 40, 8, 77, 200, 128, True, 100),
     (1, 40, 10, 200, 200, 128, True, None),
+    (2, 6, 6, 1500, 1500, 64, False, None),    # whisper-tiny's encoder
+    (2, 6, 6, 512, 512, 64, True, None),       # whisper-tiny's decoder
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -1052,6 +1054,25 @@ def _gram_tolerance(xc: torch.Tensor) -> torch.Tensor:
     case is n * eps32)."""
     a = xc.abs().double()
     return (8 * xc.shape[0] ** 0.5 * EPS32 * (a.T @ a)).float()
+
+
+def test_pccp_gram_over_repeated_rows_at_the_widest_keys(cuda):
+    """qwen2-vl-72b's datastore shape (65,472 x 8192), a quarter of the
+    rows one repeated row (the zero keys of the patch positions) and the
+    rest offset from 0: the repeated products round in one direction
+    along a block's fp32 chain, so a chain of all n rows drifted past the
+    limit; chunks of at most MAX_CHUNK_ROWS stay within it."""
+    n, d = 65_472, 8192
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((n, d), generator=gen, device=cuda) + 0.5
+    x[torch.arange(n, device=cuda) % 1023 < 256] = 0.0
+    xc = (x - x.mean(0, keepdim=True)).contiguous()
+    del x
+    slots = pccp_corr._device_slots(xc.device)
+    assert pccp_corr.schedule(n, d, slots)[2] <= pccp_corr.MAX_CHUNK_ROWS
+    gram = pccp_corr.pccp_gram(xc)
+    diff = (gram - xc.T @ xc).abs()
+    assert bool((diff <= _gram_tolerance(xc)).all())
 
 
 @pytest.mark.parametrize("n,d", [(100, 8), (257, 40), (64, 129),
@@ -1633,3 +1654,75 @@ def test_moe_layer_on_the_card_repeats_and_equals_the_cpu(cuda, dtype):
     scale = float(want.float().abs().max())
     tol = 1e-5 * scale if dtype == torch.float32 else 2.0 ** -6 * scale
     assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder and M-RoPE on the card (models/encdec.py, M-RoPE and
+# the patch stub in models/transformer.py)
+# ---------------------------------------------------------------------------
+
+def _encdec_run(cfg, params, dev):
+    """prefill (hidden states, every cache tensor) and two decode steps
+    (logits, hidden states) of a reduced config on ``dev``, its inputs as
+    the engine gives them (M-RoPE positions, zero frames or patch
+    embeddings; the prefill also with seeded non-zero ones), as CPU
+    tensors."""
+    from repro_torch.models.registry import (build_model, model_inputs,
+                                             model_positions)
+    from repro_torch.serve.engine import _cache_leaves
+    bundle = build_model(cfg, device=dev)
+    params = _tree_to(params, dev)
+    gen = torch.Generator().manual_seed(4)
+    toks = torch.randint(1, cfg.vocab_size, (2, 12), generator=gen).to(dev)
+    pos = torch.arange(12, device=dev)[None].expand(2, 12)
+    batch = model_inputs(bundle, toks, pos)
+    for name in bundle.extra_inputs:
+        batch[name] = torch.randn(batch[name].shape, generator=gen).to(dev)
+    caches = bundle.init_cache(2, 16)
+    lengths = torch.zeros(2, dtype=torch.int32, device=dev)
+    hidden, caches = bundle.prefill(params, batch, caches, lengths)
+    out = {"prefill": hidden.cpu()}
+    lengths = lengths + 12
+    for step in range(2):
+        logits, last, caches = bundle.decode_step(
+            params, toks[:, step:step + 1],
+            model_positions(cfg, lengths[:, None]), caches, lengths)
+        out[f"logits{step}"], out[f"hidden{step}"] = logits.cpu(), last.cpu()
+        lengths = lengths + 1
+    for i, t in enumerate(_cache_leaves(caches)):
+        out[f"cache{i}"] = t.cpu()
+    return out
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_encdec_and_mrope_on_the_card_equal_the_cpu(cuda, arch):
+    """Reduced whisper-tiny (encoder through #10's non-causal path, cross
+    attention plain) and reduced qwen2-vl-72b (M-RoPE, patch stub) in fp32:
+    prefill and decode on the card equal the CPU's within 1e-5 of each
+    tensor's largest entry (the fp32 kernel against the plain version and
+    sums in another order through two layers), #10 launched once a
+    self-attention layer in the prefill (whisper: encoder and decoder)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              compute_dtype=torch.float32)
+    params = build_model(cfg, device="cpu").init(0)
+    want = _encdec_run(cfg, params, torch.device("cpu"))
+    before = flash_attention.launches
+    got = _encdec_run(cfg, params, cuda)
+    assert flash_attention.launches - before == cfg.num_layers
+    assert got.keys() == want.keys()
+    for key, w in want.items():
+        scale = float(w.abs().max())
+        diff = float((got[key] - w).abs().max())
+        assert diff <= 1e-5 * scale, (key, diff, scale)

@@ -278,6 +278,40 @@ def test_the_moe_slice_is_covered_and_defaults_to_the_card(no_card):
     assert y.device.type == "cpu" and aux.device.type == "cpu"
 
 
+def test_the_encdec_slice_is_covered_and_defaults_to_the_card(no_card):
+    """models/encdec.py and the whisper-tiny and qwen2-vl-72b configs are in
+    the import scan; build_model, init_params, init_cache and KVCache run
+    on the card unless the caller asks for the CPU; the extra inputs the
+    engine and the datastore feed are made on the bundle's device."""
+    from repro_torch import configs
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.registry import build_model, model_inputs
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/encdec.py",
+            "src/repro_torch/configs/whisper_tiny.py",
+            "src/repro_torch/configs/qwen2_vl_72b.py"} <= names
+    whisper = configs.get_reduced("whisper-tiny")
+    vlm = configs.get_reduced("qwen2-vl-72b")
+    for call in (lambda: build_model(whisper), lambda: build_model(vlm),
+                 lambda: encdec.init_params(whisper),
+                 lambda: encdec.init_cache(whisper, 1, 8),
+                 lambda: ttf.init_params(vlm),
+                 lambda: ttf.init_cache(vlm, 1, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for cfg in (whisper, vlm):
+        bundle = build_model(cfg, device="cpu")
+        batch = model_inputs(bundle, torch.ones((2, 8), dtype=torch.int32),
+                             torch.arange(8)[None].expand(2, 8))
+        assert all(t.device.type == "cpu" for t in batch.values())
+        caches = bundle.init_cache(2, 8)
+        hidden, _ = bundle.prefill(bundle.init(0), batch, caches,
+                                   torch.zeros(2, dtype=torch.int32))
+        assert hidden.device.type == "cpu"
+    assert caches[0]["mixer"].k.device.type == "cpu"
+
+
 def test_the_distributed_slice_is_covered_and_defaults_to_the_card(no_card):
     """dist/ and launch/mesh.py are in the import scan; make_mesh, the
     host and production meshes, query_subview, shard_index and
@@ -421,7 +455,17 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "qwen2.5-32b: 2 layers at full width",
                  "qwen3-32b: 2 layers at full width",
                  "phi3-medium-14b: 2 layers at full width",
-                 "phase 14:"):
+                 "phase 14:",
+                 "flash_attention whisper_encoder",
+                 "flash_attention qwen2vl_corpus_batch",
+                 "whisper-tiny: the engine's",
+                 "whisper-tiny: the hooked logits of all",
+                 "whisper-tiny: the hook's ids on the last tick match",
+                 "whisper-tiny: first-token logits through #10",
+                 "qwen2-vl-72b: the engine's",
+                 "qwen2-vl-72b: the hook's ids on the last tick match",
+                 "qwen2-vl-72b: first-token logits through #10",
+                 "phase 15:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

@@ -34,6 +34,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtf
+from repro.models.registry import build_model as jbuild_model
 
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import flash_attention as tflash
@@ -298,20 +299,28 @@ def test_full_config_and_unported_kinds():
         assert getattr(cfg, f) == getattr(jcfg, f), f
     assert cfg.compute_dtype == torch.bfloat16
     assert ttf.count_params(cfg) == jtf.count_params(jcfg)
-    # whisper-tiny (encoder-decoder) and qwen2-vl-72b (M-RoPE) are not
-    # ported; RG-LRU, RWKV and MoE blocks are (tests/test_torch_moe.py).
+    # Every config is ported: whisper-tiny (encoder-decoder,
+    # tests/test_torch_encdec.py) and qwen2-vl-72b (M-RoPE,
+    # tests/test_torch_mrope.py) build, at the reference's sizes; learned
+    # positions run; a kind or a config type that does not exist raises.
+    assert set(tconfigs.ARCH_IDS) == set(jconfigs.ARCH_IDS)
     for arch in ("whisper-tiny", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tconfigs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tconfigs.get_reduced(arch)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttf.init_params(dataclasses.replace(cfg, pos_embedding="learned"),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttf.init_cache(dataclasses.replace(cfg, pos_embedding="learned"),
-                       1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+        full = tconfigs.get_config(arch)
+        assert build_model(full, device="cpu").count_params == \
+            jbuild_model(jconfigs.get_config(arch)).count_params
+        bundle = build_model(tconfigs.get_reduced(arch), device="cpu")
+        assert bundle.extra_inputs and bundle.init(0)
+    learned = dataclasses.replace(cfg, pos_embedding="learned",
+                                  max_position=32)
+    assert ttf.init_params(learned, device="cpu")["pos_embed"].shape == (
+        32, cfg.d_model)
+    assert len(ttf.init_cache(learned, 1, 8, device="cpu")) == \
+        cfg.num_layers
+    for bad in (dict(block_pattern=("conv",)), dict(ffn_kind="glu"),
+                dict(pos_embedding="alibi")):
+        with pytest.raises(ValueError, match="unknown"):
+            ttf.init_params(dataclasses.replace(cfg, **bad), device="cpu")
+    with pytest.raises(TypeError, match="unknown config type"):
         build_model(type("EncDecConfig", (), {})(), device="cpu")
     assert len(ttf.init_cache(dataclasses.replace(
         cfg, block_pattern=("rglru",), lru_width=8, num_layers=2), 1, 8,

@@ -220,15 +220,16 @@ def test_what_is_not_ported_raises(models):
     store = tknnlm.build_datastore(tb, tp, corpus, m=2)
     # grow / evict are ported (tests/test_torch_segments.py and
     # test_datastore_grow_evict_contract below), and so is the approximate
-    # hook (test_hook_approx_and_target_recall_match_jax); the
-    # encoder-decoder models are not.
+    # hook (test_hook_approx_and_target_recall_match_jax); so are the
+    # encoder-decoder models (tests/test_torch_encdec.py), and a config of
+    # no known type raises.
     assert store.grow(np.zeros((1, 64), np.float32),
                       np.zeros(1, np.int32)).tolist() == [store.index.n - 1]
     assert store.evict([0]) == 1
     hook = tknnlm.KNNLMHook(store=store, k=2, approx_p=0.9)
     out = hook(torch.zeros((1, VOCAB)), torch.ones((1, 64)))
     assert out.shape == (1, VOCAB) and hook.queries_served == 1
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="unknown config type"):
         tbuild_model(type("EncDecConfig", (), {})(), device="cpu")
 
 
