@@ -221,6 +221,21 @@ Phases:
    every prefill and corpus row) with its depth cut to 12 of 80 layers
    (``QWEN2_VL_LAYERS``; 52.1 GB of fp32 weights): 65,472 keys of 8192
    fp32, #10 once a layer, #1/#3/#7 for the hook.
+16. Training the dense decoder family (``train/``, ``launch/train.py``):
+   a) starcoder2-3b at full size (30 layers, d_model 3072, bf16 compute,
+   seeded weights) through ``launch/train.py``'s ``main``: 4 x 4096
+   tokens in 2 microbatches (its train_4k shape with the batch cut from
+   256), 10 steps; exit 0, every loss finite, the last below the first,
+   #10's counters at 0 (training attends through the reference's
+   differentiable dispatch: #10 has no backward pass); each step's ms,
+   tokens/s and the peak device bytes recorded.  b) One fp32 step (TF32
+   off) at full width and 2 layers, 1 x 512 tokens, from one state on the
+   card and on the CPU: loss, grad norm, moments and every updated
+   parameter within tolerances set from fp32 sums over d = 3072.  c) At
+   full width and 2 layers in bf16, 4 steps of 4 x 4096 tokens with a
+   checkpoint at step 2 (``train/checkpoint.py``, under build/), restored
+   onto the card and stepped again: the losses and the final state
+   bit-equal.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -312,6 +327,19 @@ QWEN2_VL_LAYERS = 12
 # batch and qwen2-vl-72b's corpus batch, (b, h, kh, sq, skv, d, causal).
 PHASE15_SHAPES = {"whisper_encoder": (8, 6, 6, 1500, 1500, 64, False),
                   "qwen2vl_corpus_batch": (8, 64, 8, 1024, 1024, 128, True)}
+# Phase 16: starcoder2-3b's training run through the launcher at full size
+# (the config's train_4k shape, its batch cut from 256 to 4 sequences),
+# then the card against the CPU and the restart at full width and depth 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 10
+TRAIN_SMALL_LAYERS = 2
+TRAIN_COMPARE_SEQ = 512
+TRAIN_RESTART_STEPS, TRAIN_SAVE_AT = 4, 2
+# The card's fp32 step against the CPU's: a gradient may differ by the
+# worst-case rounding of two stacked fp32 contractions over d = 3072 terms
+# (d x eps32 each) of its leaf's largest gradient; the loss by one.
+TRAIN_D = 3072
+TRAIN_GRAD_TOL = 2 * TRAIN_D * 2.0 ** -23
+TRAIN_LOSS_RTOL = TRAIN_D * 2.0 ** -23
 # The indexes phase 9 runs the oracle and the calibration on.
 ORACLE_LABELS = ("blobs", "audio int8")
 # The reference's rule (tests/test_calibration.py): measured recall at a
@@ -3179,6 +3207,271 @@ class Smoke:
         say(f"phase 15: {rec['seconds']:.1f} s")
         return rec
 
+    # -- phase 16: training the dense decoder family -------------------
+    def phase_train(self) -> dict:
+        """starcoder2-3b trained at full size through the launcher
+        (``train_full``), one fp32 step at full width and depth 2 on the
+        card against the CPU (``train_card_vs_cpu``), and a bit-exact
+        restart at full width and depth 2 in bf16 (``train_restart``)."""
+        rec = {"seconds": 0.0}
+        t0 = time.perf_counter()
+        rec["full"] = self.train_full()
+        rec["card_vs_cpu"] = self.train_card_vs_cpu()
+        rec["restart"] = self.train_restart()
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 16: {rec['seconds']:.1f} s")
+        return rec
+
+    def train_config(self, layers=None, **overrides):
+        from repro_torch import configs
+        if self.rehearsal:
+            import dataclasses
+            return dataclasses.replace(configs.get_reduced("starcoder2-3b"),
+                                       **overrides)
+        if layers is not None:
+            overrides["num_layers"] = layers
+        return configs.get_config("starcoder2-3b", **overrides)
+
+    def expect_no_flash(self, label: str) -> None:
+        launched = self.launches()["flash_attention"]
+        expect(launched == 0 and not any(self.flash_launches().values()),
+               f"{label}: training launched #10 {launched} times "
+               f"({self.flash_launches()}); it has no backward pass")
+
+    def train_full(self) -> dict:
+        """``launch/train.py``'s ``main`` at full size: 30 layers, bf16
+        compute, TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO microbatches,
+        TRAIN_STEPS steps (the reduced config at 64 tokens in a CPU
+        rehearsal).  Exit 0, every loss finite, the last below the first,
+        #10's counters at 0 across the steps."""
+        import math
+        from repro_torch.launch import train as train_launcher
+        batch, seq = (TRAIN_BATCH, 64) if self.rehearsal else (TRAIN_BATCH,
+                                                               TRAIN_SEQ)
+        out = ROOT / "build" / "phase16_train.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        argv = ["--arch", "starcoder2-3b", "--steps", str(TRAIN_STEPS),
+                "--batch", str(batch), "--seq", str(seq), "--microbatches",
+                str(TRAIN_MICRO), "--device", str(self.dev.type),
+                "--record", str(out)]
+        if self.rehearsal:
+            argv.append("--reduced")
+        before = self.left_on_card()
+        self.reset_launches()
+        t0 = time.perf_counter()
+        rc = train_launcher.main(argv)
+        rec = {"argv": argv, "exit": rc,
+               "seconds": time.perf_counter() - t0}
+        self.expect_no_flash("phase 16a")
+        rec["flash_launches"] = self.launches()["flash_attention"]
+        expect(rc == 0, f"launch/train.py exited {rc}")
+        run = json.loads(out.read_text())
+        losses, step_ms = run["losses"], run["step_ms"]
+        expect(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                                  for x in losses),
+               f"phase 16a: losses {losses}")
+        expect(losses[-1] < losses[0],
+               f"phase 16a: the last loss {losses[-1]} is not below the "
+               f"first {losses[0]}")
+        steady = statistics.median(step_ms[1:])
+        tokens = batch * seq
+        rec.update(layers=run["layers"], batch=batch, seq=seq,
+                   microbatches=TRAIN_MICRO, losses=losses, step_ms=step_ms,
+                   first_step_ms=step_ms[0], steady_step_ms=steady,
+                   tokens_per_s=tokens / (steady / 1e3),
+                   tokens_per_s_all_steps=tokens * len(step_ms)
+                   / (sum(step_ms) / 1e3),
+                   peak_bytes=run["peak_bytes"])
+        gc.collect()
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+        rec["left_on_card_bytes"] = [before, self.left_on_card()]
+        if not self.rehearsal:
+            # the state (48.5 GB at full size) is gone; what may stay is a
+            # cuBLAS workspace of the backward thread's handle
+            expect(rec["left_on_card_bytes"][1] - before <= 2 ** 28,
+                   f"phase 16a: {rec['left_on_card_bytes']} B on the card "
+                   "before and after the run")
+        say(f"train starcoder2-3b: {run['layers']} layers, {batch} x {seq} "
+            f"tokens in {TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps "
+            f"through launch/train.py (exit {rc}); losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; step ms first {step_ms[0]:.1f}, median after "
+            f"{steady:.1f}; {rec['tokens_per_s']:.1f} tokens/s; peak "
+            f"{rec['peak_bytes']} B; #10 launches 0; {rec['seconds']:.1f} s")
+        return rec
+
+    def train_card_vs_cpu(self) -> dict:
+        """One fp32 step (TF32 off) at full width and TRAIN_SMALL_LAYERS
+        layers, batch 1 x TRAIN_COMPARE_SEQ, from one state on the card
+        and on the CPU: the loss within TRAIN_LOSS_RTOL, the grad norm
+        within TRAIN_GRAD_TOL, the moments within TRAIN_GRAD_TOL of each
+        leaf's largest, and each updated parameter within 1e-6 + 1e-5 of
+        itself plus what that gradient error moves AdamW's step (2 x lr x
+        error / (|g| + eps), capped at 2 x lr)."""
+        torch = self.torch
+        from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+        from repro_torch.models.registry import build_model
+        from repro_torch.train.checkpoint import _flatten_with_names
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train.train_loop import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step,
+                                                  train_state_to)
+        expect(self.rehearsal or not torch.backends.cuda.matmul.allow_tf32,
+               "phase 16b needs TF32 off")
+        cfg = self.train_config(TRAIN_SMALL_LAYERS,
+                                compute_dtype=torch.float32)
+        seq = 32 if self.rehearsal else TRAIN_COMPARE_SEQ
+        cpu = torch.device("cpu")
+        tc = TrainConfig(loss_chunk=min(512, seq), opt=OptimizerConfig(
+            peak_lr=3e-4, warmup_steps=0, total_steps=10))
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=1)
+        t0 = time.perf_counter()
+        state_cpu = init_train_state(build_model(cfg, device=cpu), SEED)
+        state_dev = train_state_to(state_cpu, self.dev)
+        rec = {"layers": cfg.num_layers, "seq": seq}
+        out = {}
+        for label, dev, state in (("cpu", cpu, state_cpu),
+                                  ("card", self.dev, state_dev)):
+            step = make_train_step(build_model(cfg, device=dev), tc)
+            batch = token_batch(stream, 0, device=dev)
+            self.reset_launches()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            rec[f"{label}_step_ms"] = 1e3 * (time.perf_counter() - t1)
+            self.expect_no_flash(f"phase 16b ({label})")
+            # compared on the card (the CPU's tensors moved there)
+            out[label] = ({k: v.detach().to(self.dev) for k, v in
+                           _flatten_with_names(state).items()}, metrics)
+            del state, step, batch
+        del state_cpu, state_dev
+        (want, mw), (got, mg) = out["cpu"], out["card"]
+        rec["loss"] = [mw["loss"], mg["loss"]]
+        rec["grad_norm"] = [mw["grad_norm"], mg["grad_norm"]]
+        rec["loss_diff_over_tol"] = abs(mg["loss"] - mw["loss"]) / (
+            TRAIN_LOSS_RTOL * abs(mw["loss"]))
+        rec["grad_norm_diff_over_tol"] = abs(
+            mg["grad_norm"] - mw["grad_norm"]) / (TRAIN_GRAD_TOL
+                                                  * mw["grad_norm"])
+        worst = {"param": 0.0, "moment": 0.0}
+        lr = mw["lr"]
+        for name, w in want.items():
+            g = got[name]
+            if name == ".opt.step":
+                expect(int(g) == int(w) == 1, f"phase 16b: step {g} / {w}")
+                continue
+            if name.startswith((".opt.mu", ".opt.nu")):
+                scale = 2.0 if name.startswith(".opt.nu") else 1.0
+                tol = scale * TRAIN_GRAD_TOL * float(w.abs().max()) + 1e-30
+                worst["moment"] = max(worst["moment"],
+                                      float((g - w).abs().max()) / tol)
+                continue
+            gmag = (want[".opt.nu" + name[len(".params"):]] / 0.05).sqrt()
+            err = TRAIN_GRAD_TOL * float(gmag.max())
+            tol = 1e-6 + 1e-5 * w.abs() + lr * torch.clamp(
+                2.0 * err / (gmag + 1e-8), max=2.0)
+            worst["param"] = max(worst["param"],
+                                 float(((g - w).abs() / tol).max()))
+            del gmag, tol
+        del want, got, out
+        rec["params_diff_over_tol"] = worst["param"]
+        rec["moments_diff_over_tol"] = worst["moment"]
+        rec["seconds"] = time.perf_counter() - t0
+        for key in ("loss_diff_over_tol", "grad_norm_diff_over_tol",
+                    "params_diff_over_tol", "moments_diff_over_tol"):
+            expect(rec[key] <= 1.0, f"phase 16b: {key} {rec[key]:.3g}")
+        say(f"train card vs cpu: starcoder2-3b at {cfg.num_layers} layers, "
+            f"fp32, 1 x {seq}: loss {mg['loss']:.6f} / {mw['loss']:.6f} "
+            f"({rec['loss_diff_over_tol']:.3g} of the limit), grad norm "
+            f"{rec['grad_norm_diff_over_tol']:.3g}, moments "
+            f"{rec['moments_diff_over_tol']:.3g}, parameters "
+            f"{rec['params_diff_over_tol']:.3g} of theirs; step ms card "
+            f"{rec['card_step_ms']:.1f}, cpu {rec['cpu_step_ms']:.1f}; "
+            f"{rec['seconds']:.1f} s")
+        return rec
+
+    def train_restart(self) -> dict:
+        """TRAIN_RESTART_STEPS bf16 steps at full width and
+        TRAIN_SMALL_LAYERS layers (TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
+        microbatches), a checkpoint at step TRAIN_SAVE_AT, its restore onto
+        the card and the last steps again: the losses and the final state
+        bit-equal."""
+        import shutil
+        torch = self.torch
+        from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+        from repro_torch.models.registry import build_model
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train.optimizer import (OptimizerConfig, tree_leaves,
+                                                 tree_map)
+        from repro_torch.train.train_loop import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step)
+        cfg = self.train_config(TRAIN_SMALL_LAYERS)
+        seq = 64 if self.rehearsal else TRAIN_SEQ
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=self.dev)
+        step = make_train_step(bundle, TrainConfig(
+            microbatches=TRAIN_MICRO, opt=OptimizerConfig(
+                peak_lr=3e-4, warmup_steps=0, total_steps=10)))
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=TRAIN_BATCH)
+        state = init_train_state(bundle, SEED)
+        directory = ROOT / "build" / "phase16_ckpt"
+        shutil.rmtree(directory, ignore_errors=True)
+        rec = {"layers": cfg.num_layers, "seq": seq, "step_ms": []}
+        self.reset_launches()
+        losses = []
+        try:
+            for i in range(TRAIN_RESTART_STEPS):
+                if i == TRAIN_SAVE_AT:
+                    t1 = time.perf_counter()
+                    path = ckpt.save_checkpoint(str(directory), i, state)
+                    rec["save_s"] = time.perf_counter() - t1
+                    rec["checkpoint_bytes"] = sum(
+                        f.stat().st_size for f in Path(path).iterdir())
+                t1 = time.perf_counter()
+                state, m = step(state, token_batch(stream, i,
+                                                   device=self.dev))
+                losses.append(float(m["loss"]))
+                rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            t1 = time.perf_counter()
+            again = ckpt.restore_checkpoint(
+                str(directory), TRAIN_SAVE_AT,
+                tree_map(lambda t: t.to("meta"), state), device=self.dev)
+            self.sync()
+            rec["restore_s"] = time.perf_counter() - t1
+            replay = []
+            for i in range(TRAIN_SAVE_AT, TRAIN_RESTART_STEPS):
+                again, m = step(again, token_batch(stream, i,
+                                                   device=self.dev))
+                replay.append(float(m["loss"]))
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        self.expect_no_flash("phase 16c")
+        rec["losses"], rec["replayed_losses"] = losses, replay
+        expect(replay == losses[TRAIN_SAVE_AT:],
+               f"phase 16c: losses {losses} replayed as {replay}")
+        differ = [i for i, (a, b) in enumerate(zip(
+            tree_leaves(state), tree_leaves(again), strict=True))
+            if not torch.equal(a, b)]
+        expect(not differ, f"phase 16c: {len(differ)} state tensors differ "
+               "after the restart")
+        rec["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(state))
+        del state, again, bundle, step
+        gc.collect()
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"train restart: starcoder2-3b at {cfg.num_layers} layers, bf16, "
+            f"{TRAIN_BATCH} x {seq}: a restart from step {TRAIN_SAVE_AT} "
+            f"repeats losses {replay} and the final state bit for bit "
+            f"({rec['state_bytes']} B of state, checkpoint "
+            f"{rec['checkpoint_bytes']} B saved in {rec['save_s']:.1f} s, "
+            f"restored in {rec['restore_s']:.1f} s); {rec['seconds']:.1f} s")
+        return rec
+
     def depth2_check(self, arch: str) -> dict:
         """One config at full width, its depth cut to 2 layers (the reduced
         config in a CPU rehearsal), seeded weights on the card: the tree's
@@ -5148,6 +5441,7 @@ class Smoke:
         self.record["recurrent"] = self.phase_recurrent()
         self.record["moe"] = self.phase_moe()
         self.record["encdec"] = self.phase_encdec()
+        self.record["train"] = self.phase_train()
         self.record["phase12"] = self.phase12
         say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
             f"world-size-1 {self.phase12.get('backend')} group started in "

@@ -1,1 +1,1 @@
-"""Synthetic stand-ins for the paper's vector datasets."""
+"""Synthetic data: the LM token stream and the paper's vector sets."""

@@ -1,10 +1,17 @@
-"""Synthetic stand-ins for the paper's vector datasets (Table 4).
+"""Deterministic synthetic data: LM token batches and the paper's vector
+sets (port of ``repro.data.pipeline``).
 
-Port of the vector half of ``repro.data.pipeline``: correlated Gaussian
-mixtures with each dataset's (n, d) and Bregman measure, made with numpy
-from a seed.  The dataset's stream is seeded from ``zlib.crc32`` of its
-name, which is the same in every process (the builtin ``hash`` of a
-string is not), so a run can be repeated.
+Every token batch is a pure function of ``(seed, step)``: nothing is
+consumed from a stateful iterator, so a restart from step k replays the
+same stream, which makes a checkpoint restart bit-exact.  One device holds
+the whole batch, so the reference's shard-wise assembly has no
+counterpart.
+
+The vector half makes correlated Gaussian mixtures with each dataset's
+(n, d) and Bregman measure, with numpy from a seed.  The dataset's stream
+is seeded from ``zlib.crc32`` of its name, which is the same in every
+process (the builtin ``hash`` of a string is not), so a run can be
+repeated.
 """
 
 from __future__ import annotations
@@ -13,8 +20,65 @@ import dataclasses
 import zlib
 
 import numpy as np
+import torch
 
 from ..core.bregman import get_family
+from ..device import resolve_device
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TokenStreamConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    # markov-ish structure so the LM has something to learn
+    num_patterns: int = 512
+    pattern_len: int = 16
+
+
+def _batch_np(cfg: TokenStreamConfig, step: int, rows: np.ndarray):
+    """The given global row indices of batch ``step``, (len(rows),
+    seq_len + 1) int32 (pure; the reference's generator, draw for draw)."""
+    out_tok = np.empty((len(rows), cfg.seq_len + 1), np.int32)
+    pat_rng = np.random.default_rng(cfg.seed ^ 0x5EED)
+    patterns = pat_rng.integers(
+        0, cfg.vocab_size, (cfg.num_patterns, cfg.pattern_len))
+    for i, r in enumerate(rows):
+        rng = np.random.default_rng(
+            (cfg.seed * 1_000_003 + step) * 131_071 + int(r))
+        seq = []
+        while len(seq) < cfg.seq_len + 1:
+            pid = int(rng.integers(cfg.num_patterns))
+            seq.extend(patterns[pid])
+            if rng.random() < 0.1:  # noise token breaks pure copying
+                seq.append(int(rng.integers(cfg.vocab_size)))
+        out_tok[i] = seq[: cfg.seq_len + 1]
+    return out_tok
+
+
+def token_batch(cfg: TokenStreamConfig, step: int, device="cuda",
+                mrope: bool = False) -> dict:
+    """Batch ``step`` as int32 tensors on ``device``: tokens and labels
+    (B, S), the labels the tokens shifted by one, and positions (B, S), or
+    (B, S, 3) with ``mrope``."""
+    dev = resolve_device(device)
+    b, s = cfg.global_batch, cfg.seq_len
+    toks = torch.from_numpy(_batch_np(cfg, step, np.arange(b))).to(dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    if mrope:
+        pos = pos[..., None].expand(b, s, 3)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+            "positions": pos.contiguous()}
+
+
+# ---------------------------------------------------------------------------
+# Paper vector datasets (Table 4 stand-ins)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -284,7 +284,18 @@ def pccp_correlation(x):
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """GQA attention, q (B, H, Sq, D), k/v (B, KH, Skv, D), queries
     end-aligned to the keys; output (B, H, Sq, D) in q's dtype (and, on the
-    card, q's layout)."""
+    card, q's layout).  Forward only: #10 has no backward pass (nor has
+    the reference's Pallas kernel), so with grad mode on and q, k or v
+    asking for a gradient this raises ``ValueError`` on either device,
+    rather than return an output that cuts the graph; training attends
+    through ``models.attention.sdpa_train``."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention (kernel #10) has no backward pass: call it "
+            "under torch.no_grad() or torch.inference_mode(), or attend "
+            "through models.attention.sdpa_train to train")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError(
             f"flash_attention wants (B, heads, S, D) tensors, got "

@@ -1,18 +1,25 @@
-"""GQA attention: projections, SDPA through kernel #10, KV-cache decode
-(port of ``repro.models.attention``).
+"""GQA attention: projections, SDPA through kernel #10, the reference's
+differentiable SDPA for training, KV-cache decode (port of
+``repro.models.attention``).
 
 Layout: activations (B, S, H, D).  ``sdpa`` hands q, k and v to
 ``kernels.ops.flash_attention`` as (B, H, S, D) views of that layout: on the
 card the flash-attention kernel reads them through their strides, so no
-transposed copy is made; on the CPU the plain version runs.  The reference
-dispatches between a dense and a chunked jnp version instead (its docstring
-names the Pallas kernel, its code never calls it); the kernel takes every
-shape, so the port has one path.  ``decode_attend`` stays plain torch, as
-in the reference: one query a slot against the cache, with each slot's own
-valid length, which the kernel has no operand for; so does
-``sdpa_dense``, the encoder-decoder's cross attention, which the reference
-computes with its own ``sdpa_dense``.  The reference's
-sharding constraints are dropped: the port runs on one device.
+transposed copy is made; on the CPU the plain version runs.  It builds no
+graph: #10 has no backward pass (nor has the reference's Pallas kernel),
+and the kernel's dispatcher raises when q, k or v asks for a gradient.
+
+Training computes attention where the reference computes it, in plain
+differentiable tensor operations: ``sdpa_train`` is the reference's
+``sdpa`` dispatch, ``sdpa_dense`` (full logits) for short sequences and
+``sdpa_chunked`` (online softmax over q/kv tiles, fully masked tiles
+skipped, each tile under ``torch.utils.checkpoint``) otherwise.  The
+reference's own dispatch never reaches its Pallas kernel either.
+``decode_attend`` stays plain torch, as in the reference: one query a slot
+against the cache, with each slot's own valid length, which the kernel has
+no operand for; so does ``sdpa_dense`` as the encoder-decoder's cross
+attention.  The reference's sharding constraints are dropped: the port
+runs on one device.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops as kernel_ops
@@ -93,7 +101,8 @@ def out_project(p: dict, attn: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# SDPA (prefill and teacher forcing): kernel #10
+# SDPA: kernel #10 (prefill, teacher forcing) and the reference's
+# differentiable dispatch (training)
 # ---------------------------------------------------------------------------
 
 def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -106,25 +115,145 @@ def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
-def sdpa_dense(q: Tensor, k: Tensor, v: Tensor, *,
-               causal: bool = False) -> Tensor:
-    """The reference's full-logits attention, kept plain where the
-    reference computes it outside any kernel (the encoder-decoder's cross
-    attention).  q (B,Sq,H,D), k/v (B,Skv,KH,D) -> (B,Sq,H,D): fp32 logits,
-    a softmax, the probabilities cast to q's dtype for the product with v;
-    a causal mask aligns query i with key i."""
+def _grouped(q: Tensor, kv_heads: int) -> Tensor:
+    """(B,S,H,D) -> (B,S,KH,G,D)."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, kv_heads, h // kv_heads, d)
+
+
+def _mask(qpos: Tensor, kpos: Tensor, causal: bool,
+          window: int | None) -> Tensor | None:
+    """(Sq, Skv) bool mask of the keys each query sees at absolute
+    positions, or None when every key is seen."""
+    if not causal and window is None:
+        return None
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    return mask
+
+
+def sdpa_dense(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+               window: int | None = None, q_offset: int = 0) -> Tensor:
+    """The reference's full-logits attention (plain and differentiable).
+    q (B,Sq,H,D), k/v (B,Skv,KH,D) -> (B,Sq,H,D): fp32 logits, a softmax,
+    the probabilities cast to q's dtype for the product with v.  Query i
+    sits at absolute position ``i + q_offset``, key j at j; the causal
+    mask keeps keys at or before the query, the window the last
+    ``window`` of them."""
     b, sq, h, d = q.shape
     kh = k.shape[2]
-    qg = q.reshape(b, sq, kh, h // kh, d)
+    qg = _grouped(q, kh)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                           k.to(torch.float32)) * (d ** -0.5)
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(k.shape[1], device=q.device)[None, :]
-        logits = torch.where(qi >= ki, logits, NEG_INF)
+    mask = _mask(torch.arange(sq, device=q.device) + q_offset,
+                 torch.arange(k.shape[1], device=q.device), causal, window)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(q.dtype))
     return out.reshape(b, sq, h, d)
+
+
+def _flash_tile(qg, kj, vj, acc, m, den, qpos, kpos, causal, window, scale):
+    """Online-softmax update for one (q_chunk, kv_chunk) tile.
+
+    qg (B,Cq,KH,G,D); kj/vj (B,Ck,KH,D); acc (B,Cq,KH,G,D) fp32; m/den
+    (B,Cq,KH,G) fp32; qpos (Cq,), kpos (Ck,) absolute positions.  The
+    products accumulate in fp32, P cast to q's dtype before P.V."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.to(torch.float32),
+                     kj.to(torch.float32)) * scale
+    mask = _mask(qpos, kpos, causal, window)
+    if mask is not None:
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    den_new = den * corr + torch.sum(p, dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bqhgk,bkhd->bqhgd", p.to(qg.dtype).to(torch.float32),
+        vj.to(torch.float32))
+    return acc_new, m_new, den_new
+
+
+def sdpa_chunked(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                 window: int | None = None, q_offset: int = 0,
+                 q_chunk: int = 512, kv_chunk: int = 1024) -> Tensor:
+    """The reference's flash-semantics attention in plain differentiable
+    operations; the largest buffer is one tile's (B, q_chunk, H, kv_chunk)
+    fp32 logits.  Tiles outside the causal or window reach are skipped
+    (known from the positions alone); where a graph is built, each tile's
+    body runs under ``torch.utils.checkpoint``, so the backward pass makes
+    its probabilities again instead of keeping them."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    nq = -(-sq // q_chunk)
+    nk = -(-skv // kv_chunk)
+    qg = _grouped(q, kh)
+    scale = d ** -0.5
+    kpos = [torch.arange(j * kv_chunk, min((j + 1) * kv_chunk, skv),
+                         device=q.device) for j in range(nk)]
+    outs = []
+    for i in range(nq):
+        q0, q1 = i * q_chunk, min((i + 1) * q_chunk, sq)
+        qi = qg[:, q0:q1]
+        cq = q1 - q0
+        qpos = torch.arange(q0, q1, device=q.device) + q_offset
+        acc = torch.zeros((b, cq, kh, h // kh, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, cq, kh, h // kh), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        den = torch.zeros((b, cq, kh, h // kh), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            k0, k1 = j * kv_chunk, min((j + 1) * kv_chunk, skv)
+            lo_q, hi_q = q0 + q_offset, q1 - 1 + q_offset
+            if causal and k0 > hi_q:
+                continue
+            if window is not None and (k1 - 1) < lo_q - window + 1:
+                continue
+            # a tile whose every key is within reach of every query needs
+            # no mask (the same bits as a mask of all True)
+            tile_causal = causal and k1 - 1 > lo_q
+            tile_window = (window if window is not None
+                           and hi_q - k0 >= window else None)
+            args = (qi, k[:, k0:k1], v[:, k0:k1], acc, m, den, qpos,
+                    kpos[j], tile_causal, tile_window, scale)
+            if torch.is_grad_enabled():
+                # reentrant: the tile's forward builds no graph and its
+                # backward makes it again, at a third of the non-reentrant
+                # form's host time a tile; it draws no random numbers
+                acc, m, den = checkpoint(_flash_tile, *args,
+                                         use_reentrant=True,
+                                         preserve_rng_state=False)
+            else:               # no graph to spare (a remat'd layer's pass)
+                acc, m, den = _flash_tile(*args)
+        out = acc / torch.clamp(den, min=1e-30)[..., None]
+        outs.append(out.reshape(b, cq, h, d).to(q.dtype))
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def sdpa_train(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+               window: int | None = None, q_offset: int = 0,
+               dense_threshold: int = 2048, q_chunk: int = 512,
+               kv_chunk: int = 1024) -> Tensor:
+    """The reference's ``sdpa`` dispatch, differentiable: ``sdpa_dense``
+    where Sq * Skv <= dense_threshold^2, else ``sdpa_chunked`` with chunks
+    of at least S/8 (the reference's rule, which bounds its unrolled tile
+    count)."""
+    if q.shape[1] * k.shape[1] <= dense_threshold * dense_threshold:
+        return sdpa_dense(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    q_chunk = max(q_chunk, -(-q.shape[1] // 8))
+    kv_chunk = max(kv_chunk, -(-k.shape[1] // 8))
+    return sdpa_chunked(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, q_chunk=q_chunk,
+                        kv_chunk=kv_chunk)
 
 
 # ---------------------------------------------------------------------------

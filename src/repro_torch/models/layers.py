@@ -107,8 +107,11 @@ def padded_vocab(vocab: int, multiple: int = 128) -> int:
 def embed_lookup(table: Tensor, tokens: Tensor, compute_dtype) -> Tensor:
     """Rows of the table for (B, S) tokens, in ``compute_dtype``.  The
     reference multiplies a one-hot matrix by the table cast to that dtype,
-    which selects the same values this gather does."""
-    return table[tokens.long()].to(compute_dtype)
+    which selects the same values this gather does.  ``F.embedding``'s
+    backward adds each row's gradients in a fixed order on both devices
+    (an indexing gather's backward adds with atomics on a multi-threaded
+    CPU), so two training runs give the same bits."""
+    return F.embedding(tokens.long(), table).to(compute_dtype)
 
 
 def unembed_logits(x: Tensor, table: Tensor) -> Tensor:

@@ -3,6 +3,9 @@ stacks (port of ``repro.models.registry``).
 
     bundle.init(seed)                              -> params
     bundle.forward_train(params, batch)            -> (hidden, aux_loss)
+    bundle.forward_autograd(params, batch)         -> (hidden, aux_loss),
+                      differentiable, for training (the dense decoder
+                      family; ``ValueError`` for the others)
     bundle.logits(params, hidden)                  -> fp32 logits
     bundle.init_cache(batch_size, s_max)           -> caches (per layer:
                       {"mixer": KVCache or state dict, "ffn": state dict
@@ -37,6 +40,7 @@ class ModelBundle(NamedTuple):
     device: torch.device
     init: Callable
     forward_train: Callable
+    forward_autograd: Callable
     logits: Callable
     init_cache: Callable
     prefill: Callable
@@ -58,6 +62,10 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
                                          batch["positions"],
                                          batch.get("patch_embeds"))
 
+    def forward_autograd(params, batch):
+        return transformer.forward_autograd(cfg, params, batch["tokens"],
+                                            batch["positions"])
+
     def prefill(params, batch, caches, lengths):
         return transformer.prefill(cfg, params, batch["tokens"],
                                    batch["positions"], caches, lengths,
@@ -68,6 +76,7 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
         device=dev,
         init=lambda seed=0: transformer.init_params(cfg, seed, dev),
         forward_train=forward_train,
+        forward_autograd=forward_autograd,
         logits=lambda params, h: transformer.logits_fn(cfg, params, h),
         init_cache=lambda b, s: transformer.init_cache(cfg, b, s, dev),
         prefill=prefill,
@@ -86,6 +95,10 @@ def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
         return encdec.forward_train(cfg, params, batch["tokens"],
                                     batch["positions"], batch["frames"])
 
+    def forward_autograd(params, batch):
+        raise ValueError(f"{cfg.name}: training the encoder-decoder waits "
+                         "for ROADMAP item 7.2b")
+
     def prefill(params, batch, caches, lengths):
         return encdec.prefill(cfg, params, batch["tokens"],
                               batch["positions"], caches, lengths,
@@ -96,6 +109,7 @@ def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
         device=dev,
         init=lambda seed=0: encdec.init_params(cfg, seed, dev),
         forward_train=forward_train,
+        forward_autograd=forward_autograd,
         logits=lambda params, h: encdec.logits_fn(cfg, params, h),
         init_cache=lambda b, s: encdec.init_cache(cfg, b, s, dev),
         prefill=prefill,

@@ -14,8 +14,16 @@ VLM config (``num_patch_tokens`` > 0) takes ``patch_embeds`` (B, P, D) in
 place of the first P tokens' embeddings in ``forward_train`` and
 ``prefill``: the stub of its vision frontend, as in the reference.
 
-* ``forward_train`` — the teacher-forced forward (no loss, no gradient);
-  returns the MoE layers' summed aux loss beside the hidden states.
+* ``forward_train`` — the teacher-forced forward (no loss, no gradient;
+  attention through kernel #10); returns the MoE layers' summed aux loss
+  beside the hidden states.  The datastore build and the forward timings
+  call it.
+* ``forward_autograd`` — the training forward: the same layers, building
+  the autograd graph, attention through ``attention.sdpa_train`` (the
+  reference's differentiable dispatch; #10 has no backward pass), each
+  layer under ``torch.utils.checkpoint`` when ``cfg.remat`` is on (the
+  reference's default remat policy "nothing").  The dense decoder family
+  only (ROADMAP item 7.2b has the rest).
 * ``prefill`` — the same forward, writing the caches; returns every
   position's hidden state (the engine samples at each slot's last prompt
   position).
@@ -39,6 +47,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as attn_mod
@@ -99,7 +108,14 @@ class LMConfig:
     # parameters (L, ...); the port loops over layers either way and
     # imports the stacked layout (params_from_numpy).
     scan_layers: bool = False
+    # training: per-layer remat (the reference's policy "nothing" is the
+    # one ported) and the reference's attention dispatch sizes
+    remat: bool = True
+    remat_policy: str = "nothing"
     compute_dtype: Any = torch.bfloat16
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    dense_attn_threshold: int = 2048
 
     def layer_kinds(self) -> tuple[str, ...]:
         pat = self.block_pattern
@@ -156,10 +172,12 @@ def _init_layer(cfg: LMConfig, kind: str, generator: torch.Generator
             "norm2": init_norm(cfg.d_model, cfg.norm, dev), "ffn": ffn}
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def init_params(cfg: LMConfig, seed: int = 0, device="cuda") -> dict:
     """Random fp32 parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device``: normal x 1/sqrt(fan_in) with fan_in the first
+    ``seed`` on ``device``, as ordinary tensors (not inference tensors, so
+    a training state can ask for their gradients): normal x
+    1/sqrt(fan_in) with fan_in the first
     dim of each per-layer shape (the reference ``Spec``'s rule; an expert
     stack's fan-in is each expert's own first dim), or x the
     spec's own scale where it gives one (the embedding table 1, RG-LRU's
@@ -251,8 +269,10 @@ def active_params(cfg: LMConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_mixer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
-                 positions: Tensor, cache, lengths):
-    """Returns (y, cache).  cache None: training (no cache)."""
+                 positions: Tensor, cache, lengths, autograd: bool = False):
+    """Returns (y, cache).  cache None: the teacher-forced forward (no
+    cache), attending through #10, or with ``autograd`` through the
+    reference's differentiable dispatch."""
     if kind == "rglru":
         return rglru_mod.apply_rglru_block(p, x, cache)
     if kind == "rwkv":
@@ -263,7 +283,12 @@ def _apply_mixer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
         p, x, positions=positions, rope_theta=cfg.rope_theta,
         mrope_section=cfg.mrope_section,
         use_rope=cfg.pos_embedding == "rope")
-    if cache is None:                                       # training
+    if cache is None and autograd:                          # training
+        out = attn_mod.sdpa_train(
+            q, k, v, causal=True, window=window,
+            dense_threshold=cfg.dense_attn_threshold, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk)
+    elif cache is None:                                     # forward
         out = attn_mod.sdpa(q, k, v, causal=True, window=window)
     elif x.shape[1] == 1:                                   # decode step
         cache = _cache_write(cache, k, v, lengths, window)
@@ -299,14 +324,14 @@ def _cache_write(cache: KVCache, k: Tensor, v: Tensor, lengths: Tensor,
 
 
 def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
-                 positions, cache, lengths):
+                 positions, cache, lengths, autograd: bool = False):
     """Returns (x, aux loss, cache).  cache: {"mixer": KVCache or state
     dict, "ffn": state dict or None} or None."""
     h, new_mx = _apply_mixer(cfg, kind, p["mixer"],
                              apply_norm(p["norm1"], x, cfg.norm),
                              positions=positions,
                              cache=None if cache is None else cache["mixer"],
-                             lengths=lengths)
+                             lengths=lengths, autograd=autograd)
     x = x + h
     new_ffn, aux = None, 0.0
     hn = apply_norm(p["norm2"], x, cfg.norm)
@@ -369,6 +394,59 @@ def forward_train(cfg: LMConfig, params: dict, tokens: Tensor,
                                cache=None, lengths=None)
         aux = aux + a
     return apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+def check_trainable(cfg: LMConfig) -> None:
+    """Raise ``ValueError`` unless ``forward_autograd`` trains ``cfg``:
+    attention layers with a plain or gated FFN, RoPE, no M-RoPE or patch
+    stub (the reference's dense family), remat policy "nothing"."""
+    check_supported(cfg)
+    if (set(cfg.layer_kinds()) != {"attn"}
+            or cfg.ffn_kind not in ("plain", "gated")
+            or cfg.pos_embedding != "rope" or cfg.mrope_section is not None
+            or cfg.num_patch_tokens):
+        raise ValueError(
+            f"{cfg.name}: training covers the dense decoder family only; "
+            "the MoE, recurrent, encoder-decoder and VLM configs wait for "
+            "ROADMAP item 7.2b")
+    if cfg.remat_policy != "nothing":
+        raise ValueError(
+            f"remat_policy {cfg.remat_policy!r} is not ported (only "
+            "\"nothing\", the reference configs' policy; see ROADMAP item "
+            "7.2b)")
+
+
+def _train_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor,
+                 positions: Tensor) -> Tensor:
+    return _apply_layer(cfg, kind, p, x, positions=positions, cache=None,
+                        lengths=None, autograd=True)[0]
+
+
+def forward_autograd(cfg: LMConfig, params: dict, tokens: Tensor,
+                     positions: Tensor):
+    """The training forward: (B, S) tokens -> (hidden (B, S, D), aux loss
+    0.0), building the autograd graph.  Attention runs through
+    ``attention.sdpa_train``, never #10; with ``cfg.remat`` each layer runs
+    under ``torch.utils.checkpoint`` (reentrant), so the backward pass
+    keeps only each layer's input and makes the rest again; call
+    ``backward()`` on the loss (a reentrant checkpoint refuses
+    ``torch.autograd.grad``).  Raises
+    ``ValueError`` for a config outside the dense family
+    (:func:`check_trainable`)."""
+    check_trainable(cfg)
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    positions = _positions(positions, tokens)
+    x = embed_inputs(cfg, params, tokens, positions)
+    for kind, lp in zip(cfg.layer_kinds(), params["layers"], strict=True):
+        if cfg.remat:
+            # reentrant: the forward builds no graph (the tiles inside run
+            # plain), the backward makes the layer's again; a layer draws
+            # no random numbers
+            x = checkpoint(_train_layer, cfg, kind, lp, x, positions,
+                           use_reentrant=True, preserve_rng_state=False)
+        else:
+            x = _train_layer(cfg, kind, lp, x, positions)
+    return apply_norm(params["final_norm"], x, cfg.norm), 0.0
 
 
 @torch.inference_mode()

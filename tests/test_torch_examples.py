@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 
@@ -95,3 +96,43 @@ def test_serve_launcher_refuses_an_arch_not_ported(capsys):
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "whisper-large", "--reduced", "--device",
                      "cpu"])
+
+
+def test_torch_train_lm(capsys, tmp_path):
+    """The training example at the reduced config on the CPU, then again
+    resumed from its last checkpoint."""
+    argv = ["--device", "cpu", "--reduced", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--ckpt-dir", str(tmp_path), "--ckpt-every", "3"]
+    _example("torch_train_lm.py")(argv)
+    out = capsys.readouterr().out
+    assert "step    5 loss=" in out and "straggler summary:" in out
+    _example("torch_train_lm.py")(argv[:4] + ["8"] + argv[5:])
+    out = capsys.readouterr().out
+    assert "resuming from checkpoint step 6" in out
+    assert "step    7 loss=" in out
+
+
+def test_train_launcher_on_the_cpu(capsys, tmp_path):
+    rec = tmp_path / "record.json"
+    rc = ttrain.main(["--arch", "qwen3-32b", "--reduced", "--device", "cpu",
+                      "--steps", "3", "--batch", "4", "--seq", "16",
+                      "--microbatches", "2", "--record", str(rec)])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "step    2 loss=" in out and "3 steps in" in out
+    assert "straggler: {" in out
+    import json
+    record = json.loads(rec.read_text())
+    assert len(record["losses"]) == len(record["step_ms"]) == 3
+    assert record["peak_bytes"] is None
+
+
+def test_train_launcher_refuses_a_non_dense_arch():
+    """Only the dense decoder family trains (ROADMAP item 7.2b has the
+    MoE, recurrent, encoder-decoder and VLM configs)."""
+    for arch in ("qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
+                 "recurrentgemma-2b", "rwkv6-1.6b", "whisper-tiny",
+                 "qwen2-vl-72b"):
+        with pytest.raises(ValueError, match="ROADMAP item 7.2b"):
+            ttrain.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "1"])

@@ -1726,3 +1726,136 @@ def test_encdec_and_mrope_on_the_card_equal_the_cpu(cuda, arch):
         scale = float(w.abs().max())
         diff = float((got[key] - w).abs().max())
         assert diff <= 1e-5 * scale, (key, diff, scale)
+
+
+# ---------------------------------------------------------------------------
+# Training (the dense decoder family)
+# ---------------------------------------------------------------------------
+
+def _train_setup(dev, compute_dtype=torch.float32):
+    """Reduced starcoder2-3b's train state made on the CPU and moved to
+    ``dev`` (the seeded generators differ by device), its step and
+    batches."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as tloop
+    cfg = dataclasses.replace(configs.get_reduced("starcoder2-3b"),
+                              compute_dtype=compute_dtype)
+    state = tloop.train_state_to(
+        tloop.init_train_state(build_model(cfg, device="cpu"), 0), dev)
+    step = tloop.make_train_step(
+        build_model(cfg, device=dev),
+        tloop.TrainConfig(microbatches=2, opt=topt.OptimizerConfig(
+            peak_lr=1e-3, warmup_steps=0, total_steps=10)))
+    stream = TokenStreamConfig(vocab_size=512, seq_len=32, global_batch=4)
+    return state, step, lambda i: token_batch(stream, i, device=dev)
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One fp32 step (TF32 off, two microbatches): the loss within rtol
+    1e-5; the moments within 1e-4 of each leaf's largest; a parameter
+    within 1e-6 + 1e-5 of itself plus what a gradient error of 1e-4 of the
+    leaf's largest gradient can move AdamW's step, 2 x lr x error / (|g| +
+    eps) capped at 2 x lr (the CPU rule of tests/test_torch_train.py)."""
+    from repro_torch.train.checkpoint import _flatten_with_names
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        state, step, batch = _train_setup(dev)
+        state, m = step(state, batch(0))
+        runs.append((_flatten_with_names(state), m))
+    (want, mw), (got, mg) = runs
+    assert abs(float(mg["loss"]) - float(mw["loss"])) <= \
+        1e-5 * abs(float(mw["loss"]))
+    lr = float(mw["lr"])
+    for name, w in want.items():
+        g = got[name].cpu()
+        if name == ".opt.step":
+            assert int(g) == int(w) == 1
+        elif name.startswith((".opt.mu", ".opt.nu")):
+            assert float((g - w).abs().max()) <= \
+                2e-4 * float(w.abs().max()) + 1e-12, name
+        else:
+            gmag = (want[".opt.nu" + name[len(".params"):]] / 0.05).sqrt()
+            err = 1e-4 * float(gmag.max())
+            tol = 1e-6 + 1e-5 * w.abs() + lr * torch.clamp(
+                2.0 * err / (gmag + 1e-8), max=2.0)
+            assert bool(((g - w).abs() <= tol).all()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_restart_on_the_card_is_bit_exact(cuda, tmp_path, dtype):
+    """Four steps; a restart from the step-2 checkpoint gives the same
+    losses and the same state, bit for bit (the embedding's and the
+    target gather's backward and the tied table's sums add in a fixed
+    order on the card)."""
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as topt
+    state, step, batch = _train_setup(cuda, dtype)
+    losses = []
+    for i in range(4):
+        if i == 2:
+            ckpt.save_checkpoint(str(tmp_path), i, state)
+        state, m = step(state, batch(i))
+        losses.append(float(m["loss"]))
+    again = ckpt.restore_checkpoint(
+        str(tmp_path), 2, topt.tree_map(lambda t: t.to("meta"), state),
+        device=cuda)
+    for i in range(2, 4):
+        again, m = step(again, batch(i))
+        assert float(m["loss"]) == losses[i]
+    for a, b in zip(topt.tree_leaves(state), topt.tree_leaves(again),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+def test_kernel_10_refuses_grad_and_prefill_still_launches_it(cuda):
+    """#10's dispatcher raises under grad on the card; a train step leaves
+    its counters where they were; the prefill and the no-grad forward
+    still launch it once a layer."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    q = torch.randn((1, 2, 64, 16), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q, q, q)
+    state, step, batch = _train_setup(cuda)
+    before = flash_attention.launches
+    step(state, batch(0))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    cfg = configs.get_reduced("starcoder2-3b")
+    bundle = build_model(cfg, device=cuda)
+    params = bundle.init(0)
+    b = batch(0)
+    bundle.forward_train(params, b)
+    caches = bundle.init_cache(4, 40)
+    bundle.prefill(params, b, caches, torch.zeros(4, dtype=torch.int32,
+                                                  device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 * cfg.num_layers
+
+
+def test_init_params_on_the_card_are_trainable(cuda):
+    """``init_params`` makes ordinary tensors on the card: autograd takes
+    them, and a loss's backward reaches every one."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as ttf
+    from repro_torch.train import losses
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = configs.get_reduced("starcoder2-3b")
+    params = ttf.init_params(cfg, 0, device=cuda)
+    leaves = tree_leaves(params)
+    assert not any(p.is_inference() for p in leaves)
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=cuda)
+    pos = torch.arange(16, device=cuda)[None].expand(2, 16)
+    hidden, _ = ttf.forward_autograd(cfg, params, toks, pos)
+    loss, _ = losses.chunked_cross_entropy(hidden, toks, params["embed"],
+                                           chunk=8)
+    loss.backward()
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in leaves)

@@ -354,6 +354,52 @@ def test_the_distributed_slice_is_covered_and_defaults_to_the_card(no_card):
         dist.destroy_process_group()
 
 
+def test_the_training_slice_is_covered_and_defaults_to_the_card(no_card,
+                                                               tmp_path):
+    """train/, launch/train.py and the training example are in the import
+    scan; the token stream, the train state, the bundle's training
+    forward, the state carried across from numpy, the checkpoint's
+    restore and the launcher run on the card unless the caller asks for
+    the CPU."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as tloop
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/train/__init__.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/losses.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/straggler.py",
+            "src/repro_torch/train/train_loop.py",
+            "src/repro_torch/launch/train.py",
+            "examples/torch_train_lm.py"} <= names
+    cfg = configs.get_reduced("starcoder2-3b")
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                               global_batch=2)
+    bundle = build_model(cfg, device="cpu")
+    state = tloop.init_train_state(bundle, 0)
+    tree = topt.tree_map(lambda t: t.detach().numpy(), state)
+    ckpt.save_checkpoint(str(tmp_path), 0, state)
+    for call in (lambda: token_batch(stream, 0),
+                 lambda: tloop.init_train_state(build_model(cfg), 0),
+                 lambda: tloop.train_state_from_numpy(cfg, tree),
+                 lambda: ckpt.restore_checkpoint(str(tmp_path), 0, state),
+                 lambda: tlaunch.main(["--arch", "starcoder2-3b",
+                                       "--reduced", "--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    batch = token_batch(stream, 0, device="cpu")
+    hidden, _ = bundle.forward_autograd(state.params, batch)
+    assert hidden.device.type == "cpu" and hidden.requires_grad
+    step = tloop.make_train_step(bundle, tloop.TrainConfig())
+    state, metrics = step(state, batch)
+    assert metrics["loss"].device.type == "cpu"
+
+
 def test_the_baselines_are_host_code_by_design(no_card):
     """core/baselines.py is the one entry point with no device: the paper's
     comparison points run in numpy on the host, "not the accelerated
@@ -465,7 +511,12 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "qwen2-vl-72b: the engine's",
                  "qwen2-vl-72b: the hook's ids on the last tick match",
                  "qwen2-vl-72b: first-token logits through #10",
-                 "phase 15:"):
+                 "phase 15:",
+                 "train starcoder2-3b: 2 layers, 4 x 64 tokens in 2 "
+                 "microbatches, 10 steps through launch/train.py (exit 0)",
+                 "train card vs cpu: starcoder2-3b at 2 layers, fp32",
+                 "train restart: starcoder2-3b at 2 layers, bf16",
+                 "phase 16:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)
