@@ -225,7 +225,7 @@ Phases:
    a) starcoder2-3b at full size (30 layers, d_model 3072, bf16 compute,
    seeded weights) through ``launch/train.py``'s ``main``: 4 x 4096
    tokens in 2 microbatches (its train_4k shape with the batch cut from
-   256), 10 steps; exit 0, every loss finite, the last below the first,
+   256), 6 steps; exit 0, every loss finite, the last below the first,
    #10's counters at 0 (training attends through the reference's
    differentiable dispatch: #10 has no backward pass); each step's ms,
    tokens/s and the peak device bytes recorded.  b) One fp32 step (TF32
@@ -236,6 +236,26 @@ Phases:
    checkpoint at step 2 (``train/checkpoint.py``, under build/), restored
    onto the card and stepped again: the losses and the final state
    bit-equal.
+17. Training the MoE, recurrent, encoder-decoder and VLM families (seeded
+   fp32 weights, bf16 compute, the token stream with the launcher's
+   M-RoPE positions and zero stub inputs), each run held to 16a's checks
+   (exit 0 where the launcher runs it, every loss and aux loss finite,
+   the last loss below the first, #10 at 0, the card's memory back
+   afterwards) with step ms, tokens/s and peak bytes recorded: a)
+   rwkv6-1.6b at full size (24 layers) and b) recurrentgemma-2b at full
+   size (26 layers, local attention through the chunked plain dispatch)
+   through ``launch/train.py``, 4 x 4096 tokens in 2 microbatches, 4
+   steps; c) qwen3-moe-30b-a3b at full width, 4 of 48 layers, 4 x 4096
+   in 2 microbatches, 3 steps through ``make_train_step``, its aux loss
+   positive; d) whisper-tiny at full size, 8 x 448 decoder tokens over
+   1500 zero frames, 5 steps through the launcher, then 16c's restart
+   at that size; e) qwen2-vl-72b at full width, 1 of 80 layers, 1 x
+   2048 tokens with its 256 zero patch embeddings and M-RoPE positions,
+   2 steps; f) 16b's card-against-CPU step for each family's reduced
+   config and for rwkv6-1.6b and qwen3-moe-30b-a3b at full width and one
+   layer on 1 x 256 tokens (an MoE config's experts compared first: a
+   flip only at a near tie, the card's step then replayed with the CPU's
+   experts).
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -328,18 +348,46 @@ QWEN2_VL_LAYERS = 12
 PHASE15_SHAPES = {"whisper_encoder": (8, 6, 6, 1500, 1500, 64, False),
                   "qwen2vl_corpus_batch": (8, 64, 8, 1024, 1024, 128, True)}
 # Phase 16: starcoder2-3b's training run through the launcher at full size
-# (the config's train_4k shape, its batch cut from 256 to 4 sequences),
-# then the card against the CPU and the restart at full width and depth 2.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 10
+# (the config's train_4k shape, its batch cut from 256 to 4 sequences; 6
+# steps, cut from 10 to give phase 17 room in the run's 1200 s), then the
+# card against the CPU and the restart at full width and depth 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 6
 TRAIN_SMALL_LAYERS = 2
 TRAIN_COMPARE_SEQ = 512
 TRAIN_RESTART_STEPS, TRAIN_SAVE_AT = 4, 2
+# A training run's sequence length in a CPU rehearsal, at most.
+TRAIN_REHEARSAL_SEQ = 64
 # The card's fp32 step against the CPU's: a gradient may differ by the
 # worst-case rounding of two stacked fp32 contractions over d = 3072 terms
 # (d x eps32 each) of its leaf's largest gradient; the loss by one.
 TRAIN_D = 3072
 TRAIN_GRAD_TOL = 2 * TRAIN_D * 2.0 ** -23
 TRAIN_LOSS_RTOL = TRAIN_D * 2.0 ** -23
+# A leaf whose every gradient is at most this share of the median leaf's
+# largest has none of its own (``train_state_ratios``).
+TRAIN_DEAD = 1e-6
+# Phase 17: each family trained on the card, label -> (arch, layers (None:
+# the full depth, through launch/train.py; else the depth cut to fit the
+# card's 80 GB, through make_train_step), batch, seq, microbatches, steps).
+# qwen3-moe-30b-a3b at 4 of 48 layers holds 3.12e9 parameters (49.8 GB of
+# AdamW state; all 48 would need 488 GB), qwen2-vl-72b at 1 of 80 3.37e9
+# (53.9 GB).  The MoE, recurrent and VLM runs take starcoder2-3b's 4 x
+# 4096 (16a's) where the memory allows; whisper-tiny its 448-token decoder
+# context.
+FAMILY_RUNS = {
+    "17a": ("rwkv6-1.6b", None, 4, 4096, 2, 4),
+    "17b": ("recurrentgemma-2b", None, 4, 4096, 2, 4),
+    "17c": ("qwen3-moe-30b-a3b", 4, 4, 4096, 2, 3),
+    "17d": ("whisper-tiny", None, 8, 448, 2, 5),
+    "17e": ("qwen2-vl-72b", 1, 1, 2048, 1, 2),
+}
+# Phase 17f: one fp32 step on the card against the CPU, (arch, layers
+# (None: the reduced config), batch, seq, microbatches): each family's
+# reduced config, then two at full width and one layer.
+CARD_VS_CPU = [(arch, None, 2, 32, 2) for arch in (
+    "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e", "recurrentgemma-2b",
+    "rwkv6-1.6b", "whisper-tiny", "qwen2-vl-72b")] + [
+    ("rwkv6-1.6b", 1, 1, 256, 1), ("qwen3-moe-30b-a3b", 1, 1, 256, 1)]
 # The indexes phase 9 runs the oracle and the calibration on.
 ORACLE_LABELS = ("blobs", "audio int8")
 # The reference's rule (tests/test_calibration.py): measured recall at a
@@ -3210,27 +3258,76 @@ class Smoke:
     # -- phase 16: training the dense decoder family -------------------
     def phase_train(self) -> dict:
         """starcoder2-3b trained at full size through the launcher
-        (``train_full``), one fp32 step at full width and depth 2 on the
+        (``train_launch``), one fp32 step at full width and depth 2 on the
         card against the CPU (``train_card_vs_cpu``), and a bit-exact
         restart at full width and depth 2 in bf16 (``train_restart``)."""
         rec = {"seconds": 0.0}
         t0 = time.perf_counter()
-        rec["full"] = self.train_full()
-        rec["card_vs_cpu"] = self.train_card_vs_cpu()
-        rec["restart"] = self.train_restart()
+        rec["full"] = self.train_launch("phase 16a", "starcoder2-3b",
+                                        TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO,
+                                        TRAIN_STEPS)
+        rec["card_vs_cpu"] = self.train_card_vs_cpu(
+            "phase 16b", self.train_config("starcoder2-3b",
+                                           TRAIN_SMALL_LAYERS),
+            1, TRAIN_COMPARE_SEQ)
+        rec["restart"] = self.train_restart(
+            "phase 16c", self.train_config("starcoder2-3b",
+                                           TRAIN_SMALL_LAYERS),
+            TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO)
         rec["seconds"] = time.perf_counter() - t0
         say(f"phase 16: {rec['seconds']:.1f} s")
         return rec
 
-    def train_config(self, layers=None, **overrides):
+    # -- phase 17: training the MoE, recurrent, encoder-decoder and VLM
+    # families -------------------------------------------------------------
+    def phase_train_families(self) -> dict:
+        """Each of ``FAMILY_RUNS`` at full size or full width with its depth
+        cut (through the launcher, or through ``make_train_step`` where
+        the depth is cut), whisper-tiny's restart from a checkpoint, and
+        one fp32 step on the card against the CPU for each family's
+        reduced config and two configs at full width and one layer
+        (``CARD_VS_CPU``)."""
+        rec = {"seconds": 0.0}
+        t0 = time.perf_counter()
+        for label, (arch, layers, batch, seq, micro, steps) in \
+                FAMILY_RUNS.items():
+            if layers is None:
+                rec[label] = self.train_launch(f"phase {label}", arch, batch,
+                                               seq, micro, steps)
+            else:
+                rec[label] = self.train_direct(f"phase {label}", arch, layers,
+                                               batch, seq, micro, steps)
+            if arch == "whisper-tiny":
+                rec[label]["restart"] = self.train_restart(
+                    f"phase {label}", self.train_config(arch), batch, seq,
+                    micro)
+        rec["17f"] = {}
+        for arch, layers, batch, seq, micro in CARD_VS_CPU:
+            cfg = self.train_config(arch, layers, reduced=layers is None)
+            rec["17f"][f"{arch}/{cfg.num_layers}"] = self.train_card_vs_cpu(
+                "phase 17f", cfg, batch, seq, micro)
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 17: {rec['seconds']:.1f} s")
+        return rec
+
+    def train_config(self, arch: str, layers=None, reduced=False,
+                     **overrides):
+        """``arch``'s config: full width (its depth cut to ``layers`` where
+        given), or its reduced config (``reduced``, and always in a CPU
+        rehearsal)."""
+        import dataclasses
         from repro_torch import configs
-        if self.rehearsal:
-            import dataclasses
-            return dataclasses.replace(configs.get_reduced("starcoder2-3b"),
+        if self.rehearsal or reduced:
+            return dataclasses.replace(configs.get_reduced(arch),
                                        **overrides)
         if layers is not None:
             overrides["num_layers"] = layers
-        return configs.get_config("starcoder2-3b", **overrides)
+        return configs.get_config(arch, **overrides)
+
+    def train_seq(self, seq: int) -> int:
+        """A run's sequence length: ``seq``, or TRAIN_REHEARSAL_SEQ at most
+        in a CPU rehearsal."""
+        return min(seq, TRAIN_REHEARSAL_SEQ) if self.rehearsal else seq
 
     def expect_no_flash(self, label: str) -> None:
         launched = self.launches()["flash_attention"]
@@ -3238,190 +3335,269 @@ class Smoke:
                f"{label}: training launched #10 {launched} times "
                f"({self.flash_launches()}); it has no backward pass")
 
-    def train_full(self) -> dict:
-        """``launch/train.py``'s ``main`` at full size: 30 layers, bf16
-        compute, TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICRO microbatches,
-        TRAIN_STEPS steps (the reduced config at 64 tokens in a CPU
-        rehearsal).  Exit 0, every loss finite, the last below the first,
-        #10's counters at 0 across the steps."""
+    def expect_training(self, label: str, rec: dict, steps: int) -> None:
+        """A run's checks: every loss and aux loss finite, the last loss
+        below the first (on the card: in a CPU rehearsal the reduced
+        configs' losses over a few batches are noise), #10's counters at 0,
+        the card's memory back within 256 MiB of where it was (a cuBLAS
+        workspace of the backward thread's handle may stay)."""
         import math
-        from repro_torch.launch import train as train_launcher
-        batch, seq = (TRAIN_BATCH, 64) if self.rehearsal else (TRAIN_BATCH,
-                                                               TRAIN_SEQ)
-        out = ROOT / "build" / "phase16_train.json"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        argv = ["--arch", "starcoder2-3b", "--steps", str(TRAIN_STEPS),
-                "--batch", str(batch), "--seq", str(seq), "--microbatches",
-                str(TRAIN_MICRO), "--device", str(self.dev.type),
-                "--record", str(out)]
-        if self.rehearsal:
-            argv.append("--reduced")
-        before = self.left_on_card()
-        self.reset_launches()
-        t0 = time.perf_counter()
-        rc = train_launcher.main(argv)
-        rec = {"argv": argv, "exit": rc,
-               "seconds": time.perf_counter() - t0}
-        self.expect_no_flash("phase 16a")
+        losses = rec["losses"]
+        expect(len(losses) == steps and all(
+            math.isfinite(x) for x in losses + rec["aux_losses"]),
+            f"{label}: losses {losses}, aux losses {rec['aux_losses']}")
+        expect(self.rehearsal or losses[-1] < losses[0],
+               f"{label}: the last loss {losses[-1]} is not below the first "
+               f"{losses[0]}")
+        self.expect_no_flash(label)
         rec["flash_launches"] = self.launches()["flash_attention"]
-        expect(rc == 0, f"launch/train.py exited {rc}")
-        run = json.loads(out.read_text())
-        losses, step_ms = run["losses"], run["step_ms"]
-        expect(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
-                                                  for x in losses),
-               f"phase 16a: losses {losses}")
-        expect(losses[-1] < losses[0],
-               f"phase 16a: the last loss {losses[-1]} is not below the "
-               f"first {losses[0]}")
-        steady = statistics.median(step_ms[1:])
-        tokens = batch * seq
-        rec.update(layers=run["layers"], batch=batch, seq=seq,
-                   microbatches=TRAIN_MICRO, losses=losses, step_ms=step_ms,
-                   first_step_ms=step_ms[0], steady_step_ms=steady,
-                   tokens_per_s=tokens / (steady / 1e3),
-                   tokens_per_s_all_steps=tokens * len(step_ms)
-                   / (sum(step_ms) / 1e3),
-                   peak_bytes=run["peak_bytes"])
         gc.collect()
         if not self.rehearsal:
             self.torch.cuda.empty_cache()
-        rec["left_on_card_bytes"] = [before, self.left_on_card()]
+        before = rec["left_on_card_bytes"][0]
+        rec["left_on_card_bytes"].append(self.left_on_card())
         if not self.rehearsal:
-            # the state (48.5 GB at full size) is gone; what may stay is a
-            # cuBLAS workspace of the backward thread's handle
             expect(rec["left_on_card_bytes"][1] - before <= 2 ** 28,
-                   f"phase 16a: {rec['left_on_card_bytes']} B on the card "
+                   f"{label}: {rec['left_on_card_bytes']} B on the card "
                    "before and after the run")
-        say(f"train starcoder2-3b: {run['layers']} layers, {batch} x {seq} "
-            f"tokens in {TRAIN_MICRO} microbatches, {TRAIN_STEPS} steps "
-            f"through launch/train.py (exit {rc}); losses "
-            + ", ".join(f"{x:.4f}" for x in losses)
-            + f"; step ms first {step_ms[0]:.1f}, median after "
+
+    def say_training(self, rec: dict, how: str) -> None:
+        steady = rec["steady_step_ms"]
+        aux = ("" if not any(rec["aux_losses"]) else "; aux losses "
+               + ", ".join(f"{x:.6f}" for x in rec["aux_losses"]))
+        say(f"train {rec['arch']}: {rec['layers']} layers, {rec['batch']} x "
+            f"{rec['seq']} tokens in {rec['microbatches']} microbatches, "
+            f"{rec['steps']} steps {how}; losses "
+            + ", ".join(f"{x:.4f}" for x in rec["losses"]) + aux
+            + f"; step ms first {rec['step_ms'][0]:.1f}, median after "
             f"{steady:.1f}; {rec['tokens_per_s']:.1f} tokens/s; peak "
             f"{rec['peak_bytes']} B; #10 launches 0; {rec['seconds']:.1f} s")
+
+    @staticmethod
+    def step_rates(rec: dict) -> None:
+        """Steady step ms (the median after the first) and tokens/s."""
+        step_ms, tokens = rec["step_ms"], rec["batch"] * rec["seq"]
+        steady = (statistics.median(step_ms[1:]) if len(step_ms) > 1
+                  else step_ms[0])
+        rec.update(first_step_ms=step_ms[0], steady_step_ms=steady,
+                   tokens_per_s=tokens / (steady / 1e3),
+                   tokens_per_s_all_steps=tokens * len(step_ms)
+                   / (sum(step_ms) / 1e3))
+
+    def train_launch(self, label: str, arch: str, batch: int, seq: int,
+                     micro: int, steps: int) -> dict:
+        """``launch/train.py``'s ``main`` at ``arch``'s full size (its
+        reduced config at TRAIN_REHEARSAL_SEQ tokens in a CPU rehearsal),
+        bf16 compute, ``batch`` x ``seq`` tokens in ``micro`` microbatches,
+        ``steps`` steps: exit 0 and ``expect_training``'s checks; each
+        step's ms, tokens/s and the peak device bytes recorded."""
+        from repro_torch.launch import train as train_launcher
+        seq = self.train_seq(seq)
+        out = ROOT / "build" / f"train_{arch}.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+                "--seq", str(seq), "--microbatches", str(micro),
+                "--device", str(self.dev.type), "--record", str(out)]
+        if self.rehearsal:
+            argv.append("--reduced")
+        rec = {"arch": arch, "argv": argv, "batch": batch, "seq": seq,
+               "microbatches": micro, "steps": steps,
+               "left_on_card_bytes": [self.left_on_card()]}
+        self.reset_launches()
+        t0 = time.perf_counter()
+        rc = train_launcher.main(argv)
+        rec.update(exit=rc, seconds=time.perf_counter() - t0)
+        expect(rc == 0, f"{label}: launch/train.py exited {rc}")
+        run = json.loads(out.read_text())
+        rec.update(layers=run["layers"], losses=run["losses"],
+                   aux_losses=run["aux_losses"], step_ms=run["step_ms"],
+                   peak_bytes=run["peak_bytes"])
+        self.step_rates(rec)
+        self.expect_training(label, rec, steps)
+        self.say_training(rec, f"through launch/train.py (exit {rc})")
         return rec
 
-    def train_card_vs_cpu(self) -> dict:
-        """One fp32 step (TF32 off) at full width and TRAIN_SMALL_LAYERS
-        layers, batch 1 x TRAIN_COMPARE_SEQ, from one state on the card
-        and on the CPU: the loss within TRAIN_LOSS_RTOL, the grad norm
-        within TRAIN_GRAD_TOL, the moments within TRAIN_GRAD_TOL of each
-        leaf's largest, and each updated parameter within 1e-6 + 1e-5 of
-        itself plus what that gradient error moves AdamW's step (2 x lr x
-        error / (|g| + eps), capped at 2 x lr)."""
+    def train_direct(self, label: str, arch: str, layers: int, batch: int,
+                     seq: int, micro: int, steps: int) -> dict:
+        """``make_train_step`` at ``arch``'s full width with its depth cut
+        to ``layers`` (the reduced config in a CPU rehearsal), bf16
+        compute, the launcher's schedule and batches (``train_batch``:
+        M-RoPE positions, zero stub inputs): ``expect_training``'s checks
+        and the records of ``train_launch``."""
+        from repro_torch.data.pipeline import TokenStreamConfig
+        from repro_torch.models.registry import build_model
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train.train_loop import (TrainConfig,
+                                                  init_train_state,
+                                                  make_train_step,
+                                                  train_batch)
+        cfg = self.train_config(arch, layers)
+        seq = self.train_seq(seq)
+        rec = {"arch": arch, "layers": cfg.num_layers, "batch": batch,
+               "seq": seq, "microbatches": micro, "steps": steps,
+               "left_on_card_bytes": [self.left_on_card()], "losses": [],
+               "aux_losses": [], "step_ms": []}
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=self.dev)
+        step = make_train_step(bundle, TrainConfig(
+            microbatches=micro, loss_chunk=min(512, seq),
+            opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=steps // 10,
+                                total_steps=steps)))
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch)
+        state = init_train_state(bundle, SEED)
+        rec["params"] = bundle.count_params
+        self.reset_peak()
+        self.reset_launches()
+        for i in range(steps):
+            t1 = time.perf_counter()
+            state, metrics = step(state, train_batch(bundle, stream, i))
+            rec["losses"].append(float(metrics["loss"]))
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            rec["aux_losses"].append(float(metrics["aux_loss"]))
+        rec["peak_bytes"] = self.peak()
+        del state, step, bundle, metrics
+        rec["seconds"] = time.perf_counter() - t0
+        self.step_rates(rec)
+        self.expect_training(label, rec, steps)
+        if cfg.ffn_kind == "moe":
+            expect(all(x > 0 for x in rec["aux_losses"]),
+                   f"{label}: aux losses {rec['aux_losses']}")
+        self.say_training(rec, "through make_train_step")
+        return rec
+
+    def train_card_vs_cpu(self, label: str, cfg, batch: int, seq: int,
+                          micro: int = 1) -> dict:
+        """One fp32 step (TF32 off) of ``cfg`` on ``batch`` x ``seq`` tokens
+        in ``micro`` microbatches, from one state on the card and on the
+        CPU: the loss within TRAIN_LOSS_RTOL, the grad norm within
+        TRAIN_GRAD_TOL, and the moments and parameters by
+        ``train_state_ratios``.  An MoE config's experts are compared
+        first (``compare_routes``): a token may take other experts on the
+        card only at a near tie, and the card's step is then run again
+        with the CPU's experts (``routes_logged``'s replay)."""
+        import dataclasses
         torch = self.torch
-        from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+        from repro_torch.data.pipeline import TokenStreamConfig
+        from repro_torch.models import moe
         from repro_torch.models.registry import build_model
         from repro_torch.train.checkpoint import _flatten_with_names
         from repro_torch.train.optimizer import OptimizerConfig
         from repro_torch.train.train_loop import (TrainConfig,
                                                   init_train_state,
                                                   make_train_step,
+                                                  train_batch,
                                                   train_state_to)
         expect(self.rehearsal or not torch.backends.cuda.matmul.allow_tf32,
-               "phase 16b needs TF32 off")
-        cfg = self.train_config(TRAIN_SMALL_LAYERS,
-                                compute_dtype=torch.float32)
-        seq = 32 if self.rehearsal else TRAIN_COMPARE_SEQ
+               f"{label} needs TF32 off")
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        seq = min(seq, 32) if self.rehearsal else seq
         cpu = torch.device("cpu")
-        tc = TrainConfig(loss_chunk=min(512, seq), opt=OptimizerConfig(
-            peak_lr=3e-4, warmup_steps=0, total_steps=10))
+        tc = TrainConfig(microbatches=micro, loss_chunk=min(512, seq),
+                         opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=0,
+                                             total_steps=10))
         stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                   global_batch=1)
+                                   global_batch=batch)
+        is_moe = getattr(cfg, "ffn_kind", None) == "moe"
         t0 = time.perf_counter()
         state_cpu = init_train_state(build_model(cfg, device=cpu), SEED)
         state_dev = train_state_to(state_cpu, self.dev)
-        rec = {"layers": cfg.num_layers, "seq": seq}
-        out = {}
-        for label, dev, state in (("cpu", cpu, state_cpu),
-                                  ("card", self.dev, state_dev)):
-            step = make_train_step(build_model(cfg, device=dev), tc)
-            batch = token_batch(stream, 0, device=dev)
+        spare = train_state_to(state_cpu, self.dev) if is_moe else None
+        rec = {"arch": cfg.name, "layers": cfg.num_layers, "batch": batch,
+               "seq": seq, "microbatches": micro}
+        out, logs = {}, {}
+
+        def run(where, dev, state, forced=None):
+            bundle = build_model(cfg, device=dev)
+            step = make_train_step(bundle, tc)
+            batch_in = train_batch(bundle, stream, 0)
             self.reset_launches()
             t1 = time.perf_counter()
-            state, metrics = step(state, batch)
+            with routes_logged(torch, moe, forced) as log:
+                state, metrics = step(state, batch_in)
             metrics = {k: float(v) for k, v in metrics.items()}
-            rec[f"{label}_step_ms"] = 1e3 * (time.perf_counter() - t1)
-            self.expect_no_flash(f"phase 16b ({label})")
+            rec[f"{where}_step_ms"] = 1e3 * (time.perf_counter() - t1)
+            self.expect_no_flash(f"{label} ({where})")
+            logs[where] = [{k: v.detach().cpu() for k, v in c.items()}
+                           for c in log]
             # compared on the card (the CPU's tensors moved there)
-            out[label] = ({k: v.detach().to(self.dev) for k, v in
+            out[where] = ({k: v.detach().to(self.dev) for k, v in
                            _flatten_with_names(state).items()}, metrics)
-            del state, step, batch
+
+        run("cpu", cpu, state_cpu)
+        run("card", self.dev, state_dev)
         del state_cpu, state_dev
+        if is_moe:
+            routes = compare_routes(torch, logs["card"], logs["cpu"])
+            rec["routes"] = routes
+            expect(routes["first_flip_near_ties"],
+                   f"{label}: {cfg.name}'s experts on the card differ from "
+                   f"the CPU's away from a near tie: {routes}")
+            if routes["flipped_tokens"]:
+                run("card", self.dev, spare,
+                    forced=[c["ids"] for c in logs["cpu"]])
+            del spare
         (want, mw), (got, mg) = out["cpu"], out["card"]
         rec["loss"] = [mw["loss"], mg["loss"]]
+        rec["aux_loss"] = [mw["aux_loss"], mg["aux_loss"]]
         rec["grad_norm"] = [mw["grad_norm"], mg["grad_norm"]]
         rec["loss_diff_over_tol"] = abs(mg["loss"] - mw["loss"]) / (
             TRAIN_LOSS_RTOL * abs(mw["loss"]))
         rec["grad_norm_diff_over_tol"] = abs(
             mg["grad_norm"] - mw["grad_norm"]) / (TRAIN_GRAD_TOL
                                                   * mw["grad_norm"])
-        worst = {"param": 0.0, "moment": 0.0}
-        lr = mw["lr"]
-        for name, w in want.items():
-            g = got[name]
-            if name == ".opt.step":
-                expect(int(g) == int(w) == 1, f"phase 16b: step {g} / {w}")
-                continue
-            if name.startswith((".opt.mu", ".opt.nu")):
-                scale = 2.0 if name.startswith(".opt.nu") else 1.0
-                tol = scale * TRAIN_GRAD_TOL * float(w.abs().max()) + 1e-30
-                worst["moment"] = max(worst["moment"],
-                                      float((g - w).abs().max()) / tol)
-                continue
-            gmag = (want[".opt.nu" + name[len(".params"):]] / 0.05).sqrt()
-            err = TRAIN_GRAD_TOL * float(gmag.max())
-            tol = 1e-6 + 1e-5 * w.abs() + lr * torch.clamp(
-                2.0 * err / (gmag + 1e-8), max=2.0)
-            worst["param"] = max(worst["param"],
-                                 float(((g - w).abs() / tol).max()))
-            del gmag, tol
+        rec.update(train_state_ratios(torch, want, got, mw["lr"]))
         del want, got, out
-        rec["params_diff_over_tol"] = worst["param"]
-        rec["moments_diff_over_tol"] = worst["moment"]
         rec["seconds"] = time.perf_counter() - t0
         for key in ("loss_diff_over_tol", "grad_norm_diff_over_tol",
                     "params_diff_over_tol", "moments_diff_over_tol"):
-            expect(rec[key] <= 1.0, f"phase 16b: {key} {rec[key]:.3g}")
-        say(f"train card vs cpu: starcoder2-3b at {cfg.num_layers} layers, "
-            f"fp32, 1 x {seq}: loss {mg['loss']:.6f} / {mw['loss']:.6f} "
-            f"({rec['loss_diff_over_tol']:.3g} of the limit), grad norm "
-            f"{rec['grad_norm_diff_over_tol']:.3g}, moments "
-            f"{rec['moments_diff_over_tol']:.3g}, parameters "
-            f"{rec['params_diff_over_tol']:.3g} of theirs; step ms card "
+            expect(rec[key] <= 1.0, f"{label}: {cfg.name} {key} "
+                   f"{rec[key]:.3g}")
+        flips = (f", {rec['routes']['flipped_tokens']} tokens' experts "
+                 "replayed from the CPU's (near ties)"
+                 if rec.get("routes", {}).get("flipped_tokens") else "")
+        say(f"train card vs cpu: {cfg.name} at {cfg.num_layers} layers, "
+            f"fp32, {batch} x {seq}: loss {mg['loss']:.6f} / "
+            f"{mw['loss']:.6f} ({rec['loss_diff_over_tol']:.3g} of the "
+            f"limit), grad norm {rec['grad_norm_diff_over_tol']:.3g}, "
+            f"moments {rec['moments_diff_over_tol']:.3g}, parameters "
+            f"{rec['params_diff_over_tol']:.3g} of theirs ({rec['dead']} "
+            f"leaves without a gradient){flips}; step ms card "
             f"{rec['card_step_ms']:.1f}, cpu {rec['cpu_step_ms']:.1f}; "
             f"{rec['seconds']:.1f} s")
         return rec
 
-    def train_restart(self) -> dict:
-        """TRAIN_RESTART_STEPS bf16 steps at full width and
-        TRAIN_SMALL_LAYERS layers (TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
-        microbatches), a checkpoint at step TRAIN_SAVE_AT, its restore onto
-        the card and the last steps again: the losses and the final state
-        bit-equal."""
+    def train_restart(self, label: str, cfg, batch: int, seq: int,
+                      micro: int) -> dict:
+        """TRAIN_RESTART_STEPS bf16 steps of ``cfg`` (``batch`` x ``seq`` in
+        ``micro`` microbatches), a checkpoint at step TRAIN_SAVE_AT, its
+        restore onto the card and the last steps again: the losses and the
+        final state bit-equal."""
         import shutil
         torch = self.torch
-        from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+        from repro_torch.data.pipeline import TokenStreamConfig
         from repro_torch.models.registry import build_model
         from repro_torch.train import checkpoint as ckpt
         from repro_torch.train.optimizer import (OptimizerConfig, tree_leaves,
                                                  tree_map)
         from repro_torch.train.train_loop import (TrainConfig,
                                                   init_train_state,
-                                                  make_train_step)
-        cfg = self.train_config(TRAIN_SMALL_LAYERS)
-        seq = 64 if self.rehearsal else TRAIN_SEQ
+                                                  make_train_step,
+                                                  train_batch)
+        seq = self.train_seq(seq)
         t0 = time.perf_counter()
         bundle = build_model(cfg, device=self.dev)
         step = make_train_step(bundle, TrainConfig(
-            microbatches=TRAIN_MICRO, opt=OptimizerConfig(
-                peak_lr=3e-4, warmup_steps=0, total_steps=10)))
+            microbatches=micro, loss_chunk=min(512, seq),
+            opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=0,
+                                total_steps=10)))
         stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                   global_batch=TRAIN_BATCH)
+                                   global_batch=batch)
         state = init_train_state(bundle, SEED)
-        directory = ROOT / "build" / "phase16_ckpt"
+        directory = ROOT / "build" / "train_restart_ckpt"
         shutil.rmtree(directory, ignore_errors=True)
-        rec = {"layers": cfg.num_layers, "seq": seq, "step_ms": []}
+        rec = {"arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
+               "step_ms": []}
         self.reset_launches()
         losses = []
         try:
@@ -3433,8 +3609,7 @@ class Smoke:
                     rec["checkpoint_bytes"] = sum(
                         f.stat().st_size for f in Path(path).iterdir())
                 t1 = time.perf_counter()
-                state, m = step(state, token_batch(stream, i,
-                                                   device=self.dev))
+                state, m = step(state, train_batch(bundle, stream, i))
                 losses.append(float(m["loss"]))
                 rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
             t1 = time.perf_counter()
@@ -3445,27 +3620,26 @@ class Smoke:
             rec["restore_s"] = time.perf_counter() - t1
             replay = []
             for i in range(TRAIN_SAVE_AT, TRAIN_RESTART_STEPS):
-                again, m = step(again, token_batch(stream, i,
-                                                   device=self.dev))
+                again, m = step(again, train_batch(bundle, stream, i))
                 replay.append(float(m["loss"]))
         finally:
             shutil.rmtree(directory, ignore_errors=True)
-        self.expect_no_flash("phase 16c")
+        self.expect_no_flash(label)
         rec["losses"], rec["replayed_losses"] = losses, replay
         expect(replay == losses[TRAIN_SAVE_AT:],
-               f"phase 16c: losses {losses} replayed as {replay}")
+               f"{label}: losses {losses} replayed as {replay}")
         differ = [i for i, (a, b) in enumerate(zip(
             tree_leaves(state), tree_leaves(again), strict=True))
             if not torch.equal(a, b)]
-        expect(not differ, f"phase 16c: {len(differ)} state tensors differ "
+        expect(not differ, f"{label}: {len(differ)} state tensors differ "
                "after the restart")
         rec["state_bytes"] = sum(t.numel() * t.element_size()
                                  for t in tree_leaves(state))
         del state, again, bundle, step
         gc.collect()
         rec["seconds"] = time.perf_counter() - t0
-        say(f"train restart: starcoder2-3b at {cfg.num_layers} layers, bf16, "
-            f"{TRAIN_BATCH} x {seq}: a restart from step {TRAIN_SAVE_AT} "
+        say(f"train restart: {cfg.name} at {cfg.num_layers} layers, bf16, "
+            f"{batch} x {seq}: a restart from step {TRAIN_SAVE_AT} "
             f"repeats losses {replay} and the final state bit for bit "
             f"({rec['state_bytes']} B of state, checkpoint "
             f"{rec['checkpoint_bytes']} B saved in {rec['save_s']:.1f} s, "
@@ -5442,6 +5616,7 @@ class Smoke:
         self.record["moe"] = self.phase_moe()
         self.record["encdec"] = self.phase_encdec()
         self.record["train"] = self.phase_train()
+        self.record["train_families"] = self.phase_train_families()
         self.record["phase12"] = self.phase12
         say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
             f"world-size-1 {self.phase12.get('backend')} group started in "
@@ -5736,6 +5911,58 @@ def routes_logged(torch, moe, forced=None):
         yield log
     finally:
         moe.route, moe.assign_slots = route, assign
+
+
+def train_state_ratios(torch, want: dict, got: dict, lr: float) -> dict:
+    """One step's state on the card (``got``) against the CPU's (``want``),
+    flattened by name on one device: the worst |diff| over its tolerance
+    among the moments (TRAIN_GRAD_TOL of each leaf's largest, nu twice
+    that) and the parameters (1e-6 + 1e-5 |p| plus what a gradient error
+    of TRAIN_GRAD_TOL x the leaf's largest gradient moves AdamW's step,
+    2 x lr x error / (|g| + eps), capped at 2 x lr).  A leaf whose every
+    gradient is at most TRAIN_DEAD of the median leaf's largest (a key
+    bias without RoPE, which the softmax cancels exactly, so both sides
+    hold rounding only; the median, so that one leaf with an outsized
+    gradient moves no other leaf into this rule) has no largest gradient
+    of its own to scale by: its moments must lie within TRAIN_DEAD of that
+    median on both sides, and its parameters get the cap."""
+    def grads(suffix):                     # |g| of the one step, the CPU's
+        return (want[".opt.nu" + suffix] / 0.05).sqrt()
+
+    suffixes = [n[len(".params"):] for n in want if n.startswith(".params")]
+    largest = {x: float(grads(x).max()) for x in suffixes}
+    top = statistics.median(largest.values())
+    dead = {x for x, g in largest.items() if g <= TRAIN_DEAD * top}
+    worst = {"param": 0.0, "moment": 0.0}
+    for name, w in want.items():
+        g = got[name]
+        if name == ".opt.step":
+            expect(int(g) == int(w) == 1, f"train step {g} / {w}")
+            continue
+        if name.startswith((".opt.mu", ".opt.nu")):
+            nu = name.startswith(".opt.nu")
+            if name[len(".opt.mu"):] in dead:
+                bound = TRAIN_DEAD * top
+                worst["moment"] = max(
+                    worst["moment"], float(torch.maximum(
+                        g.abs().max(), w.abs().max()))
+                    / (bound * bound if nu else bound))
+                continue
+            tol = ((2.0 if nu else 1.0) * TRAIN_GRAD_TOL
+                   * float(w.abs().max()) + 1e-30)
+            worst["moment"] = max(worst["moment"],
+                                  float((g - w).abs().max()) / tol)
+            continue
+        suffix = name[len(".params"):]
+        gmag = grads(suffix)
+        cap = (2.0 if suffix in dead else torch.clamp(
+            2.0 * TRAIN_GRAD_TOL * largest[suffix] / (gmag + 1e-8), max=2.0))
+        tol = 1e-6 + 1e-5 * w.abs() + lr * cap
+        worst["param"] = max(worst["param"],
+                             float(((g - w).abs() / tol).max()))
+        del gmag, tol
+    return {"params_diff_over_tol": worst["param"],
+            "moments_diff_over_tol": worst["moment"], "dead": len(dead)}
 
 
 def compare_routes(torch, got: list, want: list) -> dict:

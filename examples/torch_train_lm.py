@@ -5,23 +5,26 @@ AdamW), checkpoint and restart, the straggler monitor, the step-addressable
 token stream.
 
     PYTHONPATH=src python examples/torch_train_lm.py --steps 200 \\
-        [--ckpt-dir DIR] [--device cpu] [--reduced]
+        [--arch ID] [--ckpt-dir DIR] [--device cpu] [--reduced]
 
-``--reduced`` trains the reduced starcoder2-3b config instead (CPU-sized).
-With ``--ckpt-dir`` a second run resumes from the latest checkpoint there.
+``--arch`` trains that config instead (any of ``configs.ARCH_IDS``: the
+dense, MoE, recurrent and VLM decoders and the encoder-decoder, their
+stub inputs as zeros); ``--reduced`` takes the reduced config of
+``--arch`` (starcoder2-3b by default; CPU-sized).  With ``--ckpt-dir`` a
+second run resumes from the latest checkpoint there.
 """
 
 import argparse
 
 from repro_torch import configs
-from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+from repro_torch.data.pipeline import TokenStreamConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import LMConfig
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.straggler import StragglerMonitor
 from repro_torch.train.train_loop import (TrainConfig, init_train_state,
-                                          make_train_step)
+                                          make_train_step, train_batch)
 
 
 def small_100m() -> LMConfig:
@@ -40,12 +43,19 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default=None, choices=configs.ARCH_IDS,
+                    help="train this config (full size unless --reduced)")
     ap.add_argument("--reduced", action="store_true",
-                    help="the reduced starcoder2-3b config")
+                    help="the reduced config of --arch (starcoder2-3b by "
+                         "default)")
     args = ap.parse_args(argv)
 
-    cfg = configs.get_reduced("starcoder2-3b") if args.reduced \
-        else small_100m()
+    if args.reduced:
+        cfg = configs.get_reduced(args.arch or "starcoder2-3b")
+    elif args.arch:
+        cfg = configs.get_config(args.arch)
+    else:
+        cfg = small_100m()
     bundle = build_model(cfg, device=args.device)
     print(f"model: {bundle.count_params / 1e6:.1f}M params on "
           f"{bundle.device}")
@@ -67,8 +77,7 @@ def main(argv=None):
     mon = StragglerMonitor()
     for i in range(start, args.steps):
         mon.start_step()
-        state, metrics = step_fn(state, token_batch(stream, i,
-                                                    device=bundle.device))
+        state, metrics = step_fn(state, train_batch(bundle, stream, i))
         mon.end_step()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             ckpt.save_checkpoint(args.ckpt_dir, i + 1, state)

@@ -34,4 +34,5 @@ def config(**overrides) -> EncDecConfig:
 def reduced_config() -> EncDecConfig:
     return config(encoder_layers=2, decoder_layers=2, d_model=64,
                   num_heads=4, num_kv_heads=4, head_dim=16, d_ff=128,
-                  vocab_size=512, num_frames=16, max_position=4096)
+                  vocab_size=512, num_frames=16, max_position=4096,
+                  dense_attn_threshold=4096)

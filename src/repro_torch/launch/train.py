@@ -1,4 +1,4 @@
-"""Training launcher: the dense decoder family on one device (port of
+"""Training launcher: any config on one device (port of
 ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \\
@@ -7,12 +7,14 @@
 
 The parameters are random, drawn from a seeded generator on the device;
 the batches come from the step-addressable token stream
-(``data/pipeline.py``).  With ``--ckpt-dir`` the run resumes from the
-latest checkpoint there and saves one every ``--ckpt-every`` steps.  It
-prints the loss every 10 steps and the straggler monitor's summary;
-``--record`` writes each step's loss and wall time (each step ends when
-its loss reaches the host) and the peak device bytes as JSON.  A config
-outside the dense family raises ``ValueError`` (ROADMAP item 7.2b).
+(``data/pipeline.py``), with M-RoPE positions and zero stub inputs
+(frames, patch embeddings) where the config takes them, as the
+reference's launcher feeds them (``train_loop.train_batch``).  With
+``--ckpt-dir`` the run resumes from the latest checkpoint there and saves
+one every ``--ckpt-every`` steps.  It prints the loss every 10 steps and
+the straggler monitor's summary; ``--record`` writes each step's loss,
+aux loss and wall time (each step ends when its loss reaches the host)
+and the peak device bytes as JSON.
 """
 
 from __future__ import annotations
@@ -24,13 +26,13 @@ import time
 import torch
 
 from .. import configs
-from ..data.pipeline import TokenStreamConfig, token_batch
+from ..data.pipeline import TokenStreamConfig
 from ..models.registry import build_model
 from ..train import checkpoint as ckpt
 from ..train.optimizer import OptimizerConfig
 from ..train.straggler import StragglerMonitor
-from ..train.train_loop import (TrainConfig, check_trainable,
-                                init_train_state, make_train_step)
+from ..train.train_loop import (TrainConfig, init_train_state,
+                                make_train_step, train_batch)
 
 
 def main(argv=None) -> int:
@@ -53,7 +55,6 @@ def main(argv=None) -> int:
 
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    check_trainable(cfg)
     bundle = build_model(cfg, device=args.device)
     dev = bundle.device
     print(f"{args.arch}: {bundle.count_params / 1e6:.1f}M params on {dev}")
@@ -80,17 +81,17 @@ def main(argv=None) -> int:
               "layers": cfg.num_layers, "batch": args.batch,
               "seq": args.seq, "microbatches": args.microbatches,
               "device": str(dev), "first_step": start, "losses": [],
-              "step_ms": []}
+              "aux_losses": [], "step_ms": []}
     mon = StragglerMonitor()
     t0 = time.time()
     for i in range(start, args.steps):
         mon.start_step()
         t_step = time.perf_counter()
-        batch = token_batch(stream, i, device=dev)
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, train_batch(bundle, stream, i))
         loss = float(metrics["loss"])
         record["step_ms"].append(1e3 * (time.perf_counter() - t_step))
         record["losses"].append(loss)
+        record["aux_losses"].append(float(metrics["aux_loss"]))
         mon.end_step()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             ckpt.save_checkpoint(args.ckpt_dir, i + 1, state)

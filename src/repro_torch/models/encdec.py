@@ -17,6 +17,14 @@ is {"self": KVCache (B, s_max, KH, D), "cross": KVCache (B, F, KH, D)}:
 the prefill writes both in place, the cross cache from the encoder's
 output, and a decode step reads the cross cache as it stands.  Weights
 are fp32, cast to ``compute_dtype`` at every use (models/transformer.py).
+
+``forward_autograd`` is the training forward: the same layers building
+the autograd graph, each encoder and decoder block under a reentrant
+checkpoint (the reference ``jax.checkpoint``s each block; its configs
+all remat), self-attention through ``attention.sdpa_train`` (the
+reference's dispatch at ``dense_attn_threshold``; never #10, which has
+no backward pass), cross attention through the plain ``sdpa_dense``, no
+cache.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from .attention import KVCache
 from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
                      init_norm, init_normal, init_spec, padded_vocab,
                      sinusoidal_positions, spec_size, unembed_logits)
-from .transformer import _to_tensors
+from .transformer import _to_tensors, remat_call
 
 Tensor = torch.Tensor
 
@@ -53,6 +61,9 @@ class EncDecConfig:
     norm: str = "layernorm"
     max_position: int = 1 << 16       # rows of the decoder's position table
     compute_dtype: Any = torch.bfloat16
+    # training: the reference's attention dispatch (dense logits up to
+    # this length squared)
+    dense_attn_threshold: int = 2048
 
     @property
     def num_layers(self) -> int:
@@ -69,12 +80,14 @@ def _attn_spec(cfg: EncDecConfig) -> dict:
 # Parameters
 # ---------------------------------------------------------------------------
 
-@torch.inference_mode()
+@torch.no_grad()
 def init_params(cfg: EncDecConfig, seed: int = 0, device="cuda") -> dict:
     """Random fp32 parameters from a ``torch.Generator`` seeded with
     ``seed`` on ``device``, by the reference's specs: normal x
     1/sqrt(fan_in), the embedding table x 1, the decoder's position table
-    x 0.02; norm scales 1, biases 0.  The bits are not ``jax.random``'s."""
+    x 0.02; norm scales 1, biases 0; ordinary tensors (not inference
+    tensors), so a training state can ask for their gradients.  The bits
+    are not ``jax.random``'s."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
@@ -135,15 +148,20 @@ def count_params(cfg: EncDecConfig) -> int:
 
 def _self_attention(p: dict, x: Tensor, causal: bool,
                     cache: KVCache | None = None, lengths=None,
-                    decode: bool = False):
+                    decode: bool = False, dense_threshold: int | None = None):
     """Returns (y, cache).  ``decode``: one token against the cache (plain
-    ``decode_attend``); else ``sdpa`` over x, and the cache, where given,
-    written at ``lengths``."""
+    ``decode_attend``); ``dense_threshold`` given (training): the
+    differentiable ``sdpa_train`` at that threshold, no cache; else
+    ``sdpa`` over x, and the cache, where given, written at
+    ``lengths``."""
     q, k, v = attn_mod.qkv_project(p, x, positions=None, rope_theta=1e4,
                                    use_rope=False)
     if decode:
         cache = attn_mod.cache_update(cache, k, v, lengths)
         out = attn_mod.decode_attend(q, cache, lengths + 1)
+    elif dense_threshold is not None:
+        out = attn_mod.sdpa_train(q, k, v, causal=causal,
+                                  dense_threshold=dense_threshold)
     else:
         out = attn_mod.sdpa(q, k, v, causal=causal)
         if cache is not None:
@@ -171,11 +189,14 @@ def _cross_attention(p: dict, x: Tensor, enc_out: Tensor | None = None,
 
 
 def _decoder_layer(cfg: EncDecConfig, lp: dict, x: Tensor, enc_out,
-                   self_cache, cross_cache, lengths, decode: bool = False):
+                   self_cache, cross_cache, lengths, decode: bool = False,
+                   autograd: bool = False):
     h, self_cache = _self_attention(lp["self_attn"],
                                     apply_norm(lp["norm1"], x, cfg.norm),
                                     causal=True, cache=self_cache,
-                                    lengths=lengths, decode=decode)
+                                    lengths=lengths, decode=decode,
+                                    dense_threshold=_train_threshold(
+                                        cfg, autograd))
     x = x + h
     h, cross_cache = _cross_attention(lp["cross_attn"],
                                       apply_norm(lp["norm_x"], x, cfg.norm),
@@ -186,23 +207,41 @@ def _decoder_layer(cfg: EncDecConfig, lp: dict, x: Tensor, enc_out,
     return x, self_cache, cross_cache
 
 
+def _train_threshold(cfg: EncDecConfig, autograd: bool) -> int | None:
+    return cfg.dense_attn_threshold if autograd else None
+
+
+def _encoder_block(cfg: EncDecConfig, lp: dict, x: Tensor,
+                   autograd: bool = False) -> Tensor:
+    h, _ = _self_attention(lp["attn"], apply_norm(lp["norm1"], x, cfg.norm),
+                           causal=False,
+                           dense_threshold=_train_threshold(cfg, autograd))
+    x = x + h
+    return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
+                         cfg.act)
+
+
+def _encode(cfg: EncDecConfig, params: dict, frames: Tensor,
+            autograd: bool = False) -> Tensor:
+    dt = cfg.compute_dtype
+    frames = torch.as_tensor(frames, device=params["embed"].device)
+    x = frames.to(dt) + sinusoidal_positions(
+        frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
+    if autograd:
+        # a reentrant checkpoint sends gradients back only where one of its
+        # tensor inputs asks for them: the first block's input must
+        x.requires_grad_(True)
+    for lp in params["encoder"]:
+        x = remat_call(autograd, _encoder_block, cfg, lp, x, autograd)
+    return apply_norm(params["enc_final_norm"], x, cfg.norm)
+
+
 @torch.inference_mode()
 def encode(cfg: EncDecConfig, params: dict, frames: Tensor) -> Tensor:
     """frames (B, F, d_model), the stubbed frontend's output -> (B, F, D):
     frames and the sinusoid each cast to ``compute_dtype`` and added, then
     the non-causal layers and the final norm."""
-    dt = cfg.compute_dtype
-    frames = torch.as_tensor(frames, device=params["embed"].device)
-    x = frames.to(dt) + sinusoidal_positions(
-        frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
-    for lp in params["encoder"]:
-        h, _ = _self_attention(lp["attn"],
-                               apply_norm(lp["norm1"], x, cfg.norm),
-                               causal=False)
-        x = x + h
-        x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
-                          cfg.act)
-    return apply_norm(params["enc_final_norm"], x, cfg.norm)
+    return _encode(cfg, params, frames)
 
 
 def _embed(cfg: EncDecConfig, params: dict, tokens, positions) -> Tensor:
@@ -231,6 +270,24 @@ def forward_train(cfg: EncDecConfig, params: dict, tokens: Tensor,
     x = _embed(cfg, params, tokens, positions)
     for lp in params["decoder"]:
         x, _, _ = _decoder_layer(cfg, lp, x, enc_out, None, None, None)
+    return apply_norm(params["dec_final_norm"], x, cfg.norm), 0.0
+
+
+def _train_decoder_block(cfg: EncDecConfig, lp: dict, x: Tensor,
+                         enc_out: Tensor) -> Tensor:
+    return _decoder_layer(cfg, lp, x, enc_out, None, None, None,
+                          autograd=True)[0]
+
+
+def forward_autograd(cfg: EncDecConfig, params: dict, tokens: Tensor,
+                     positions: Tensor, frames: Tensor):
+    """The training forward: the encoder over ``frames`` and the
+    teacher-forced decoder -> (hidden (B, S, D), 0.0), building the
+    autograd graph (the module docstring has its dispatch and remat)."""
+    enc_out = _encode(cfg, params, frames, autograd=True)
+    x = _embed(cfg, params, tokens, positions)
+    for lp in params["decoder"]:
+        x = remat_call(True, _train_decoder_block, cfg, lp, x, enc_out)
     return apply_norm(params["dec_final_norm"], x, cfg.norm), 0.0
 
 

@@ -4,8 +4,7 @@ stacks (port of ``repro.models.registry``).
     bundle.init(seed)                              -> params
     bundle.forward_train(params, batch)            -> (hidden, aux_loss)
     bundle.forward_autograd(params, batch)         -> (hidden, aux_loss),
-                      differentiable, for training (the dense decoder
-                      family; ``ValueError`` for the others)
+                      differentiable, for training
     bundle.logits(params, hidden)                  -> fp32 logits
     bundle.init_cache(batch_size, s_max)           -> caches (per layer:
                       {"mixer": KVCache or state dict, "ffn": state dict
@@ -64,7 +63,8 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
 
     def forward_autograd(params, batch):
         return transformer.forward_autograd(cfg, params, batch["tokens"],
-                                            batch["positions"])
+                                            batch["positions"],
+                                            batch.get("patch_embeds"))
 
     def prefill(params, batch, caches, lengths):
         return transformer.prefill(cfg, params, batch["tokens"],
@@ -96,8 +96,8 @@ def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
                                     batch["positions"], batch["frames"])
 
     def forward_autograd(params, batch):
-        raise ValueError(f"{cfg.name}: training the encoder-decoder waits "
-                         "for ROADMAP item 7.2b")
+        return encdec.forward_autograd(cfg, params, batch["tokens"],
+                                       batch["positions"], batch["frames"])
 
     def prefill(params, batch, caches, lengths):
         return encdec.prefill(cfg, params, batch["tokens"],
@@ -140,16 +140,20 @@ def model_positions(cfg, positions: torch.Tensor) -> torch.Tensor:
     return positions
 
 
+def zero_extras(bundle: ModelBundle, b: int, s: int) -> dict:
+    """Each of the bundle's extra inputs for a (B, S) batch as zeros on its
+    device: the modality stubs' inputs, as the reference's engine,
+    datastore and training launcher feed them."""
+    return {name: torch.zeros(shape_fn(b, s), dtype=dtype,
+                              device=bundle.device)
+            for name, (shape_fn, dtype) in bundle.extra_inputs.items()}
+
+
 def model_inputs(bundle: ModelBundle, tokens: torch.Tensor,
                  positions: torch.Tensor) -> dict:
     """The batch dict of (B, S) ``tokens`` and ``positions``: the positions
-    through ``model_positions`` and each of the bundle's extra inputs as
-    zeros on its device (the modality stubs' inputs, as the reference's
-    engine and datastore feed them)."""
-    b, s = tokens.shape
-    batch = {"tokens": tokens,
-             "positions": model_positions(bundle.cfg, positions)}
-    for name, (shape_fn, dtype) in bundle.extra_inputs.items():
-        batch[name] = torch.zeros(shape_fn(b, s), dtype=dtype,
-                                  device=bundle.device)
-    return batch
+    through ``model_positions`` and the bundle's extra inputs as zeros
+    (:func:`zero_extras`)."""
+    return {"tokens": tokens,
+            "positions": model_positions(bundle.cfg, positions),
+            **zero_extras(bundle, *tokens.shape)}

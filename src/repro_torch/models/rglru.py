@@ -96,7 +96,8 @@ def rglru_scan(x: Tensor, r: Tensor, i: Tensor, lam: Tensor,
     A doubling (Hillis-Steele) scan: after the step of offset o, position t
     holds the composition of steps (t-2o, t]; each step combines
     (a1, u1) then (a2, u2) into (a1 a2, a2 u1 + u2), the reference's
-    combine."""
+    combine.  Every step makes new tensors (nothing is written in place),
+    so autograd runs through it."""
     a, u = _decay_and_input(x, r, i, lam)
     if h0 is not None:
         # fold the carried state in as a virtual step 0
@@ -105,13 +106,11 @@ def rglru_scan(x: Tensor, r: Tensor, i: Tensor, lam: Tensor,
     s = a.shape[1]
     off = 1
     while off < s:
-        u_new = u.clone()
-        u_new[:, off:] += a[:, off:] * u[:, :-off]
+        u_next = torch.cat(
+            [u[:, :off], u[:, off:] + a[:, off:] * u[:, :-off]], dim=1)
         if 2 * off < s:          # the last step needs no decay product
-            a_new = a.clone()
-            a_new[:, off:] *= a[:, :-off]
-            a = a_new
-        u = u_new
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        u = u_next
         off *= 2
     h = u[:, 1:] if h0 is not None else u
     return h, h[:, -1].clone()

@@ -14,9 +14,17 @@ flow through the carried state S with factors exp(L) <= 1.  Decode runs
 the O(1) recurrence.
 
 The pair terms of a chunk are a (B, C, C, H, N) fp32 tensor (1.07 GB at
-B = 8, C = 128, H = 32, N = 64).  The port makes it once and turns it
-into the decays and then the products in place, where the reference's
-jnp expression leaves the temporaries to XLA; the arithmetic is the same.
+B = 8, C = 128, H = 32, N = 64).  Without a graph the port makes it once
+and turns it into the decays and then the products in place, where the
+reference's jnp expression leaves the temporaries to XLA; under autograd
+(training) it makes them out of place, which autograd needs.  Both forms
+mask before ``exp`` (a masked pair's gradient is 0, not NaN) and give
+the same bits.  The reference also ``jax.checkpoint``s each chunk; the
+port does not: under the layer's own checkpoint its recompute keeps two
+pair tensors a chunk for the backward (17.6 GB for rwkv6-1.6b's 32
+chunks at 2 x 4096 tokens, a peak of 44.9 GB on an H100), and a chunk
+checkpoint would cost a third forward of every chunk (18.6% of a step,
+PERF.md §5).
 
 Token shift ("ddlerp") follows the RWKV-6 low-rank form: a shared first
 lerp, then a 5-way LoRA producing per-projection mix deltas for r/k/v/w/g.
@@ -121,15 +129,21 @@ def _wkv_chunk(r, k, v, logw, u, state):
     o = torch.einsum("bchn,bhnm->bchm", rf * torch.exp(el_prev), state)
 
     # intra-chunk pairs s < t: A[t,s] = sum_n r[t,n] k[s,n]
-    # exp(Lprev[t,n] - L[s,n]), in one (B,C,C,H,N) tensor turned in place
-    # into exp(diff) (-inf off the causal pairs), then the products.
+    # exp(Lprev[t,n] - L[s,n]): exp(diff) (-inf off the causal pairs),
+    # then the products; without a graph in one (B,C,C,H,N) tensor turned
+    # in place.
     c = r.shape[1]
     pair = el_prev[:, :, None] - el[:, None, :]             # <= 0 valid
     causal = torch.arange(c, device=r.device)[:, None] > torch.arange(
         c, device=r.device)[None, :]
-    pair.masked_fill_(~causal[None, :, :, None, None], float("-inf"))
-    pair.exp_()
-    pair.mul_(rf[:, :, None]).mul_(kf[:, None, :])
+    causal = causal[None, :, :, None, None]
+    if torch.is_grad_enabled():
+        pair = torch.exp(torch.where(causal, pair, float("-inf")))
+        pair = pair * rf[:, :, None] * kf[:, None, :]
+    else:
+        pair.masked_fill_(~causal, float("-inf"))
+        pair.exp_()
+        pair.mul_(rf[:, :, None]).mul_(kf[:, None, :])
     att = pair.sum(-1).permute(0, 1, 3, 2)                  # (B,T,H,S)
     del pair
     # the diagonal (s = t) carries the bonus u instead of the decay

@@ -22,8 +22,9 @@ place of the first P tokens' embeddings in ``forward_train`` and
   the autograd graph, attention through ``attention.sdpa_train`` (the
   reference's differentiable dispatch; #10 has no backward pass), each
   layer under ``torch.utils.checkpoint`` when ``cfg.remat`` is on (the
-  reference's default remat policy "nothing").  The dense decoder family
-  only (ROADMAP item 7.2b has the rest).
+  reference's default remat policy "nothing"); returns the MoE layers'
+  summed aux loss, which keeps its gradient.  Every layer kind, FFN and
+  position embedding trains, a VLM's patch stub included.
 * ``prefill`` — the same forward, writing the caches; returns every
   position's hidden state (the engine samples at each slot's last prompt
   position).
@@ -349,11 +350,12 @@ def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
 
 
 def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor,
-                 positions: Tensor, patch_embeds: Tensor | None = None
-                 ) -> Tensor:
+                 positions: Tensor, patch_embeds: Tensor | None = None,
+                 autograd: bool = False) -> Tensor:
     """Token embeddings in ``compute_dtype``; a VLM's first P positions
-    take ``patch_embeds`` (B, P, D) instead (the reference's stub); a
-    learned position table's rows added (component 0 of (B, S, 3)
+    take ``patch_embeds`` (B, P, D) instead (the reference's stub: written
+    in place, or with ``autograd`` joined out of place, the same values);
+    a learned position table's rows added (component 0 of (B, S, 3)
     positions).  RoPE enters in attention.  A sequence shorter than the
     patches raises ``ValueError``, where the reference's write of the
     patches fails."""
@@ -364,7 +366,11 @@ def embed_inputs(cfg: LMConfig, params: dict, tokens: Tensor,
         if p > tokens.shape[1]:
             raise ValueError(f"{p} patch embeddings for a sequence of "
                              f"{tokens.shape[1]} tokens")
-        x[:, :p] = torch.as_tensor(patch_embeds, device=x.device).to(dt)
+        pe = torch.as_tensor(patch_embeds, device=x.device).to(dt)
+        if autograd:
+            x = torch.cat([pe, x[:, p:]], dim=1)
+        else:
+            x[:, :p] = pe
     if cfg.pos_embedding == "learned":
         pos = positions if positions.ndim == 2 else positions[..., 0]
         x = x + params["pos_embed"][pos.long()].to(dt)
@@ -398,55 +404,57 @@ def forward_train(cfg: LMConfig, params: dict, tokens: Tensor,
 
 def check_trainable(cfg: LMConfig) -> None:
     """Raise ``ValueError`` unless ``forward_autograd`` trains ``cfg``:
-    attention layers with a plain or gated FFN, RoPE, no M-RoPE or patch
-    stub (the reference's dense family), remat policy "nothing"."""
+    every config :func:`check_supported` accepts, with the remat policy
+    "nothing" (the reference configs' policy; "dots" and "dots_no_batch"
+    are not ported)."""
     check_supported(cfg)
-    if (set(cfg.layer_kinds()) != {"attn"}
-            or cfg.ffn_kind not in ("plain", "gated")
-            or cfg.pos_embedding != "rope" or cfg.mrope_section is not None
-            or cfg.num_patch_tokens):
-        raise ValueError(
-            f"{cfg.name}: training covers the dense decoder family only; "
-            "the MoE, recurrent, encoder-decoder and VLM configs wait for "
-            "ROADMAP item 7.2b")
     if cfg.remat_policy != "nothing":
         raise ValueError(
             f"remat_policy {cfg.remat_policy!r} is not ported (only "
-            "\"nothing\", the reference configs' policy; see ROADMAP item "
-            "7.2b)")
+            "\"nothing\", the reference configs' policy)")
+
+
+def remat_call(enabled: bool, fn, *args):
+    """``fn(*args)``, under a reentrant ``torch.utils.checkpoint`` when
+    ``enabled``: the forward builds no graph (the tiles and chunks inside
+    run plain) and the backward makes ``fn``'s graph again, so only the
+    inputs are kept (the reference's remat policy "nothing").  ``fn``
+    draws no random numbers.  Call ``backward()`` on a loss through it (a
+    reentrant checkpoint refuses ``torch.autograd.grad``)."""
+    if not enabled:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=True,
+                      preserve_rng_state=False)
 
 
 def _train_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor,
-                 positions: Tensor) -> Tensor:
-    return _apply_layer(cfg, kind, p, x, positions=positions, cache=None,
-                        lengths=None, autograd=True)[0]
+                 positions: Tensor):
+    x, aux, _ = _apply_layer(cfg, kind, p, x, positions=positions,
+                             cache=None, lengths=None, autograd=True)
+    return x, aux
 
 
 def forward_autograd(cfg: LMConfig, params: dict, tokens: Tensor,
-                     positions: Tensor):
-    """The training forward: (B, S) tokens -> (hidden (B, S, D), aux loss
-    0.0), building the autograd graph.  Attention runs through
-    ``attention.sdpa_train``, never #10; with ``cfg.remat`` each layer runs
-    under ``torch.utils.checkpoint`` (reentrant), so the backward pass
-    keeps only each layer's input and makes the rest again; call
-    ``backward()`` on the loss (a reentrant checkpoint refuses
-    ``torch.autograd.grad``).  Raises
-    ``ValueError`` for a config outside the dense family
-    (:func:`check_trainable`)."""
+                     positions: Tensor, patch_embeds: Tensor | None = None):
+    """The training forward: (B, S) tokens -> (hidden (B, S, D), aux loss:
+    the MoE layers' sum, 0.0 without MoE), building the autograd graph.
+    Attention runs through ``attention.sdpa_train``, never #10; with
+    ``cfg.remat`` each layer runs under :func:`remat_call`, so the
+    backward pass keeps only each layer's input and makes the rest again
+    (the aux loss leaves the checkpoint beside the hidden state, with its
+    gradient).  Raises ``ValueError`` for a remat policy that is not
+    ported (:func:`check_trainable`)."""
     check_trainable(cfg)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     positions = _positions(positions, tokens)
-    x = embed_inputs(cfg, params, tokens, positions)
+    x = embed_inputs(cfg, params, tokens, positions, patch_embeds,
+                     autograd=True)
+    aux = 0.0
     for kind, lp in zip(cfg.layer_kinds(), params["layers"], strict=True):
-        if cfg.remat:
-            # reentrant: the forward builds no graph (the tiles inside run
-            # plain), the backward makes the layer's again; a layer draws
-            # no random numbers
-            x = checkpoint(_train_layer, cfg, kind, lp, x, positions,
-                           use_reentrant=True, preserve_rng_state=False)
-        else:
-            x = _train_layer(cfg, kind, lp, x, positions)
-    return apply_norm(params["final_norm"], x, cfg.norm), 0.0
+        x, a = remat_call(cfg.remat, _train_layer, cfg, kind, lp, x,
+                          positions)
+        aux = aux + a
+    return apply_norm(params["final_norm"], x, cfg.norm), aux
 
 
 @torch.inference_mode()

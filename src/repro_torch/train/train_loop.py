@@ -12,9 +12,10 @@ loop does.  AdamW then writes the parameters and the moments in place.
 
 One device holds the whole state, so the reference's mesh, shardings and
 donation have no counterpart; ``lower_train_step`` waits for the launch
-tooling (ROADMAP item 5).  Only the dense decoder family trains here
-(ROADMAP item 7.2b has the rest): :func:`make_train_step` and
-:func:`init_train_state` raise ``ValueError`` for another config.
+tooling (ROADMAP item 5).  Every config the reference trains trains
+here: the dense, MoE, recurrent and VLM decoders and the
+encoder-decoder.  :func:`train_batch` gives a step's batch as the
+reference's launcher builds it (M-RoPE positions, zero stub inputs).
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..data.pipeline import TokenStreamConfig, token_batch
 from ..device import resolve_device
-from ..models import transformer
+from ..models import encdec, transformer
+from ..models.encdec import EncDecConfig
+from ..models.registry import zero_extras
 from ..models.transformer import LMConfig
 from . import losses
 from . import optimizer as opt_mod
@@ -48,12 +52,13 @@ class TrainState(NamedTuple):
 
 
 def check_trainable(cfg) -> None:
-    """``ValueError`` unless ``cfg`` is a dense decoder config."""
-    if not isinstance(cfg, LMConfig):
-        raise ValueError(f"{getattr(cfg, 'name', cfg)}: training covers the "
-                         "dense decoder family only; the encoder-decoder "
-                         "waits for ROADMAP item 7.2b")
-    transformer.check_trainable(cfg)
+    """``TypeError`` for a config type ``build_model`` does not build;
+    ``ValueError`` for an option the training forward does not port
+    (``transformer.check_trainable``)."""
+    if isinstance(cfg, LMConfig):
+        transformer.check_trainable(cfg)
+    elif not isinstance(cfg, EncDecConfig):
+        raise TypeError(f"unknown config type {type(cfg)}")
 
 
 def _trainable(params):
@@ -70,21 +75,23 @@ def init_train_state(bundle, seed: int = 0) -> TrainState:
     return TrainState(params=params, opt=opt_mod.init_state(params))
 
 
-def train_state_from_numpy(cfg: LMConfig, tree, device="cuda") -> TrainState:
+def train_state_from_numpy(cfg, tree, device="cuda") -> TrainState:
     """The reference's ``TrainState`` (params, then ``AdamWState(step, mu,
     nu)``) with numpy leaves, as the port's on ``device``.  The parameter
     trees go through ``transformer.params_from_numpy`` (a stacked
-    ``scan_layers`` tree included); every leaf is its own tensor, so each
+    ``scan_layers`` tree included, MoE expert stacks as they are) or
+    ``encdec.params_from_numpy``; every leaf is its own tensor, so each
     parameter can hold its gradient."""
     check_trainable(cfg)
     dev = resolve_device(device)
     params_np, (step, mu, nu) = tree
+    module = encdec if isinstance(cfg, EncDecConfig) else transformer
 
     def own(t: Tensor) -> Tensor:
         return t.clone() if t._base is not None else t
 
     def convert(t):
-        return tree_map(own, transformer.params_from_numpy(cfg, t, dev))
+        return tree_map(own, module.params_from_numpy(cfg, t, dev))
 
     params = _trainable(convert(params_np))
     opt = AdamWState(step=torch.tensor(int(step), dtype=torch.int32,
@@ -103,6 +110,18 @@ def train_state_to(state: TrainState, device) -> TrainState:
     return moved
 
 
+def train_batch(bundle, stream: TokenStreamConfig, step: int) -> dict:
+    """Batch ``step`` of the token stream on the bundle's device, as the
+    reference's launcher feeds it: (B, S, 3) positions for an M-RoPE
+    config and the bundle's extra inputs (frames, patch embeddings) as
+    zeros."""
+    batch = token_batch(stream, step, device=bundle.device,
+                        mrope=bool(getattr(bundle.cfg, "mrope_section",
+                                           None)))
+    batch.update(zero_extras(bundle, stream.global_batch, stream.seq_len))
+    return batch
+
+
 def _split_micro(batch: dict, n: int, i: int) -> dict:
     """Microbatch ``i`` of ``n``: consecutive rows of every input."""
     def sl(x):
@@ -116,8 +135,7 @@ def make_loss_fn(bundle, cfg: TrainConfig):
     aux_loss}), differentiable in the parameters."""
     def loss_fn(params, batch):
         hidden, aux = bundle.forward_autograd(params, batch)
-        table = params["embed"] if bundle.cfg.tie_embeddings \
-            else params["unembed"]
+        table = params.get("unembed", params["embed"])  # tied: no unembed
         loss, metrics = losses.chunked_cross_entropy(
             hidden, batch["labels"], table, chunk=cfg.loss_chunk,
             z_weight=cfg.z_weight)

@@ -1859,3 +1859,111 @@ def test_init_params_on_the_card_are_trainable(cuda):
     loss.backward()
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in leaves)
+
+
+# ---------------------------------------------------------------------------
+# Training the MoE, recurrent, encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
+                "recurrentgemma-2b", "rwkv6-1.6b", "whisper-tiny",
+                "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """One fp32 step (TF32 off, two microbatches, the launcher's batches:
+    M-RoPE positions and zero stub inputs) of each family's reduced
+    config, from one state on the CPU and the card: the loss within rtol
+    1e-5, the moments within 1e-4 of each leaf's largest, a parameter
+    within 1e-6 + 1e-5 of itself plus what a gradient error of 1e-4 of the
+    leaf's largest gradient moves AdamW's step, capped at 2 x lr (the CPU
+    rule of tests/test_torch_train.py).  A leaf whose gradient is at most
+    1e-6 of the median leaf's largest (whisper's key biases, which the
+    softmax cancels exactly) is held to moments below that bound on both
+    sides and the cap."""
+    import dataclasses
+    import statistics
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as tloop
+    from repro_torch.train.checkpoint import _flatten_with_names
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              compute_dtype=torch.float32)
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                               global_batch=4)
+    state = tloop.init_train_state(build_model(cfg, device="cpu"), 0)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        bundle = build_model(cfg, device=dev)
+        step = tloop.make_train_step(bundle, tloop.TrainConfig(
+            microbatches=2, opt=topt.OptimizerConfig(
+                peak_lr=1e-3, warmup_steps=0, total_steps=10)))
+        st, m = step(tloop.train_state_to(state, dev),
+                     tloop.train_batch(bundle, stream, 0))
+        runs.append(({k: v.detach().cpu() for k, v in
+                      _flatten_with_names(st).items()},
+                     {k: float(v) for k, v in m.items()}))
+    (want, mw), (got, mg) = runs
+    assert abs(mg["loss"] - mw["loss"]) <= 1e-5 * abs(mw["loss"])
+    assert abs(mg["aux_loss"] - mw["aux_loss"]) <= \
+        1e-5 * abs(mw["aux_loss"]) + 1e-12
+    lr = mw["lr"]
+    gmag = {n[len(".opt.nu"):]: (w / 0.05).sqrt() for n, w in want.items()
+            if n.startswith(".opt.nu")}
+    median = statistics.median(float(g.max()) for g in gmag.values())
+    dead = {x for x, g in gmag.items() if float(g.max()) <= 1e-6 * median}
+    assert len(dead) == (6 if arch == "whisper-tiny" else 0), dead
+    for name, w in want.items():
+        g = got[name]
+        if name == ".opt.step":
+            assert int(g) == int(w) == 1
+        elif name.startswith((".opt.mu", ".opt.nu")):
+            nu = name.startswith(".opt.nu")
+            if name[len(".opt.mu"):] in dead:
+                bound = 1e-6 * median
+                assert float(max(g.abs().max(), w.abs().max())) <= (
+                    bound * bound if nu else bound), name
+            else:
+                assert float((g - w).abs().max()) <= \
+                    (2e-4 if nu else 1e-4) * float(w.abs().max()) + 1e-12, \
+                    name
+        else:
+            suffix = name[len(".params"):]
+            err = 1e-4 * float(gmag[suffix].max())
+            cap = 2.0 if suffix in dead else torch.clamp(
+                2.0 * err / (gmag[suffix] + 1e-8), max=2.0)
+            tol = 1e-6 + 1e-5 * w.abs() + lr * cap
+            assert bool(((g - w).abs() <= tol).all()), name
+
+
+def test_whisper_training_forward_launches_no_kernel_10(cuda):
+    """whisper-tiny at full size: ``forward_autograd`` (the encoder over
+    1500 frames non-causal, the decoder causal) and its backward launch
+    #10 no time; the no-grad ``forward_train`` launches it once a layer,
+    4 encoder and 4 decoder layers."""
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model, model_inputs
+    from repro_torch.train import losses
+    from repro_torch.train import optimizer as topt
+    cfg = configs.get_config("whisper-tiny")
+    bundle = build_model(cfg, device=cuda)
+    params = bundle.init(0)
+    for p in topt.tree_leaves(params):
+        p.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 448), device=cuda)
+    pos = torch.arange(448, device=cuda)[None].expand(2, 448)
+    batch = model_inputs(bundle, toks, pos)
+    before = flash_attention.launches
+    hidden, _ = bundle.forward_autograd(params, batch)
+    loss, _ = losses.chunked_cross_entropy(hidden, toks, params["embed"])
+    loss.backward()
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    assert all(p.grad is not None for p in topt.tree_leaves(params))
+    bundle.forward_train(params, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers

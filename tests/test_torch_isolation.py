@@ -400,6 +400,40 @@ def test_the_training_slice_is_covered_and_defaults_to_the_card(no_card,
     assert metrics["loss"].device.type == "cpu"
 
 
+def test_the_training_families_default_to_the_card(no_card, tmp_path):
+    """The MoE, recurrent, encoder-decoder and VLM configs train through
+    the same entry points, which run on the card unless the caller asks
+    for the CPU: the launcher, the train state, the state carried across
+    from numpy (the encoder-decoder's tree through its own import) and
+    the step's batches."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as tloop
+    for arch in ("qwen3-moe-30b-a3b", "rwkv6-1.6b", "whisper-tiny",
+                 "qwen2-vl-72b"):
+        cfg = configs.get_reduced(arch)
+        bundle = build_model(cfg, device="cpu")
+        state = tloop.init_train_state(bundle, 0)
+        tree = topt.tree_map(lambda t: t.detach().numpy(), state)
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                   global_batch=2)
+        for call in (lambda: tloop.init_train_state(build_model(cfg), 0),
+                     lambda: tloop.train_state_from_numpy(cfg, tree),
+                     lambda: tloop.train_batch(build_model(cfg), stream, 0),
+                     lambda: tlaunch.main(["--arch", arch, "--reduced",
+                                           "--steps", "1"])):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        back = tloop.train_state_from_numpy(cfg, tree, device="cpu")
+        batch = tloop.train_batch(bundle, stream, 0)
+        assert all(v.device.type == "cpu" for v in batch.values())
+        hidden, _ = bundle.forward_autograd(back.params, batch)
+        assert hidden.device.type == "cpu" and hidden.requires_grad
+
+
 def test_the_baselines_are_host_code_by_design(no_card):
     """core/baselines.py is the one entry point with no device: the paper's
     comparison points run in numpy on the host, "not the accelerated
@@ -513,10 +547,27 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "qwen2-vl-72b: first-token logits through #10",
                  "phase 15:",
                  "train starcoder2-3b: 2 layers, 4 x 64 tokens in 2 "
-                 "microbatches, 10 steps through launch/train.py (exit 0)",
+                 "microbatches, 6 steps through launch/train.py (exit 0)",
                  "train card vs cpu: starcoder2-3b at 2 layers, fp32",
                  "train restart: starcoder2-3b at 2 layers, bf16",
-                 "phase 16:"):
+                 "phase 16:",
+                 "train rwkv6-1.6b: 2 layers, 4 x 64 tokens in 2 "
+                 "microbatches, 4 steps through launch/train.py (exit 0)",
+                 "train recurrentgemma-2b: 3 layers, 4 x 64 tokens in 2 "
+                 "microbatches, 4 steps through launch/train.py (exit 0)",
+                 "train qwen3-moe-30b-a3b: 2 layers, 4 x 64 tokens in 2 "
+                 "microbatches, 3 steps through make_train_step; losses",
+                 "train whisper-tiny: 4 layers, 8 x 64 tokens in 2 "
+                 "microbatches, 5 steps through launch/train.py (exit 0)",
+                 "train restart: whisper-tiny at 4 layers, bf16, 8 x 64",
+                 "train qwen2-vl-72b: 2 layers, 1 x 64 tokens in 1 "
+                 "microbatches, 2 steps through make_train_step",
+                 *(f"train card vs cpu: {arch} at" for arch in (
+                     "qwen3-moe-30b-a3b", "llama4-scout-17b-a16e",
+                     "recurrentgemma-2b", "rwkv6-1.6b", "whisper-tiny",
+                     "qwen2-vl-72b")),
+                 "(6 leaves without a gradient)",
+                 "phase 17:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

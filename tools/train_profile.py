@@ -1,13 +1,14 @@
-"""Profile one training step of starcoder2-3b on one CUDA card.
+"""Profile one training step of a config on one CUDA card.
 
-    python3 tools/train_profile.py [--layers 30] [--batch 4] [--seq 4096]
-        [--microbatches 2] [--out FILE]
+    python3 tools/train_profile.py [--arch starcoder2-3b] [--layers N]
+        [--batch 4] [--seq 4096] [--microbatches 2] [--out FILE]
 
-Full width (d_model 3072, 24/2 heads of 128), seeded weights, bf16
-compute, the given depth; the step is ``train_loop.make_train_step``'s,
-as ``launch/train.py`` runs it.  After two unprofiled steps (the first
-warms the allocator and the lazy imports; the second is timed), one more
-step runs under ``torch.profiler`` (CUPTI).  Prints one JSON object: the
+Full width, seeded weights, bf16 compute, the config's depth or
+``--layers``; the step is ``train_loop.make_train_step``'s on
+``train_loop.train_batch``'s batches, as ``launch/train.py`` runs it.
+After two unprofiled steps (the first warms the allocator and the lazy
+imports; the second is timed), one more step runs under
+``torch.profiler`` (CUPTI).  Prints one JSON object: the
 card's name and power limit, the unprofiled step's wall ms, the profiled
 step's device ms (its kernels and copies) and their ratio (the device's
 busy share), and the host ops that took the most device time (each
@@ -39,7 +40,9 @@ GROUPS = {"matmul": ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=30)
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--microbatches", type=int, default=2)
@@ -52,14 +55,15 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
-    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.data.pipeline import TokenStreamConfig
     from repro_torch.models.registry import build_model
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_loop import (TrainConfig, init_train_state,
-                                              make_train_step)
+                                              make_train_step, train_batch)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = configs.get_config("starcoder2-3b", num_layers=args.layers)
+    cfg = configs.get_config(args.arch, **(
+        {} if args.layers is None else {"num_layers": args.layers}))
     bundle = build_model(cfg, device=dev)
     step = make_train_step(bundle, TrainConfig(
         microbatches=args.microbatches,
@@ -71,10 +75,10 @@ def main(argv=None) -> int:
     for i in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, token_batch(stream, i, device=dev))
+        state, m = step(state, train_batch(bundle, stream, i))
         float(m["loss"])
         wall.append(1e3 * (time.perf_counter() - t0))
-    batch = token_batch(stream, 2, device=dev)
+    batch = train_batch(bundle, stream, 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -97,7 +101,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    out = {"card": smi, "layers": args.layers, "batch": args.batch,
+    out = {"card": smi, "arch": args.arch, "layers": cfg.num_layers,
+           "batch": args.batch,
            "seq": args.seq, "microbatches": args.microbatches,
            "step_ms": wall, "profiled_wall_ms": profiled_ms,
            "device_ms": device_ms, "busy_share": device_ms / wall[1],
