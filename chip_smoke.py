@@ -363,9 +363,6 @@ TRAIN_REHEARSAL_SEQ = 64
 TRAIN_D = 3072
 TRAIN_GRAD_TOL = 2 * TRAIN_D * 2.0 ** -23
 TRAIN_LOSS_RTOL = TRAIN_D * 2.0 ** -23
-# A leaf whose every gradient is at most this share of the median leaf's
-# largest has none of its own (``train_state_ratios``).
-TRAIN_DEAD = 1e-6
 # Phase 17: each family trained on the card, label -> (arch, layers (None:
 # the full depth, through launch/train.py; else the depth cut to fit the
 # card's 80 GB, through make_train_step), batch, seq, microbatches, steps).
@@ -3472,16 +3469,18 @@ class Smoke:
         in ``micro`` microbatches, from one state on the card and on the
         CPU: the loss within TRAIN_LOSS_RTOL, the grad norm within
         TRAIN_GRAD_TOL, and the moments and parameters by
-        ``train_state_ratios``.  An MoE config's experts are compared
-        first (``compare_routes``): a token may take other experts on the
-        card only at a near tie, and the card's step is then run again
-        with the CPU's experts (``routes_logged``'s replay)."""
+        ``repro_torch.train.compare``'s rule at TRAIN_GRAD_TOL.  An MoE
+        config's experts are compared first (``compare_routes``): a token
+        may take other experts on the card only at a near tie, and the
+        card's step is then run again with the CPU's experts
+        (``routes_logged``'s replay)."""
         import dataclasses
         torch = self.torch
         from repro_torch.data.pipeline import TokenStreamConfig
         from repro_torch.models import moe
         from repro_torch.models.registry import build_model
         from repro_torch.train.checkpoint import _flatten_with_names
+        from repro_torch.train.compare import state_ratios, step_grads
         from repro_torch.train.optimizer import OptimizerConfig
         from repro_torch.train.train_loop import (TrainConfig,
                                                   init_train_state,
@@ -3546,7 +3545,14 @@ class Smoke:
         rec["grad_norm_diff_over_tol"] = abs(
             mg["grad_norm"] - mw["grad_norm"]) / (TRAIN_GRAD_TOL
                                                   * mw["grad_norm"])
-        rec.update(train_state_ratios(torch, want, got, mw["lr"]))
+        grads = {n[len(".opt.nu"):]: step_grads(w) for n, w in want.items()
+                 if n.startswith(".opt.nu")}
+        ratios = state_ratios(want, got, [grads], [mw["lr"]],
+                              TRAIN_GRAD_TOL, floor=1e-30)
+        rec.update(params_diff_over_tol=ratios["params_diff_over_tol"],
+                   moments_diff_over_tol=ratios["moments_diff_over_tol"],
+                   dead=len(ratios["dead"]))
+        del grads, ratios
         del want, got, out
         rec["seconds"] = time.perf_counter() - t0
         for key in ("loss_diff_over_tol", "grad_norm_diff_over_tol",
@@ -5911,58 +5917,6 @@ def routes_logged(torch, moe, forced=None):
         yield log
     finally:
         moe.route, moe.assign_slots = route, assign
-
-
-def train_state_ratios(torch, want: dict, got: dict, lr: float) -> dict:
-    """One step's state on the card (``got``) against the CPU's (``want``),
-    flattened by name on one device: the worst |diff| over its tolerance
-    among the moments (TRAIN_GRAD_TOL of each leaf's largest, nu twice
-    that) and the parameters (1e-6 + 1e-5 |p| plus what a gradient error
-    of TRAIN_GRAD_TOL x the leaf's largest gradient moves AdamW's step,
-    2 x lr x error / (|g| + eps), capped at 2 x lr).  A leaf whose every
-    gradient is at most TRAIN_DEAD of the median leaf's largest (a key
-    bias without RoPE, which the softmax cancels exactly, so both sides
-    hold rounding only; the median, so that one leaf with an outsized
-    gradient moves no other leaf into this rule) has no largest gradient
-    of its own to scale by: its moments must lie within TRAIN_DEAD of that
-    median on both sides, and its parameters get the cap."""
-    def grads(suffix):                     # |g| of the one step, the CPU's
-        return (want[".opt.nu" + suffix] / 0.05).sqrt()
-
-    suffixes = [n[len(".params"):] for n in want if n.startswith(".params")]
-    largest = {x: float(grads(x).max()) for x in suffixes}
-    top = statistics.median(largest.values())
-    dead = {x for x, g in largest.items() if g <= TRAIN_DEAD * top}
-    worst = {"param": 0.0, "moment": 0.0}
-    for name, w in want.items():
-        g = got[name]
-        if name == ".opt.step":
-            expect(int(g) == int(w) == 1, f"train step {g} / {w}")
-            continue
-        if name.startswith((".opt.mu", ".opt.nu")):
-            nu = name.startswith(".opt.nu")
-            if name[len(".opt.mu"):] in dead:
-                bound = TRAIN_DEAD * top
-                worst["moment"] = max(
-                    worst["moment"], float(torch.maximum(
-                        g.abs().max(), w.abs().max()))
-                    / (bound * bound if nu else bound))
-                continue
-            tol = ((2.0 if nu else 1.0) * TRAIN_GRAD_TOL
-                   * float(w.abs().max()) + 1e-30)
-            worst["moment"] = max(worst["moment"],
-                                  float((g - w).abs().max()) / tol)
-            continue
-        suffix = name[len(".params"):]
-        gmag = grads(suffix)
-        cap = (2.0 if suffix in dead else torch.clamp(
-            2.0 * TRAIN_GRAD_TOL * largest[suffix] / (gmag + 1e-8), max=2.0))
-        tol = 1e-6 + 1e-5 * w.abs() + lr * cap
-        worst["param"] = max(worst["param"],
-                             float(((g - w).abs() / tol).max()))
-        del gmag, tol
-    return {"params_diff_over_tol": worst["param"],
-            "moments_diff_over_tol": worst["moment"], "dead": len(dead)}
 
 
 def compare_routes(torch, got: list, want: list) -> dict:

@@ -146,12 +146,12 @@ def count_params(cfg: EncDecConfig) -> int:
 # Layers
 # ---------------------------------------------------------------------------
 
-def _self_attention(p: dict, x: Tensor, causal: bool,
+def _self_attention(cfg: EncDecConfig, p: dict, x: Tensor, causal: bool,
                     cache: KVCache | None = None, lengths=None,
-                    decode: bool = False, dense_threshold: int | None = None):
+                    decode: bool = False, autograd: bool = False):
     """Returns (y, cache).  ``decode``: one token against the cache (plain
-    ``decode_attend``); ``dense_threshold`` given (training): the
-    differentiable ``sdpa_train`` at that threshold, no cache; else
+    ``decode_attend``); ``autograd`` (training): the differentiable
+    ``sdpa_train`` at ``cfg.dense_attn_threshold``, no cache; else
     ``sdpa`` over x, and the cache, where given, written at
     ``lengths``."""
     q, k, v = attn_mod.qkv_project(p, x, positions=None, rope_theta=1e4,
@@ -159,9 +159,9 @@ def _self_attention(p: dict, x: Tensor, causal: bool,
     if decode:
         cache = attn_mod.cache_update(cache, k, v, lengths)
         out = attn_mod.decode_attend(q, cache, lengths + 1)
-    elif dense_threshold is not None:
+    elif autograd:
         out = attn_mod.sdpa_train(q, k, v, causal=causal,
-                                  dense_threshold=dense_threshold)
+                                  dense_threshold=cfg.dense_attn_threshold)
     else:
         out = attn_mod.sdpa(q, k, v, causal=causal)
         if cache is not None:
@@ -191,12 +191,11 @@ def _cross_attention(p: dict, x: Tensor, enc_out: Tensor | None = None,
 def _decoder_layer(cfg: EncDecConfig, lp: dict, x: Tensor, enc_out,
                    self_cache, cross_cache, lengths, decode: bool = False,
                    autograd: bool = False):
-    h, self_cache = _self_attention(lp["self_attn"],
+    h, self_cache = _self_attention(cfg, lp["self_attn"],
                                     apply_norm(lp["norm1"], x, cfg.norm),
                                     causal=True, cache=self_cache,
                                     lengths=lengths, decode=decode,
-                                    dense_threshold=_train_threshold(
-                                        cfg, autograd))
+                                    autograd=autograd)
     x = x + h
     h, cross_cache = _cross_attention(lp["cross_attn"],
                                       apply_norm(lp["norm_x"], x, cfg.norm),
@@ -207,15 +206,11 @@ def _decoder_layer(cfg: EncDecConfig, lp: dict, x: Tensor, enc_out,
     return x, self_cache, cross_cache
 
 
-def _train_threshold(cfg: EncDecConfig, autograd: bool) -> int | None:
-    return cfg.dense_attn_threshold if autograd else None
-
-
 def _encoder_block(cfg: EncDecConfig, lp: dict, x: Tensor,
                    autograd: bool = False) -> Tensor:
-    h, _ = _self_attention(lp["attn"], apply_norm(lp["norm1"], x, cfg.norm),
-                           causal=False,
-                           dense_threshold=_train_threshold(cfg, autograd))
+    h, _ = _self_attention(cfg, lp["attn"],
+                           apply_norm(lp["norm1"], x, cfg.norm),
+                           causal=False, autograd=autograd)
     x = x + h
     return x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, cfg.norm),
                          cfg.act)

@@ -102,7 +102,11 @@ def route(router_logits: Tensor, cfg: MoEConfig):
     probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[..., :cfg.top_k], top_i[..., :cfg.top_k]
-    if cfg.router_softmax_order == "topk_then_softmax":
+    if cfg.router_softmax_order == "topk_then_softmax" and cfg.top_k == 1:
+        # p / p: exactly 1 with derivative 0, which autodiff of the
+        # division leaves as a rounding residue in the router's gradient
+        top_w = torch.ones_like(top_w)
+    elif cfg.router_softmax_order == "topk_then_softmax":
         top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
     e = cfg.num_experts
     me = torch.mean(probs, dim=(0, 1))

@@ -13,12 +13,18 @@ and parameter norms rtol 1e-4, the moments and parameters by
 through the mean probabilities ``me`` only (the counts ``ce`` are
 one-hot), as ``jax.grad`` sends it.
 
-llama4-scout-17b-a16e at one microbatch misses on its routers' first
-moments (1.22 of the tolerance after one step): its top-1 renormalised
-weight p / p has gradient 0, but autodiff of the division leaves a
-rounding residue in both packages, 1e-4 of the router's aux-only
-gradient in the reference itself (ROADMAP §3).  The tolerance stands.
+llama4-scout-17b-a16e's top-1 renormalised weight is p / p, exactly 1 with
+derivative 0.  The port takes that derivative exactly (its weight is a
+constant 1); the reference's autodiff of the division leaves a rounding
+residue a token, which its routers' small aux-only gradient does not
+dwarf.  Both are held to the reference's exact derivative
+(``torch_train_parity.exact_route``, ``stop_gradient`` on that weight):
+the port in ``test_train_steps_match_jax``, the reference's own autodiff
+in ``test_reference_autodiff_meets_its_exact_derivative``, each under
+the same rule.
 """
+
+import unittest.mock
 
 import jax
 import jax.numpy as jnp
@@ -29,8 +35,10 @@ import torch
 from repro.models import moe as jmoe
 from repro_torch.models import moe as tmoe
 
-from torch_train_parity import (check_layout_reads_across,
-                                check_steps_against_reference)
+from torch_train_parity import (_np, assert_state_close,
+                                check_layout_reads_across,
+                                check_steps_against_reference, exact_route,
+                                reference_trajectory)
 
 ARCHS = ["qwen3-moe-30b-a3b", "llama4-scout-17b-a16e"]
 
@@ -42,16 +50,36 @@ def test_train_steps_match_jax(arch, mb):
     assert all(m["aux_loss"] > 0 for m in metrics)
 
 
+def test_reference_autodiff_meets_its_exact_derivative():
+    """The reference's jitted step as it stands (autodiff through p / p)
+    against the same step with that derivative exact (``exact_route``):
+    llama4-scout-17b-a16e reduced, one microbatch, one and two steps, under
+    ``assert_state_close``'s rule.  The division's residue is rounding and
+    within GRAD_TOL; it shows in the routers' moments."""
+    arch = "llama4-scout-17b-a16e"
+    exact, metrics = reference_trajectory(1, arch)
+    own, _ = reference_trajectory(1, arch, exact=False)
+    lrs = [m["lr"] for m in metrics]
+    for k in (1, 2):
+        assert_state_close(own[k], exact[:k + 1], lrs[:k])
+    mu_own, mu_exact = own[1].opt.mu["layers"], exact[1].opt.mu["layers"]
+    assert not np.array_equal(_np(mu_own[1]["ffn"]["router"]),
+                              _np(mu_exact[1]["ffn"]["router"]))
+
+
 @pytest.mark.parametrize("cfg", [
     dict(num_experts=8, top_k=2, capacity_factor=1.0, group_tokens=16),
     dict(num_experts=4, top_k=1, capacity_factor=1.25, group_tokens=32,
-         router_softmax_order="softmax_then_topk")])
+         router_softmax_order="softmax_then_topk"),
+    dict(num_experts=4, top_k=1, capacity_factor=1.25, group_tokens=32)])
 def test_moe_layer_gradients_match_jax(cfg):
     """``apply_moe``'s output, aux loss and the gradients of a loss through
     both (capacity drops included at a capacity factor of 1) against
-    ``jax.grad`` of the reference's: rtol 1e-5 on the values, gradients
-    within 1e-5 of each one's largest (fp32 sums over d = 32 and the
-    K experts of a token in another order)."""
+    ``jax.grad`` of the reference's, with the top-1 renormalised weight's
+    derivative exact (``exact_route``; a no-op for the other routings):
+    rtol 1e-5 on the values, gradients within 1e-5 of each one's largest
+    (fp32 sums over d = 32 and the K experts of a token in another
+    order)."""
     jc, tc = jmoe.MoEConfig(**cfg), tmoe.MoEConfig(**cfg)
     rng = np.random.default_rng(3)
     d, f, e = 32, 48, cfg["num_experts"]
@@ -67,9 +95,10 @@ def test_moe_layer_gradients_match_jax(cfg):
         y, aux = jmoe.apply_moe(p, x, jc)
         return jnp.sum(y * weight) + 10.0 * aux, (y, aux)
 
-    (jgp, jgx), (jy, jaux) = jax.jit(jax.grad(
-        jloss, argnums=(0, 1), has_aux=True))(
-        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    with unittest.mock.patch.object(jmoe, "route", exact_route(jmoe.route)):
+        (jgp, jgx), (jy, jaux) = jax.jit(jax.grad(
+            jloss, argnums=(0, 1), has_aux=True))(
+            jax.tree.map(jnp.asarray, params), jnp.asarray(x))
 
     tp = {k: torch.from_numpy(v).requires_grad_(True)
           for k, v in params.items()}
