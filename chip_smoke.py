@@ -225,7 +225,7 @@ Phases:
    a) starcoder2-3b at full size (30 layers, d_model 3072, bf16 compute,
    seeded weights) through ``launch/train.py``'s ``main``: 4 x 4096
    tokens in 2 microbatches (its train_4k shape with the batch cut from
-   256), 6 steps; exit 0, every loss finite, the last below the first,
+   256), 4 steps; exit 0, every loss finite, the last below the first,
    #10's counters at 0 (training attends through the reference's
    differentiable dispatch: #10 has no backward pass); each step's ms,
    tokens/s and the peak device bytes recorded.  b) One fp32 step (TF32
@@ -256,6 +256,20 @@ Phases:
    layer on 1 x 256 tokens (an MoE config's experts compared first: a
    flip only at a near tie, the card's step then replayed with the CPU's
    experts).
+18. Sharded training and the dist/ substrates at world size 1, over one
+   NCCL group (gloo in a CPU rehearsal) started and ended around the
+   phase: a) the ring all-gather and reduce-scatter matmuls, int8
+   compression with error feedback and the pipeline schedule at p = 1,
+   each equal to its oracle bit for bit; b) ``make_train_step(...,
+   mesh=)`` on a (1, 1) ("data", "model") mesh against the mesh-less step
+   for reduced starcoder2-3b and qwen3-moe-30b-a3b in fp32, two steps,
+   metrics and state bit-equal; c) starcoder2-3b at 16a's size through
+   the sharded step on a (1,) data mesh, 16a's schedule and batches,
+   SHARDED_STEPS steps: 16a's checks but the descent (16a's third loss
+   is above its first), its losses against 16a's first
+   three (bit-equal, or within TRAIN_LOSS_RTOL), step ms, tokens/s and
+   peak bytes beside 16a's (DTensor's dispatch on one card).  No kernel
+   is on this path.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -348,10 +362,14 @@ QWEN2_VL_LAYERS = 12
 PHASE15_SHAPES = {"whisper_encoder": (8, 6, 6, 1500, 1500, 64, False),
                   "qwen2vl_corpus_batch": (8, 64, 8, 1024, 1024, 128, True)}
 # Phase 16: starcoder2-3b's training run through the launcher at full size
-# (the config's train_4k shape, its batch cut from 256 to 4 sequences; 6
-# steps, cut from 10 to give phase 17 room in the run's 1200 s), then the
-# card against the CPU and the restart at full width and depth 2.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 6
+# (the config's train_4k shape, its batch cut from 256 to 4 sequences; 4
+# steps, cut from 10 to 6 to give phase 17 room in the run's 1200 s, and
+# to 4 for phase 18), then the card against the CPU and the restart at
+# full width and depth 2.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 2, 4
+# Phase 18c: 16a's run again through the sharded step on a (1,) data mesh,
+# its first steps.
+SHARDED_STEPS = 3
 TRAIN_SMALL_LAYERS = 2
 TRAIN_COMPARE_SEQ = 512
 TRAIN_RESTART_STEPS, TRAIN_SAVE_AT = 4, 2
@@ -3332,18 +3350,20 @@ class Smoke:
                f"{label}: training launched #10 {launched} times "
                f"({self.flash_launches()}); it has no backward pass")
 
-    def expect_training(self, label: str, rec: dict, steps: int) -> None:
+    def expect_training(self, label: str, rec: dict, steps: int,
+                        descends: bool = True) -> None:
         """A run's checks: every loss and aux loss finite, the last loss
-        below the first (on the card: in a CPU rehearsal the reduced
-        configs' losses over a few batches are noise), #10's counters at 0,
-        the card's memory back within 256 MiB of where it was (a cuBLAS
-        workspace of the backward thread's handle may stay)."""
+        below the first (on the card, where ``descends``: in a CPU
+        rehearsal the reduced configs' losses over a few batches are
+        noise), #10's counters at 0, the card's memory back within 256 MiB
+        of where it was (a cuBLAS workspace of the backward thread's
+        handle may stay)."""
         import math
         losses = rec["losses"]
         expect(len(losses) == steps and all(
             math.isfinite(x) for x in losses + rec["aux_losses"]),
             f"{label}: losses {losses}, aux losses {rec['aux_losses']}")
-        expect(self.rehearsal or losses[-1] < losses[0],
+        expect(self.rehearsal or not descends or losses[-1] < losses[0],
                f"{label}: the last loss {losses[-1]} is not below the first "
                f"{losses[0]}")
         self.expect_no_flash(label)
@@ -3650,6 +3670,226 @@ class Smoke:
             f"({rec['state_bytes']} B of state, checkpoint "
             f"{rec['checkpoint_bytes']} B saved in {rec['save_s']:.1f} s, "
             f"restored in {rec['restore_s']:.1f} s); {rec['seconds']:.1f} s")
+        return rec
+
+    # -- phase 18: sharded training and the dist/ substrates at world
+    # size 1 over NCCL -----------------------------------------------------
+    def phase_sharded(self) -> dict:
+        """One world-size-1 group (NCCL on the card, its bootstrap on the
+        loopback; gloo in a CPU rehearsal) for the phase, ended after it:
+        a) the ring matmuls, int8 compression and the pipeline at p = 1
+        against their oracles; b) the sharded step on a (1, 1) mesh
+        against the mesh-less step for the dense and MoE reduced configs;
+        c) starcoder2-3b at 16a's size through ``make_train_step(...,
+        mesh=)`` on a (1,) data mesh, against 16a's losses."""
+        import os
+        import torch.distributed as dist
+        from repro_torch.dist.sharding import make_mesh
+        if not self.rehearsal:
+            os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        expect(not dist.is_initialized(),
+               "phase 18: a process group is already running")
+        rec = {"seconds": 0.0}
+        t0 = time.perf_counter()
+        mesh2 = make_mesh((1, 1), ("data", "model"), device=self.dev.type)
+        rec["backend"] = dist.get_backend()
+        expect(rec["backend"] == ("gloo" if self.rehearsal else "nccl"),
+               f"phase 18: the group's backend is {rec['backend']}")
+        try:
+            rec["18a"] = self.sharded_substrates(mesh2)
+            rec["18b"] = {arch: self.sharded_vs_meshless(mesh2, arch)
+                          for arch in ("starcoder2-3b", "qwen3-moe-30b-a3b")}
+            rec["18c"] = self.sharded_full(
+                make_mesh((1,), ("data",), device=self.dev.type))
+        finally:
+            dist.destroy_process_group()
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 18: {rec['seconds']:.1f} s")
+        return rec
+
+    def sharded_substrates(self, mesh) -> dict:
+        """18a: at p = 1 over the group, ``ag_matmul`` and
+        ``ag_matmul_reference`` equal ``x @ w`` bit for bit (TF32 off),
+        ``matmul_rs`` too; ``compressed_psum_mean`` gives the dequantized
+        codes, the CPU's codes and scale, and the residual the CPU's fp64
+        (FMA-rounded) error; ``pipeline_apply`` with one stage equals the
+        stage on every microbatch."""
+        torch = self.torch
+        from repro_torch.dist.collective_matmul import (ag_matmul,
+                                                        ag_matmul_reference,
+                                                        matmul_rs)
+        from repro_torch.dist.compression import (_quantize_int8,
+                                                  compressed_psum_mean)
+        from repro_torch.dist.pipeline import pipeline_apply
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        n = 256 if self.rehearsal else 4096
+        x = torch.randn((n, 1024), generator=gen, device=self.dev)
+        w = torch.randn((1024, 1024), generator=gen, device=self.dev)
+        full = x @ w
+        out = {"matmul_shape": [n, 1024, 1024]}
+        for name, fn in (("ag_matmul", ag_matmul),
+                         ("ag_matmul_reference", ag_matmul_reference),
+                         ("matmul_rs", matmul_rs)):
+            got = fn(x, w, mesh, "data")
+            out[name] = bool(torch.equal(got, full))
+            expect(out[name], f"phase 18a: {name} at p = 1 differs from "
+                   f"x @ w by {float((got - full).abs().max())}")
+        g = torch.randn((n, 1024), generator=gen, device=self.dev)
+        mean, res = compressed_psum_mean(g, mesh, "data", torch.zeros_like(g))
+        code, scale = _quantize_int8(g)
+        want_code, want_scale = _quantize_int8(g.cpu())
+        want_res = (g.cpu().double() - want_code.double()
+                    * want_scale.double()).float()
+        out["compression"] = {
+            "codes_equal_cpu": bool(torch.equal(code.cpu(), want_code)),
+            "scale_equal_cpu": bool(torch.equal(scale.cpu(), want_scale)),
+            "mean_is_dequantized": bool(torch.equal(
+                mean, code.float() * scale)),
+            "residual_equal_cpu": bool(torch.equal(res.cpu(), want_res))}
+        expect(all(out["compression"].values()),
+               f"phase 18a: compression {out['compression']}")
+        ws = torch.randn((1, 1024, 1024), generator=gen,
+                         device=self.dev) * 0.03
+        xs = torch.randn((8, 64, 1024), generator=gen, device=self.dev)
+        got = pipeline_apply(lambda w, x: torch.tanh(x @ w), mesh, "data",
+                             ws, xs)
+        want = torch.stack([torch.tanh(xi @ ws[0]) for xi in xs])
+        out["pipeline"] = bool(torch.equal(got, want))
+        expect(out["pipeline"], "phase 18a: pipeline_apply at p = 1 "
+               "differs from its stage")
+        self.sync()
+        out["seconds"] = time.perf_counter() - t0
+        say(f"sharded substrates at p = 1 ({mesh.mesh_dim_names}): ring "
+            f"and bulk all-gather matmuls and the reduce-scatter matmul "
+            f"equal x @ w ({n} x 1024 x 1024) bit for bit; int8 codes, "
+            f"scale and residual the CPU's, the mean the dequantized "
+            f"codes; the one-stage pipeline its stage; "
+            f"{out['seconds']:.1f} s")
+        return out
+
+    def sharded_vs_meshless(self, mesh, arch: str) -> dict:
+        """18b: two fp32 steps (two microbatches, TF32 off) of ``arch``'s
+        reduced config from one seeded state: the sharded step on the
+        (1, 1) mesh gives the mesh-less step's metrics and state bit for
+        bit."""
+        import dataclasses
+        torch = self.torch
+        from torch.distributed.tensor import DTensor
+        from repro_torch import configs
+        from repro_torch.configs.common import ShapeSpec
+        from repro_torch.data.pipeline import TokenStreamConfig
+        from repro_torch.models.registry import build_model
+        from repro_torch.train.checkpoint import _flatten_with_names
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train import train_loop as tl
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  compute_dtype=torch.float32)
+        bundle = build_model(cfg, device=self.dev)
+        tc = tl.TrainConfig(microbatches=2, loss_chunk=16,
+                            opt=OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                                total_steps=10))
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=4)
+        plain = tl.init_train_state(bundle, SEED)
+        sharded = tl.init_train_state(bundle, SEED, mesh=mesh)
+        step = tl.make_train_step(bundle, tc)
+        sharded_step = tl.make_train_step(
+            bundle, tc, mesh=mesh, shape=ShapeSpec("t", 32, 4, "train"))
+        rec = {"arch": arch, "losses": [], "metrics_equal": True}
+        for i in range(2):
+            plain, want = step(plain, tl.train_batch(bundle, stream, i))
+            sharded, got = sharded_step(
+                sharded, tl.train_batch(bundle, stream, i, mesh=mesh))
+            rec["losses"].append(float(got["loss"]))
+            rec["metrics_equal"] &= all(bool(torch.equal(got[k], want[k]))
+                                        for k in want)
+        got = _flatten_with_names(sharded)
+        differ = [n for n, w in _flatten_with_names(plain).items()
+                  if not torch.equal(
+                      got[n].full_tensor() if isinstance(got[n], DTensor)
+                      else got[n], w)]
+        rec.update(leaves=len(got), leaves_differing=len(differ),
+                   seconds=time.perf_counter() - t0)
+        expect(rec["metrics_equal"] and not differ,
+               f"phase 18b: {arch}'s sharded step differs from the mesh-less"
+               f" step (metrics equal {rec['metrics_equal']}; leaves "
+               f"{differ[:4]})")
+        say(f"sharded step {arch} (reduced, fp32) on the (1, 1) mesh: 2 "
+            f"steps bit-equal to the mesh-less step ({rec['leaves']} state "
+            f"leaves, losses {rec['losses']}); {rec['seconds']:.1f} s")
+        return rec
+
+    def sharded_full(self, mesh) -> dict:
+        """18c: starcoder2-3b at 16a's size (full size, bf16 compute; the
+        reduced config in a CPU rehearsal) through ``make_train_step(...,
+        mesh=)`` on a (1,) data mesh, 16a's schedule and batches, 3 steps:
+        ``expect_training``'s checks but the descent (16a's third loss is
+        above its first), the losses against 16a's first three
+        (bit-equal, or within TRAIN_LOSS_RTOL, the op that parts them
+        named in PERF.md), step ms, tokens/s and peak bytes beside 16a's."""
+        from repro_torch.configs.common import ShapeSpec
+        from repro_torch.data.pipeline import TokenStreamConfig
+        from repro_torch.models.registry import build_model
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train import train_loop as tl
+        steps = SHARDED_STEPS
+        cfg = self.train_config("starcoder2-3b")
+        seq = self.train_seq(TRAIN_SEQ)
+        rec = {"arch": cfg.name, "layers": cfg.num_layers,
+               "batch": TRAIN_BATCH, "seq": seq,
+               "microbatches": TRAIN_MICRO, "steps": steps,
+               "left_on_card_bytes": [self.left_on_card()], "losses": [],
+               "aux_losses": [], "step_ms": []}
+        t0 = time.perf_counter()
+        bundle = build_model(cfg, device=self.dev)
+        step = tl.make_train_step(
+            bundle, tl.TrainConfig(
+                microbatches=TRAIN_MICRO, loss_chunk=min(512, seq),
+                opt=OptimizerConfig(peak_lr=3e-4,
+                                    warmup_steps=TRAIN_STEPS // 10,
+                                    total_steps=TRAIN_STEPS)),
+            mesh=mesh, shape=ShapeSpec("train", seq, TRAIN_BATCH, "train"))
+        stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=TRAIN_BATCH)
+        state = tl.init_train_state(bundle, SEED, mesh=mesh)
+        self.reset_peak()
+        self.reset_launches()
+        for i in range(steps):
+            t1 = time.perf_counter()
+            state, metrics = step(state, tl.train_batch(bundle, stream, i,
+                                                        mesh=mesh))
+            rec["losses"].append(float(metrics["loss"]))
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t1))
+            rec["aux_losses"].append(float(metrics["aux_loss"]))
+        rec["peak_bytes"] = self.peak()
+        del state, step, bundle, metrics
+        rec["seconds"] = time.perf_counter() - t0
+        self.step_rates(rec)
+        # 16a's third loss reads above its first: 18c holds its losses to
+        # 16a's instead of to a descent over three steps
+        self.expect_training("phase 18c", rec, steps, descends=False)
+        full = self.record["train"]["full"]
+        want = full["losses"][:steps]
+        rec["losses_16a"] = want
+        rec["bit_equal_16a"] = rec["losses"] == want
+        rec["loss_diff_over_tol"] = max(
+            abs(a - b) / (TRAIN_LOSS_RTOL * abs(b))
+            for a, b in zip(rec["losses"], want))
+        expect(rec["bit_equal_16a"] or rec["loss_diff_over_tol"] <= 1.0,
+               f"phase 18c: losses {rec['losses']} against 16a's {want}")
+        rec["vs_16a"] = {k: [rec[k], full[k]] for k in (
+            "steady_step_ms", "tokens_per_s", "peak_bytes")}
+        self.say_training(rec, "through make_train_step on a (1,) data "
+                          "mesh")
+        say(f"phase 18c against 16a: losses "
+            + ("bit-equal" if rec["bit_equal_16a"] else
+               f"{rec['loss_diff_over_tol']:.3g} of TRAIN_LOSS_RTOL")
+            + f"; steady step ms {rec['steady_step_ms']:.1f} / "
+            f"{full['steady_step_ms']:.1f}, tokens/s "
+            f"{rec['tokens_per_s']:.1f} / {full['tokens_per_s']:.1f}, peak "
+            f"{rec['peak_bytes']} / {full['peak_bytes']} B")
         return rec
 
     def depth2_check(self, arch: str) -> dict:
@@ -5623,6 +5863,7 @@ class Smoke:
         self.record["encdec"] = self.phase_encdec()
         self.record["train"] = self.phase_train()
         self.record["train_families"] = self.phase_train_families()
+        self.record["sharded"] = self.phase_sharded()
         self.record["phase12"] = self.phase12
         say(f"phase 12: {self.phase12['seconds']:.1f} s; each step's "
             f"world-size-1 {self.phase12.get('backend')} group started in "

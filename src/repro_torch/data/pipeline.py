@@ -3,9 +3,11 @@ sets (port of ``repro.data.pipeline``).
 
 Every token batch is a pure function of ``(seed, step)``: nothing is
 consumed from a stateful iterator, so a restart from step k replays the
-same stream, which makes a checkpoint restart bit-exact.  One device holds
-the whole batch, so the reference's shard-wise assembly has no
-counterpart.
+same stream, which makes a checkpoint restart bit-exact.  On a mesh each
+rank makes only its own rows (a row is a function of its global index),
+and the batch dim lies where the rules table puts the logical ``batch``
+axis (the default's ``pod`` and ``data``), as the reference assembles it
+shard-wise; the stream does not depend on the mesh shape.
 
 The vector half makes correlated Gaussian mixtures with each dataset's
 (n, d) and Bregman measure, with numpy from a seed.  The dataset's stream
@@ -21,9 +23,11 @@ import zlib
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.bregman import get_family
 from ..device import resolve_device
+from ..dist import sharding as shd
 
 
 # ---------------------------------------------------------------------------
@@ -61,19 +65,55 @@ def _batch_np(cfg: TokenStreamConfig, step: int, rows: np.ndarray):
     return out_tok
 
 
+def batch_placements(b: int, mesh, rules=None) -> tuple:
+    """Placements of a tensor whose dim 0 is a batch of ``b`` rows: the
+    logical ``batch`` axis resolved by ``rules`` (``dist.sharding``'s
+    tables; the default's ``pod`` and ``data``), every other dim
+    replicated, as the reference assembles a token batch."""
+    return shd.placements(shd.spec_for_shape(("batch",), (b,), mesh, rules),
+                          mesh)
+
+
+def local_rows(b: int, mesh, placements) -> np.ndarray:
+    """This rank's global rows of a batch of ``b`` in ``placements``: one
+    block of consecutive rows, the blocks in the order of the rank's
+    coordinates over the mesh dims that shard dim 0, as DTensor splits
+    it."""
+    block, blocks = 0, 1
+    for i, (pl, coord) in enumerate(zip(placements, mesh.get_coordinate(),
+                                        strict=True)):
+        if pl.is_shard(0):
+            size = mesh.size(i)
+            block, blocks = block * size + coord, blocks * size
+    per = b // blocks
+    return np.arange(block * per, (block + 1) * per)
+
+
 def token_batch(cfg: TokenStreamConfig, step: int, device="cuda",
-                mrope: bool = False) -> dict:
+                mrope: bool = False, mesh=None, rules=None) -> dict:
     """Batch ``step`` as int32 tensors on ``device``: tokens and labels
     (B, S), the labels the tokens shifted by one, and positions (B, S), or
-    (B, S, 3) with ``mrope``."""
+    (B, S, 3) with ``mrope``.  With ``mesh``, DTensors of the global batch
+    in :func:`batch_placements` under ``rules``, each rank making only
+    its rows (:func:`local_rows`)."""
     dev = resolve_device(device)
-    b, s = cfg.global_batch, cfg.seq_len
-    toks = torch.from_numpy(_batch_np(cfg, step, np.arange(b))).to(dev)
+    s = cfg.seq_len
+    if mesh is None:
+        rows = np.arange(cfg.global_batch)
+    else:
+        sh = batch_placements(cfg.global_batch, mesh, rules)
+        rows = local_rows(cfg.global_batch, mesh, sh)
+    b = len(rows)
+    toks = torch.from_numpy(_batch_np(cfg, step, rows)).to(dev)
     pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
     if mrope:
         pos = pos[..., None].expand(b, s, 3)
+    pos = pos.contiguous()
+    if mesh is not None:
+        toks = DTensor.from_local(toks, mesh, sh)
+        pos = DTensor.from_local(pos, mesh, sh)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-            "positions": pos.contiguous()}
+            "positions": pos}
 
 
 # ---------------------------------------------------------------------------

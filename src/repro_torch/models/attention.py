@@ -18,8 +18,10 @@ reference's own dispatch never reaches its Pallas kernel either.
 ``decode_attend`` stays plain torch, as in the reference: one query a slot
 against the cache, with each slot's own valid length, which the kernel has
 no operand for; so does ``sdpa_dense`` as the encoder-decoder's cross
-attention.  The reference's sharding constraints are dropped: the port
-runs on one device.
+attention.  The reference's sharding constraints on q, k and v are
+``dist.sharding.constrain`` anchors in ``qkv_project``: identities
+outside an ``activation_rules`` context, so the one-device path is
+unchanged.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist.sharding import constrain
 from ..kernels import ops as kernel_ops
-from .layers import apply_rope, rms_norm
+from .layers import Spec, apply_rope, rms_norm
 
 Tensor = torch.Tensor
 
@@ -46,23 +49,24 @@ NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 def attention_spec(d: int, heads: int, kv_heads: int, head_dim: int,
                    qkv_bias: bool = False, qk_norm: bool = False,
                    out_bias: bool = False) -> dict:
-    """Parameter name -> (shape, init) with init "normal", "zeros" or
-    "ones"; the reference's shapes."""
+    """Parameter name -> ``Spec``: the reference's shapes and axes."""
     spec = {
-        "wq": ((d, heads, head_dim), "normal"),
-        "wk": ((d, kv_heads, head_dim), "normal"),
-        "wv": ((d, kv_heads, head_dim), "normal"),
-        "wo": ((heads, head_dim, d), "normal"),
+        "wq": Spec((d, heads, head_dim), ("fsdp", "heads", "head_dim")),
+        "wk": Spec((d, kv_heads, head_dim), ("fsdp", "kv_heads", "head_dim")),
+        "wv": Spec((d, kv_heads, head_dim), ("fsdp", "kv_heads", "head_dim")),
+        "wo": Spec((heads, head_dim, d), ("heads", "head_dim", "fsdp")),
     }
     if qkv_bias:
-        spec["bq"] = ((heads, head_dim), "zeros")
-        spec["bk"] = ((kv_heads, head_dim), "zeros")
-        spec["bv"] = ((kv_heads, head_dim), "zeros")
+        spec["bq"] = Spec((heads, head_dim), ("heads", "head_dim"), "zeros")
+        spec["bk"] = Spec((kv_heads, head_dim), ("kv_heads", "head_dim"),
+                          "zeros")
+        spec["bv"] = Spec((kv_heads, head_dim), ("kv_heads", "head_dim"),
+                          "zeros")
     if out_bias:
-        spec["bo"] = ((d,), "zeros")
+        spec["bo"] = Spec((d,), ("embed",), "zeros")
     if qk_norm:
-        spec["q_norm"] = ((head_dim,), "ones")
-        spec["k_norm"] = ((head_dim,), "ones")
+        spec["q_norm"] = Spec((head_dim,), ("head_dim",), "ones")
+        spec["k_norm"] = Spec((head_dim,), ("head_dim",), "ones")
     return spec
 
 
@@ -88,6 +92,9 @@ def qkv_project(p: dict, x: Tensor, *, positions: Tensor, rope_theta: float,
     if use_rope:
         q = apply_rope(q, positions, rope_theta, mrope_section)
         k = apply_rope(k, positions, rope_theta, mrope_section)
+    q = constrain(q, ("batch", "seq", "heads", "head_dim"))
+    k = constrain(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 

@@ -35,11 +35,13 @@ from typing import Any
 import torch
 
 from ..device import resolve_device
+from ..dist.sharding import constrain
 from . import attention as attn_mod
 from .attention import KVCache
-from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
-                     init_norm, init_normal, init_spec, padded_vocab,
-                     sinusoidal_positions, spec_size, unembed_logits)
+from .layers import (Spec, apply_mlp, apply_norm, axes_tree, embed_lookup,
+                     embed_spec, init_mlp, init_norm, init_normal, init_spec,
+                     mlp_spec, norm_spec, padded_vocab, sinusoidal_positions,
+                     spec_size, struct_tree, unembed_logits)
 from .transformer import _to_tensors, remat_call
 
 Tensor = torch.Tensor
@@ -118,6 +120,46 @@ def init_params(cfg: EncDecConfig, seed: int = 0, device="cuda") -> dict:
     }
 
 
+def param_specs(cfg: EncDecConfig) -> dict:
+    """The tree :func:`init_params` draws, as ``layers.Spec`` leaves (the
+    reference's specs)."""
+    d = cfg.d_model
+
+    def mlp():
+        return mlp_spec(d, cfg.d_ff, False, True)
+
+    def enc_layer():
+        return {"norm1": norm_spec(d, cfg.norm), "attn": _attn_spec(cfg),
+                "norm2": norm_spec(d, cfg.norm), "mlp": mlp()}
+
+    def dec_layer():
+        return {"norm1": norm_spec(d, cfg.norm),
+                "self_attn": _attn_spec(cfg),
+                "norm_x": norm_spec(d, cfg.norm),
+                "cross_attn": _attn_spec(cfg),
+                "norm2": norm_spec(d, cfg.norm), "mlp": mlp()}
+
+    return {
+        "embed": embed_spec(cfg.vocab_size, d),
+        "dec_pos": Spec((cfg.max_position, d), (None, "fsdp"), scale=0.02),
+        "encoder": [enc_layer() for _ in range(cfg.encoder_layers)],
+        "enc_final_norm": norm_spec(d, cfg.norm),
+        "decoder": [dec_layer() for _ in range(cfg.decoder_layers)],
+        "dec_final_norm": norm_spec(d, cfg.norm),
+    }
+
+
+def param_axes(cfg: EncDecConfig) -> dict:
+    """Each parameter's logical axes, in :func:`init_params`'s tree."""
+    return axes_tree(param_specs(cfg))
+
+
+def param_structs(cfg: EncDecConfig) -> dict:
+    """Each parameter as an fp32 ``meta`` tensor, in :func:`init_params`'s
+    tree."""
+    return struct_tree(param_specs(cfg))
+
+
 def params_from_numpy(cfg: EncDecConfig, tree: dict, device="cuda") -> dict:
     """The reference's parameters (its pytree with numpy leaves) as the
     port's dicts on ``device``."""
@@ -132,14 +174,7 @@ def params_from_numpy(cfg: EncDecConfig, tree: dict, device="cuda") -> dict:
 
 def count_params(cfg: EncDecConfig) -> int:
     """Parameters of :func:`init_params`'s tree."""
-    d, f = cfg.d_model, cfg.d_ff
-    norm = d * (1 if cfg.norm == "rmsnorm" else 2)
-    attn = spec_size(_attn_spec(cfg))
-    mlp = 2 * d * f + f + d
-    enc = cfg.encoder_layers * (2 * norm + attn + mlp)
-    dec = cfg.decoder_layers * (3 * norm + 2 * attn + mlp)
-    tables = (padded_vocab(cfg.vocab_size) + cfg.max_position) * d
-    return tables + enc + dec + 2 * norm
+    return spec_size(param_specs(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -222,12 +257,14 @@ def _encode(cfg: EncDecConfig, params: dict, frames: Tensor,
     frames = torch.as_tensor(frames, device=params["embed"].device)
     x = frames.to(dt) + sinusoidal_positions(
         frames.shape[1], cfg.d_model, frames.device).to(dt)[None]
+    x = constrain(x, ("batch", "seq", "embed"))
     if autograd:
         # a reentrant checkpoint sends gradients back only where one of its
         # tensor inputs asks for them: the first block's input must
         x.requires_grad_(True)
     for lp in params["encoder"]:
         x = remat_call(autograd, _encoder_block, cfg, lp, x, autograd)
+        x = constrain(x, ("batch", "seq", "embed"))
     return apply_norm(params["enc_final_norm"], x, cfg.norm)
 
 
@@ -280,9 +317,11 @@ def forward_autograd(cfg: EncDecConfig, params: dict, tokens: Tensor,
     teacher-forced decoder -> (hidden (B, S, D), 0.0), building the
     autograd graph (the module docstring has its dispatch and remat)."""
     enc_out = _encode(cfg, params, frames, autograd=True)
-    x = _embed(cfg, params, tokens, positions)
+    x = constrain(_embed(cfg, params, tokens, positions),
+                  ("batch", "seq", "embed"))
     for lp in params["decoder"]:
         x = remat_call(True, _train_decoder_block, cfg, lp, x, enc_out)
+        x = constrain(x, ("batch", "seq", "embed"))
     return apply_norm(params["dec_final_norm"], x, cfg.norm), 0.0
 
 

@@ -3,14 +3,24 @@
 Parameters are plain dicts of tensors.  Every layer computes in its input's
 dtype and keeps the reference's places of fp32 arithmetic: the norms
 reduce in fp32 and cast back, the logits come out in fp32.
+
+A :class:`Spec` declares one parameter: its shape, its logical axes
+(``embed``, ``heads``, ``kv_heads``, ``head_dim``, ``mlp``, ``vocab``,
+``experts``, ``expert_mlp``, ``state`` and the fsdp weight axis ``fsdp``,
+resolved by ``dist/sharding.py``) and its init.  The models' spec trees
+give ``param_axes`` and ``param_structs`` (``meta`` tensors) beside the
+parameters ``init_params`` draws.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from ..dist.sharding import constrain
 
 Tensor = torch.Tensor
 
@@ -29,34 +39,95 @@ def init_normal(shape: tuple, generator: torch.Generator,
                        device=generator.device) * scale
 
 
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter: shape, logical axes (one per dim, None: never
+    sharded), init ("normal", "zeros", "ones" or another name the
+    reference gives a normal draw) and the normal's scale (None: the
+    fan-in rule)."""
+    shape: tuple
+    axes: tuple
+    init: str = "normal"
+    scale: float | None = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"axes {self.axes} do not match shape "
+                             f"{self.shape}")
+
+
 def init_spec(spec: dict, generator: torch.Generator) -> dict:
-    """Parameters of a spec dict, name -> (shape, init) or (shape, init,
-    scale), drawn in the dict's order on the generator's device: "zeros",
-    "ones", and any other init normal x ``scale`` (None: the fan-in rule).
-    The reference's ``Spec.materialize`` treats every init but zeros and
-    ones as a normal draw, its "uniform_lambda" included."""
+    """Parameters of a spec dict (name -> :class:`Spec`), drawn in the
+    dict's order on the generator's device: "zeros", "ones", and any other
+    init normal x ``scale`` (None: the fan-in rule).  The reference's
+    ``Spec.materialize`` treats every init but zeros and ones as a normal
+    draw, its "uniform_lambda" included."""
     dev = generator.device
     out = {}
-    for name, (shape, init, *scale) in spec.items():
-        if init == "zeros":
-            out[name] = torch.zeros(shape, device=dev)
-        elif init == "ones":
-            out[name] = torch.ones(shape, device=dev)
+    for name, s in spec.items():
+        if s.init == "zeros":
+            out[name] = torch.zeros(s.shape, device=dev)
+        elif s.init == "ones":
+            out[name] = torch.ones(s.shape, device=dev)
         else:
-            out[name] = init_normal(shape, generator,
-                                    scale[0] if scale else None)
+            out[name] = init_normal(s.shape, generator, s.scale)
     return out
 
 
-def spec_size(spec: dict) -> int:
-    """Parameters in a spec dict."""
-    total = 0
-    for shape, *_ in spec.values():
+def _spec_map(fn, tree):
+    if isinstance(tree, Spec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, v) for k, v in tree.items()}
+    return [_spec_map(fn, v) for v in tree]
+
+
+def spec_size(specs) -> int:
+    """Parameters in a tree of dicts and lists of :class:`Spec`."""
+    if isinstance(specs, Spec):
         n = 1
-        for s in shape:
-            n *= s
-        total += n
-    return total
+        for d in specs.shape:
+            n *= d
+        return n
+    values = specs.values() if isinstance(specs, dict) else specs
+    return sum(spec_size(v) for v in values)
+
+
+def axes_tree(specs):
+    """The logical axes of each :class:`Spec` of a tree of dicts and
+    lists."""
+    return _spec_map(lambda s: s.axes, specs)
+
+
+def struct_tree(specs):
+    """Each :class:`Spec` of a tree as an fp32 tensor on the ``meta``
+    device (its shape and dtype; nothing is allocated)."""
+    return _spec_map(lambda s: torch.empty(s.shape, device="meta"), specs)
+
+
+def norm_spec(d: int, kind: str) -> dict:
+    """The norm parameters :func:`init_norm` makes."""
+    p = {"scale": Spec((d,), ("embed",), "ones")}
+    if kind != "rmsnorm":
+        p["bias"] = Spec((d,), ("embed",), "zeros")
+    return p
+
+
+def embed_spec(vocab: int, d: int) -> Spec:
+    """A (padded vocab, d) embedding or unembedding table."""
+    return Spec((padded_vocab(vocab), d), ("vocab", "fsdp"), scale=1.0)
+
+
+def mlp_spec(d: int, f: int, gated: bool, bias: bool) -> dict:
+    """The MLP parameters :func:`init_mlp` makes."""
+    p = {"w_in": Spec((d, f), ("fsdp", "mlp")),
+         "w_out": Spec((f, d), ("mlp", "fsdp"))}
+    if gated:
+        p["w_gate"] = Spec((d, f), ("fsdp", "mlp"))
+    if bias:
+        p["b_in"] = Spec((f,), ("mlp",), "zeros")
+        p["b_out"] = Spec((d,), ("embed",), "zeros")
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +182,9 @@ def embed_lookup(table: Tensor, tokens: Tensor, compute_dtype) -> Tensor:
     backward adds each row's gradients in a fixed order on both devices
     (an indexing gather's backward adds with atomics on a multi-threaded
     CPU), so two training runs give the same bits."""
+    # under a mesh: the fsdp shards gathered for the lookup (reference
+    # layers.py:153)
+    table = constrain(table, ("vocab", None))
     return F.embedding(tokens.long(), table).to(compute_dtype)
 
 
@@ -118,7 +192,8 @@ def unembed_logits(x: Tensor, table: Tensor) -> Tensor:
     """(..., d) @ (V, d)^T -> (..., V) fp32 logits: the table is cast to
     x's dtype, then both operands are widened so the product accumulates
     and stays in fp32 (the reference's ``preferred_element_type``)."""
-    return x.to(torch.float32) @ table.to(x.dtype).to(torch.float32).T
+    table = constrain(table.to(x.dtype), ("vocab", None))
+    return x.to(torch.float32) @ table.to(torch.float32).T
 
 
 # ---------------------------------------------------------------------------
@@ -183,14 +258,7 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
 
 def init_mlp(d: int, f: int, gated: bool, bias: bool,
              generator: torch.Generator) -> dict:
-    p = {"w_in": init_normal((d, f), generator),
-         "w_out": init_normal((f, d), generator)}
-    if gated:
-        p["w_gate"] = init_normal((d, f), generator)
-    if bias:
-        p["b_in"] = torch.zeros((f,), device=generator.device)
-        p["b_out"] = torch.zeros((d,), device=generator.device)
-    return p
+    return init_spec(mlp_spec(d, f, gated, bias), generator)
 
 
 def _act(name: str) -> Callable[[Tensor], Tensor]:

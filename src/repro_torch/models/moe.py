@@ -22,8 +22,22 @@ result repeats bit for bit on the card.
 The router runs in fp32 with TF32 off; the expert products run in the
 input's dtype, the fp32 weights cast to it at each use.  Top-k ties go to
 the lower expert index, as ``jax.lax.top_k`` breaks them (a stable
-descending sort).  The reference's sharding constraints are dropped: the
-port runs on one device.
+descending sort).
+
+Under a mesh (a DTensor input, in the sharded train step) DTensor has no
+sharding strategy for the routing's index writes (``owner[flat] = ...``,
+an ``index_put`` with a DTensor index), so the layer runs on local
+tensors from its first anchor on: the input is redistributed to the
+reference's ("batch", None, "embed") (batch over ``pod`` / ``data``,
+``Replicate()`` over ``model``), each rank routes and computes the groups
+of its own rows with the weights redistributed to ``Replicate()``
+(their gradients leave as ``Partial`` over the batch dims, a
+reduce-scatter into their shards), and the aux loss's two means are
+averaged over the batch dims.  When the group size does not divide a
+rank's tokens, the input is redistributed to ``Replicate()`` everywhere
+and every rank runs all groups.  The reference's expert-parallel
+all-to-alls (experts over ``model``) have no counterpart yet: each model
+rank computes its data rank's groups whole.
 """
 
 from __future__ import annotations
@@ -31,26 +45,35 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from .layers import _act, apply_mlp
+from ..dist.sharding import constrain
+from .layers import Spec, _act, apply_mlp
 
 Tensor = torch.Tensor
 
 
 def moe_spec(d: int, f: int, num_experts: int, gated: bool = True) -> dict:
-    """Parameter name -> (shape, init, scale) for ``layers.init_spec``: the
-    reference's shapes.  Each expert's matrices are drawn at 1/sqrt of
-    their own fan-in (d for ``w_in`` / ``w_gate``, f for ``w_out``); the
-    reference's ``Spec`` takes it from the experts axis (ROADMAP §3)."""
+    """Parameter name -> ``Spec`` for ``layers.init_spec``: the
+    reference's shapes and axes.  Each expert's matrices are drawn at
+    1/sqrt of their own fan-in (d for ``w_in`` / ``w_gate``, f for
+    ``w_out``); the reference's ``Spec`` takes it from the experts axis
+    (ROADMAP §3)."""
     spec = {
-        "router": ((d, num_experts), "normal", None),
-        "w_in": ((num_experts, d, f), "normal", d ** -0.5),
-        "w_out": ((num_experts, f, d), "normal", f ** -0.5),
+        "router": Spec((d, num_experts), ("fsdp", None)),
+        "w_in": Spec((num_experts, d, f), ("experts", "fsdp", "expert_mlp"),
+                     scale=d ** -0.5),
+        "w_out": Spec((num_experts, f, d), ("experts", "expert_mlp", "fsdp"),
+                      scale=f ** -0.5),
     }
     if gated:
-        spec["w_gate"] = ((num_experts, d, f), "normal", d ** -0.5)
+        spec["w_gate"] = Spec((num_experts, d, f),
+                              ("experts", "fsdp", "expert_mlp"),
+                              scale=d ** -0.5)
     return spec
 
 
@@ -93,12 +116,14 @@ def _no_tf32(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def route(router_logits: Tensor, cfg: MoEConfig):
+def route(router_logits: Tensor, cfg: MoEConfig, mean=None):
     """Top-k routing.  logits (G, S, E) -> (weights (G, S, K) fp32,
     expert ids (G, S, K) int64, aux loss ()).  Softmax in fp32; ties go to
     the lower expert index; under "topk_then_softmax" the K weights are
     renormalized to sum to 1.  The aux loss is Switch's load-balancing
-    term E * <fraction routed first to e> . <mean probability of e>."""
+    term E * <fraction routed first to e> . <mean probability of e>;
+    ``mean``, where given, takes each of the two means over these groups
+    to the means over all (the sharded layer's average over ranks)."""
     probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
     top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = top_w[..., :cfg.top_k], top_i[..., :cfg.top_k]
@@ -111,6 +136,8 @@ def route(router_logits: Tensor, cfg: MoEConfig):
     e = cfg.num_experts
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(F.one_hot(top_i[..., 0], e).to(probs.dtype), dim=(0, 1))
+    if mean is not None:
+        me, ce = mean(me), mean(ce)
     return top_w, top_i, e * torch.sum(me * ce)
 
 
@@ -133,16 +160,62 @@ def apply_moe(p: dict, x: Tensor, cfg: MoEConfig, act: str = "silu",
               shared_mlp: dict | None = None):
     """MoE FFN.  x (B, T, D) -> (y (B, T, D), aux loss () x
     ``aux_loss_weight``).  Groups of ``_group_size(B*T, group_tokens)``
-    consecutive tokens."""
+    consecutive tokens.  A DTensor ``x`` runs on local tensors (module
+    docstring) and gives DTensors back, the aux loss replicated."""
+    if isinstance(x, DTensor):
+        return _apply_moe_sharded(p, x, cfg, act, shared_mlp)
+    b, t, _ = x.shape
+    return _apply_moe(p, x, cfg, act, shared_mlp,
+                      _group_size(b * t, cfg.group_tokens))
+
+
+def _apply_moe_sharded(p: dict, x: DTensor, cfg: MoEConfig, act: str,
+                       shared_mlp: dict | None):
+    b, t, _ = x.shape
+    sp = _group_size(b * t, cfg.group_tokens)
+    x = constrain(x, ("batch", None, "embed"))
+    mesh = x.device_mesh
+    split = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    if (x.to_local().shape[0] * t) % sp:
+        # a group would span two ranks' rows: every rank runs all groups
+        x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+        split = []
+    ranks = math.prod(mesh.size(i) for i in split)
+    partial = [Partial() if i in split else Replicate()
+               for i in range(mesh.ndim)]
+
+    def gathered(w):
+        if isinstance(w, dict):
+            return {k: gathered(v) for k, v in w.items()}
+        return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=partial)
+
+    def mean(v):
+        if not split:
+            return v
+        return DTensor.from_local(v / ranks, mesh, partial).full_tensor()
+
+    experts = {k: v for k, v in p.items() if k != "shared"}
+    y, aux = _apply_moe(gathered(experts), x.to_local(), cfg, act,
+                        None if shared_mlp is None else gathered(shared_mlp),
+                        sp, mean)
+    return (DTensor.from_local(y, mesh, x.placements),
+            DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim))
+
+
+def _apply_moe(p: dict, x: Tensor, cfg: MoEConfig, act: str,
+               shared_mlp: dict | None, sp: int, mean=None):
+    """The layer on tensors of one device, in groups of ``sp`` tokens."""
     b, t, d = x.shape
     dt = x.dtype
-    sp = _group_size(b * t, cfg.group_tokens)
     g = (b * t) // sp
     e, c = cfg.num_experts, _capacity(cfg, sp)
     xg = x.reshape(g * sp, d)
     with _no_tf32(x.device):
         logits = xg.to(torch.float32) @ p["router"].to(torch.float32)
-    top_w, top_i, aux = route(logits.reshape(g, sp, e), cfg)
+    logits = logits.reshape(g, sp, e)
+    top_w, top_i, aux = (route(logits, cfg) if mean is None
+                         else route(logits, cfg, mean))
     slot, keep = assign_slots(top_w, top_i, cfg)
     k = top_i.shape[-1]
     # Flat expert-slot index of each assignment, (e * G + g) * C + c; a

@@ -12,6 +12,10 @@ stacks (port of ``repro.models.registry``).
     bundle.prefill(params, batch, caches, lens)    -> (hidden, caches)
     bundle.decode_step(params, tok, pos, caches, lens)
                                                    -> (logits, hidden, caches)
+    bundle.param_axes()                            -> each parameter's
+                      logical axes (dist/sharding.py), in the init tree
+    bundle.param_structs()                         -> each parameter as an
+                      fp32 ``meta`` tensor, in the init tree
 
 ``batch`` is a dict with tokens (B, S) and positions (B, S), or (B, S, 3)
 under M-RoPE, plus the modality stubs' extras the bundle declares in
@@ -38,6 +42,8 @@ class ModelBundle(NamedTuple):
     cfg: Any
     device: torch.device
     init: Callable
+    param_axes: Callable
+    param_structs: Callable
     forward_train: Callable
     forward_autograd: Callable
     logits: Callable
@@ -75,6 +81,8 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda seed=0: transformer.init_params(cfg, seed, dev),
+        param_axes=lambda: transformer.param_axes(cfg),
+        param_structs=lambda: transformer.param_structs(cfg),
         forward_train=forward_train,
         forward_autograd=forward_autograd,
         logits=lambda params, h: transformer.logits_fn(cfg, params, h),
@@ -108,6 +116,8 @@ def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init=lambda seed=0: encdec.init_params(cfg, seed, dev),
+        param_axes=lambda: encdec.param_axes(cfg),
+        param_structs=lambda: encdec.param_structs(cfg),
         forward_train=forward_train,
         forward_autograd=forward_autograd,
         logits=lambda params, h: encdec.logits_fn(cfg, params, h),

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .layers import Spec
 
 Tensor = torch.Tensor
 
@@ -36,19 +37,19 @@ _C = 8.0  # the paper's fixed decay sharpness
 
 
 def rglru_spec(d: int, width: int, conv_width: int = 4) -> dict:
-    """Griffin recurrent block parameters, name -> (shape, init, scale);
-    d = d_model, width = lru_width.  The reference's specs."""
+    """Griffin recurrent block parameters, name -> ``Spec``; d = d_model,
+    width = lru_width.  The reference's specs."""
     return {
-        "w_in": ((d, width), "normal", None),
-        "w_gate": ((d, width), "normal", None),
-        "w_out": ((width, d), "normal", None),
-        "conv_w": ((conv_width, width), "normal", 0.3),
-        "conv_b": ((width,), "zeros", None),
-        "lam": ((width,), "uniform_lambda", None),
-        "w_a": ((width, width), "normal", None),
-        "b_a": ((width,), "zeros", None),
-        "w_x": ((width, width), "normal", None),
-        "b_x": ((width,), "zeros", None),
+        "w_in": Spec((d, width), ("fsdp", "state")),
+        "w_gate": Spec((d, width), ("fsdp", "state")),
+        "w_out": Spec((width, d), ("state", "fsdp")),
+        "conv_w": Spec((conv_width, width), (None, "state"), scale=0.3),
+        "conv_b": Spec((width,), ("state",), "zeros"),
+        "lam": Spec((width,), ("state",), "uniform_lambda"),
+        "w_a": Spec((width, width), ("state", None)),
+        "b_a": Spec((width,), ("state",), "zeros"),
+        "w_x": Spec((width, width), ("state", None)),
+        "b_x": Spec((width,), ("state",), "zeros"),
     }
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from .layers import Spec
 
 Tensor = torch.Tensor
 
@@ -45,34 +46,33 @@ _MIX = ("r", "k", "v", "w", "g")
 
 def rwkv_time_spec(d: int, head_dim: int, lora_r: int = 32,
                    decay_lora: int = 64) -> dict:
-    """Time-mix parameters, name -> (shape, init, scale): the reference's
-    specs."""
+    """Time-mix parameters, name -> ``Spec``: the reference's specs."""
     return {
-        "mu_first": ((d,), "zeros"),
-        "mu": ((5, d), "zeros"),
-        "lora_a": ((d, 5 * lora_r), "normal", 0.01),
-        "lora_b": ((5, lora_r, d), "normal", 0.01),
-        "w_r": ((d, d), "normal"),
-        "w_k": ((d, d), "normal"),
-        "w_v": ((d, d), "normal"),
-        "w_g": ((d, d), "normal"),
-        "w_o": ((d, d), "normal"),
-        "decay_w0": ((d,), "zeros"),
-        "decay_a": ((d, decay_lora), "normal", 0.01),
-        "decay_b": ((decay_lora, d), "normal", 0.01),
-        "bonus_u": ((d,), "zeros"),
-        "ln_scale": ((d,), "ones"),
-        "ln_bias": ((d,), "zeros"),
+        "mu_first": Spec((d,), ("embed",), "zeros"),
+        "mu": Spec((5, d), (None, "embed"), "zeros"),
+        "lora_a": Spec((d, 5 * lora_r), ("fsdp", None), scale=0.01),
+        "lora_b": Spec((5, lora_r, d), (None, None, "embed"), scale=0.01),
+        "w_r": Spec((d, d), ("fsdp", "heads")),
+        "w_k": Spec((d, d), ("fsdp", "heads")),
+        "w_v": Spec((d, d), ("fsdp", "heads")),
+        "w_g": Spec((d, d), ("fsdp", "heads")),
+        "w_o": Spec((d, d), ("heads", "fsdp")),
+        "decay_w0": Spec((d,), ("heads",), "zeros"),
+        "decay_a": Spec((d, decay_lora), ("fsdp", None), scale=0.01),
+        "decay_b": Spec((decay_lora, d), (None, "heads"), scale=0.01),
+        "bonus_u": Spec((d,), ("heads",), "zeros"),
+        "ln_scale": Spec((d,), ("heads",), "ones"),
+        "ln_bias": Spec((d,), ("heads",), "zeros"),
     }
 
 
 def rwkv_channel_spec(d: int, f: int) -> dict:
     return {
-        "mu_k": ((d,), "zeros"),
-        "mu_r": ((d,), "zeros"),
-        "w_k": ((d, f), "normal"),
-        "w_v": ((f, d), "normal"),
-        "w_r": ((d, d), "normal"),
+        "mu_k": Spec((d,), ("embed",), "zeros"),
+        "mu_r": Spec((d,), ("embed",), "zeros"),
+        "w_k": Spec((d, f), ("fsdp", "mlp")),
+        "w_v": Spec((f, d), ("mlp", "fsdp")),
+        "w_r": Spec((d, d), ("fsdp", None)),
     }
 
 

@@ -51,14 +51,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..dist.sharding import constrain
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv as rwkv_mod
 from .attention import KVCache
-from .layers import (apply_mlp, apply_norm, embed_lookup, init_mlp,
-                     init_norm, init_normal, init_spec, padded_vocab,
-                     spec_size, unembed_logits)
+from .layers import (Spec, apply_mlp, apply_norm, axes_tree, embed_lookup,
+                     embed_spec, init_mlp, init_norm, init_normal, init_spec,
+                     mlp_spec, norm_spec, padded_vocab, spec_size,
+                     struct_tree, unembed_logits)
 
 Tensor = torch.Tensor
 
@@ -153,6 +155,50 @@ def _mixer_spec(cfg: LMConfig, kind: str) -> dict:
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, out_bias=cfg.out_bias)
 
 
+def _ffn_spec(cfg: LMConfig) -> dict:
+    if cfg.ffn_kind == "moe":
+        spec = moe_mod.moe_spec(cfg.d_model, cfg.moe_d_ff,
+                                cfg.moe.num_experts)
+        if cfg.shared_expert_ff:
+            spec["shared"] = mlp_spec(cfg.d_model, cfg.shared_expert_ff,
+                                      True, False)
+        return spec
+    if cfg.ffn_kind == "rwkv_channel":
+        return rwkv_mod.rwkv_channel_spec(cfg.d_model, cfg.d_ff)
+    return mlp_spec(cfg.d_model, cfg.d_ff, cfg.ffn_kind == "gated",
+                    cfg.mlp_bias)
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """The tree :func:`init_params` draws, as ``layers.Spec`` leaves: per
+    layer, with no ``layers`` axis (a ``scan_layers`` config too)."""
+    check_supported(cfg)
+    spec: dict = {"embed": embed_spec(cfg.vocab_size, cfg.d_model),
+                  "final_norm": norm_spec(cfg.d_model, cfg.norm)}
+    if not cfg.tie_embeddings:
+        spec["unembed"] = embed_spec(cfg.vocab_size, cfg.d_model)
+    if cfg.pos_embedding == "learned":
+        spec["pos_embed"] = Spec((cfg.max_position, cfg.d_model),
+                                 (None, "fsdp"), scale=0.02)
+    spec["layers"] = [{"norm1": norm_spec(cfg.d_model, cfg.norm),
+                       "mixer": _mixer_spec(cfg, kind),
+                       "norm2": norm_spec(cfg.d_model, cfg.norm),
+                       "ffn": _ffn_spec(cfg)}
+                      for kind in cfg.layer_kinds()]
+    return spec
+
+
+def param_axes(cfg: LMConfig) -> dict:
+    """Each parameter's logical axes, in :func:`init_params`'s tree."""
+    return axes_tree(param_specs(cfg))
+
+
+def param_structs(cfg: LMConfig) -> dict:
+    """Each parameter as an fp32 ``meta`` tensor, in :func:`init_params`'s
+    tree (nothing is allocated)."""
+    return struct_tree(param_specs(cfg))
+
+
 def _init_layer(cfg: LMConfig, kind: str, generator: torch.Generator
                 ) -> dict:
     dev = generator.device
@@ -235,25 +281,7 @@ def params_from_numpy(cfg: LMConfig, tree: dict, device="cuda") -> dict:
 
 def count_params(cfg: LMConfig) -> int:
     """Parameters of :func:`init_params`'s tree."""
-    d, f = cfg.d_model, cfg.d_ff
-    norm = d * (1 if cfg.norm == "rmsnorm" else 2)
-    if cfg.ffn_kind == "rwkv_channel":
-        ffn = spec_size(rwkv_mod.rwkv_channel_spec(d, f))
-    elif cfg.ffn_kind == "moe":
-        ffn = (spec_size(moe_mod.moe_spec(d, cfg.moe_d_ff,
-                                          cfg.moe.num_experts))
-               + 3 * d * cfg.shared_expert_ff)
-    else:
-        ffn = d * f * (3 if cfg.ffn_kind == "gated" else 2)
-        if cfg.mlp_bias:
-            ffn += f + d
-    layers = sum(2 * norm + ffn + spec_size(_mixer_spec(cfg, kind))
-                 for kind in cfg.layer_kinds())
-    tables = padded_vocab(cfg.vocab_size) * d * (
-        1 if cfg.tie_embeddings else 2)
-    if cfg.pos_embedding == "learned":
-        tables += cfg.max_position * d
-    return tables + norm + layers
+    return spec_size(param_specs(cfg))
 
 
 def active_params(cfg: LMConfig) -> int:
@@ -449,10 +477,12 @@ def forward_autograd(cfg: LMConfig, params: dict, tokens: Tensor,
     positions = _positions(positions, tokens)
     x = embed_inputs(cfg, params, tokens, positions, patch_embeds,
                      autograd=True)
+    x = constrain(x, ("batch", "seq", "embed"))
     aux = 0.0
     for kind, lp in zip(cfg.layer_kinds(), params["layers"], strict=True):
         x, a = remat_call(cfg.remat, _train_layer, cfg, kind, lp, x,
                           positions)
+        x = constrain(x, ("batch", "seq", "embed"))
         aux = aux + a
     return apply_norm(params["final_norm"], x, cfg.norm), aux
 

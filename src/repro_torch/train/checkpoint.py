@@ -14,9 +14,15 @@ Guarantees:
   place only after every shard and the manifest are fsync'd, so a crash
   mid-write never leaves a directory that :func:`latest_step` picks up;
 * **elastic restore**: leaves are put together whole and placed on the
-  device the caller names, so what one device and shard count wrote
-  restores onto another;
+  device the caller names, or with ``shardings=`` split onto the current
+  mesh, so what one device, mesh and shard count wrote restores onto
+  another;
 * **retention**: the ``keep`` most recent steps survive a save.
+
+A sharded state (DTensor leaves, the sharded train step's) is written as
+its global arrays: every rank takes part in each leaf's gather, rank 0
+writes, and every rank waits on a barrier before the save returns.  The
+files are the ones a one-device save writes.
 
 Leaves are tensors (any device), numpy arrays or scalars, in trees of
 dicts, lists and NamedTuples; a leaf's name is its path, written as the
@@ -36,8 +42,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
+from ..dist.sharding import Sharding, distribute
 
 SEP = "//"
 
@@ -50,7 +59,10 @@ _TORCH_DTYPES = {
 
 
 def _flatten_with_names(tree, prefix: str = "") -> dict:
-    """{path name: leaf}, in the tree's order."""
+    """{path name: leaf}, in the tree's order (a ``Sharding`` is a
+    leaf)."""
+    if isinstance(tree, Sharding):
+        return {prefix: tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         out = {}
         for field, v in zip(tree._fields, tree, strict=True):
@@ -111,14 +123,31 @@ def _read_shard(path: str) -> dict:
 
 def save_checkpoint(directory: str, step: int, state, *,
                     num_shards: int = 4, keep: int = 3) -> str:
-    """Write ``state`` atomically.  Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    """Write ``state`` atomically.  Returns the final path (on every rank
+    of a sharded state, after rank 0 wrote it)."""
+    named = _flatten_with_names(state)
     final = os.path.join(directory, f"step_{step:09d}")
+    if any(isinstance(v, DTensor) for v in named.values()):
+        # every rank gathers each leaf; rank 0 alone keeps and writes them
+        writer = dist.get_rank() == 0
+        named = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                 for k, v in named.items()}
+        if writer:
+            _write(directory, step, final, named, num_shards, keep)
+        dist.barrier()
+    else:
+        _write(directory, step, final, named, num_shards, keep)
+    return final
+
+
+def _write(directory: str, step: int, final: str, named: dict,
+           num_shards: int, keep: int) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp-", dir=directory)
 
     manifest = {"step": step, "num_shards": num_shards, "leaves": {}}
     shards: list[dict] = [{} for _ in range(num_shards)]
-    for name, leaf in _flatten_with_names(state).items():
+    for name, leaf in named.items():
         arr, dtype = _to_numpy(leaf)
         meta = {"shape": list(arr.shape[:-1] if dtype == "bfloat16"
                               else arr.shape), "dtype": dtype}
@@ -149,7 +178,6 @@ def save_checkpoint(directory: str, step: int, state, *,
     else:
         os.replace(tmp, final)
     _apply_retention(directory, keep)
-    return final
 
 
 def _apply_retention(directory: str, keep: int):
@@ -187,7 +215,7 @@ def _on(t: torch.Tensor, dev: torch.device) -> bool:
 
 
 def restore_checkpoint(directory: str, step: int, target, *,
-                       device="cuda"):
+                       device="cuda", shardings=None):
     """The checkpoint of ``step`` in the structure of ``target``, its
     tensors on ``device`` whatever device and shard count wrote it.
 
@@ -195,7 +223,12 @@ def restore_checkpoint(directory: str, step: int, target, *,
     ``device`` with the stored shape and dtype receives the values IN
     PLACE (no second copy of the state on the card), any other leaf (a
     tensor elsewhere, on the ``meta`` device, a scalar) is replaced by a
-    new tensor (asking for its gradient where the target's leaf does)."""
+    new tensor (asking for its gradient where the target's leaf does).
+
+    ``shardings``, a tree congruent with ``target`` of
+    ``dist.sharding.Sharding`` leaves (None: a plain tensor), is the
+    elastic path: every rank reads the global arrays and keeps its shards
+    on the current mesh as DTensors, whatever mesh wrote them."""
     dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -209,6 +242,8 @@ def restore_checkpoint(directory: str, step: int, target, *,
             for key, arr in shard.items():
                 loaded.setdefault(key.replace(SEP, "/"), []).append(arr)
 
+    named_sh = ({} if shardings is None
+                else _flatten_with_names(shardings))
     out = {}
     for name, tgt in _flatten_with_names(target).items():
         meta = manifest["leaves"][name]
@@ -226,7 +261,11 @@ def restore_checkpoint(directory: str, step: int, target, *,
                 t.dtype != _TORCH_DTYPES[meta["dtype"]]:
             raise ValueError(f"{name}: stored {meta}, read "
                              f"{tuple(t.shape)} {t.dtype}")
-        if (isinstance(tgt, torch.Tensor) and _on(tgt, dev)
+        if named_sh.get(name) is not None:
+            out[name] = distribute(t.to(dev), named_sh[name])
+            if isinstance(tgt, torch.Tensor) and tgt.requires_grad:
+                out[name].requires_grad_(True)
+        elif (isinstance(tgt, torch.Tensor) and _on(tgt, dev)
                 and tgt.shape == t.shape and tgt.dtype == t.dtype):
             with torch.no_grad():
                 tgt.copy_(t)

@@ -5,9 +5,10 @@ The sequence is cut into chunks of ``chunk`` positions; each chunk's fp32
 logits are made, reduced and dropped under ``torch.utils.checkpoint``, so
 the backward pass makes them again instead of keeping them.  The logits
 run over the table's padded vocab, as in the reference (the pad rows are
-never a label).  An optional z-loss weighs the squared log-partition.  One
-device holds the vocab, so the reference's sharding anchors have no
-counterpart.
+never a label).  An optional z-loss weighs the squared log-partition.
+Under a mesh the reference's anchors (``dist.sharding.constrain``) place
+the hidden states, the gathered table and the vocab-sharded logits;
+without one they are the identity.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..dist.sharding import constrain
 
 Tensor = torch.Tensor
 
@@ -26,8 +29,12 @@ def _chunk_nll(hidden_c: Tensor, labels_c: Tensor, table: Tensor,
     the table cast to the hidden states' dtype, both widened so the
     product accumulates and stays in fp32 (the reference's
     ``preferred_element_type``)."""
-    table_g = table.to(hidden_c.dtype)
+    hidden_c = constrain(hidden_c, ("batch", None, "embed"))
+    # the fsdp-sharded table gathered before the product (reference
+    # losses.py:29-33)
+    table_g = constrain(table.to(hidden_c.dtype), ("vocab", None))
     logits = hidden_c.to(torch.float32) @ table_g.to(torch.float32).T
+    logits = constrain(logits, ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels_c.long()[..., None])[..., 0]
     nll = torch.sum(lse - tgt)
@@ -44,6 +51,7 @@ def chunked_cross_entropy(hidden: Tensor, labels: Tensor, table: Tensor, *,
     Returns (loss, metrics) with metrics {nll, z_loss, accuracy}, each a
     0-dim fp32 tensor."""
     b, s, _ = hidden.shape
+    hidden = constrain(hidden, ("batch", "seq", "embed"))
     chunk = min(chunk, s)
     body = functools.partial(_chunk_nll, z_weight=z_weight)
     nll = 0.0

@@ -6,6 +6,12 @@ mirrors the parameters.  Every expression keeps the reference's fp32 order
 of operations; :func:`apply_updates` writes the parameters, the moments and
 the gradients (clipped) in place, with the same bits the reference's
 out-of-place expressions give.
+
+Under a mesh the leaves are DTensors: a moment takes its parameter's
+placements, and a gradient must have them too (the train step anchors
+it).  The global norm sums each leaf over all its shards (a sharded sum is
+``Partial``; its full value is taken), and AdamW updates each rank's local
+shards in place with that norm's clip.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 Tensor = torch.Tensor
 
@@ -48,27 +55,37 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
     """``fn`` on every leaf, the structure kept (a NamedTuple by its
-    type)."""
+    type); ``rest``'s trees, where given, add their leaves at the same
+    places as further arguments."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        out = (tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree))
+        return (type(tree)(*out) if hasattr(tree, "_fields")
+                else type(tree)(out))
+    return fn(tree, *rest)
 
 
 @torch.no_grad()
 def init_state(params) -> AdamWState:
-    """Zero moments in fp32 beside each parameter, step 0."""
+    """Zero moments in fp32 beside each parameter (a DTensor's in its
+    placements), step 0 (a plain tensor, the same on every rank)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
 
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
+def _local(t: Tensor) -> Tensor:
+    """A DTensor's shard on this rank; a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def schedule(cfg: OptimizerConfig, step: Tensor) -> Tensor:
@@ -84,9 +101,12 @@ def schedule(cfg: OptimizerConfig, step: Tensor) -> Tensor:
 
 
 def global_norm(tree) -> Tensor:
-    """sqrt of the sum over leaves of each leaf's fp32 sum of squares."""
-    sums = [torch.sum(torch.square(x.to(torch.float32)))
-            for x in tree_leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's fp32 sum of squares (a
+    DTensor's over all its shards; a plain tensor back)."""
+    sums = []
+    for x in tree_leaves(tree):
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        sums.append(s.full_tensor() if isinstance(s, DTensor) else s)
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -97,7 +117,7 @@ def clip_by_global_norm(grads, max_norm: float):
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in tree_leaves(grads):
-        g.mul_(scale)
+        _local(g).mul_(scale)
     return grads, norm
 
 
@@ -122,6 +142,13 @@ def apply_updates(params, grads, state: AdamWState, cfg: OptimizerConfig):
                                  tree_leaves(state.mu), tree_leaves(state.nu),
                                  tree_leaves(_decay_mask(params)),
                                  strict=True):
+        if isinstance(p, DTensor) and not (
+                g.placements == p.placements == m.placements
+                == v.placements):
+            raise ValueError(f"placements differ: parameter {p.placements},"
+                             f" gradient {g.placements}, moments "
+                             f"{m.placements} {v.placements}")
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         gf = g.to(torch.float32)
         m.mul_(b1).add_((1 - b1) * gf)                 # b1*m + (1-b1)*g
         v.mul_(b2).add_((1 - b2) * gf * gf)            # b2*v + (1-b2)*g*g

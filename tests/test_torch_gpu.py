@@ -1944,3 +1944,102 @@ def test_whisper_training_forward_launches_no_kernel_10(cuda):
     bundle.forward_train(params, batch)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# Sharded training and the dist/ substrates at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh2(cuda, monkeypatch):
+    """A world-size-1 NCCL group and its (1, 1) ("data", "model") mesh,
+    ended after the test."""
+    import torch.distributed as dist
+    from repro_torch.dist.sharding import make_mesh
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    assert not dist.is_initialized()
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen3-moe-30b-a3b"])
+def test_sharded_step_over_nccl_equals_the_mesh_less_step(nccl_mesh2,
+                                                          arch):
+    """Two fp32 steps of two microbatches on the card from one seeded
+    state: ``make_train_step(..., mesh=)`` on the (1, 1) mesh gives the
+    mesh-less step's metrics and state bit for bit (as on the CPU,
+    tests/test_torch_train_mesh.py)."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import train_loop as tl
+    from repro_torch.train.checkpoint import _flatten_with_names
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              compute_dtype=torch.float32)
+    bundle = build_model(cfg, device="cuda")
+    tc = tl.TrainConfig(microbatches=2, loss_chunk=16, opt=topt.OptimizerConfig(
+        peak_lr=1e-3, warmup_steps=2, total_steps=10))
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                               global_batch=4)
+    plain = tl.init_train_state(bundle, 0)
+    sharded = tl.init_train_state(bundle, 0, mesh=nccl_mesh2)
+    step = tl.make_train_step(bundle, tc)
+    sharded_step = tl.make_train_step(bundle, tc, mesh=nccl_mesh2,
+                                      shape=ShapeSpec("t", 32, 4, "train"))
+    for i in range(2):
+        plain, want = step(plain, tl.train_batch(bundle, stream, i))
+        sharded, got = sharded_step(
+            sharded, tl.train_batch(bundle, stream, i, mesh=nccl_mesh2))
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+    got = _flatten_with_names(sharded)
+    for name, w in _flatten_with_names(plain).items():
+        g = got[name]
+        g = g.full_tensor() if isinstance(g, DTensor) else g
+        assert torch.equal(g, w), name
+
+
+def test_dist_substrates_at_one_rank_over_nccl_equal_their_oracles(
+        nccl_mesh):
+    """At p = 1 over NCCL on the card: the ring all-gather matmul and its
+    bulk oracle equal ``x @ w`` bit for bit, the ring reduce-scatter
+    matmul too; the compressed mean is the dequantized int8 gradient and
+    the residual its FMA-rounded error (fp64 on the CPU), the codes the
+    CPU's; the one-stage pipeline is the stage."""
+    from repro_torch.dist.collective_matmul import (ag_matmul,
+                                                    ag_matmul_reference,
+                                                    matmul_rs)
+    from repro_torch.dist.compression import (_quantize_int8,
+                                              compressed_psum_mean)
+    from repro_torch.dist.pipeline import pipeline_apply
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((96, 64), generator=gen, device="cuda")
+    w = torch.randn((64, 32), generator=gen, device="cuda")
+    full = x @ w
+    assert torch.equal(ag_matmul(x, w, nccl_mesh, "data"), full)
+    assert torch.equal(ag_matmul_reference(x, w, nccl_mesh, "data"), full)
+    assert torch.equal(matmul_rs(x, w, nccl_mesh, "data"), full)
+    g = torch.randn((4, 128), generator=gen, device="cuda")
+    mean, res = compressed_psum_mean(g, nccl_mesh, "data",
+                                     torch.zeros_like(g))
+    code, scale = _quantize_int8(g)
+    want_code, want_scale = _quantize_int8(g.cpu())
+    assert torch.equal(code.cpu(), want_code)
+    assert torch.equal(scale.cpu(), want_scale)
+    assert torch.equal(mean, code.float() * scale)
+    assert torch.equal(res.cpu(), (g.cpu().double() - want_code.double()
+                                   * want_scale.double()).float())
+    ws = torch.randn((1, 16, 16), generator=gen, device="cuda") * 0.3
+    xs = torch.randn((5, 8, 16), generator=gen, device="cuda")
+    got = pipeline_apply(lambda w, x: torch.tanh(x @ w), nccl_mesh, "data",
+                         ws, xs)
+    assert torch.equal(got, torch.stack([torch.tanh(x @ ws[0])
+                                         for x in xs]))

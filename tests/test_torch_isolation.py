@@ -434,6 +434,60 @@ def test_the_training_families_default_to_the_card(no_card, tmp_path):
         assert hidden.device.type == "cpu" and hidden.requires_grad
 
 
+def test_the_sharding_slice_is_covered_and_defaults_to_the_card(no_card):
+    """configs/common.py and dist/'s sharding rules, collective matmuls,
+    compression and pipeline are in the import scan; a sharded train
+    state, its step's batches and the launcher's mesh run on the card
+    unless the caller asks for the CPU."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStreamConfig, token_batch
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import train_loop as tloop
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    assert {"src/repro_torch/configs/common.py",
+            "src/repro_torch/dist/collective_matmul.py",
+            "src/repro_torch/dist/compression.py",
+            "src/repro_torch/dist/pipeline.py"} <= names
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1), ("data", "model"))
+    assert not dist.is_initialized()
+    cfg = configs.get_reduced("starcoder2-3b")
+    stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                               global_batch=2)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        for call in (lambda: token_batch(stream, 0, mesh=mesh),
+                     lambda: tloop.init_train_state(build_model(cfg), 0,
+                                                    mesh=mesh)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
+        bundle = build_model(cfg, device="cpu")
+        state = tloop.init_train_state(bundle, 0, mesh=mesh)
+        assert state.params["embed"].device.type == "cpu"
+        batch = tloop.train_batch(bundle, stream, 0, mesh=mesh)
+        assert all(v.device.type == "cpu" for v in batch.values())
+    finally:
+        dist.destroy_process_group()
+    monkey_env = {"WORLD_SIZE": "2", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in monkey_env}
+    os.environ.update(monkey_env)
+    try:
+        # under torchrun the launcher's mesh is made on the card first
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tlaunch.main(["--arch", "starcoder2-3b", "--reduced"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    assert not dist.is_initialized()
+
+
 def test_the_baselines_are_host_code_by_design(no_card):
     """core/baselines.py is the one entry point with no device: the paper's
     comparison points run in numpy on the host, "not the accelerated
@@ -547,7 +601,7 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                  "qwen2-vl-72b: first-token logits through #10",
                  "phase 15:",
                  "train starcoder2-3b: 2 layers, 4 x 64 tokens in 2 "
-                 "microbatches, 6 steps through launch/train.py (exit 0)",
+                 "microbatches, 4 steps through launch/train.py (exit 0)",
                  "train card vs cpu: starcoder2-3b at 2 layers, fp32",
                  "train restart: starcoder2-3b at 2 layers, bf16",
                  "phase 16:",
@@ -567,7 +621,16 @@ def test_chip_smoke_cpu_rehearsal_runs_every_phase(tmp_path):
                      "recurrentgemma-2b", "rwkv6-1.6b", "whisper-tiny",
                      "qwen2-vl-72b")),
                  "(6 leaves without a gradient)",
-                 "phase 17:"):
+                 "phase 17:",
+                 "sharded substrates at p = 1",
+                 *(f"sharded step {arch} (reduced, fp32) on the (1, 1) mesh:"
+                   " 2 steps bit-equal to the mesh-less step" for arch in (
+                       "starcoder2-3b", "qwen3-moe-30b-a3b")),
+                 "train starcoder2-3b: 2 layers, 4 x 64 tokens in 2 "
+                 "microbatches, 3 steps through make_train_step on a (1,) "
+                 "data mesh",
+                 "phase 18c against 16a: losses bit-equal",
+                 "phase 18:"):
         assert line in proc.stdout, line
     names = [k["name"] for k in json.loads(lines[-2])["kernels"]]
     assert {"flash_attention", "pccp_correlation"} <= set(names)

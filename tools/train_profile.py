@@ -1,11 +1,13 @@
 """Profile one training step of a config on one CUDA card.
 
     python3 tools/train_profile.py [--arch starcoder2-3b] [--layers N]
-        [--batch 4] [--seq 4096] [--microbatches 2] [--out FILE]
+        [--batch 4] [--seq 4096] [--microbatches 2] [--mesh] [--out FILE]
 
 Full width, seeded weights, bf16 compute, the config's depth or
 ``--layers``; the step is ``train_loop.make_train_step``'s on
-``train_loop.train_batch``'s batches, as ``launch/train.py`` runs it.
+``train_loop.train_batch``'s batches, as ``launch/train.py`` runs it, or
+with ``--mesh`` the sharded step on a world-size-1 (1,) ("data",) mesh
+over NCCL (DTensor's dispatch on one card).
 After two unprofiled steps (the first warms the allocator and the lazy
 imports; the second is timed), one more step runs under
 ``torch.profiler`` (CUPTI).  Prints one JSON object: the
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,6 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=4096)
     ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--mesh", action="store_true",
+                    help="the sharded step on a world-size-1 data mesh")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +60,9 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
+    from repro_torch.configs.common import ShapeSpec
     from repro_torch.data.pipeline import TokenStreamConfig
+    from repro_torch.dist.sharding import make_mesh
     from repro_torch.models.registry import build_model
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_loop import (TrainConfig, init_train_state,
@@ -64,21 +71,26 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     cfg = configs.get_config(args.arch, **(
         {} if args.layers is None else {"num_layers": args.layers}))
+    mesh = None
+    if args.mesh:
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+        mesh = make_mesh((1,), ("data",), device=dev)
     bundle = build_model(cfg, device=dev)
     step = make_train_step(bundle, TrainConfig(
         microbatches=args.microbatches,
-        opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=0, total_steps=10)))
-    state = init_train_state(bundle, 0)
+        opt=OptimizerConfig(peak_lr=3e-4, warmup_steps=0, total_steps=10)),
+        mesh=mesh, shape=ShapeSpec("train", args.seq, args.batch, "train"))
+    state = init_train_state(bundle, 0, mesh=mesh)
     stream = TokenStreamConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                global_batch=args.batch)
     wall = []
     for i in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, train_batch(bundle, stream, i))
+        state, m = step(state, train_batch(bundle, stream, i, mesh=mesh))
         float(m["loss"])
         wall.append(1e3 * (time.perf_counter() - t0))
-    batch = train_batch(bundle, stream, 2)
+    batch = train_batch(bundle, stream, 2, mesh=mesh)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -101,8 +113,10 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     out = {"card": smi, "arch": args.arch, "layers": cfg.num_layers,
-           "batch": args.batch,
+           "mesh": args.mesh, "batch": args.batch,
            "seq": args.seq, "microbatches": args.microbatches,
            "step_ms": wall, "profiled_wall_ms": profiled_ms,
            "device_ms": device_ms, "busy_share": device_ms / wall[1],
