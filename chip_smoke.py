@@ -270,6 +270,30 @@ Phases:
    three (bit-equal, or within TRAIN_LOSS_RTOL), step ms, tokens/s and
    peak bytes beside 16a's (DTensor's dispatch on one card).  No kernel
    is on this path.
+19. The dry run (``launch/dryrun.py``, ``launch/lowering.py``,
+   ``launch/cost_analysis.py``), its runs subprocesses on the host with
+   no card visible, started at phase 13: a) ``python -m
+   repro_torch.launch.dryrun --arch starcoder2-3b`` at the (32, 8)
+   production mesh: its three cells counted, each one's peak, FLOPs,
+   bytes and collective bytes above 0 and its model FLOPs the formula's
+   (6 or 2 x active parameters x tokens); each cell's per-device peak and
+   whether it fits 80 GB printed (the dry run's counts on ``meta``).  b)
+   The dry run at world size 1 against the card, starcoder2-3b at full
+   width: 16a's train cell (4 x 4096 in 2 microbatches) against 16a's
+   own peak in this run; prefill at 1 x 32768 with bf16 serving params
+   through ``sharded_prefill`` on a (1, 1) mesh over phase 12's kind of
+   group (#10 at S = 32768, once a layer), and decode at 8 x 32768
+   through ``sharded_decode``, each under the same cost count on real
+   tensors: FLOPs, bytes and collective bytes equal to the dry run's, the
+   prefill's hidden state and caches bit-equal to the mesh-less
+   prefill's, and each cell's dry-run peak within PEAK_RTOL of
+   ``max_memory_allocated`` (reset before the cell, less what was live
+   beside its arguments), each ratio printed; then #10 at the prefill's
+   shape (1 x 24/2 x 32768 x 128, causal) through phase 6's check: its
+   last FLASH_CHECK_ROWS queries (end-aligned, against all the keys)
+   against the plain version in bf16 and on fp32 upcasts, beside a
+   dropped kv tile's reading; timed beside SDPA (``enable_gqa``) and its
+   bound by the pairs it attends.
 
 The last line is ``{"ok": true, "device": {...}}``.
 
@@ -408,6 +432,21 @@ ORACLE_LABELS = ("blobs", "audio int8")
 # The reference's rule (tests/test_calibration.py): measured recall at a
 # target at least the curve's expected recall less this.
 RECALL_SLACK = 0.15
+# Phase 19: the dry run of starcoder2-3b at the (32, 8) production mesh
+# (19a), and at world size 1 held against the card (19b): 16a's train
+# cell, prefill_32k and decode_32k cut in batch only.  A dry-run peak
+# must lie within PEAK_RTOL of the card's.  The dry runs are subprocesses
+# (touching no card; started at phase 13, so their minutes on the host
+# pass while the card works), each given DRYRUN_TIMEOUT seconds.
+DRYRUN_ARCH = "starcoder2-3b"
+DRYRUN_PREFILL_BATCH, DRYRUN_DECODE_BATCH = 1, 8
+DRYRUN_SEQ = 32768
+PEAK_RTOL = 0.10
+DRYRUN_TIMEOUT = 600
+# #10 at 19b's prefill shape: its plain versions check the last this many
+# queries against all the keys (the whole (1, 24, 32768, 32768) logits
+# would not fit the card; these take 3.2 GB in fp32).
+FLASH_CHECK_ROWS = 1024
 # Keys in a kv tile of #10's two kernels: fp32 on the fp32 cores
 # (csrc/flash_attention.cu), bf16 on the tensor cores
 # (csrc/flash_attention_wgmma.cu).
@@ -497,6 +536,8 @@ class Smoke:
         self._mesh = None
         self.phase12: dict = {"seconds": 0.0}
         self._service_rows: dict = {}
+        # Phase 19's dry runs: label -> (start time, subprocess).
+        self._dryruns: dict = {}
 
     # -- helpers -------------------------------------------------------
     def sync(self) -> None:
@@ -2234,7 +2275,8 @@ class Smoke:
     # -- phase 6: kernel #10 ------------------------------------------
     def compare_flash(self, b, h, kh, sq, skv, d, causal, window, dtype,
                       seed: int, model_shape: bool = False,
-                      time_it: bool = False) -> dict:
+                      time_it: bool = False, rows: int | None = None
+                      ) -> dict:
         """Kernel #10 against its plain version on (B, H, S, D) views of
         contiguous (B, S, H, D) tensors, the model's layout; fp32 within
         2e-5, bf16 within 2e-2 (abs + rel: tests/test_kernels.py's
@@ -2249,8 +2291,14 @@ class Smoke:
         kernel under test (``FLASH_KV_TILE``) in the middle of the sequence
         dropped (``middle_tile``).  With
         ``time_it``: kernel, plain version and SDPA (``library_ms``)
-        device ms, and the bound.  The CPU rehearsal's kernel is the plain
-        version on fp32 upcasts, cast back: the kernel's arithmetic."""
+        device ms, and the bound.  With ``rows``, where the plain
+        version's (b, h, sq, skv) logits would not fit the card, the plain
+        versions and the planted fault see only the last ``rows`` queries
+        (end-aligned to all the keys, so they cross the causal edge at its
+        longest rows) and are held against those rows of the kernel's
+        whole output; the plain version is then not timed (``plain_ms``
+        None).  The CPU rehearsal's kernel is the plain version on fp32
+        upcasts, cast back: the kernel's arithmetic."""
         torch, ref = self.torch, self.ref
         from repro_torch.kernels import flash_attention as tflash
         gen = torch.Generator().manual_seed(seed)
@@ -2265,14 +2313,18 @@ class Smoke:
 
         q, k, v = bshd(h, sq), bshd(kh, skv), bshd(kh, skv)
         kernel = upcast_ref if self.rehearsal else tflash.flash_attention
+        # the queries the plain versions check: all, or the last ``rows``
+        first = 0 if rows is None else sq - rows
+        qc = q[:, :, first:]
 
         def run_kernel():
             return kernel(q, k, v, causal=causal, window=window)
 
         def run_plain():
-            return ref.flash_attention(q, k, v, causal=causal, window=window)
+            return ref.flash_attention(qc, k, v, causal=causal,
+                                       window=window)
 
-        got, want = run_kernel(), run_plain()
+        got, want = run_kernel()[:, :, first:], run_plain()
         self.sync()
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
         diff = (got.float() - want.float()).abs()
@@ -2282,10 +2334,11 @@ class Smoke:
                f"flash_attention disagrees with its plain version at {shape}:"
                f" max |diff| {float(diff.max())}")
         out = {"shape": shape, "max_abs_err": float(diff.max()),
-               "max_err_over_tol": float((diff / limit).max())}
+               "max_err_over_tol": float((diff / limit).max()),
+               "checked_rows": sq - first}
         del want, diff, limit
         if model_shape:
-            want = ref.flash_attention(q.float(), k.float(), v.float(),
+            want = ref.flash_attention(qc.float(), k.float(), v.float(),
                                        causal=causal, window=window)
             diff = (got.float() - want).abs()
             limit = (2.0 ** -8 * want.abs() + 1e-5
@@ -2294,7 +2347,7 @@ class Smoke:
                    f"flash_attention disagrees with the fp32 plain version "
                    f"at {shape}: max |diff| {float(diff.max())}")
             width = FLASH_KV_TILE[str(dtype)[6:]]
-            fault = attention_dropping(torch, q, k, v, causal,
+            fault = attention_dropping(torch, qc, k, v, causal,
                                        middle_tile(skv, width), window)
             fault_over = float(((fault - want).abs() / limit).max())
             expect(fault_over > 1,
@@ -2311,7 +2364,8 @@ class Smoke:
             return out
         reps = 3
         out["ms"] = self.time_calls([run_kernel], reps)
-        out["plain_ms"] = self.time_calls([run_plain], reps)
+        out["plain_ms"] = (self.time_calls([run_plain], reps)
+                           if rows is None else None)
         fn = torch.nn.functional.scaled_dot_product_attention
         if window is None and sq == skv:
             mask = None
@@ -3960,6 +4014,302 @@ class Smoke:
         return rec
 
     # -- phase 8: kernel #9 --------------------------------------------
+    # -- phase 19: the dry run -----------------------------------------
+    def dryrun_commands(self) -> dict:
+        """label -> the dry run's command: 19a at the production mesh,
+        19b's three cells at world size 1 (the reduced config at
+        TRAIN_REHEARSAL_SEQ tokens in a CPU rehearsal)."""
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", DRYRUN_ARCH] + (["--reduced"] if self.rehearsal
+                                          else [])
+
+        def cell(shape: str, batch: int, seq: int, *extra) -> list:
+            return base + ["--shape", shape, "--mesh", "1x1", "--batch",
+                           str(batch), "--seq", str(self.train_seq(seq)),
+                           *extra]
+        return {"19a": base,
+                "19b train": cell("train_4k", TRAIN_BATCH, TRAIN_SEQ,
+                                  "--microbatches", str(TRAIN_MICRO)),
+                "19b prefill": cell("prefill_32k", DRYRUN_PREFILL_BATCH,
+                                    DRYRUN_SEQ),
+                "19b decode": cell("decode_32k", DRYRUN_DECODE_BATCH,
+                                   DRYRUN_SEQ)}
+
+    def start_dryruns(self) -> None:
+        """Start phase 19's dry runs: subprocesses on the host, with no
+        card visible, one thread each at the lowest priority."""
+        import os
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+        for label, cmd in self.dryrun_commands().items():
+            self._dryruns[label] = (time.perf_counter(), subprocess.Popen(
+                cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                preexec_fn=lambda: os.nice(19)))
+
+    def stop_dryruns(self) -> None:
+        for _t0, proc in self._dryruns.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+    def dryrun_result(self, label: str) -> tuple:
+        """(the cells' records, their seconds on the host): exit 0 and
+        every cell counted."""
+        _t0, proc = self._dryruns[label]
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        expect(proc.returncode == 0,
+               f"phase {label}: the dry run exited {proc.returncode}: "
+               f"{err[-2000:]}")
+        cells = [json.loads(line) for line in out.splitlines()
+                 if line.startswith("{")]
+        expect(bool(cells) and all(c["ok"] for c in cells),
+               f"phase {label}: cells not counted: {cells}")
+        return cells, sum(c["total_s"] for c in cells)
+
+    def phase_dryrun(self) -> dict:
+        """19a: ``python -m repro_torch.launch.dryrun --arch starcoder2-3b``
+        at the (32, 8) production mesh: its three cells counted, each
+        one's peak, FLOPs, bytes and collective bytes above 0 and its
+        model FLOPs the formula's; each cell's per-device peak and
+        ``fits`` printed.  19b: the dry run at world size 1 held against
+        the card (:meth:`dryrun_on_the_card`)."""
+        from repro_torch import configs
+        from repro_torch.models.registry import build_model
+        t0 = time.perf_counter()
+        cells, seconds = self.dryrun_result("19a")
+        expect([c["shape"] for c in cells]
+               == ["train_4k", "prefill_32k", "decode_32k"]
+               and all(c["mesh"] == "32x8" for c in cells),
+               f"phase 19a: cells {[(c['shape'], c['mesh']) for c in cells]}")
+        n_active = build_model(self.dryrun_config(),
+                               device="meta").active_params
+        rec = {"19a": {"seconds_on_host": seconds, "cells": []}}
+        for c in cells:
+            hlo, mem = c["hlo"], c["memory"]
+            for key in ("flops_per_device", "bytes_per_device",
+                        "collective_bytes_per_device"):
+                expect(hlo[key] > 0, f"phase 19a {c['shape']}: {key} "
+                       f"{hlo[key]}")
+            expect(mem["peak_bytes_est"] > 0,
+                   f"phase 19a {c['shape']}: peak {mem['peak_bytes_est']}")
+            shape = configs.SHAPES[c["shape"]]
+            tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                           else shape.seq_len)
+            want = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
+            if not self.rehearsal:
+                expect(c["model_flops"] == want,
+                       f"phase 19a {c['shape']}: model FLOPs "
+                       f"{c['model_flops']}, the formula {want}")
+            rec["19a"]["cells"].append({
+                "shape": c["shape"], "mesh": c["mesh"], "torch": c["torch"],
+                "memory": mem, "hlo": hlo,
+                "model_flops": c.get("model_flops"),
+                "lower_s": c["lower_s"]})
+            say(f"phase 19a {c['shape']} at {c['mesh']}: "
+                f"{mem['peak_bytes_est'] / 2**30:.2f} GiB a device "
+                f"({'fits' if mem['fits'] else 'does NOT fit'} 80 GB), "
+                f"{hlo['flops_per_device']:.4g} FLOPs ("
+                + ", ".join(f"{op} {f:.4g}"
+                            for op, f in hlo["flops_by_op"].items())
+                + f"), {hlo['bytes_per_device']:.4g} B, "
+                f"{hlo['collective_bytes_per_device']:.4g} B of "
+                f"collectives a device (the dry run's counts on meta, "
+                f"torch {c['torch']})")
+        rec["19b"] = self.dryrun_on_the_card()
+        rec["seconds"] = time.perf_counter() - t0
+        say(f"phase 19: {rec['seconds']:.1f} s (its dry runs "
+            + ", ".join(f"{label} {s:.1f} s" for label, s in
+                        rec["19b"]["seconds_on_host"].items())
+            + f", 19a {seconds:.1f} s on the host, beside phases 13-18)")
+        return rec
+
+    def dryrun_config(self):
+        from repro_torch import configs
+        return (configs.get_reduced(DRYRUN_ARCH) if self.rehearsal
+                else configs.get_config(DRYRUN_ARCH))
+
+    def peak_ratio(self, label: str, dry: int, card) -> float | None:
+        """The dry run's peak over the card's (None on the CPU), within
+        PEAK_RTOL."""
+        if card is None:
+            return None
+        ratio = dry / card
+        say(f"phase 19b {label}: dry-run peak {dry} B, the card's {card} B, "
+            f"ratio {ratio:.4f}")
+        expect(abs(ratio - 1.0) <= PEAK_RTOL,
+               f"phase 19b {label}: the dry run's peak {dry} is "
+               f"{ratio:.4f} of the card's {card}")
+        return ratio
+
+    def counted_on_the_card(self, fn, args) -> tuple:
+        """(outputs, the count's record, the card's peak bytes for the
+        call: ``max_memory_allocated`` after a reset, less what was live
+        beside the arguments; None on the CPU) of ``fn(*args)`` run once
+        under the dry run's cost count on real tensors."""
+        torch = self.torch
+        from repro_torch.launch import lowering
+        from repro_torch.launch.cost_analysis import CostCount
+        count = CostCount()
+        count.add_arguments(args)
+        gc.collect()
+        self.sync()
+        other = None
+        if not self.rehearsal:
+            other = torch.cuda.memory_allocated() - count.argument_bytes
+            torch.cuda.reset_peak_memory_stats()
+        with count:
+            out = fn(*args)
+        self.sync()
+        peak = (None if self.rehearsal
+                else torch.cuda.max_memory_allocated() - other)
+        return out, lowering.record_of(count, out), peak
+
+    def expect_same_counts(self, label: str, got: dict, dry: dict) -> dict:
+        keys = ("flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "transcendentals_per_device")
+        for key in keys[:3]:
+            expect(got["hlo"][key] == dry["hlo"][key],
+                   f"phase 19b {label}: {key} {got['hlo'][key]} on the "
+                   f"card, {dry['hlo'][key]} in the dry run")
+        return {key: [got["hlo"][key], dry["hlo"][key]] for key in keys}
+
+    def dryrun_on_the_card(self) -> dict:
+        """19b: starcoder2-3b at full width, the dry run at world size 1
+        against the card.  Train at 16a's batch against 16a's own peak in
+        this run.  Prefill at 1 x 32768 with bf16 serving params through
+        ``sharded_prefill`` on a (1, 1) mesh over phase 12's group (#10 at
+        S = 32768) and decode at 8 x 32768 through ``sharded_decode``,
+        each under the same cost count on real tensors: FLOPs, bytes and
+        collective bytes equal the dry run's, the prefill's hidden state
+        and caches bit-equal to the mesh-less prefill's; each cell's
+        dry-run peak within PEAK_RTOL of ``max_memory_allocated`` (reset
+        before the cell).  Then #10 at the prefill's shape against its
+        plain versions on the last FLASH_CHECK_ROWS queries, with the
+        planted fault (``compare_flash``), timed beside SDPA
+        (``enable_gqa``) and its bound by the pairs it attends."""
+        torch = self.torch
+        from torch.distributed.tensor import DTensor
+        from repro_torch.configs.common import ShapeSpec
+        from repro_torch.dist.sharding import make_mesh
+        from repro_torch.launch import lowering
+        from repro_torch.models.registry import build_model, model_inputs
+        rec: dict = {"seconds_on_host": {}}
+        dry = {}
+        for cell in ("train", "prefill", "decode"):
+            cells, rec["seconds_on_host"][f"19b {cell}"] = \
+                self.dryrun_result(f"19b {cell}")
+            dry[cell] = cells[0]
+        full = self.record["train"]["full"]
+        card = (None if self.rehearsal else
+                full["peak_bytes"] - full["left_on_card_bytes"][0])
+        rec["train"] = {"dry_peak": dry["train"]["memory"]["peak_bytes_est"],
+                        "card_peak_16a": card}
+        rec["train"]["ratio"] = self.peak_ratio(
+            "train (16a)", rec["train"]["dry_peak"], card)
+
+        cfg = self.dryrun_config()
+        bundle = build_model(cfg, device=self.dev)
+        params = lowering.serve_params(cfg, bundle.init(SEED))
+        gen = torch.Generator().manual_seed(SEED)
+        seq = self.train_seq(DRYRUN_SEQ)
+
+        def local(t):
+            return t.to_local() if isinstance(t, DTensor) else t
+
+        with self.phase12_group():
+            mesh = make_mesh((1, 1), ("data", "model"), device=self.dev.type)
+            # prefill: the mesh-less run, then the sharded one, counted
+            b = DRYRUN_PREFILL_BATCH
+            tokens = torch.randint(0, cfg.vocab_size, (b, seq),
+                                   generator=gen, dtype=torch.int32)
+            pos = torch.arange(seq, dtype=torch.int32)[None].expand(b, -1)
+            batch = model_inputs(bundle, tokens.to(self.dev),
+                                 pos.contiguous().to(self.dev))
+            lengths = torch.zeros(b, dtype=torch.int32, device=self.dev)
+            hidden0, caches0 = bundle.prefill(params, batch,
+                                              bundle.init_cache(b, seq),
+                                              lengths)
+            sh = lowering.serving_shardings(bundle, mesh, ShapeSpec(
+                "19b", seq, b, "prefill"))
+            args = (lowering.place_serving(params, sh["params"]),
+                    lowering.place_serving(batch, {k: sh["batch"][k]
+                                                   for k in batch}),
+                    lowering.place_serving(bundle.init_cache(b, seq),
+                                           sh["caches"]), lengths)
+            self.reset_launches()
+            (hidden1, caches1), got, peak = self.counted_on_the_card(
+                lambda p, bt, c, n: lowering.sharded_prefill(
+                    bundle, mesh, p, bt, c, n), args)
+            launches = self.flash_launches()
+            rec["prefill"] = {
+                "counts": self.expect_same_counts("prefill", got,
+                                                  dry["prefill"]),
+                "dry_peak": dry["prefill"]["memory"]["peak_bytes_est"],
+                "card_peak": peak, "flash_launches": launches,
+                "hidden_bit_equal": bool(torch.equal(local(hidden1),
+                                                     hidden0)),
+                "caches_bit_equal": all(
+                    bool(torch.equal(local(x), y))
+                    for c1, c0 in zip(caches1, caches0, strict=True)
+                    for part in c1 if c1[part] is not None
+                    for x, y in zip(c1[part], c0[part], strict=True))}
+            expect(rec["prefill"]["hidden_bit_equal"]
+                   and rec["prefill"]["caches_bit_equal"],
+                   "phase 19b: the (1, 1) prefill's hidden state or caches "
+                   "differ from the mesh-less prefill's")
+            if not self.rehearsal:
+                expect(launches["bf16_wgmma"] == cfg.num_layers
+                       and launches["fp32_simt"] == 0,
+                       f"phase 19b: #10 launched {launches} in the prefill")
+            rec["prefill"]["ratio"] = self.peak_ratio(
+                "prefill", rec["prefill"]["dry_peak"], peak)
+            del args, hidden0, caches0, hidden1, caches1, batch
+            # decode: one token against caches of seq slots
+            b = DRYRUN_DECODE_BATCH
+            sh = lowering.serving_shardings(bundle, mesh, ShapeSpec(
+                "19b", seq, b, "decode"))
+            token = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                                  dtype=torch.int32).to(self.dev)
+            lengths = torch.full((b,), seq - 1, dtype=torch.int32,
+                                 device=self.dev)
+            args = (lowering.place_serving(params, sh["params"]),
+                    lowering.place_serving(token, sh["batch"]["tokens"]),
+                    lowering.place_serving(lengths[:, None].clone(),
+                                           sh["batch"]["positions"]),
+                    lowering.place_serving(bundle.init_cache(b, seq),
+                                           sh["caches"]), lengths)
+            _out, got, peak = self.counted_on_the_card(
+                lambda p, t, q, c, n: lowering.sharded_decode(
+                    bundle, mesh, p, t, q, c, n), args)
+            rec["decode"] = {
+                "counts": self.expect_same_counts("decode", got,
+                                                  dry["decode"]),
+                "dry_peak": dry["decode"]["memory"]["peak_bytes_est"],
+                "card_peak": peak}
+            rec["decode"]["ratio"] = self.peak_ratio(
+                "decode", rec["decode"]["dry_peak"], peak)
+            del args, _out
+        del params, bundle
+        gc.collect()
+        # #10 at the prefill's shape, where its plain version checks the
+        # last FLASH_CHECK_ROWS queries against every key
+        r = self.compare_flash(
+            DRYRUN_PREFILL_BATCH, cfg.num_heads, cfg.num_kv_heads, seq, seq,
+            cfg.head_dim, True, None, torch.bfloat16, seed=SEED,
+            model_shape=True, time_it=True,
+            rows=min(FLASH_CHECK_ROWS, seq))
+        r["launches"] = rec["prefill"]["flash_launches"]
+        rec["flash_32k"] = r
+        say(f"phase 19b: #10 at {r['shape'][:6]}: {r['ms']} ms (SDPA "
+            f"{r['library_ms']} ms, bound {r['bound']}, {r['tflops']} "
+            f"TFLOP/s); its last {r['checked_rows']} queries against the "
+            f"fp32 plain version max |diff| {r['max_abs_err']:.3g} "
+            f"({r['max_err_over_tol']:.3g} of the tolerance; a dropped kv "
+            f"tile {r['planted_fault_over_tol']:.3g} of it), against the "
+            f"bf16 plain version {r['plain_max_abs_err']:.3g}")
+        return rec
+
     def phase_pccp(self, store=None) -> dict:
         """#9 on the datastore's keys: the path that runs it (the PCCP
         partition of the keys from the kernel's correlations,
@@ -5858,6 +6208,7 @@ class Smoke:
         self.record["autotune"] = self.phase11_autotune()
         self.record["phase11_seconds"] = self.phase11_s
         say(f"phase 11: {self.phase11_s:.1f} s")
+        self.start_dryruns()
         self.record["recurrent"] = self.phase_recurrent()
         self.record["moe"] = self.phase_moe()
         self.record["encdec"] = self.phase_encdec()
@@ -5872,6 +6223,7 @@ class Smoke:
             + ("" if self.rehearsal else " (NCCL_SOCKET_IFNAME="
                f"{self.phase12.get('nccl_socket_ifname')} in this process's "
                "environment)"))
+        self.record["dryrun"] = self.phase_dryrun()
         self.record["kernels"] = (self.kernel_table(self.record["deep"])
                                   + self.kernel_table(self.record["deep_int8"])
                                   + self.lm_kernel_table())
@@ -6342,18 +6694,11 @@ def err_over_tol(diff, tol) -> float:
 
 def attended(sq: int, skv: int, causal: bool, window) -> tuple:
     """(query-key pairs a head attends, keys any query attends) for
-    ``sq`` queries end-aligned to ``skv`` keys: query i (at key position
-    i + skv - sq) sees keys j <= its position if causal and position - j
-    < window; the work #10 must do, whatever tiles it skips."""
-    pairs, first = 0, skv
-    for i in range(sq):
-        pos = i + skv - sq
-        hi = min(pos + 1, skv) if causal else skv
-        lo = max(0, pos - window + 1) if window is not None else 0
-        if hi > lo:
-            pairs += hi - lo
-            first = min(first, lo)
-    return pairs, skv - first
+    ``sq`` queries end-aligned to ``skv`` keys: the work #10 must do,
+    whatever tiles it skips (``kernels.flash_attention.attended``, the
+    closed form the dry run's cost count uses too)."""
+    from repro_torch.kernels.flash_attention import attended as pairs_of
+    return pairs_of(sq, skv, causal, window)
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
@@ -6502,6 +6847,7 @@ def main(argv=None) -> int:
         return 1
     finally:
         smoke.phase12_end()
+        smoke.stop_dryruns()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(record, indent=1, default=str))

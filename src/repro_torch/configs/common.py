@@ -13,8 +13,9 @@ The four input shapes (seq_len x global_batch):
 :func:`batch_axes` their logical axes, which ``dist/sharding.py``
 resolves.  Extras (audio frames, vision patches) come from the bundle's
 ``extra_inputs``; each is (B, n, d_model), on the axes ("batch", None,
-"embed") the reference declares for both.  The caches' shapes and axes
-(``cache_structs``) wait for the launch tooling (ROADMAP item 5).
+"embed") the reference declares for both.  :func:`cache_structs` gives
+a shape's caches as ``meta`` tensors, their axes are the bundle's
+``cache_axes()``.
 """
 
 from __future__ import annotations
@@ -99,3 +100,11 @@ def batch_axes(bundle, shape: ShapeSpec) -> dict:
         for name in bundle.extra_inputs:
             out[name] = EXTRA_AXES
     return out
+
+
+def cache_structs(bundle, shape: ShapeSpec):
+    """The caches of a prefill or decode of ``shape`` as ``meta`` tensors
+    (the bundle's ``init_cache`` on the ``meta`` device: nothing is
+    allocated)."""
+    return bundle.init_cache(shape.global_batch, shape.seq_len,
+                             device="meta")

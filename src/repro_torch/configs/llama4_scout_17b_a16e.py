@@ -9,6 +9,9 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "llama4-scout-17b-a16e"
 FAMILY = "moe"
+# the dry run's cells (launch/dryrun.py): long_500k only where attention
+# is not quadratic in the sequence
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def config(**overrides) -> LMConfig:

@@ -8,6 +8,9 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "qwen3-moe-30b-a3b"
 FAMILY = "moe"
+# the dry run's cells (launch/dryrun.py): long_500k only where attention
+# is not quadratic in the sequence
+SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def config(**overrides) -> LMConfig:

@@ -8,6 +8,9 @@ from ..models.transformer import LMConfig
 
 ARCH_ID = "recurrentgemma-2b"
 FAMILY = "hybrid"
+# the dry run's cells (launch/dryrun.py): long_500k only where attention
+# is not quadratic in the sequence
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 def config(**overrides) -> LMConfig:

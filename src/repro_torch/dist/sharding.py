@@ -39,7 +39,10 @@ when none runs: from the ``torchrun`` environment (``WORLD_SIZE``,
 rank, else a world-size-1 group on an in-process ``HashStore``.  The
 backend is NCCL for the card and gloo only when the caller asks for the
 CPU; a group started here is the caller's to end with
-``torch.distributed.destroy_process_group()``.
+``torch.distributed.destroy_process_group()``.  A ``meta`` mesh (the dry
+run's: DTensors whose local tensors hold shapes only) needs a running
+group, which :func:`fake_process_group` starts: one rank of a world that
+moves no data.
 """
 
 from __future__ import annotations
@@ -51,7 +54,10 @@ from typing import Any, Mapping, NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor._utils import (
+    compute_local_shape_and_global_offset as _local_shape_and_offset)
 
 from ..device import resolve_device
 
@@ -101,10 +107,14 @@ def ensure_process_group(device="cuda") -> bool:
     when this call started it.  A group started here on the card first
     gives each rank the device of its local rank (``LOCAL_RANK``, else its
     rank modulo the cards); a running group keeps the devices its ranks
-    chose."""
-    dev = resolve_device(device)
+    chose.  A ``meta`` device starts none: it raises unless a group
+    runs."""
+    dev = resolve_device(device, meta=True)
     if dist.is_initialized():
         return False
+    if dev.type == "meta":
+        raise RuntimeError("a meta mesh needs a running process group "
+                           "(fake_process_group starts one)")
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         if dev.type == "cuda":
@@ -118,14 +128,27 @@ def ensure_process_group(device="cuda") -> bool:
     return True
 
 
+def fake_process_group(world: int, rank: int = 0) -> None:
+    """Start the default process group as rank ``rank`` of ``world`` ranks
+    on torch's ``fake`` backend: collectives return at once and move
+    nothing, so one process can stand for a rank of any world.  For the
+    dry run's ``meta`` meshes only (launch/dryrun.py)."""
+    # importing the module registers the backend's constructor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+
+
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               device="cuda") -> DeviceMesh:
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over every
-    rank of the process group (started here if none runs), row-major."""
+    rank of the process group (started here if none runs), row-major.  A
+    ``meta`` mesh is a CPU ``DeviceMesh`` over the running group: DTensors
+    on it keep ``meta`` local tensors."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     ensure_process_group(dev)
     world = dist.get_world_size()
     size = 1
@@ -134,8 +157,8 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if size != world:
         raise ValueError(f"a mesh of shape {shape} needs {size} ranks, the "
                          f"process group has {world}")
-    return DeviceMesh(dev.type, torch.arange(world).reshape(shape),
-                      mesh_dim_names=axes)
+    return DeviceMesh("cpu" if dev.type == "meta" else dev.type,
+                      torch.arange(world).reshape(shape), mesh_dim_names=axes)
 
 
 def mesh_sizes(mesh) -> dict[str, int]:
@@ -223,6 +246,44 @@ def sharding_for(names: Sequence[str | None] | None, shape: Sequence[int],
         spec_for_shape(names, shape, mesh, rules), mesh))
 
 
+def span(t: DTensor, dim: int) -> slice:
+    """This rank's slice of the DTensor ``t``'s global ``dim``."""
+    shape, offset = _local_shape_and_offset(t.shape, t.device_mesh,
+                                            t.placements)
+    return slice(offset[dim], offset[dim] + shape[dim])
+
+
+def place_struct(struct: torch.Tensor, sharding: Sharding | None):
+    """A fresh tensor of ``struct``'s shape and dtype on its device
+    (``meta`` for the dry run), as a DTensor in ``sharding`` whose local
+    tensor has only this rank's shard (nothing global is made); a plain
+    tensor for a ``sharding`` of None."""
+    if sharding is None:
+        return torch.empty(struct.shape, dtype=struct.dtype,
+                           device=struct.device)
+    local, _ = _local_shape_and_offset(tuple(struct.shape), sharding.mesh,
+                                       sharding.placements)
+    return DTensor.from_local(
+        torch.empty(local, dtype=struct.dtype, device=struct.device),
+        sharding.mesh, sharding.placements, run_check=False,
+        shape=struct.shape, stride=torch.empty(
+            struct.shape, device="meta").stride())
+
+
+def place_structs(structs: Any, shardings: Any) -> Any:
+    """:func:`place_struct` over congruent trees of dicts, lists and
+    tuples (NamedTuples too)."""
+    if isinstance(structs, torch.Tensor) or structs is None:
+        return (None if structs is None
+                else place_struct(structs, shardings))
+    if isinstance(structs, dict):
+        return {k: place_structs(structs[k], shardings[k]) for k in structs}
+    vals = [place_structs(s, h)
+            for s, h in zip(structs, shardings, strict=True)]
+    return type(structs)(*vals) if hasattr(structs, "_fields") else type(
+        structs)(vals)
+
+
 def distribute(t: torch.Tensor, sharding: Sharding) -> DTensor:
     """A DTensor of ``t`` (the same global tensor on every rank) in
     ``sharding``: each rank keeps its own shard, with no communication."""
@@ -269,6 +330,94 @@ def constrain(x, axes: Sequence[str | None]):
     return x.redistribute(mesh, want)
 
 
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        vals = [_tree(fn, v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else type(
+            tree)(vals)
+    return fn(tree)
+
+
+def whole_rows(x):
+    """``x`` gathered along dim 1 where it is a DTensor split there (a
+    (B, S, ...) activation under sequence parallelism); anything else as
+    it is.  A matmul's rows flatten (B, S), which DTensor refuses over a
+    split S in the torch the card runs (2.11): the gather is the one the
+    product's column-split weight needs anyway."""
+    if not isinstance(x, DTensor) or Shard(1) not in x.placements:
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(1) else p for p in x.placements])
+
+
+class _WholeRowsGrad(torch.autograd.Function):
+    """The identity, whose gradient is gathered along dim 1 (whole_rows)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return whole_rows(g)
+
+
+def row_matmul(x, w):
+    """``x @ w`` for a (B, S, ...) activation and a weight matrix: under a
+    mesh, x's rows whole (:func:`whole_rows`) and the product's gradient
+    gathered the same way, so neither direction flattens (B, S) over a
+    split S; a plain ``x @ w`` otherwise."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    return _WholeRowsGrad.apply(whole_rows(x) @ w)
+
+
+def local_call(fn, x, weights, state=None,
+               axes: Sequence[str | None] = ("batch", None, "embed")):
+    """``fn(weights, x, state) -> (y, new state)`` on each rank's rows.
+
+    A plain ``x`` calls ``fn`` as it is.  A DTensor ``x`` is anchored to
+    ``axes`` (by default ("batch", None, "embed"): its batch over ``pod``
+    / ``data``, whole over ``model``); every weight is gathered whole
+    (its gradient leaving as ``Partial`` over the batch's mesh dims, a
+    reduce-scatter into its shards) and every state leaf taken at x's
+    placements; ``fn`` runs on the local tensors and ``y`` and the new
+    state come back as DTensors at x's placements.  For what DTensor has
+    no strategy for (the recurrent scans: RG-LRU, RWKV's time and channel
+    mix; an indexing by a DTensor): each model rank computes its data rank's rows whole,
+    as the MoE layer does."""
+    if not isinstance(x, DTensor):
+        return fn(weights, x, state)
+    x = constrain(x, axes)
+    mesh, rows = x.device_mesh, tuple(x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    partial = tuple(Partial() if p == Shard(0) else Replicate()
+                    for p in rows)
+
+    def gathered(w):
+        if not isinstance(w, DTensor):
+            return w
+        if tuple(w.placements) != whole:
+            w = w.redistribute(mesh, whole)
+        return w.to_local(grad_placements=partial)
+
+    def local_rows(s):
+        if not isinstance(s, DTensor):
+            return s
+        return (s if tuple(s.placements) == rows
+                else s.redistribute(mesh, rows)).to_local()
+
+    y, new = fn(_tree(gathered, weights), x.to_local(),
+                _tree(local_rows, state))
+
+    def placed(t):
+        return (t if t is None
+                else DTensor.from_local(t, mesh, rows, run_check=False))
+    return placed(y), _tree(placed, new)
+
+
 def _is_axes_leaf(x) -> bool:
     return x is None or (isinstance(x, tuple) and all(
         a is None or isinstance(a, str) for a in x))
@@ -278,7 +427,8 @@ def tree_shardings_for_structs(axes: Any, structs: Any, mesh: DeviceMesh,
                                rules: dict | None = None) -> Any:
     """A :class:`Sharding` for each leaf of ``structs`` (tensors, ``meta``
     tensors included) from the congruent tree of logical axes (a leaf
-    None: replicated); trees of dicts, lists and tuples."""
+    None: replicated); trees of dicts, lists and tuples (NamedTuples
+    too)."""
     if _is_axes_leaf(axes):
         if structs is None:
             return None
@@ -286,5 +436,7 @@ def tree_shardings_for_structs(axes: Any, structs: Any, mesh: DeviceMesh,
     if isinstance(axes, dict):
         return {k: tree_shardings_for_structs(axes[k], structs[k], mesh,
                                               rules) for k in axes}
-    return type(axes)(tree_shardings_for_structs(a, s, mesh, rules)
-                      for a, s in zip(axes, structs, strict=True))
+    vals = [tree_shardings_for_structs(a, s, mesh, rules)
+            for a, s in zip(axes, structs, strict=True)]
+    return type(axes)(*vals) if hasattr(axes, "_fields") else type(axes)(
+        vals)

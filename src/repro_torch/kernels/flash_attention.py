@@ -40,9 +40,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _TMA_ALIGN = 16
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           device: str = "cuda") -> None:
+    if not isinstance(t, torch.Tensor) or t.device.type != device:
+        raise ValueError(f"{name} must be a {device.upper()} tensor")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if t.ndim != 4:
@@ -79,31 +80,47 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int]:
     return tuple(out)
 
 
+def _ramp(a: int, b: int) -> int:
+    """Sum of p + 1 over the integers p in [a, b] (0 when b < a)."""
+    if b < a:
+        return 0
+    return (b + 1) * (b + 2) // 2 - a * (a + 1) // 2
+
+
+def attended(sq: int, skv: int, causal: bool, window) -> tuple[int, int]:
+    """(query-key pairs a head attends, keys any query attends) for ``sq``
+    queries end-aligned to ``skv`` keys: query i, at key position p = i +
+    skv - sq, sees keys j <= p if causal and p - j < window; the work #10
+    must do, whatever tiles it skips.  In closed form: a query sees
+    min(p + 1, window) keys causally (none at p < 0), else skv less the
+    max(0, p - window + 1) keys before its window."""
+    lo_p, hi_p = skv - sq, skv - 1
+    if causal:
+        lo_p = max(lo_p, 0)
+        if hi_p < lo_p:
+            return 0, 0
+        if window is None:
+            pairs = _ramp(lo_p, hi_p)
+        else:   # min(p + 1, window): p + 1 up to p = window - 1, then window
+            pairs = (_ramp(lo_p, min(hi_p, window - 1))
+                     + window * max(0, hi_p - max(lo_p, window) + 1))
+    else:
+        pairs = skv * (hi_p - lo_p + 1)
+        if window is not None:  # less the keys before each window
+            pairs -= _ramp(max(lo_p, window - 1) - window,
+                           hi_p - window)
+    first = 0 if window is None else max(0, lo_p - window + 1)
+    return pairs, skv - first
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """(B, H, Sq, D) attention output in q's dtype and layout."""
     global launches, launches_simt, launches_wgmma
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"q must be fp32 or bf16, got {q.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(t, name, q.dtype)
+    _check_operands(q, k, v, causal, window, "cuda")
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (b, kh, skv, d) or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"k and v must be ({b}, KH, Skv, {d}), got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if h % kh:
-        raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
-    if skv < 1:
-        raise ValueError("attention over an empty key sequence")
-    if causal and sq > skv:
-        raise ValueError(f"causal attention with Sq={sq} > Skv={skv} leaves "
-                         "queries with no key")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
     dev = _build.same_device(q, k, v)
     scale = float(scale) if scale is not None else 1.0 / float(d) ** 0.5
     bf16 = q.dtype == torch.bfloat16
@@ -124,3 +141,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         launches_simt += 1
     return out
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """#10's shape-only route: the operands' checks of
+    :func:`flash_attention` on ``meta`` tensors, and its output as the
+    kernel allocates it (``empty_like(q)``: q's dtype and layout); nothing
+    launches and no count moves."""
+    _check_operands(q, k, v, causal, window, "meta")
+    return torch.empty_like(q)
+
+
+def _check_operands(q, k, v, causal: bool, window, device: str) -> None:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q must be fp32 or bf16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, q.dtype, device)
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, kh, skv, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"k and v must be ({b}, KH, Skv, {d}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if h % kh:
+        raise ValueError(f"q heads {h} must be a multiple of kv heads {kh}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in the kernel's {HEAD_DIMS}")
+    if skv < 1:
+        raise ValueError("attention over an empty key sequence")
+    if causal and sq > skv:
+        raise ValueError(f"causal attention with Sq={sq} > Skv={skv} leaves "
+                         "queries with no key")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")

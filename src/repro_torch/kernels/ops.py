@@ -2,7 +2,16 @@
 
 A CUDA tensor launches the hand-written kernel (and raises if it cannot);
 a CPU tensor runs the plain PyTorch version in ``ref``.  Nothing else
-selects the path: no environment switch, no fallback from the card.
+selects the path: no environment switch, no fallback from the card.  A
+``meta`` tensor raises everywhere but in :func:`flash_attention`, whose
+shape-only route gives the dry run (``launch/dryrun.py``) #10's output
+without a launch.
+
+A kernel launched through ctypes is invisible to a dispatch mode, so
+:func:`flash_attention` tells each of ``KERNEL_OBSERVERS`` (the cost count
+of ``launch/cost_analysis.py``) where a call begins and, at its end, the
+operands, the output and the work of #10 by the pairs it attends, on
+every route.
 """
 
 from __future__ import annotations
@@ -17,6 +26,11 @@ from . import bregman_ub as _ub
 from . import flash_attention as _flash
 from . import pccp_corr as _corr
 from . import ref
+
+
+# Objects with kernel_begin() and kernel_end(name, inputs, outputs, flops,
+# transcendentals), told of every flash_attention call.
+KERNEL_OBSERVERS: list = []
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -283,8 +297,8 @@ def pccp_correlation(x):
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """GQA attention, q (B, H, Sq, D), k/v (B, KH, Skv, D), queries
-    end-aligned to the keys; output (B, H, Sq, D) in q's dtype (and, on the
-    card, q's layout).  Forward only: #10 has no backward pass (nor has
+    end-aligned to the keys; output (B, H, Sq, D) in q's dtype and layout
+    (on ``meta`` an empty output and no launch).  Forward only: #10 has no backward pass (nor has
     the reference's Pallas kernel), so with grad mode on and q, k or v
     asking for a gradient this raises ``ValueError`` on either device,
     rather than return an output that cuts the graph; training attends
@@ -300,8 +314,29 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
         raise ValueError(
             f"flash_attention wants (B, heads, S, D) tensors, got "
             f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
-    if not _on_cuda(q):
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   scale=scale)
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  scale=scale)
+    observers = tuple(KERNEL_OBSERVERS)
+    for obs in observers:
+        obs.kernel_begin()
+    out = None
+    try:
+        if q.device.type == "meta":
+            out = _flash.flash_attention_meta(q, k, v, causal=causal,
+                                              window=window)
+        elif not _on_cuda(q):
+            # in q's layout, as the kernel writes it, so what follows
+            # reads the same strides on every route
+            out = torch.empty_like(q).copy_(ref.flash_attention(
+                q, k, v, causal=causal, window=window, scale=scale))
+        else:
+            out = _flash.flash_attention(q, k, v, causal=causal,
+                                         window=window, scale=scale)
+        return out
+    finally:
+        if observers:
+            b, h, sq, d = q.shape
+            pairs = b * h * _flash.attended(sq, k.shape[2], causal,
+                                            window)[0]
+            for obs in reversed(observers):
+                obs.kernel_end("flash_attention", (q, k, v),
+                               () if out is None else (out,),
+                               flops=4 * d * pairs, transcendentals=pairs)

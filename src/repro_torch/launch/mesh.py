@@ -3,6 +3,13 @@
 Functions, not module constants: importing this module starts no process
 group.  The reference's per-chip peaks belong to its TPU and have no
 counterpart here.
+
+The production mesh is ("data", "model") with ``model`` over the ranks of
+one host, its NVLink domain (``LOCAL_WORLD_SIZE``; an HGX H100 node's 8
+cards on the dry run's ``meta`` device), and ``data`` across hosts; the
+multi-pod mesh adds a leading ``pod`` axis of 2.  The dry run
+(launch/dryrun.py) builds them at the reference's chip counts,
+:data:`POD_RANKS` ranks a pod: (32, 8) and (2, 32, 8).
 """
 
 from __future__ import annotations
@@ -16,21 +23,46 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..device import resolve_device
 from ..dist.sharding import ensure_process_group, make_mesh
 
+# ranks of one pod and of the pods of a multi-pod mesh (the reference's
+# 256 chips a pod, two pods), and the cards of one HGX H100 node
+POD_RANKS = 256
+PODS = 2
+NODE_CARDS = 8
 
-def make_production_mesh(*, device="cuda") -> DeviceMesh:
-    """Every rank of the process group as ("data", "model"): ``model``
-    over the ranks of one host (its NVLink domain: ``LOCAL_WORLD_SIZE``,
-    else the host's cards, 1 on the CPU), ``data`` across hosts."""
-    dev = resolve_device(device)
+
+def production_world(multi_pod: bool = False) -> int:
+    """The ranks of the dry run's production mesh."""
+    return POD_RANKS * (PODS if multi_pod else 1)
+
+
+def _host_ranks(dev: torch.device) -> int:
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local is not None:
+        return int(local)
+    if dev.type == "cuda":
+        return torch.cuda.device_count()
+    return NODE_CARDS if dev.type == "meta" else 1
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cuda") -> DeviceMesh:
+    """Every rank of the process group as ("data", "model"), or with
+    ``multi_pod`` as ("pod", "data", "model") over :data:`PODS` pods:
+    ``model`` over the ranks of one host (``LOCAL_WORLD_SIZE``, else the
+    host's cards, 1 on the CPU, 8 on ``meta``), ``data`` across hosts."""
+    dev = resolve_device(device, meta=True)
     ensure_process_group(dev)
     world = dist.get_world_size()
-    local = os.environ.get("LOCAL_WORLD_SIZE")
-    per = (int(local) if local is not None
-           else torch.cuda.device_count() if dev.type == "cuda" else 1)
-    model = max(1, min(per, world))
-    if world % model:
-        raise ValueError(f"{world} ranks do not fill hosts of {model}")
-    return make_mesh((world // model, model), ("data", "model"), device=dev)
+    model = max(1, min(_host_ranks(dev), world))
+    pods = PODS if multi_pod else 1
+    if world % (model * pods):
+        raise ValueError(f"{world} ranks do not fill {pods} pod(s) of "
+                         f"hosts of {model}")
+    data = world // (model * pods)
+    if multi_pod:
+        return make_mesh((pods, data, model), ("pod", "data", "model"),
+                         device=dev)
+    return make_mesh((data, model), ("data", "model"), device=dev)
 
 
 def make_host_mesh(model: int = 1, *, device="cuda") -> DeviceMesh:

@@ -22,6 +22,17 @@ attention.  The reference's sharding constraints on q, k and v are
 ``dist.sharding.constrain`` anchors in ``qkv_project``: identities
 outside an ``activation_rules`` context, so the one-device path is
 unchanged.
+
+Under a mesh (the sharded serving steps: DTensor q, k, v and caches),
+#10, ``decode_attend`` and the cache writes run on each rank's local
+tensors (:func:`_local_heads`): q keeps its batch and head shards and is
+gathered along any other dim; a rank's local query head h reads its
+*global* kv head, (h + the rank's head offset) // (H / KH): where k's heads
+are split as q's the local kv heads are those, else k is gathered whole
+over its head dim and each rank takes the kv heads its query heads read
+(a slice where they are whole groups or lie in one, else one kv head a
+query head).  The local GQA ratio never decides it.  A cache write puts
+the new rows into the rank's local cache, in place.
 """
 
 from __future__ import annotations
@@ -30,10 +41,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..dist.sharding import constrain
+from ..dist.sharding import constrain, row_matmul, span
 from ..kernels import ops as kernel_ops
 from .layers import Spec, apply_rope, rms_norm
 
@@ -71,9 +83,14 @@ def attention_spec(d: int, heads: int, kv_heads: int, head_dim: int,
 
 
 def _project(x: Tensor, w: Tensor) -> Tensor:
-    """(B,S,D) x (D,H,K) -> (B,S,H,K) as one matmul in x's dtype."""
+    """(B,S,D) x (D,H,K) -> (B,S,H,K) as one matmul in x's dtype.  Under a
+    mesh the weight keeps only its head shards (:func:`_heads_only`), so
+    the product's H*K columns are split where the rules split H, and
+    (H, K) can follow, in both directions."""
     b, s, d = x.shape
-    return (x @ w.to(x.dtype).reshape(d, -1)).reshape(b, s, *w.shape[1:])
+    w = _heads_only(w, 1)
+    return row_matmul(x, w.to(x.dtype).reshape(d, -1)).reshape(
+        b, s, *w.shape[1:])
 
 
 def qkv_project(p: dict, x: Tensor, *, positions: Tensor, rope_theta: float,
@@ -99,12 +116,25 @@ def qkv_project(p: dict, x: Tensor, *, positions: Tensor, rope_theta: float,
 
 
 def out_project(p: dict, attn: Tensor) -> Tensor:
+    """(B,S,H,K) -> (B,S,D); under a mesh the weight keeps only its head
+    shards, as in :func:`_project`."""
     b, s, h, hd = attn.shape
-    out = attn.reshape(b, s, h * hd) @ p["wo"].to(attn.dtype).reshape(
-        h * hd, -1)
+    out = row_matmul(attn.reshape(b, s, h * hd),
+                     _heads_only(p["wo"], 0).to(attn.dtype).reshape(
+                         h * hd, -1))
     if "bo" in p:
         out = out + p["bo"].to(attn.dtype)
     return out
+
+
+def _heads_only(w: Tensor, dim: int) -> Tensor:
+    """A projection weight with its shards of its head dim ``dim`` kept
+    and gathered whole over every other mesh dim (FSDP's gather; its
+    gradient leaves as a reduce-scatter into the shards).  The rules
+    split heads only over mesh dims that divide them (``model``), so each
+    rank projects the heads it attends with and no other.  A plain tensor
+    as it is."""
+    return _keep(w, (dim,)) if isinstance(w, DTensor) else w
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +142,66 @@ def out_project(p: dict, attn: Tensor) -> Tensor:
 # differentiable dispatch (training)
 # ---------------------------------------------------------------------------
 
+def _keep(t: DTensor, dims: tuple) -> DTensor:
+    """``t`` with its shards of ``dims`` kept and every other dim gathered
+    whole (``Replicate()`` on the mesh dims that split it)."""
+    want = tuple(p if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in t.placements)
+    if want == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)
+
+
+def _local_heads(q: DTensor, k: DTensor, v: DTensor):
+    """Each rank's operands of a GQA attention under a mesh (module
+    docstring).  q (B,Sq,H,D), k/v (B,Skv,KH,D) DTensors -> (q, k, v
+    local, q's placements after the gather).
+    Differentiable: where each rank takes a part of k's heads, their
+    gradients leave as ``Partial`` over the mesh dims that split q's."""
+    h, kh = q.shape[2], k.shape[2]
+    group = h // kh
+    mesh = q.device_mesh
+    q = _keep(q, (0, 2))
+    heads = [p == Shard(2) for p in q.placements]
+    batch = tuple(p if p == Shard(0) else Replicate() for p in q.placements)
+    # k's heads split as q's (on the same mesh dims and no other): the
+    # local GQA ratio is the global one
+    same = all(hq == (pk == Shard(2))
+               for hq, pk in zip(heads, k.placements, strict=True))
+    want = tuple(q.placements) if same else batch
+    grads = want if same else tuple(Partial() if hq else p
+                                    for hq, p in zip(heads, batch))
+    kl, vl = (
+        (t if tuple(t.placements) == want else t.redistribute(mesh, want)
+         ).to_local(grad_placements=grads) for t in (k, v))
+    if not same:
+        hs = span(q, 2)
+        lo, n = hs.start, hs.stop - hs.start
+        if n % group == 0:                  # whole groups
+            kv = slice(lo // group, lo // group + n // group)
+        elif group % n == 0:                # inside one group
+            kv = slice(lo // group, lo // group + 1)
+        else:                               # one kv head a query head
+            kv = torch.arange(lo, lo + n, device=kl.device) // group
+        kl, vl = kl[:, :, kv], vl[:, :, kv]
+    return q.to_local(), kl, vl, q.placements
+
+
+def _on_local_heads(fn, q: DTensor, k: DTensor, v: DTensor, **kw):
+    """``fn(q, k, v, **kw)`` on each rank's local heads, a DTensor back in
+    q's (gathered) placements."""
+    ql, kl, vl, placements = _local_heads(q, k, v)
+    return DTensor.from_local(fn(ql, kl, vl, **kw), q.device_mesh,
+                              placements, run_check=False)
+
+
 def sdpa(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
          window: int | None = None) -> Tensor:
     """q (B,Sq,H,D), k/v (B,Skv,KH,D) -> (B,Sq,H,D), queries end-aligned to
-    the keys (Sq == Skv in prefill and training)."""
+    the keys (Sq == Skv in prefill and training).  DTensors: on each
+    rank's heads (:func:`_local_heads`), a DTensor back."""
+    if isinstance(q, DTensor):
+        return _on_local_heads(sdpa, q, k, v, causal=causal, window=window)
     out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), causal=causal,
                                      window=window)
@@ -150,7 +236,11 @@ def sdpa_dense(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     the probabilities cast to q's dtype for the product with v.  Query i
     sits at absolute position ``i + q_offset``, key j at j; the causal
     mask keeps keys at or before the query, the window the last
-    ``window`` of them."""
+    ``window`` of them.  DTensors: on each rank's heads
+    (:func:`_local_heads`)."""
+    if isinstance(q, DTensor):
+        return _on_local_heads(sdpa_dense, q, k, v, causal=causal,
+                               window=window, q_offset=q_offset)
     b, sq, h, d = q.shape
     kh = k.shape[2]
     qg = _grouped(q, kh)
@@ -252,7 +342,12 @@ def sdpa_train(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """The reference's ``sdpa`` dispatch, differentiable: ``sdpa_dense``
     where Sq * Skv <= dense_threshold^2, else ``sdpa_chunked`` with chunks
     of at least S/8 (the reference's rule, which bounds its unrolled tile
-    count)."""
+    count).  DTensors: on each rank's heads (:func:`_local_heads`)."""
+    if isinstance(q, DTensor):
+        return _on_local_heads(sdpa_train, q, k, v, causal=causal,
+                               window=window, q_offset=q_offset,
+                               dense_threshold=dense_threshold,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk)
     if q.shape[1] * k.shape[1] <= dense_threshold * dense_threshold:
         return sdpa_dense(q, k, v, causal=causal, window=window,
                           q_offset=q_offset)
@@ -274,11 +369,18 @@ class KVCache(NamedTuple):
     @staticmethod
     def zeros(b: int, s_max: int, kh: int, d: int, dtype=torch.bfloat16,
               device="cuda") -> "KVCache":
-        dev = resolve_device(device)
+        dev = resolve_device(device, meta=True)
         return KVCache(k=torch.zeros((b, s_max, kh, d), dtype=dtype,
                                      device=dev),
                        v=torch.zeros((b, s_max, kh, d), dtype=dtype,
                                      device=dev))
+
+    @staticmethod
+    def axes() -> "KVCache":
+        """The logical axes of k and v (``kv_seq`` is in no rules table:
+        the cache's sequence stays whole on every rank)."""
+        ax = ("batch", "kv_seq", "kv_heads", "head_dim")
+        return KVCache(k=ax, v=ax)
 
 
 def write_rows(cache: KVCache, k_new: Tensor, v_new: Tensor,
@@ -286,7 +388,18 @@ def write_rows(cache: KVCache, k_new: Tensor, v_new: Tensor,
     """Write step j of row b at cache position ``tgt[b, j]``, IN PLACE, and
     return the same cache.  Targets must lie inside the cache (the
     reference's one-hot write would drop one past its end; the engine
-    retires a slot before that)."""
+    retires a slot before that).  A DTensor cache: the new rows placed as
+    the cache is, each rank writing its local rows."""
+    if isinstance(cache.k, DTensor):
+        mesh, want = cache.k.device_mesh, tuple(cache.k.placements)
+        if tuple(k_new.placements) != want:
+            k_new = k_new.redistribute(mesh, want)
+        if tuple(v_new.placements) != want:
+            v_new = v_new.redistribute(mesh, want)
+        write_rows(KVCache(cache.k.to_local(), cache.v.to_local()),
+                   k_new.to_local(), v_new.to_local(),
+                   tgt[span(cache.k, 0)])
+        return cache
     rows = torch.arange(tgt.shape[0], device=tgt.device)[:, None]
     cache.k[rows, tgt] = k_new.to(cache.k.dtype)
     cache.v[rows, tgt] = v_new.to(cache.v.dtype)
@@ -309,7 +422,14 @@ def decode_attend(q: Tensor, cache: KVCache, lengths: Tensor, *,
     """One-token attention over the cache.  q (B,1,H,D); lengths (B,) is the
     number of valid cache entries INCLUDING the new token already written.
     Logits and softmax in fp32, probabilities cast to q's dtype for the
-    product with v, as in the reference."""
+    product with v, as in the reference.  DTensors: on each rank's rows
+    and heads (:func:`_local_heads`), a DTensor back."""
+    if isinstance(q, DTensor):
+        rows = span(q, 0)
+        return _on_local_heads(
+            lambda ql, kl, vl: decode_attend(ql, KVCache(kl, vl),
+                                             lengths[rows], window=window),
+            q, cache.k, cache.v)
     b, _, h, d = q.shape
     kh = cache.k.shape[2]
     qg = q.reshape(b, 1, kh, h // kh, d)

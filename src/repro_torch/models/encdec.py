@@ -33,9 +33,10 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
-from ..dist.sharding import constrain
+from ..dist.sharding import constrain, local_call
 from . import attention as attn_mod
 from .attention import KVCache
 from .layers import (Spec, apply_mlp, apply_norm, axes_tree, embed_lookup,
@@ -285,8 +286,15 @@ def _embed(cfg: EncDecConfig, params: dict, tokens, positions) -> Tensor:
     if pos.ndim == 3:
         pos = pos[..., 0]
     dt = cfg.compute_dtype
-    return (embed_lookup(params["embed"], tokens, dt)
-            + params["dec_pos"][pos.long()].to(dt))
+    table = params["dec_pos"]
+    if isinstance(pos, DTensor):
+        # each rank's rows from the whole table (an indexing of a DTensor
+        # by a DTensor backs into an index_put torch 2.11 cannot shard)
+        pe = local_call(lambda w, p, _: (w[p.long()], None), pos, table,
+                        axes=("batch", None))[0]
+    else:
+        pe = table[pos.long()]
+    return embed_lookup(params["embed"], tokens, dt) + pe.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -335,13 +343,19 @@ def logits_fn(cfg: EncDecConfig, params: dict, hidden: Tensor) -> Tensor:
 def init_cache(cfg: EncDecConfig, batch: int, s_max: int, device="cuda"):
     """Per decoder layer {"self": KVCache (batch, s_max), "cross": KVCache
     (batch, num_frames)}, zeros in ``compute_dtype``."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     dt = cfg.compute_dtype
     return [{"self": KVCache.zeros(batch, s_max, cfg.num_kv_heads,
                                    cfg.head_dim, dt, dev),
              "cross": KVCache.zeros(batch, cfg.num_frames, cfg.num_kv_heads,
                                     cfg.head_dim, dt, dev)}
             for _ in range(cfg.decoder_layers)]
+
+
+def cache_axes(cfg: EncDecConfig) -> list:
+    """The logical axes of :func:`init_cache`'s caches."""
+    kv = KVCache.axes()
+    return [{"self": kv, "cross": kv} for _ in range(cfg.decoder_layers)]
 
 
 @torch.inference_mode()
@@ -351,7 +365,8 @@ def prefill(cfg: EncDecConfig, params: dict, tokens: Tensor,
     cache at ``lengths`` (B,) and its cross cache from the encoder's output
     (both in place).  Returns (hidden (B, S, D), caches)."""
     enc_out = encode(cfg, params, frames)
-    x = _embed(cfg, params, tokens, positions)
+    x = constrain(_embed(cfg, params, tokens, positions),
+                  ("batch", "seq", "embed"))
     lengths = torch.as_tensor(lengths, device=x.device)
     new_caches = []
     for lp, cache in zip(params["decoder"], caches, strict=True):

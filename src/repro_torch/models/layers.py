@@ -19,8 +19,9 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..dist.sharding import constrain
+from ..dist.sharding import constrain, row_matmul, span
 
 Tensor = torch.Tensor
 
@@ -185,7 +186,37 @@ def embed_lookup(table: Tensor, tokens: Tensor, compute_dtype) -> Tensor:
     # under a mesh: the fsdp shards gathered for the lookup (reference
     # layers.py:153)
     table = constrain(table, ("vocab", None))
+    if isinstance(table, DTensor) and Shard(0) in table.placements:
+        return _sharded_lookup(table, tokens).to(compute_dtype)
     return F.embedding(tokens.long(), table).to(compute_dtype)
+
+
+def _sharded_lookup(table: DTensor, tokens: DTensor) -> DTensor:
+    """``F.embedding`` from a vocab-sharded table as the reference's
+    one-hot product makes it: each rank looks up the tokens that fall in
+    its rows (the rest zero) and the partial sums are added over the
+    vocab's ranks; the same values, where DTensor's own lookup leaves a
+    masked partial that torch 2.11 cannot compare on ``meta``.  The
+    table's gradient from a rank's token rows is partial over the mesh
+    dims that split those rows."""
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    rows = tuple(p if p == Shard(0) else Replicate()
+                 for p in tokens.placements)
+    if tuple(tokens.placements) != rows:
+        tokens = tokens.redistribute(mesh, rows)
+    local = table.to_local(grad_placements=tuple(
+        p if i in vocab else Partial() if r == Shard(0) else p
+        for i, (p, r) in enumerate(zip(table.placements, rows,
+                                       strict=True))))
+    ids = tokens.to_local().long() - span(table, 0).start
+    inside = (ids >= 0) & (ids < local.shape[0])
+    got = F.embedding(torch.where(inside, ids, 0), local) * inside[
+        ..., None].to(local.dtype)
+    part = tuple(Partial() if i in vocab else p
+                 for i, p in enumerate(rows))
+    return DTensor.from_local(got, mesh, part,
+                              run_check=False).redistribute(mesh, rows)
 
 
 def unembed_logits(x: Tensor, table: Tensor) -> Tensor:
@@ -193,7 +224,7 @@ def unembed_logits(x: Tensor, table: Tensor) -> Tensor:
     x's dtype, then both operands are widened so the product accumulates
     and stays in fp32 (the reference's ``preferred_element_type``)."""
     table = constrain(table.to(x.dtype), ("vocab", None))
-    return x.to(torch.float32) @ table.to(torch.float32).T
+    return row_matmul(x.to(torch.float32), table.to(torch.float32).T)
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +259,8 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 1e4,
             positions = positions[..., None].expand(b, s, 3)
         comp = torch.repeat_interleave(
             torch.arange(3, device=x.device),
-            torch.as_tensor(mrope_section, device=x.device))     # (half,)
+            torch.as_tensor(mrope_section, device=x.device),
+            output_size=half)                                    # (half,)
         pos = positions.to(torch.float32)[..., comp]             # (B,S,half)
     else:
         if positions.ndim == 3:
@@ -273,13 +305,13 @@ def _act(name: str) -> Callable[[Tensor], Tensor]:
 def apply_mlp(p: dict, x: Tensor, act: str) -> Tensor:
     """Gated (SwiGLU/GeGLU) or plain 2-layer MLP; matmuls in x.dtype."""
     dt = x.dtype
-    h = x @ p["w_in"].to(dt)
+    h = row_matmul(x, p["w_in"].to(dt))
     if "b_in" in p:
         h = h + p["b_in"].to(dt)
     h = _act(act)(h)
     if "w_gate" in p:
-        h = h * (x @ p["w_gate"].to(dt))
-    out = h @ p["w_out"].to(dt)
+        h = h * row_matmul(x, p["w_gate"].to(dt))
+    out = row_matmul(h, p["w_out"].to(dt))
     if "b_out" in p:
         out = out + p["b_out"].to(dt)
     return out

@@ -6,9 +6,12 @@ stacks (port of ``repro.models.registry``).
     bundle.forward_autograd(params, batch)         -> (hidden, aux_loss),
                       differentiable, for training
     bundle.logits(params, hidden)                  -> fp32 logits
-    bundle.init_cache(batch_size, s_max)           -> caches (per layer:
+    bundle.init_cache(batch_size, s_max[, device]) -> caches (per layer:
                       {"mixer": KVCache or state dict, "ffn": state dict
-                      or None}; enc-dec {"self": KVCache, "cross": KVCache})
+                      or None}; enc-dec {"self": KVCache, "cross": KVCache}),
+                      on the bundle's device or on ``device`` ("meta":
+                      shapes only)
+    bundle.cache_axes()                            -> their logical axes
     bundle.prefill(params, batch, caches, lens)    -> (hidden, caches)
     bundle.decode_step(params, tok, pos, caches, lens)
                                                    -> (logits, hidden, caches)
@@ -16,6 +19,8 @@ stacks (port of ``repro.models.registry``).
                       logical axes (dist/sharding.py), in the init tree
     bundle.param_structs()                         -> each parameter as an
                       fp32 ``meta`` tensor, in the init tree
+    bundle.count_params / bundle.active_params     -> parameters, and those
+                      a token touches (an MoE's top-k experts)
 
 ``batch`` is a dict with tokens (B, S) and positions (B, S), or (B, S, 3)
 under M-RoPE, plus the modality stubs' extras the bundle declares in
@@ -48,9 +53,11 @@ class ModelBundle(NamedTuple):
     forward_autograd: Callable
     logits: Callable
     init_cache: Callable
+    cache_axes: Callable
     prefill: Callable
     decode_step: Callable
     count_params: int
+    active_params: int
     extra_inputs: dict  # name -> (shape_fn(B, S) -> shape, dtype)
 
 
@@ -86,11 +93,14 @@ def _lm_bundle(cfg: LMConfig, dev: torch.device) -> ModelBundle:
         forward_train=forward_train,
         forward_autograd=forward_autograd,
         logits=lambda params, h: transformer.logits_fn(cfg, params, h),
-        init_cache=lambda b, s: transformer.init_cache(cfg, b, s, dev),
+        init_cache=lambda b, s, device=None: transformer.init_cache(
+            cfg, b, s, dev if device is None else device),
+        cache_axes=lambda: transformer.cache_axes(cfg),
         prefill=prefill,
         decode_step=lambda params, tok, pos, caches, lens:
             transformer.decode_step(cfg, params, tok, pos, caches, lens),
         count_params=transformer.count_params(cfg),
+        active_params=transformer.active_params(cfg),
         extra_inputs=extras,
     )
 
@@ -121,19 +131,23 @@ def _encdec_bundle(cfg: EncDecConfig, dev: torch.device) -> ModelBundle:
         forward_train=forward_train,
         forward_autograd=forward_autograd,
         logits=lambda params, h: encdec.logits_fn(cfg, params, h),
-        init_cache=lambda b, s: encdec.init_cache(cfg, b, s, dev),
+        init_cache=lambda b, s, device=None: encdec.init_cache(
+            cfg, b, s, dev if device is None else device),
+        cache_axes=lambda: encdec.cache_axes(cfg),
         prefill=prefill,
         decode_step=lambda params, tok, pos, caches, lens:
             encdec.decode_step(cfg, params, tok, pos, caches, lens),
         count_params=encdec.count_params(cfg),
+        active_params=encdec.count_params(cfg),
         extra_inputs=extras,
     )
 
 
 def build_model(cfg, device="cuda") -> ModelBundle:
     """The bundle of a decoder-only or an encoder-decoder config, on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
+    ``device`` (the card unless the caller asks for the CPU; ``meta`` for
+    its shapes alone: such a bundle draws no parameters)."""
+    dev = resolve_device(device, meta=True)
     if isinstance(cfg, EncDecConfig):
         return _encdec_bundle(cfg, dev)
     if isinstance(cfg, LMConfig):

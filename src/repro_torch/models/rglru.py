@@ -154,10 +154,15 @@ def apply_rglru_block(p: dict, x: Tensor, state: dict | None = None):
 
 def rglru_state_zeros(b: int, width: int, conv_width: int = 4,
                       dtype=torch.float32, device="cuda") -> dict:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     return {"h": torch.zeros((b, width), dtype=torch.float32, device=dev),
             "conv": torch.zeros((b, conv_width - 1, width), dtype=dtype,
                                 device=dev)}
+
+
+def rglru_state_axes() -> dict:
+    """The logical axes of :func:`rglru_state_zeros`' state."""
+    return {"h": ("batch", "state"), "conv": ("batch", None, "state")}
 
 
 def rglru_flops_per_token(d: int, width: int, conv_width: int = 4) -> int:

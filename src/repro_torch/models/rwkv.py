@@ -242,7 +242,7 @@ def apply_rwkv_channel(p: dict, x: Tensor, state: dict | None = None):
 
 def rwkv_state_zeros(b: int, d: int, head_dim: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     h = d // head_dim
     return {
         "time": {"shift": torch.zeros((b, d), dtype=dtype, device=dev),
@@ -252,3 +252,9 @@ def rwkv_state_zeros(b: int, d: int, head_dim: int, dtype=torch.bfloat16,
                                          device=dev)},
     }
 
+
+def rwkv_state_axes() -> dict:
+    """The logical axes of :func:`rwkv_state_zeros`' state."""
+    return {"time": {"shift": ("batch", "embed"),
+                     "wkv": ("batch", "heads", None, None)},
+            "channel": {"shift": ("batch", "embed")}}

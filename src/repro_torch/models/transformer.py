@@ -35,7 +35,9 @@ layer's parameters are a dict, and the caches a list of per-layer dicts
 {"mixer": ..., "ffn": ...}: a ``KVCache`` that every call updates in
 place, or a recurrent state dict ({"h", "conv"} for RG-LRU, {"shift",
 "wkv"} for RWKV's time mix, {"shift"} for its channel mix) that every
-call replaces.  Weights are kept as given
+call replaces.  Under a mesh (DTensor activations) the RG-LRU and RWKV
+blocks run on each rank's rows with their weights whole
+(``dist.sharding.local_call``).  Weights are kept as given
 (fp32 from :func:`init_params`) and cast to ``compute_dtype`` at every use,
 as the reference casts them: the same values a held bf16 copy would give,
 at the cost of the cast's traffic and no second copy.
@@ -51,7 +53,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..dist.sharding import constrain
+from ..dist.sharding import constrain, local_call
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
@@ -303,10 +305,12 @@ def _apply_mixer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
     cache), attending through #10, or with ``autograd`` through the
     reference's differentiable dispatch."""
     if kind == "rglru":
-        return rglru_mod.apply_rglru_block(p, x, cache)
+        return local_call(rglru_mod.apply_rglru_block, x, p, cache)
     if kind == "rwkv":
-        return rwkv_mod.apply_rwkv_time(p, x, cfg.rwkv_head_dim, cache,
-                                        chunk=cfg.rwkv_chunk)
+        return local_call(
+            lambda pl, xl, st: rwkv_mod.apply_rwkv_time(
+                pl, xl, cfg.rwkv_head_dim, st, chunk=cfg.rwkv_chunk),
+            x, p, cache)
     window = cfg.window if kind == "local_attn" else None
     q, k, v = attn_mod.qkv_project(
         p, x, positions=positions, rope_theta=cfg.rope_theta,
@@ -365,8 +369,8 @@ def _apply_layer(cfg: LMConfig, kind: str, p: dict, x: Tensor, *,
     new_ffn, aux = None, 0.0
     hn = apply_norm(p["norm2"], x, cfg.norm)
     if cfg.ffn_kind == "rwkv_channel":
-        h, new_ffn = rwkv_mod.apply_rwkv_channel(
-            p["ffn"], hn, None if cache is None else cache["ffn"])
+        h, new_ffn = local_call(rwkv_mod.apply_rwkv_channel, hn, p["ffn"],
+                                None if cache is None else cache["ffn"])
     elif cfg.ffn_kind == "moe":
         h, aux = moe_mod.apply_moe(p["ffn"], hn, cfg.moe, act=cfg.act,
                                    shared_mlp=p["ffn"].get("shared"))
@@ -519,11 +523,30 @@ def init_cache(cfg: LMConfig, batch: int, s_max: int, device="cuda"):
     """Per-layer caches in ``compute_dtype``: KV caches of (batch, s_max)
     slots, or min(s_max, window) for a local-attention layer (a ring
     buffer); zero recurrent states (RG-LRU's ``h`` and RWKV's ``wkv`` in
-    fp32)."""
+    fp32).  ``device="meta"`` gives their shapes only."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     return [_one_layer_cache(cfg, kind, batch, s_max, dev)
             for kind in cfg.layer_kinds()]
+
+
+def _one_layer_cache_axes(cfg: LMConfig, kind: str) -> dict:
+    if kind == "rwkv":
+        st = rwkv_mod.rwkv_state_axes()
+        return {"mixer": st["time"], "ffn": st["channel"]}
+    mx = (rglru_mod.rglru_state_axes() if kind == "rglru"
+          else KVCache.axes())
+    return {"mixer": mx,
+            "ffn": ({"shift": ("batch", "embed")}
+                    if cfg.ffn_kind == "rwkv_channel" else None)}
+
+
+def cache_axes(cfg: LMConfig) -> list:
+    """The logical axes of :func:`init_cache`'s per-layer caches (the
+    reference's, with its ``scan_layers`` stack's ``layers`` axis
+    dropped: the port keeps a list)."""
+    check_supported(cfg)
+    return [_one_layer_cache_axes(cfg, kind) for kind in cfg.layer_kinds()]
 
 
 @torch.inference_mode()
@@ -532,18 +555,24 @@ def prefill(cfg: LMConfig, params: dict, tokens: Tensor, positions: Tensor,
     """Teacher-forced forward that also writes the caches (in place).
 
     Returns (hidden (B, S, D), caches).  ``lengths``: (B,) valid cache
-    entries BEFORE this call (0 for a fresh prefill).
+    entries BEFORE this call (0 for a fresh prefill).  Under
+    ``activation_rules`` the residual stream is anchored to ("batch",
+    "seq", "embed") after the embedding and each layer, as in the
+    reference: the partial sums of the output and MLP projections are
+    reduced there, so each layer's projections see rows that are whole.
     """
     check_supported(cfg)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     positions = _positions(positions, tokens)
     lengths = torch.as_tensor(lengths, device=tokens.device)
     x = embed_inputs(cfg, params, tokens, positions, patch_embeds)
+    x = constrain(x, ("batch", "seq", "embed"))
     new_caches = []
     for kind, lp, cache in zip(cfg.layer_kinds(), params["layers"], caches,
                                strict=True):
         x, _, nc = _apply_layer(cfg, kind, lp, x, positions=positions,
                                 cache=cache, lengths=lengths)
+        x = constrain(x, ("batch", "seq", "embed"))
         new_caches.append(nc)
     return apply_norm(params["final_norm"], x, cfg.norm), new_caches
 

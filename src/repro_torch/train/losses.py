@@ -16,11 +16,38 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import constrain
+from ..dist.sharding import constrain, span
 
 Tensor = torch.Tensor
+
+
+def _label_logits(logits: Tensor, labels: Tensor) -> Tensor:
+    """(B, C, V) logits, (B, C) labels -> each label's logit (B, C).  A
+    gather; under a mesh (DTensor logits, vocab-sharded) each rank picks
+    the labels that fall in its vocab shard by a mask, as a partial sum
+    reduced over the vocab's ranks: the same values, where DTensor's
+    gather would back into a zeroed copy of the whole logits on every
+    rank."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements) if p == Shard(2)]
+    rows = tuple(p if p == Shard(0) else Replicate()
+                 for p in logits.placements)
+    labels = labels.redistribute(mesh, rows) if tuple(
+        labels.placements) != rows else labels
+    local = logits.to_local()
+    cols = span(logits, 2)
+    ids = torch.arange(cols.start, cols.stop, device=local.device)
+    picked = torch.sum(torch.where(labels.to_local().long()[..., None]
+                                   == ids, local, 0.0), dim=-1)
+    part = tuple(Partial() if i in vocab else p
+                 for i, p in enumerate(rows))
+    return DTensor.from_local(picked, mesh, part,
+                              run_check=False).redistribute(mesh, rows)
 
 
 def _chunk_nll(hidden_c: Tensor, labels_c: Tensor, table: Tensor,
@@ -36,7 +63,7 @@ def _chunk_nll(hidden_c: Tensor, labels_c: Tensor, table: Tensor,
     logits = hidden_c.to(torch.float32) @ table_g.to(torch.float32).T
     logits = constrain(logits, ("batch", None, "vocab"))
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels_c.long()[..., None])[..., 0]
+    tgt = _label_logits(logits, labels_c)
     nll = torch.sum(lse - tgt)
     z = torch.sum(torch.square(lse)) * z_weight
     # argmax-free accuracy, as the reference counts it

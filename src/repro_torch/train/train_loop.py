@@ -25,8 +25,10 @@ global batch as the reference does, redistributes each gradient from
 reduce-scatter under fsdp: the reference's ``with_sharding_constraint``
 on the gradients) and gives the metrics back as plain tensors, the same
 on every rank.  At one rank on a (1, 1) mesh it gives the mesh-less
-step's bits.  Donation has no counterpart (the update is in place), and
-``lower_train_step`` waits for the launch tooling (ROADMAP item 5).
+step's bits.  Donation has no counterpart (the update is in place).
+:func:`lower_train_step` is the dry run's step (launch/lowering.py): the
+state of :func:`state_structs` and the batch as ``meta`` shards, run once
+through the sharded step under a cost count.
 
 Every config the reference trains trains here: the dense, MoE, recurrent
 and VLM decoders and the encoder-decoder.  :func:`train_batch` gives a
@@ -98,6 +100,41 @@ def state_shardings(bundle, mesh: DeviceMesh, rules=None) -> TrainState:
         bundle.param_axes(), bundle.param_structs(), mesh, rules)
     return TrainState(params=p_sh,
                       opt=AdamWState(step=None, mu=p_sh, nu=p_sh))
+
+
+def state_structs(bundle) -> TrainState:
+    """The train state as ``meta`` tensors: fp32 parameters, fp32 AdamW
+    moments, the int32 step (the reference's ``_state_structs``)."""
+    def f32(t):
+        return tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                              device="meta"), t)
+
+    p = bundle.param_structs()
+    return TrainState(params=p, opt=AdamWState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu=f32(p), nu=f32(p)))
+
+
+def lower_train_step(bundle, mesh: DeviceMesh, cfg: TrainConfig,
+                     shape: ShapeSpec, batch: dict, rules=None, *,
+                     count=None):
+    """The dry run's train step: :func:`state_structs` placed by
+    :func:`state_shardings` and ``batch`` (``meta`` structs) by
+    :func:`batch_shardings` as ``meta`` shards, the parameters asking for
+    their gradients; ``count`` (a ``launch.cost_analysis.CostCount``),
+    where given, takes them as arguments and is entered around one call
+    of ``make_train_step(..., mesh=)``.  Returns (state, metrics)."""
+    state = state_structs(bundle)
+    state = shd.place_structs(state, state_shardings(bundle, mesh, rules))
+    _trainable(state.params)
+    placed = shd.place_structs(batch, batch_shardings(bundle, shape, mesh,
+                                                      rules))
+    step = make_train_step(bundle, cfg, mesh=mesh, shape=shape, rules=rules)
+    if count is None:
+        return step(state, placed)
+    count.add_arguments((state, placed))
+    with count:
+        return step(state, placed)
 
 
 def batch_shardings(bundle, shape: ShapeSpec, mesh: DeviceMesh,

@@ -1,7 +1,9 @@
 """The port's sharded training and dist/ substrates at world sizes 2 and 4
 over gloo (tests/torch_dist_train_checks.py, run once in a subprocess):
 the ring collective matmuls, int8 compression with error feedback, the
-GPipe schedule, the sharded train step against the single-process step
+GPipe schedule, the sharded serving steps (prefill and decode) against
+the mesh-less ones and the reference's, the sharded train step against the single-process
+step
 and the reference's ``make_train_step`` on forced host meshes of the same
 shape, and an elastic restore from 4 ranks to 2.  The checks and their
 tolerances are in that script's docstring; each test reads one of its
@@ -17,7 +19,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PARTS = ["matmuls", "sharded step", "compression", "pipeline",
-         "step against the reference"]
+         "sharded serving", "step against the reference"]
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,19 @@ checks:
   of the same shape, from the reference's initial parameters; every
   parameter's and moment's local shard of the shape ``spec_for_shape``
   resolves;
+* sharded serving (``launch/lowering.py``'s ``sharded_prefill`` and
+  ``sharded_decode``, fp32 compute, from the reference's initial
+  parameters): reduced starcoder2-3b and qwen3-moe-30b-a3b, a prefill of
+  SERVE_SEQ tokens and two greedy decode steps on the meshes of
+  ``SERVE_CASES`` against the mesh-less steps on the same rank (tokens
+  equal, hidden states within 1e-5 of their largest magnitude) and
+  against the reference's prefill and decode under its SERVE_RULES on a
+  forced host mesh of the same shape (tokens equal, hidden states within
+  ``SERVE_REF_TOL``); starcoder2-3b's 2 kv heads on 4 model ranks stay
+  replicated while its 4 query heads split (each rank reads its global
+  kv head), at 12 query heads over 3 kv heads on 2 model ranks each
+  query head takes its own, and 6 query heads on 4 data ranks split over
+  ``model`` only;
 * elastic restore: world 4 saves its starcoder2 state after the step,
   world 2 restores it onto its ("data",) mesh: bit-equal to the saved
   global arrays, and its next step within the compare limits of the
@@ -72,6 +85,24 @@ TRAIN_CASES = {
 }
 ELASTIC = "dense_2x2"    # saved at world 4, restored at world 2
 N_MICRO_PIPE, PIPE_DIM = 6, 16
+# sharded serving: world -> [(arch, ("data", "model") mesh shape, config
+# overrides)]; the prompt's tokens, the caches' slots and the rows.  12
+# query heads over 3 kv heads on 2 model ranks: a rank's 6 heads straddle
+# two groups of 4, so each takes one kv head a query head.  6 query heads
+# on 4 data ranks: the data dim does not divide the heads, which split
+# over ``model`` only.
+SERVE_CASES = {2: [("starcoder2-3b", (1, 2), {}),
+                   ("starcoder2-3b", (1, 2), {"num_heads": 12,
+                                              "num_kv_heads": 3}),
+                   ("qwen3-moe-30b-a3b", (2, 1), {})],
+               4: [("starcoder2-3b", (1, 4), {}),
+                   ("starcoder2-3b", (4, 1), {"num_heads": 6,
+                                              "num_kv_heads": 2}),
+                   ("qwen3-moe-30b-a3b", (2, 2), {})]}
+SERVE_SEQ, SERVE_SLOTS, SERVE_ROWS = 56, 64, 4
+# the sharded serving steps against the reference's on the same mesh: the
+# fp32 model parity tests' tolerance (tests/test_torch_models.py)
+SERVE_REF_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def cases_of(world: int) -> list:
@@ -104,6 +135,11 @@ def pipe_inputs(p: int):
     return ws, xs
 
 
+def serve_tokens(cfg) -> np.ndarray:
+    return np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (SERVE_ROWS, SERVE_SEQ)).astype(np.int32)
+
+
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
@@ -117,7 +153,8 @@ def _np(x) -> np.ndarray:
 def jax_side(out: str, worlds) -> None:
     """For each world size, the JAX package's compression, pipeline and
     train steps on a mesh of that many forced host devices, written to
-    ``<out>/jax_<world>.npz``."""
+    ``<out>/jax_<world>.npz``, then its serving steps
+    (``<out>/jax_serve_<world>.npz``, :func:`jax_serving`)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
@@ -201,6 +238,71 @@ def jax_side(out: str, worlds) -> None:
                     np.array(leaf)
             arrays[f"{case}/lr"] = np.asarray(m["lr"])
         _write(out, f"jax_{world}", arrays)
+    for world in order:
+        _write(out, f"jax_serve_{world}", jax_serving(world))
+
+
+def jax_serving(world: int) -> dict:
+    """Each of ``SERVE_CASES[world]`` in the reference: its initial fp32
+    parameters, placed by SERVE_RULES on a forced host mesh of the case's
+    shape, a prefill and two greedy decode steps under
+    ``activation_rules`` (what its ``lower_prefill`` and ``lower_decode``
+    lower): the parameters, every step's hidden states and tokens."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jconfigs
+    from repro.configs.common import ShapeSpec
+    from repro.dist import sharding as jshd
+    from repro.launch import lowering as jlow
+    from repro.models.registry import build_model
+
+    rules = jshd.SERVE_RULES
+    arrays = {}
+    for i, (arch, shape, overrides) in enumerate(SERVE_CASES[world]):
+        cfg = dataclasses.replace(jconfigs.get_reduced(arch),
+                                  compute_dtype=jnp.float32, **overrides)
+        bundle = build_model(cfg)
+        mesh = jshd.make_mesh(shape, ("data", "model"),
+                              devices=jax.devices()[:world])
+        sshape = ShapeSpec("serve", SERVE_SLOTS, SERVE_ROWS, "prefill")
+        params = bundle.init(jax.random.PRNGKey(0))
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            arrays[f"serve/{i}/params/{jax.tree_util.keystr(path)}"] = \
+                np.array(leaf)
+        params = jax.device_put(
+            params, jlow._serve_param_shardings(bundle, mesh, rules))
+        caches = jax.device_put(
+            bundle.init_cache(SERVE_ROWS, SERVE_SLOTS),
+            jlow._cache_shardings(bundle, sshape, mesh, rules))
+
+        def ruled(fn):
+            def run(*args):
+                with jshd.activation_rules(mesh, rules):
+                    return fn(*args)
+            return jax.jit(run)
+
+        prefill, decode = ruled(bundle.prefill), ruled(bundle.decode_step)
+        tokens = jnp.asarray(serve_tokens(cfg))
+        pos = jnp.broadcast_to(jnp.arange(SERVE_SEQ, dtype=jnp.int32),
+                               tokens.shape)
+        lengths = jnp.zeros((SERVE_ROWS,), jnp.int32)
+        with mesh:
+            hidden, caches = prefill(params, {"tokens": tokens,
+                                              "positions": pos}, caches,
+                                     lengths)
+            arrays[f"serve/{i}/hidden/0"] = np.asarray(hidden)
+            tok = jnp.argmax(bundle.logits(params, hidden[:, -1]),
+                             axis=-1).astype(jnp.int32)[:, None]
+            lengths = lengths + SERVE_SEQ
+            for step in range(2):
+                arrays[f"serve/{i}/tokens/{step}"] = np.asarray(tok)
+                logits, hidden, caches = decode(params, tok, lengths[:, None],
+                                                caches, lengths)
+                arrays[f"serve/{i}/hidden/{step + 1}"] = np.asarray(hidden)
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
+                lengths = lengths + 1
+    return arrays
 
 
 def _write(out: str, name: str, arrays: dict) -> None:
@@ -501,6 +603,89 @@ def check_elastic(out: str, wait_s: float = 300.0) -> None:
                  float(ms["lr"]), "elastic restore's next step")
 
 
+def check_serving(world: int, out: str) -> None:
+    """Each of ``SERVE_CASES[world]`` from the reference's parameters:
+    prefill and two decode steps on the mesh against the mesh-less steps,
+    then against the reference's on a forced host mesh of the same shape
+    (module docstring)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.configs.common import ShapeSpec
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch import lowering
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import build_model, model_inputs
+
+    def local(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    jx = load_jax(out, f"jax_serve_{world}")
+    for i, (arch, shape, overrides) in enumerate(SERVE_CASES[world]):
+        cfg = dataclasses.replace(configs.get_reduced(arch),
+                                  compute_dtype=torch.float32, **overrides)
+        bundle = build_model(cfg, device="cpu")
+        params = transformer.params_from_numpy(
+            cfg, _reference_tree(jx, f"serve/{i}", "params",
+                                 bundle.init(0)), device="cpu")
+        mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        sh = lowering.serving_shardings(bundle, mesh, ShapeSpec(
+            "serve", SERVE_SLOTS, SERVE_ROWS, "prefill"))
+        tokens = torch.from_numpy(serve_tokens(cfg))
+        pos = torch.arange(SERVE_SEQ, dtype=torch.int32)[None].expand(
+            SERVE_ROWS, -1).contiguous()
+
+        def run(sharded: bool):
+            caches = bundle.init_cache(SERVE_ROWS, SERVE_SLOTS)
+            batch = model_inputs(bundle, tokens, pos)
+            p = params
+            lengths = torch.zeros(SERVE_ROWS, dtype=torch.int32)
+            if sharded:
+                p = lowering.place_serving(params, sh["params"])
+                caches = lowering.place_serving(caches, sh["caches"])
+                batch = lowering.place_serving(
+                    batch, {k: sh["batch"][k] for k in batch})
+                hidden, caches = lowering.sharded_prefill(
+                    bundle, mesh, p, batch, caches, lengths)
+            else:
+                hidden, caches = bundle.prefill(p, batch, caches, lengths)
+            hiddens, toks = [local(hidden)], []
+            tok = torch.argmax(bundle.logits(params, local(hidden)[:, -1]),
+                               dim=-1).to(torch.int32)[:, None]
+            lengths = lengths + SERVE_SEQ
+            for _ in range(2):
+                toks.append(tok)
+                t_in, p_in = tok, lengths[:, None].clone()
+                if sharded:
+                    t_in = lowering.place_serving(t_in,
+                                                  sh["batch"]["tokens"])
+                    p_in = lowering.place_serving(p_in,
+                                                  sh["batch"]["positions"])
+                    logits, hidden, caches = lowering.sharded_decode(
+                        bundle, mesh, p, t_in, p_in, caches, lengths)
+                else:
+                    logits, hidden, caches = bundle.decode_step(
+                        p, t_in, p_in, caches, lengths)
+                hiddens.append(local(hidden))
+                tok = torch.argmax(local(logits), dim=-1).to(
+                    torch.int32)[:, None]
+                lengths = lengths + 1
+            return hiddens, toks
+
+        what = (arch, shape, overrides)
+        (want_h, want_t), (got_h, got_t) = run(False), run(True)
+        for j, (a, b) in enumerate(zip(want_t, got_t, strict=True)):
+            assert torch.equal(a, b), (what, "tokens", j)
+            assert np.array_equal(b.numpy(), jx[f"serve/{i}/tokens/{j}"]), \
+                (what, "tokens against the reference", j)
+        for j, (a, b) in enumerate(zip(want_h, got_h, strict=True)):
+            err = float((a - b).abs().max())
+            assert err <= 1e-5 * float(a.abs().max()), (what, j, err)
+            np.testing.assert_allclose(
+                b.numpy(), jx[f"serve/{i}/hidden/{j}"], **SERVE_REF_TOL,
+                err_msg=f"{what} hidden {j} against the reference")
+
+
 def worker(rank: int, world: int, port: int, out: str) -> None:
     torch.set_num_threads(1)
     # A rank left waiting in a collective fails the run within a minute.
@@ -520,6 +705,7 @@ def worker(rank: int, world: int, port: int, out: str) -> None:
                 ("sharded step", train),
                 ("compression", lambda: check_compression(rank, world, jx)),
                 ("pipeline", lambda: check_pipeline(rank, world, jx)),
+                ("sharded serving", lambda: check_serving(world, out)),
                 ("step against the reference",
                  lambda: check_train_against_jax(got, jx)),
                 ("elastic restore", lambda: world != 2 or check_elastic(out))):
