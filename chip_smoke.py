@@ -193,8 +193,11 @@ Phases:
    dropped kv tile, the experts chosen in both runs compared first); one
    MoE layer in fp32 on the card against the same layer on the CPU over
    a prefill's hidden states (the same experts, the same tokens dropped,
-   outputs within 1e-5 of the largest); phase 8's checks of #9 on its
-   keys.  A route that differs between two runs is excused only at a
+   outputs within 1e-5 of the largest), and on the card the same input
+   through EP_RANKS model ranks' expert-parallel shares of that layer
+   (``moe.apply_moe_share``, each rank's E / 8 experts), summed in rank
+   order against the whole layer (the same experts, within 1e-5 of the
+   largest output); phase 8's checks of #9 on its keys.  A route that differs between two runs is excused only at a
    near tie (the token's K-th and (K+1)-th router probabilities within
    ``ROUTE_NEAR_TIE``); the logits are then held against the plain
    attention run with the kernel run's experts.  Then
@@ -273,11 +276,14 @@ Phases:
 19. The dry run (``launch/dryrun.py``, ``launch/lowering.py``,
    ``launch/cost_analysis.py``), its runs subprocesses on the host with
    no card visible, started at phase 13: a) ``python -m
-   repro_torch.launch.dryrun --arch starcoder2-3b`` at the (32, 8)
-   production mesh: its three cells counted, each one's peak, FLOPs,
-   bytes and collective bytes above 0 and its model FLOPs the formula's
-   (6 or 2 x active parameters x tokens); each cell's per-device peak and
-   whether it fits 80 GB printed (the dry run's counts on ``meta``).  b)
+   repro_torch.launch.dryrun --arch starcoder2-3b`` and ``--arch
+   qwen3-moe-30b-a3b`` at the (32, 8) production mesh: their three cells
+   each counted, each one's peak, FLOPs, bytes and collective bytes
+   above 0 and its model FLOPs the formula's (6 or 2 x active parameters
+   x tokens), the MoE's ``bmm`` FLOPs within ``moe_bmm_bounds`` (its
+   experts split over ``model``: each rank's expert products an eighth
+   of the layer's); each cell's per-device peak and whether it fits 80
+   GB printed (the dry run's counts on ``meta``).  b)
    The dry run at world size 1 against the card, starcoder2-3b at full
    width: 16a's train cell (4 x 4096 in 2 microbatches) against 16a's
    own peak in this run; prefill at 1 x 32768 with bf16 serving params
@@ -439,6 +445,13 @@ RECALL_SLACK = 0.15
 # (touching no card; started at phase 13, so their minutes on the host
 # pass while the card works), each given DRYRUN_TIMEOUT seconds.
 DRYRUN_ARCH = "starcoder2-3b"
+# Phase 14's expert-parallel check: the model ranks of the (32, 8) mesh,
+# their shares of one MoE layer run in turn on the one card.
+EP_RANKS = 8
+# 19a also counts this MoE config's three cells at (32, 8): its experts
+# split over ``model``, each rank's expert products an eighth of the
+# layer's (``moe_bmm_bounds``).
+DRYRUN_MOE_ARCH = "qwen3-moe-30b-a3b"
 DRYRUN_PREFILL_BATCH, DRYRUN_DECODE_BATCH = 1, 8
 DRYRUN_SEQ = 32768
 PEAK_RTOL = 0.10
@@ -3280,6 +3293,7 @@ class Smoke:
         expect(diff <= 1e-5 * scale,
                f"{label}: the card's MoE layer differs from the CPU's by "
                f"{diff} (max |out| {scale})")
+        out["shares"] = self.check_moe_shares(ffn, x, cfg, card, label)
         say(f"{label}: MoE layer 0 in fp32 on the card equals the CPU's over "
             f"{b * s} tokens in {g} groups (capacity {out['capacity']}): the "
             f"same experts ({routes['flipped_tokens']} tokens flipped at near "
@@ -3288,6 +3302,51 @@ class Smoke:
             f"{out['assignments']} assignments dropped ({out['zero_weight']} "
             "of them at weight 0), max |diff| "
             f"{diff:.3g} ({out['diff_over_tol']:.3g} of 1e-5 x max |out|)")
+        return out
+
+    def check_moe_shares(self, ffn, x, cfg, card: dict, label: str) -> dict:
+        """Expert parallelism on the one card: EP_RANKS model ranks'
+        shares of layer 0 on its fp32 input (``moe.apply_moe_share``:
+        routing over all experts, each rank's E / EP_RANKS experts
+        dispatched and combined, a shared expert by its columns), summed
+        in rank order, against the whole layer on the card (``card``).
+        Held: every share chooses the whole layer's experts, and the sum
+        lies within 1e-5 of max |output| (partial outputs added in another
+        order).  The collective that sums them across cards is not run:
+        the card is one rank."""
+        torch = self.torch
+        from repro_torch.models import moe
+        t0 = time.perf_counter()
+        p = {k: v.to(self.dev) for k, v in ffn.items() if k != "shared"}
+        shared = ({k: v.to(self.dev) for k, v in ffn["shared"].items()}
+                  if "shared" in ffn else None)
+        xd, total, same = x.to(self.dev), None, True
+        for rank in range(EP_RANKS):
+            with routes_logged(torch, moe) as log:
+                y = moe.apply_moe_share(p, xd, cfg.moe, rank, EP_RANKS,
+                                        act=cfg.act, shared_mlp=shared)
+            same = same and torch.equal(log[0]["ids"].cpu(), card["ids"])
+            total = y if total is None else total + y
+        self.sync()
+        total = total.cpu()
+        del p, shared, xd, y
+        diff = float((total - card["y"]).abs().max())
+        scale = float(card["y"].abs().max())
+        out = {"ranks": EP_RANKS,
+               "experts_a_rank": cfg.moe.num_experts // EP_RANKS,
+               "same_experts": same, "max_abs_diff": diff,
+               "max_abs_out": scale, "diff_over_tol": diff / (1e-5 * scale),
+               "seconds": time.perf_counter() - t0}
+        expect(same, f"{label}: an expert-parallel share chose other "
+               "experts than the whole layer on the card")
+        expect(diff <= 1e-5 * scale,
+               f"{label}: {EP_RANKS} expert-parallel shares sum to {diff} "
+               f"from the whole layer on the card (max |out| {scale})")
+        say(f"{label}: {EP_RANKS} model ranks' shares of MoE layer 0 "
+            f"({out['experts_a_rank']} experts each) on the card sum to the "
+            f"whole layer: the same experts, max |diff| {diff:.3g} "
+            f"({out['diff_over_tol']:.3g} of 1e-5 x max |out|), "
+            f"{out['seconds']:.1f} s")
         return out
 
     # -- phase 14: the MoE FFN and the dense configs ----------------------
@@ -4016,18 +4075,21 @@ class Smoke:
     # -- phase 8: kernel #9 --------------------------------------------
     # -- phase 19: the dry run -----------------------------------------
     def dryrun_commands(self) -> dict:
-        """label -> the dry run's command: 19a at the production mesh,
-        19b's three cells at world size 1 (the reduced config at
+        """label -> the dry run's command: 19a at the production mesh
+        (starcoder2-3b; "19a moe" DRYRUN_MOE_ARCH), 19b's three cells at
+        world size 1 (the reduced config at
         TRAIN_REHEARSAL_SEQ tokens in a CPU rehearsal)."""
+        reduced = ["--reduced"] if self.rehearsal else []
         base = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                "--arch", DRYRUN_ARCH] + (["--reduced"] if self.rehearsal
-                                          else [])
+                "--arch", DRYRUN_ARCH] + reduced
 
         def cell(shape: str, batch: int, seq: int, *extra) -> list:
             return base + ["--shape", shape, "--mesh", "1x1", "--batch",
                            str(batch), "--seq", str(self.train_seq(seq)),
                            *extra]
         return {"19a": base,
+                "19a moe": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", DRYRUN_MOE_ARCH] + reduced,
                 "19b train": cell("train_4k", TRAIN_BATCH, TRAIN_SEQ,
                                   "--microbatches", str(TRAIN_MICRO)),
                 "19b prefill": cell("prefill_32k", DRYRUN_PREFILL_BATCH,
@@ -4069,65 +4131,90 @@ class Smoke:
 
     def phase_dryrun(self) -> dict:
         """19a: ``python -m repro_torch.launch.dryrun --arch starcoder2-3b``
-        at the (32, 8) production mesh: its three cells counted, each
-        one's peak, FLOPs, bytes and collective bytes above 0 and its
-        model FLOPs the formula's; each cell's per-device peak and
-        ``fits`` printed.  19b: the dry run at world size 1 held against
-        the card (:meth:`dryrun_on_the_card`)."""
-        from repro_torch import configs
-        from repro_torch.models.registry import build_model
+        and ``--arch qwen3-moe-30b-a3b`` at the (32, 8) production mesh
+        (:meth:`dryrun_cells`).  19b: the dry run at world size 1 held
+        against the card (:meth:`dryrun_on_the_card`)."""
         t0 = time.perf_counter()
-        cells, seconds = self.dryrun_result("19a")
-        expect([c["shape"] for c in cells]
-               == ["train_4k", "prefill_32k", "decode_32k"]
-               and all(c["mesh"] == "32x8" for c in cells),
-               f"phase 19a: cells {[(c['shape'], c['mesh']) for c in cells]}")
-        n_active = build_model(self.dryrun_config(),
-                               device="meta").active_params
-        rec = {"19a": {"seconds_on_host": seconds, "cells": []}}
-        for c in cells:
-            hlo, mem = c["hlo"], c["memory"]
-            for key in ("flops_per_device", "bytes_per_device",
-                        "collective_bytes_per_device"):
-                expect(hlo[key] > 0, f"phase 19a {c['shape']}: {key} "
-                       f"{hlo[key]}")
-            expect(mem["peak_bytes_est"] > 0,
-                   f"phase 19a {c['shape']}: peak {mem['peak_bytes_est']}")
-            shape = configs.SHAPES[c["shape"]]
-            tokens = shape.global_batch * (1 if shape.kind == "decode"
-                                           else shape.seq_len)
-            want = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
-            if not self.rehearsal:
-                expect(c["model_flops"] == want,
-                       f"phase 19a {c['shape']}: model FLOPs "
-                       f"{c['model_flops']}, the formula {want}")
-            rec["19a"]["cells"].append({
-                "shape": c["shape"], "mesh": c["mesh"], "torch": c["torch"],
-                "memory": mem, "hlo": hlo,
-                "model_flops": c.get("model_flops"),
-                "lower_s": c["lower_s"]})
-            say(f"phase 19a {c['shape']} at {c['mesh']}: "
-                f"{mem['peak_bytes_est'] / 2**30:.2f} GiB a device "
-                f"({'fits' if mem['fits'] else 'does NOT fit'} 80 GB), "
-                f"{hlo['flops_per_device']:.4g} FLOPs ("
-                + ", ".join(f"{op} {f:.4g}"
-                            for op, f in hlo["flops_by_op"].items())
-                + f"), {hlo['bytes_per_device']:.4g} B, "
-                f"{hlo['collective_bytes_per_device']:.4g} B of "
-                f"collectives a device (the dry run's counts on meta, "
-                f"torch {c['torch']})")
+        rec = {"19a": self.dryrun_cells("19a", DRYRUN_ARCH),
+               "19a moe": self.dryrun_cells("19a moe", DRYRUN_MOE_ARCH)}
         rec["19b"] = self.dryrun_on_the_card()
         rec["seconds"] = time.perf_counter() - t0
         say(f"phase 19: {rec['seconds']:.1f} s (its dry runs "
             + ", ".join(f"{label} {s:.1f} s" for label, s in
                         rec["19b"]["seconds_on_host"].items())
-            + f", 19a {seconds:.1f} s on the host, beside phases 13-18)")
+            + f", 19a {rec['19a']['seconds_on_host']:.1f} s and 19a moe "
+            f"{rec['19a moe']['seconds_on_host']:.1f} s on the host, beside "
+            "phases 13-18)")
         return rec
 
-    def dryrun_config(self):
+    def dryrun_cells(self, label: str, arch: str) -> dict:
+        """One arch's three cells at (32, 8): each counted, its peak,
+        FLOPs, bytes and collective bytes above 0 and its model FLOPs the
+        formula's; an MoE config's ``bmm`` FLOPs within
+        ``moe_bmm_bounds`` (its expert products at an eighth); each
+        cell's per-device peak, ``fits`` and counts printed."""
         from repro_torch import configs
-        return (configs.get_reduced(DRYRUN_ARCH) if self.rehearsal
-                else configs.get_config(DRYRUN_ARCH))
+        from repro_torch.models.registry import build_model
+        cells, seconds = self.dryrun_result(label)
+        expect([c["shape"] for c in cells]
+               == ["train_4k", "prefill_32k", "decode_32k"]
+               and all(c["mesh"] == "32x8" for c in cells),
+               f"phase {label}: cells "
+               f"{[(c['shape'], c['mesh']) for c in cells]}")
+        cfg = self.dryrun_config(arch)
+        n_active = build_model(cfg, device="meta").active_params
+        rec = {"arch": arch, "seconds_on_host": seconds, "cells": []}
+        for c in cells:
+            hlo, mem = c["hlo"], c["memory"]
+            for key in ("flops_per_device", "bytes_per_device",
+                        "collective_bytes_per_device"):
+                expect(hlo[key] > 0, f"phase {label} {c['shape']}: {key} "
+                       f"{hlo[key]}")
+            expect(mem["peak_bytes_est"] > 0,
+                   f"phase {label} {c['shape']}: peak "
+                   f"{mem['peak_bytes_est']}")
+            shape = configs.SHAPES[c["shape"]]
+            tokens = shape.global_batch * (1 if shape.kind == "decode"
+                                           else shape.seq_len)
+            want = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
+            bounds = None
+            if not self.rehearsal:
+                expect(c["model_flops"] == want,
+                       f"phase {label} {c['shape']}: model FLOPs "
+                       f"{c['model_flops']}, the formula {want}")
+                if cfg.ffn_kind == "moe":
+                    bounds = moe_bmm_bounds(cfg, shape, {"data": 32,
+                                                         "model": 8})
+                    bmm = hlo["flops_by_op"].get("bmm", 0.0)
+                    expect(bounds[0] <= bmm <= bounds[1],
+                           f"phase {label} {c['shape']}: bmm FLOPs {bmm} "
+                           f"outside {bounds}: the expert products are not "
+                           "an eighth of the layer's")
+            rec["cells"].append({
+                "shape": c["shape"], "mesh": c["mesh"], "torch": c["torch"],
+                "memory": mem, "hlo": hlo,
+                "model_flops": c.get("model_flops"),
+                "moe_bmm_bounds": bounds, "lower_s": c["lower_s"]})
+            say(f"phase {label} {arch} {c['shape']} at {c['mesh']}: "
+                f"{mem['peak_bytes_est'] / 2**30:.2f} GiB a device "
+                f"({'fits' if mem['fits'] else 'does NOT fit'} 80 GB), "
+                f"{hlo['flops_per_device']:.4g} FLOPs ("
+                + ", ".join(f"{op} {f:.4g}"
+                            for op, f in hlo["flops_by_op"].items())
+                + (f"; bmm within [{bounds[0]:.4g}, {bounds[1]:.4g}]"
+                   if bounds else "")
+                + f"), {hlo['bytes_per_device']:.4g} B, "
+                f"{hlo['collective_bytes_per_device']:.4g} B of "
+                "collectives a device ("
+                + ", ".join(f"{k} {v['bytes_in']:.4g}"
+                            for k, v in hlo["collectives"].items())
+                + f"; the dry run's counts on meta, torch {c['torch']})")
+        return rec
+
+    def dryrun_config(self, arch: str = DRYRUN_ARCH):
+        from repro_torch import configs
+        return (configs.get_reduced(arch) if self.rehearsal
+                else configs.get_config(arch))
 
     def peak_ratio(self, label: str, dry: int, card) -> float | None:
         """The dry run's peak over the card's (None on the CPU), within
@@ -6466,6 +6553,33 @@ def swapped(module, name: str, value):
         yield
     finally:
         setattr(module, name, saved)
+
+
+def moe_bmm_bounds(cfg, shape, sizes: dict) -> tuple:
+    """(least, most) ``bmm`` FLOPs a device in a dry-run cell of the MoE
+    config ``cfg`` on a ("data", "model") mesh of ``sizes``, its experts
+    split over ``model``: every layer's expert products on its E / model
+    experts' slots and its combine, four times in training (the forward,
+    its recompute in the backward, two products back); at most that plus
+    every attention einsum taken dense (a prefill's attention is #10,
+    counted apart).  Experts gathered whole count ``model`` times the
+    products, above the most."""
+    from repro_torch.models import moe
+    m, model = cfg.moe, sizes["model"]
+    s = 1 if shape.kind == "decode" else shape.seq_len
+    rows = shape.global_batch // sizes["data"]
+    sp = moe._group_size(shape.global_batch * s, m.group_tokens)
+    # a group that would span two data ranks' rows: every rank runs all
+    tokens = rows * s if (rows * s) % sp == 0 else shape.global_batch * s
+    slots = (tokens // sp) * moe._capacity(m, sp) * (m.num_experts // model)
+    layer = (3 * 2 * slots * cfg.d_model * cfg.moe_d_ff
+             + 2 * tokens * m.top_k * cfg.d_model)
+    times = (4 if shape.kind == "train" else 1) * cfg.num_layers
+    heads = (cfg.num_heads // model if cfg.num_heads % model == 0
+             else cfg.num_heads)
+    attn = (0 if shape.kind == "prefill" else
+            2 * 2 * rows * heads * s * shape.seq_len * cfg.head_dim)
+    return times * layer, times * (layer + attn)
 
 
 @contextlib.contextmanager

@@ -53,6 +53,7 @@ from typing import Any, Mapping, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
@@ -310,6 +311,14 @@ def activation_rules(mesh: DeviceMesh, rules: dict | None = None):
         _ACTIVE.pop()
 
 
+def anchor_placements(axes: Sequence[str | None], shape: Sequence[int],
+                      mesh) -> tuple:
+    """The placements on ``mesh`` that ``axes`` resolve to for ``shape``
+    under the active rules (the default rules outside a context)."""
+    rules = _ACTIVE[-1][1] if _ACTIVE else None
+    return placements(spec_for_shape(tuple(axes), shape, mesh, rules), mesh)
+
+
 def constrain(x, axes: Sequence[str | None]):
     """Anchor an activation to its logical axes' placements.
 
@@ -319,12 +328,11 @@ def constrain(x, axes: Sequence[str | None]):
     ``TypeError`` (it would be taken for a replicated value)."""
     if not _ACTIVE:
         return x
-    mesh, rules = _ACTIVE[-1]
+    mesh = _ACTIVE[-1][0]
     if not isinstance(x, DTensor):
         raise TypeError(f"constrain{tuple(axes)} under a mesh got a "
                         f"{type(x).__name__}, not a DTensor")
-    want = placements(spec_for_shape(tuple(axes), x.shape, mesh, rules),
-                      mesh)
+    want = anchor_placements(axes, x.shape, mesh)
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
@@ -372,6 +380,39 @@ def row_matmul(x, w):
     if not isinstance(x, DTensor):
         return x @ w
     return _WholeRowsGrad.apply(whole_rows(x) @ w)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    out = funcol.all_to_all_single(x.contiguous(), None, None, group)
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+class _AllToAll(torch.autograd.Function):
+    """An all-to-all of equal chunks of dim 0; its gradient is the same
+    all-to-all (the exchange is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def move_shard(t: torch.Tensor, mesh: DeviceMesh, mesh_dim: int,
+               src: int, dst: int) -> torch.Tensor:
+    """This rank's shard over mesh dim ``mesh_dim`` moved from tensor dim
+    ``src`` to ``dst`` by one all-to-all (DTensor's Shard(src) ->
+    Shard(dst), which it runs as an all-gather on a CPU mesh, the dry
+    run's included): ``t`` holds its part of ``src`` and all of ``dst``;
+    the result all of ``src`` and its part of ``dst``.  Differentiable
+    (the gradient moves back)."""
+    m = mesh.size(mesh_dim)
+    got = _AllToAll.apply(torch.stack(t.chunk(m, dst)), (mesh, mesh_dim))
+    return torch.cat(got.unbind(0), dim=src)
 
 
 def local_call(fn, x, weights, state=None,

@@ -5,7 +5,8 @@ GPipe schedule, the sharded serving steps (prefill and decode) against
 the mesh-less ones and the reference's, the sharded train step against the single-process
 step
 and the reference's ``make_train_step`` on forced host meshes of the same
-shape, and an elastic restore from 4 ranks to 2.  The checks and their
+shape (an MoE step expert parallel: each rank's products on its E/m
+experts), and an elastic restore from 4 ranks to 2.  The checks and their
 tolerances are in that script's docstring; each test reads one of its
 lines, the training launcher's under ``torchrun`` on two ranks too.
 """

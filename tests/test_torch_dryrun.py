@@ -17,7 +17,9 @@ launch/cost_analysis.py) against the JAX package's, with no JAX compile.
   argument bytes equal the sum of the reference's local shard sizes; one
   matmul split 8 ways counts an eighth of its FLOPs a device; heads that
   ``model`` divides and ``data`` does not split over ``model`` (the
-  projections' and a prefill's FLOPs at that split); at world
+  projections' and a prefill's FLOPs at that split); experts that
+  ``model`` divides split over it (a rank's expert products a quarter of
+  the whole layer's on a (2, 4) mesh); at world
   size 1 the reduced starcoder2-3b prefill, decode and train step count
   the same on ``meta`` as on real CPU tensors (what chip_smoke.py's
   phase 19b repeats on the card), and the sharded serving steps on a
@@ -57,6 +59,7 @@ from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops
 from repro_torch.launch import lowering
 from repro_torch.launch.cost_analysis import CostCount
+from repro_torch.models import moe as tmoe
 from repro_torch.models.registry import build_model
 from repro_torch.train import train_loop
 from repro_torch.train.checkpoint import _flatten_with_names
@@ -364,6 +367,28 @@ def test_heads_split_over_model_where_data_does_not_divide_them(spawned):
              + 4 * (BATCH // 4) * h * pairs * k
              + 2 * (2 * rows * d * (f // 2)))
     assert rec["prefill"] == cfg.num_layers * layer
+
+
+def test_experts_split_over_model_count_their_share(spawned):
+    """The reduced qwen3-moe-30b-a3b MoE layer on a (2, 4) mesh: a rank's
+    expert products (three ``bmm``s over its E/4 experts' slots) count a
+    quarter of the whole layer's on one data rank's rows; the router's
+    product and the combine (each token's K outputs) stay whole; the
+    stacks reach their experts by an all-to-all and the partial outputs
+    are summed by an all-reduce."""
+    rec = spawned()["experts"]
+    cfg = tconfigs.get_reduced("qwen3-moe-30b-a3b")
+    d, f = cfg.d_model, cfg.moe_d_ff
+    e, k, sp = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.group_tokens
+    tokens = (BATCH // 2) * SEQ                # one data rank's
+    slots = (tokens // sp) * tmoe._capacity(cfg.moe, sp)
+    products = 3 * (2 * e * slots * d * f)     # every expert's
+    combine = 2 * tokens * k * d
+    assert rec["whole_flops_by_op"]["bmm"] == products + combine
+    assert rec["flops_by_op"]["bmm"] == products // 4 + combine
+    assert rec["flops_by_op"]["mm"] == rec["whole_flops_by_op"]["mm"] \
+        == 2 * tokens * d * e
+    assert {"all-to-all", "all-reduce"} <= set(rec["collectives"])
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])

@@ -29,9 +29,13 @@ checks:
   4, qwen3-moe-30b-a3b reduced on 2 x 2: the state within
   ``repro_torch.train.compare``'s limits of the port's single-process
   step and of the reference's ``make_train_step`` on a forced host mesh
-  of the same shape, from the reference's initial parameters; every
+  of the same shape, from the reference's initial parameters;
+  llama4-scout-17b-a16e reduced on 1 x 4 (``PORT_ONLY``: 4 experts, one
+  a rank, and a shared expert) from the port's own initial parameters,
+  within those limits of the port's single-process step; every
   parameter's and moment's local shard of the shape ``spec_for_shape``
-  resolves;
+  resolves, and every expert product of an MoE step on E / (model
+  ranks) experts (expert parallelism: no rank gathers another's);
 * sharded serving (``launch/lowering.py``'s ``sharded_prefill`` and
   ``sharded_decode``, fp32 compute, from the reference's initial
   parameters): reduced starcoder2-3b and qwen3-moe-30b-a3b, a prefill of
@@ -40,9 +44,12 @@ checks:
   equal, hidden states within 1e-5 of their largest magnitude) and
   against the reference's prefill and decode under its SERVE_RULES on a
   forced host mesh of the same shape (tokens equal, hidden states within
-  ``SERVE_REF_TOL``); starcoder2-3b's 2 kv heads on 4 model ranks stay
-  replicated while its 4 query heads split (each rank reads its global
-  kv head), at 12 query heads over 3 kv heads on 2 model ranks each
+  ``SERVE_REF_TOL``); reduced llama4-scout-17b-a16e on 1 x 4
+  (``PORT_SERVE_CASES``) from the port's own parameters against the
+  mesh-less steps; an MoE model on a mesh whose ``model`` dim divides
+  its experts runs E / (model ranks) a rank; starcoder2-3b's 2 kv heads
+  on 4 model ranks stay replicated while its 4 query heads split (each
+  rank reads its global kv head), at 12 query heads over 3 kv heads on 2 model ranks each
   query head takes its own, and 6 query heads on 4 data ranks split over
   ``model`` only;
 * elastic restore: world 4 saves its starcoder2 state after the step,
@@ -59,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -82,7 +90,10 @@ TRAIN_CASES = {
     "dense_data": ("starcoder2-3b", (2,), ("data",)),
     "dense_2x2": ("starcoder2-3b", (2, 2), ("data", "model")),
     "moe_2x2": ("qwen3-moe-30b-a3b", (2, 2), ("data", "model")),
+    "moe_ep4": ("llama4-scout-17b-a16e", (1, 4), ("data", "model")),
 }
+# held against the port's single-process step only (no JAX compile)
+PORT_ONLY = {"moe_ep4"}
 ELASTIC = "dense_2x2"    # saved at world 4, restored at world 2
 N_MICRO_PIPE, PIPE_DIM = 6, 16
 # sharded serving: world -> [(arch, ("data", "model") mesh shape, config
@@ -94,20 +105,26 @@ N_MICRO_PIPE, PIPE_DIM = 6, 16
 SERVE_CASES = {2: [("starcoder2-3b", (1, 2), {}),
                    ("starcoder2-3b", (1, 2), {"num_heads": 12,
                                               "num_kv_heads": 3}),
-                   ("qwen3-moe-30b-a3b", (2, 1), {})],
+                   ("qwen3-moe-30b-a3b", (2, 1), {}),
+                   ("qwen3-moe-30b-a3b", (1, 2), {})],
                4: [("starcoder2-3b", (1, 4), {}),
                    ("starcoder2-3b", (4, 1), {"num_heads": 6,
                                               "num_kv_heads": 2}),
                    ("qwen3-moe-30b-a3b", (2, 2), {})]}
+# sharded serving held against the mesh-less steps only (no JAX compile)
+PORT_SERVE_CASES = {4: [("llama4-scout-17b-a16e", (1, 4), {})]}
 SERVE_SEQ, SERVE_SLOTS, SERVE_ROWS = 56, 64, 4
 # the sharded serving steps against the reference's on the same mesh: the
 # fp32 model parity tests' tolerance (tests/test_torch_models.py)
 SERVE_REF_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def cases_of(world: int) -> list:
+def cases_of(world: int, reference: bool = False) -> list:
+    """The train cases of ``world`` (``reference``: those the JAX side
+    runs)."""
     return [c for c, (_, shape, _) in TRAIN_CASES.items()
-            if int(np.prod(shape)) == world]
+            if int(np.prod(shape)) == world
+            and not (reference and c in PORT_ONLY)]
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +193,7 @@ def jax_side(out: str, worlds) -> None:
     for world in order:
         arrays = {}
         devs = jax.devices()[:world]
-        for case in cases_of(world):
+        for case in cases_of(world, reference=True):
             arch, shape, axes = TRAIN_CASES[case]
             cfg = dataclasses.replace(jconfigs.get_reduced(arch),
                                       compute_dtype=jnp.float32)
@@ -218,7 +235,7 @@ def jax_side(out: str, worlds) -> None:
             lambda w, x: jnp.tanh(x @ w), pmesh, "stage", jnp.asarray(ws),
             jnp.asarray(xs)))
 
-        for case in cases_of(world):
+        for case in cases_of(world, reference=True):
             bundle, tmesh = meshes[case]
             sshape = ShapeSpec("smoke", seq_len=SEQ, global_batch=BATCH,
                                kind="train")
@@ -510,12 +527,44 @@ def check_shard_shapes(state, bundle, mesh) -> None:
         assert tuple(t.to_local().shape) == tuple(want), (name, spec)
 
 
+@contextlib.contextmanager
+def expert_stacks_seen():
+    """The shapes of the expert stacks each call of the MoE layer's
+    products sees, in a list the block fills."""
+    from repro_torch.models import moe
+    seen, inner = [], moe._expert_share
+
+    def spy(p, *args, **kwargs):
+        seen.append({k: tuple(v.shape) for k, v in p.items()})
+        return inner(p, *args, **kwargs)
+
+    moe._expert_share = spy
+    try:
+        yield seen
+    finally:
+        moe._expert_share = inner
+
+
+def check_local_experts(seen: list, cfg, mesh) -> None:
+    """Every product of a sharded MoE step ran on E / (model ranks)
+    experts, each whole: no rank gathered the others' experts."""
+    from repro_torch.dist.sharding import mesh_sizes
+    m = mesh_sizes(mesh).get("model", 1)
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe_d_ff
+    assert m > 1 and e % m == 0, (e, m)
+    want = {"w_in": (e // m, d, f), "w_gate": (e // m, d, f),
+            "w_out": (e // m, f, d)}
+    assert seen and all(got == want for got in seen), (seen[:2], want)
+
+
 def run_train(world: int, init: dict, out: str) -> dict:
-    """Each case of ``world`` from the reference's initial state: the
-    port's single-process step and its sharded step (local shard shapes
-    checked before and after), held against each other; world 4 saves
-    its starcoder2 state for the elastic restore.  Returns, per case, the
-    sharded state's global arrays and the state before the step."""
+    """Each case of ``world`` from the reference's initial state (a
+    ``PORT_ONLY`` case from the port's own): the port's single-process
+    step and its sharded step (local shard shapes checked before and
+    after; an MoE step's local expert stacks), held against each other;
+    world 4 saves its starcoder2 state for the elastic restore.  Returns,
+    per case, the sharded state's global arrays and the state before the
+    step."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.data.pipeline import token_batch
@@ -525,24 +574,32 @@ def run_train(world: int, init: dict, out: str) -> dict:
     for case in cases_of(world):
         arch, shape, axes = TRAIN_CASES[case]
         cfg, bundle, mesh, tc, stream, sshape = _setup(arch, shape, axes)
-        before_np = _reference_tree(init, case, "before",
-                                    tl.init_train_state(bundle, 0))
-        # the port's single-process step from the reference's state
-        single = tl.train_state_from_numpy(cfg, before_np, device="cpu")
+        if case in PORT_ONLY:
+            def fresh():
+                return tl.init_train_state(bundle, 0)
+        else:
+            before_np = _reference_tree(init, case, "before",
+                                        tl.init_train_state(bundle, 0))
+
+            def fresh():
+                return tl.train_state_from_numpy(cfg, before_np,
+                                                 device="cpu")
+        # the port's single-process step from the initial state
         single, ms = tl.make_train_step(bundle, tc)(
-            single, token_batch(stream, 0, device="cpu"))
+            fresh(), token_batch(stream, 0, device="cpu"))
         # the sharded step from the same state
-        sharded = tl.shard_train_state(
-            tl.train_state_from_numpy(cfg, before_np, device="cpu"),
-            tl.state_shardings(bundle, mesh))
+        sharded = tl.shard_train_state(fresh(),
+                                       tl.state_shardings(bundle, mesh))
         check_shard_shapes(sharded, bundle, mesh)
-        sharded, mm = tl.make_train_step(bundle, tc, mesh=mesh,
-                                         shape=sshape)(
-            sharded, token_batch(stream, 0, device="cpu", mesh=mesh))
+        with expert_stacks_seen() as seen:
+            sharded, mm = tl.make_train_step(bundle, tc, mesh=mesh,
+                                             shape=sshape)(
+                sharded, token_batch(stream, 0, device="cpu", mesh=mesh))
+        if cfg.ffn_kind == "moe":
+            check_local_experts(seen, cfg, mesh)
         check_shard_shapes(sharded, bundle, mesh)
         assert not any(isinstance(v, DTensor) for v in mm.values())
-        before = _full_state(tl.train_state_from_numpy(cfg, before_np,
-                                                       device="cpu"))
+        before = _full_state(fresh())
         got[case] = (_full_state(sharded), before)
         assert_close(got[case][0], _full_state(single), before,
                      float(ms["lr"]), f"{case}: sharded vs single-process")
@@ -561,6 +618,8 @@ def check_train_against_jax(got: dict, jx: dict) -> None:
     from repro_torch.models.registry import build_model
     from repro_torch.train import train_loop as tl
     for case, (state, before) in got.items():
+        if case in PORT_ONLY:
+            continue
         arch, _, _ = TRAIN_CASES[case]
         cfg, *_ = _setup_config(arch)
         like = tl.init_train_state(build_model(cfg, device="cpu"), 0)
@@ -607,12 +666,14 @@ def check_serving(world: int, out: str) -> None:
     """Each of ``SERVE_CASES[world]`` from the reference's parameters:
     prefill and two decode steps on the mesh against the mesh-less steps,
     then against the reference's on a forced host mesh of the same shape
-    (module docstring)."""
+    (module docstring); each of ``PORT_SERVE_CASES[world]`` from the
+    port's own against the mesh-less steps.  An MoE model's sharded steps
+    run E / (model ranks) experts a rank."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch import configs
     from repro_torch.configs.common import ShapeSpec
-    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.dist.sharding import make_mesh, mesh_sizes
     from repro_torch.launch import lowering
     from repro_torch.models import transformer
     from repro_torch.models.registry import build_model, model_inputs
@@ -621,14 +682,19 @@ def check_serving(world: int, out: str) -> None:
         return t.full_tensor() if isinstance(t, DTensor) else t
 
     jx = load_jax(out, f"jax_serve_{world}")
-    for i, (arch, shape, overrides) in enumerate(SERVE_CASES[world]):
+    cases = [(i, case) for i, case in enumerate(SERVE_CASES[world])] + [
+        (None, case) for case in PORT_SERVE_CASES.get(world, [])]
+    for i, (arch, shape, overrides) in cases:
         cfg = dataclasses.replace(configs.get_reduced(arch),
                                   compute_dtype=torch.float32, **overrides)
         bundle = build_model(cfg, device="cpu")
-        params = transformer.params_from_numpy(
-            cfg, _reference_tree(jx, f"serve/{i}", "params",
-                                 bundle.init(0)), device="cpu")
+        params = bundle.init(0) if i is None else \
+            transformer.params_from_numpy(
+                cfg, _reference_tree(jx, f"serve/{i}", "params",
+                                     bundle.init(0)), device="cpu")
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
+        experts_split = (cfg.ffn_kind == "moe"
+                         and mesh_sizes(mesh).get("model", 1) > 1)
         sh = lowering.serving_shardings(bundle, mesh, ShapeSpec(
             "serve", SERVE_SLOTS, SERVE_ROWS, "prefill"))
         tokens = torch.from_numpy(serve_tokens(cfg))
@@ -673,17 +739,23 @@ def check_serving(world: int, out: str) -> None:
             return hiddens, toks
 
         what = (arch, shape, overrides)
-        (want_h, want_t), (got_h, got_t) = run(False), run(True)
+        want_h, want_t = run(False)
+        with expert_stacks_seen() as seen:
+            got_h, got_t = run(True)
+        if experts_split:
+            check_local_experts(seen, cfg, mesh)
         for j, (a, b) in enumerate(zip(want_t, got_t, strict=True)):
             assert torch.equal(a, b), (what, "tokens", j)
-            assert np.array_equal(b.numpy(), jx[f"serve/{i}/tokens/{j}"]), \
+            assert i is None or np.array_equal(
+                b.numpy(), jx[f"serve/{i}/tokens/{j}"]), \
                 (what, "tokens against the reference", j)
         for j, (a, b) in enumerate(zip(want_h, got_h, strict=True)):
             err = float((a - b).abs().max())
             assert err <= 1e-5 * float(a.abs().max()), (what, j, err)
-            np.testing.assert_allclose(
-                b.numpy(), jx[f"serve/{i}/hidden/{j}"], **SERVE_REF_TOL,
-                err_msg=f"{what} hidden {j} against the reference")
+            if i is not None:
+                np.testing.assert_allclose(
+                    b.numpy(), jx[f"serve/{i}/hidden/{j}"], **SERVE_REF_TOL,
+                    err_msg=f"{what} hidden {j} against the reference")
 
 
 def worker(rank: int, world: int, port: int, out: str) -> None:

@@ -15,6 +15,10 @@ JSON line it prints last).
   "model") mesh, whose data dim does not divide the heads: the FLOPs of
   one rank's q and o projections under the serving and the training
   rules, and of the reduced starcoder2-3b prefill cell with those heads;
+* ``experts``: the reduced qwen3-moe-30b-a3b MoE layer (8 experts) on a
+  fake (2, 4) ("data", "model") mesh under the training rules: one
+  rank's FLOPs by op and collectives by kind, beside the whole layer's
+  (every expert, mesh-less) on one data rank's rows;
 * ``world1``: at world size 1 (a (1,) ("data",) mesh), the reduced
   starcoder2-3b prefill, decode and train step counted on ``meta``
   (``lower_cell``) and on real CPU tensors through the same steps;
@@ -128,6 +132,37 @@ def heads() -> dict:
         shape=ShapeSpec("x", SEQ, BATCH, "prefill"))
     out["prefill"] = rec["hlo"]["flops_per_device"]
     return out
+
+
+def experts() -> dict:
+    """Counts of one MoE layer where ``model`` splits the experts."""
+    from repro_torch import configs
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.cost_analysis import CostCount
+    from repro_torch.models import moe
+    _fresh_group(8)
+    mesh = shd.make_mesh((2, 4), ("data", "model"), device="meta")
+    cfg = configs.get_reduced("qwen3-moe-30b-a3b")
+    spec = moe.moe_spec(cfg.d_model, cfg.moe_d_ff, cfg.moe.num_experts)
+    x_shape = (BATCH, SEQ, cfg.d_model)
+    p = {n: shd.place_struct(torch.empty(sp.shape, device="meta"),
+                             shd.sharding_for(sp.axes, sp.shape, mesh))
+         for n, sp in spec.items()}
+    x = shd.place_struct(torch.empty(x_shape, device="meta"),
+                         shd.sharding_for(("batch", "seq", "embed"), x_shape,
+                                          mesh))
+    count = CostCount()
+    with shd.activation_rules(mesh), torch.inference_mode(), count:
+        moe.apply_moe(p, x, cfg.moe, act=cfg.act)
+    whole = CostCount()
+    with torch.inference_mode(), whole:
+        moe.apply_moe({n: torch.empty(sp.shape, device="meta")
+                       for n, sp in spec.items()},
+                      torch.empty(BATCH // 2, SEQ, cfg.d_model,
+                                  device="meta"), cfg.moe, act=cfg.act)
+    return {"flops_by_op": dict(count.flops_by_op),
+            "whole_flops_by_op": dict(whole.flops_by_op),
+            "collectives": sorted({c.kind for c in count.collectives})}
 
 
 def _cpu_inputs(bundle, kind: str, gen: torch.Generator):
@@ -285,7 +320,7 @@ def main() -> int:
     out = {}
     try:
         for name, fn in (("cells", cells), ("matmul", matmul),
-                         ("heads", heads),
+                         ("heads", heads), ("experts", experts),
                          ("world1", world1), ("serving1", serving1)):
             out[name] = fn()
     finally:
